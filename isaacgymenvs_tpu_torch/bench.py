@@ -1,0 +1,77 @@
+"""Ant env-steps/s of the port: the counterpart of the root bench.py's
+`measure("Ant", 4096, horizon=16)`.
+
+Steps the Ant VecTask under uniform random actions in [-1, 1] for
+`reps` windows of `horizon` steps after one warm-up window, and prints
+one JSON line. Runs on the card unless `--device cpu` is given:
+
+    python -m isaacgymenvs_tpu_torch.bench [--num-envs 4096] [--horizon 16]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from .device import resolve_device
+from .tasks import task_map
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure(num_envs: int = 4096, horizon: int = 16, reps: int = 8, device="cuda") -> dict:
+    """Env-steps/s of Ant at `num_envs`, timed on the host clock around
+    work that ends in a device synchronize."""
+    dev = resolve_device(device)
+    cfg = {"env": {"numEnvs": num_envs, "clipActions": 1.0}, "sim": {"dt": 1 / 60, "substeps": 2}}
+    env = task_map["Ant"](cfg, device=dev)
+    state, _ = env.reset(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def window(state):
+        for _ in range(horizon):
+            actions = torch.rand(num_envs, env.num_acts, generator=gen, device=dev) * 2.0 - 1.0
+            state, _, _, _, _ = env.step(state, actions)
+        return state
+
+    state = window(state)  # warm-up: builds and loads the kernel
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state = window(state)
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    return {
+        "env_steps_per_s": reps * horizon * num_envs / sec,
+        "seconds": sec,
+        "num_envs": num_envs,
+        "horizon": horizon,
+        "reps": reps,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "finite": bool(torch.isfinite(state.sim.q).all()),
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--num-envs", type=int, default=4096)
+    ap.add_argument("--horizon", type=int, default=16)
+    ap.add_argument("--reps", type=int, default=8)
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
+    r = measure(a.num_envs, a.horizon, a.reps, a.device)
+    print(json.dumps({
+        "metric": f"Ant env-steps/s ({a.num_envs} envs, {r['device']})",
+        "value": r["env_steps_per_s"],
+        "unit": "env-steps/s",
+        **r,
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,73 @@
+"""Carry weights and models across from the JAX package as plain arrays.
+
+Both functions take numpy arrays only, so this package imports nothing of
+the JAX one; the caller turns JAX arrays into numpy first.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .model.spec import Model
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def actor_critic_from_flax(params: Mapping) -> dict:
+    """A flax `ActorCritic` params tree -> the port's ActorCritic state_dict.
+
+    Accepts the nested tree (with or without the top-level "params" key)
+    or its flattened form with "/"-joined keys. A flax Dense kernel is
+    (in, out), a torch Linear weight (out, in), so kernels are transposed.
+    """
+    flat = _flatten(params)
+    sd = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        if parts == ["log_sigma"]:
+            sd["log_sigma"] = torch.tensor(arr, dtype=torch.float32)
+            continue
+        *mods, leaf = parts
+        name = ".".join(mods)
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = torch.tensor(arr.T, dtype=torch.float32)
+        elif leaf == "bias":
+            sd[f"{name}.bias"] = torch.tensor(arr, dtype=torch.float32)
+        else:
+            raise KeyError(f"unexpected flax parameter {key}")
+    return sd
+
+
+def model_from_arrays(fields: Mapping) -> Model:
+    """A port Model from a JAX Model's fields (numpy arrays, tuples, scalars).
+
+    Float parameters become float32 numpy arrays; static fields (ints,
+    tuples, names) keep their values. Unknown field names raise.
+    """
+    names = {f.name: f for f in dataclasses.fields(Model)}
+    kw = {}
+    for k, v in fields.items():
+        if k not in names:
+            raise KeyError(f"Model has no field {k}")
+        if v is None or isinstance(v, (bool, int, str)):
+            kw[k] = v
+        elif isinstance(v, tuple):
+            kw[k] = tuple(np.asarray(x, np.float32) if isinstance(x, np.ndarray) else x for x in v)
+        else:
+            arr = np.asarray(v)
+            kw[k] = arr.astype(np.float32) if arr.dtype.kind == "f" else arr
+    return Model(**kw)

@@ -1,0 +1,248 @@
+"""Build, bind and launch the hand-written fused-step kernel.
+
+`csrc/fused_step.cu` is compiled with `nvcc` for `sm_90a` into a shared
+library with a plain C interface, one library per model size tuple
+(nbody, nq, nv, nc), at first use, into `isaacgymenvs_tpu_torch/_build/`
+(listed in .gitignore). The library name carries a hash of the source and
+the flags, so an edited source is rebuilt. It is loaded with ctypes;
+pointers and the stream go in as `c_void_p`.
+
+Nothing here runs at import: the CPU tests import this module without a
+compiler or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+import torch
+
+from .dynamics import SimParams
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, "csrc", "fused_step.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+ENVS_PER_BLOCK = 4
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+# layout of the parameter head of the spec buffer (fused_step.cu P_*)
+_NPARAM = 16
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the fused-step kernel is built with the CUDA toolkit")
+    return path
+
+
+def _defines(sizes) -> list:
+    nb, nq, nv, nc = sizes
+    return [f"-DFS_NB={nb}", f"-DFS_NQ={nq}", f"-DFS_NV={nv}", f"-DFS_NC={nc}",
+            f"-DFS_EPB={ENVS_PER_BLOCK}"]
+
+
+def library_path(sizes) -> str:
+    with open(SOURCE, "rb") as f:
+        src = f.read()
+    tag = hashlib.sha256(src + " ".join(_ARCH + _FLAGS + _defines(sizes)).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, "libfused_step_{}_{}_{}_{}_{}.so".format(*sizes, tag))
+
+
+def build(sizes, verbose: bool = False) -> str:
+    """Compile the kernel for `sizes` = (nbody, nq, nv, nc) unless built."""
+    out = library_path(sizes)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *_ARCH, *_FLAGS, *_defines(sizes)]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, SOURCE]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose and res.stderr:
+        print(res.stderr.strip())
+    os.replace(tmp, out)
+    return out
+
+
+def load(sizes):
+    """The ctypes library for `sizes`, built on first use."""
+    with _lock:
+        lib = _libs.get(tuple(sizes))
+        if lib is None:
+            lib = ctypes.CDLL(build(sizes))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.fused_step_layout.restype = ci
+            lib.fused_step_launch.argtypes = [vp] * 10 + [ci, ci, ci, ci, vp]
+            lib.fused_step_launch.restype = ci
+            _libs[tuple(sizes)] = lib
+    return lib
+
+
+def layout(lib) -> tuple:
+    """(nbody, nq, nv, nc, spec_base, env_floats, envs_per_block) compiled in."""
+    out = (ctypes.c_int * 7)()
+    lib.fused_step_layout(out)
+    return tuple(out)
+
+
+def body_depth(parent) -> np.ndarray:
+    depth = np.zeros(len(parent), np.int64)
+    for i, p in enumerate(parent):
+        depth[i] = 0 if p < 0 else depth[p] + 1
+    return depth
+
+
+def pack_spec(s, p: SimParams, betas) -> np.ndarray:
+    """The model, topology and solver constants in the kernel's layout.
+
+    Order and offsets mirror the O_* / P_* constants of fused_step.cu;
+    integers are stored as floats (all are small).
+    """
+    n_slices = p.substeps * p.solver_iterations
+    h = p.dt / n_slices
+    depth = body_depth(s.parent)
+    head = np.zeros(_NPARAM, np.float64)
+    head[0:3] = np.asarray(p.gravity, np.float64)
+    head[3:14] = [h, h * h, 1.0 / h, p.baumgarte_erp, p.max_depenetration_velocity,
+                  p.contact_margin, p.bounce_threshold_velocity, p.limit_stiffness,
+                  p.limit_damping, p.max_dof_velocity, int(depth.max()) + 1]
+    setpoint = np.where(s.sq_adr >= 0, s.qpos0[np.maximum(s.sq_adr, 0)], 0.0)
+    parts = [
+        head, s.parent, s.jnt_type, s.q_adr, s.v_adr, depth,
+        s.body_pos, s.body_quat, s.body_ipos, s.body_inertia, s.body_mass,
+        s.jnt_axis, s.jnt_pos,
+        s.dof_body, s.sq_adr, s.armature, s.dof_damping, s.dof_friction,
+        s.dof_stiffness, s.dof_limit_lower, s.dof_limit_upper, s.dof_limited, setpoint,
+        s.dof_mask, s.anc,
+        s.cp_body, s.cp_pos, s.cp_radius, s.cp_mu, s.rest, s.path_mask,
+        np.asarray(betas, np.float64),
+    ]
+    return np.concatenate([np.asarray(a, np.float64).reshape(-1) for a in parts]).astype(np.float32)
+
+
+# floating-point operations of the small helpers in fused_step.cu
+# (transcendentals, divides and square roots count 1)
+_CROSS, _QMUL, _QROT, _QNORM, _QEXP = 9, 28, 30, 14, 14
+
+
+def kernel_flops(s, p: SimParams) -> int:
+    """Floating-point operations one env-step needs, counted from the
+    step's algorithm at what the function requires (multiply-add = 2).
+
+    Symmetric matrices count their upper triangle: the mass matrix, and the
+    scaled Delassus matrix whose |entries| the Lipschitz row sums add up
+    (R(R+1)/2 dot products of length nv, each |entry| added to its row and,
+    off the diagonal, to its column's row). The inverse is Gauss-Jordan in
+    place, 2 nv^3. J is counted dense (its zeros depend on the tree, not on
+    the data). Per-body terms follow the joint type of each body.
+    """
+    nb, nv, nc = s.nbody, s.nv, s.nc
+    r = 3 * nc
+    it = p.solver_apgd_iterations
+    jt = np.asarray(s.jnt_type)
+    n_free, n_hinge = int(np.sum(jt == 0)), int(np.sum((jt == 1) | (jt == 2)))
+    subtree = np.asarray(s.anc).sum(0)  # bodies in the subtree of each body
+    # FK + zeta per body: parent transform, joint transform, motion subspace
+    fk = (n_free * (_QROT + 3 + _QMUL + _QNORM + _CROSS + 3 + 3 * 2 * _CROSS + 6 * 12)
+          + n_hinge * (_QROT + 3 + _QMUL + _QROT + 3 + 3 + _QMUL + _QROT + 3 + _QROT + 3
+                       + 5 * _CROSS + 6 + 24))
+    inertia_net = nb * (36 + 18 + 45 + 45 + 5 + 42 + 3 + 144 + 3 * _CROSS + 9 + 6)
+    composite = 36 * int(np.sum(np.asarray(s.parent) >= 0))
+    crba = nv * 6 * 12 + (nv * (nv + 1) // 2) * 13
+    per_dof = int(np.sum(6 * subtree[np.asarray(s.dof_body)])) + nv * 42
+    inverse = 2 * nv ** 3 + nv * nv + nv
+    qd_free = 2 * nv * nv + 2 * nv
+    rows = nc * (_QROT + 4 + 3 * nv * 5 + 3 + 10) + r * (2 * nv * nv + 4 * nv)
+    lipschitz = (r * (r + 1) // 2) * (2 * nv + 2) + r * r + 4 * r
+    apgd = nc * (3 + 13) + it * (4 * r * nv + 10 * r + 15 * nc)
+    impulse = r + 2 * r * nv + 2 * nv * nv + 3 * nv
+    integrate = n_free * (6 + 3 + _QEXP + 2 * _QNORM + _QMUL) + n_hinge * 2
+    per_slice = (fk + inertia_net + composite + crba + per_dof + inverse + qd_free + rows
+                 + lipschitz + apgd + impulse + integrate)
+    sensors = nc * (3 + 3 + _CROSS) + 6 * nc + nv
+    return int(p.substeps * p.solver_iterations * per_slice + sensors)
+
+
+def kernel_bytes(s, n_env: int, has_xfrc: bool) -> int:
+    """Boundary traffic of one launch: inputs read once, outputs written once."""
+    rows_in = s.nq + 2 * s.nv + (6 * s.nbody if has_xfrc else 0)
+    rows_out = s.nq + s.nv + 6 * s.nbody + s.nv
+    return 4 * n_env * (rows_in + rows_out)
+
+
+class FusedStepCall:
+    """One model's fused step on the card: (rows, N) tensors in and out.
+
+    `FusedStepCall.launches` counts kernel launches across all instances;
+    it is incremented where the kernel is launched and nowhere else.
+    """
+
+    launches = 0
+
+    def __init__(self, s, params: SimParams, betas, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"FusedStepCall needs a CUDA device, got {device}")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if s.nc == 0:
+            raise NotImplementedError(
+                "the contact-free tier (nc == 0) has no CUDA kernel yet"
+            )
+        self.sizes = (s.nbody, s.nq, s.nv, s.nc)
+        self.lib = load(self.sizes)
+        nb, nq, nv, nc, spec_base, _, _ = layout(self.lib)
+        if (nb, nq, nv, nc) != self.sizes:
+            raise RuntimeError(f"kernel built for {(nb, nq, nv, nc)}, model is {self.sizes}")
+        spec = pack_spec(s, params, betas)
+        if spec.size != spec_base + len(betas):
+            raise RuntimeError("spec buffer layout disagrees with the kernel")
+        self.spec = torch.as_tensor(spec, device=device)
+        self.n_slices = params.substeps * params.solver_iterations
+        self.iters = params.solver_apgd_iterations
+        self.device = device
+        self.s = s
+
+    def __call__(self, q, qd, qfrc, xfrc):
+        s, n = self.s, q.shape[-1]
+        ins = [(q, s.nq), (qd, s.nv), (qfrc, s.nv)]
+        if xfrc is not None:
+            ins.append((xfrc, 6 * s.nbody))
+        for t, rows in ins:
+            if t.device != self.device or t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError("fused step inputs must be contiguous float32 on the kernel's device")
+            if tuple(t.shape) != (rows, n):
+                raise ValueError(f"expected shape {(rows, n)}, got {tuple(t.shape)}")
+        new = lambda rows: torch.empty((rows, n), dtype=torch.float32, device=self.device)
+        q2, qd2 = new(s.nq), new(s.nv)
+        bf, bt, df = new(3 * s.nbody), new(3 * s.nbody), new(s.nv)
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = self.lib.fused_step_launch(
+            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc),
+            ptr(q2), ptr(qd2), ptr(bf), ptr(bt), ptr(df),
+            ptr(self.spec), int(self.spec.numel()), int(n), int(self.n_slices),
+            int(self.iters), ctypes.c_void_p(stream),
+        )
+        if rc != 0:
+            raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
+        FusedStepCall.launches += 1
+        return q2, qd2, bf, bt, df

@@ -1,0 +1,748 @@
+// Fused whole physics step for Hopper (sm_90a), one warp per env.
+//
+// Replaces the TPU kernel isaacgymenvs_tpu/engine/fused.py
+// `_build_call.<locals>.kernel` (launched by `pl.pallas_call`, fused.py:1883),
+// for the feature tiers K1 (articulated step) and K2 (plane contacts, APGD,
+// xfrc). One launch advances every env by `n_slices = substeps x
+// solver_iterations` slices; each slice is `_substep_fn.substep`
+// (fused.py:686): FK, spatial inertia, CRBA, bias force with xfrc, implicit
+// passive forces, Gauss-Jordan inverse (no pivoting), plane rows with
+// Baumgarte and restitution, Jacobi-scaled Delassus, Lipschitz step, APGD
+// with cone projection (warm start zero at each call, carried across its
+// slices), impulse to qd, velocity clip, integration, and sensors of the
+// last slice. The plain PyTorch twin is `_step_math_torch` in fused.py.
+//
+// What bounds it. Per env and slice the work the step needs is dominated by
+// the Lipschitz row sums of the symmetric |J^T M^-1 J| (R(R+1)/2 x nv
+// multiply-adds, R = 3 nc) and the APGD matvecs, then W = M^-1 J and the
+// Gauss-Jordan inverse; for Ant (nv 14, nc 25, 16 APGD iterations, 2
+// slices) that is about 0.47 MFLOP per env-step (`kernel_flops` in
+// engine/_cuda.py counts it) against about 0.8 KB of boundary traffic per
+// env. So it is bound by fp32 CUDA-core work, not by memory: 4096 envs need
+// ~1.9 GFLOP and ~3 MB. This kernel forms all R x R entries for the row
+// sums (twice the needed Lipschitz work) and inverts with an identity
+// companion matrix (twice the needed Gauss-Jordan work).
+//
+// Design. Sizes (nbody, nq, nv, nc) are compile-time constants (-DFS_NB ..),
+// one library per size tuple; the body tree, the model constants and the
+// solver parameters come in a small float buffer that each block copies to
+// shared memory. A warp owns one env: its state, J, W = M^-1 J and M^-1 stay
+// in shared memory (~16 KB for Ant) across all slices and APGD iterations.
+// Lanes own contacts (a contact's three rows stay in registers through the
+// solve), bodies (FK and the bias force run level by level over the tree),
+// dofs, or matrix entries. The dense Delassus matrix is never stored: the
+// APGD matvec runs as J^T (W (s y)), O(R nv) instead of O(R^2), which also
+// saves 22.5 KB of shared memory per env; the one pass that needs the
+// entries (the Lipschitz row sums) forms them on the fly. Warp reductions
+// are xor butterflies, so every lane holds bit-identical sums. At the
+// boundary the arrays keep the TPU's (rows, N) layout: a block loads and
+// stores its envs cooperatively, neighbouring threads on neighbouring envs,
+// and masks the ragged edge (N is not padded).
+#include <cuda_runtime.h>
+
+#ifndef FS_NB
+#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts>"
+#endif
+#ifndef FS_EPB
+#define FS_EPB 4
+#endif
+
+namespace {
+
+constexpr int NB = FS_NB, NQ = FS_NQ, NV = FS_NV, NC = FS_NC, EPB = FS_EPB;
+constexpr int R = 3 * NC;
+constexpr int CPL = (NC + 31) / 32;  // contacts per lane
+static_assert(NC > 0, "the contact-free tier (nc == 0) has no kernel yet; the CUDA path raises");
+static_assert(NV > 0 && NB > 0, "empty model");
+
+constexpr int FREE = 0, HINGE = 1, SLIDE = 2;
+
+// ---- spec buffer layout (mirrored by _pack_spec in engine/_cuda.py) ----
+constexpr int P_G = 0, P_H = 3, P_H2 = 4, P_INVH = 5, P_ERP = 6, P_MAXDEP = 7,
+              P_MARGIN = 8, P_BOUNCE = 9, P_LIMK = 10, P_LIMD = 11,
+              P_MAXV = 12, P_NLEV = 13, NPARAM = 16;
+constexpr int O_PARENT = NPARAM;
+constexpr int O_JTYPE = O_PARENT + NB;
+constexpr int O_QADR = O_JTYPE + NB;
+constexpr int O_VADR = O_QADR + NB;
+constexpr int O_DEPTH = O_VADR + NB;
+constexpr int O_BPOS = O_DEPTH + NB;
+constexpr int O_BQUAT = O_BPOS + 3 * NB;
+constexpr int O_IPOS = O_BQUAT + 4 * NB;
+constexpr int O_INERTIA = O_IPOS + 3 * NB;
+constexpr int O_MASS = O_INERTIA + 9 * NB;
+constexpr int O_JAXIS = O_MASS + NB;
+constexpr int O_JPOS = O_JAXIS + 3 * NB;
+constexpr int O_DOFBODY = O_JPOS + 3 * NB;
+constexpr int O_SQADR = O_DOFBODY + NV;
+constexpr int O_ARM = O_SQADR + NV;
+constexpr int O_DAMP = O_ARM + NV;
+constexpr int O_FRIC = O_DAMP + NV;
+constexpr int O_STIFF = O_FRIC + NV;
+constexpr int O_LO = O_STIFF + NV;
+constexpr int O_HI = O_LO + NV;
+constexpr int O_LIMITED = O_HI + NV;
+constexpr int O_SETPT = O_LIMITED + NV;
+constexpr int O_DMASK = O_SETPT + NV;
+constexpr int O_ANC = O_DMASK + NV * NV;
+constexpr int O_CPBODY = O_ANC + NB * NB;
+constexpr int O_CPPOS = O_CPBODY + NC;
+constexpr int O_CPRAD = O_CPPOS + 3 * NC;
+constexpr int O_CPMU = O_CPRAD + NC;
+constexpr int O_REST = O_CPMU + NC;
+constexpr int O_PATH = O_REST + NC;
+constexpr int SPEC_BASE = O_PATH + NC * NV;  // followed by betas[iters]
+
+// ---- per-env shared-memory layout ----
+constexpr int E_Q = 0;
+constexpr int E_QD = E_Q + NQ;
+constexpr int E_QFRC = E_QD + NV;
+constexpr int E_XFRC = E_QFRC + NV;      // (6, NB) comp-major
+constexpr int E_QDF = E_XFRC + 6 * NB;   // qd_free
+constexpr int E_RHS = E_QDF + NV;
+constexpr int E_X = E_RHS + NV;          // (NB, 3)
+constexpr int E_QT = E_X + 3 * NB;       // (NB, 4)
+constexpr int E_V = E_QT + 4 * NB;       // (NB, 6)
+constexpr int E_ZETA = E_V + 6 * NB;     // (NB, 6)
+constexpr int E_NET = E_ZETA + 6 * NB;   // (NB, 6)
+constexpr int E_IC = E_NET + 6 * NB;     // (NB, 6, 6) composite inertia
+constexpr int E_S = E_IC + 36 * NB;      // (NV, 6)
+constexpr int E_SD = E_S + 6 * NV;
+constexpr int E_F = E_SD + 6 * NV;
+constexpr int E_AG = E_F + 6 * NV;       // (NV, NV) Gauss-Jordan work
+constexpr int E_MINV = E_AG + NV * NV;
+constexpr int E_PIVA = E_MINV + NV * NV;
+constexpr int E_PIVI = E_PIVA + NV;
+constexpr int E_CC = E_PIVI + NV;
+constexpr int E_SC = E_CC + NV;          // (NC,) Jacobi scale per contact
+constexpr int E_J = E_SC + NC;           // (NV, R) comp-major rows
+constexpr int E_W = E_J + NV * R;        // (NV, R) = M^-1 J
+constexpr int E_FS = E_W + NV * R;       // (6, NC) contact force, torque
+constexpr int E_BF = E_FS + 6 * NC;      // (3, NB)
+constexpr int E_BT = E_BF + 3 * NB;      // (3, NB)
+constexpr int E_DF = E_BT + 3 * NB;      // (NV,)
+constexpr int ENV_FLOATS = ((E_DF + NV + 3) / 4) * 4;
+
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, m));
+  return v;
+}
+
+__device__ __forceinline__ void cross3(const float* a, const float* b, float* o) {
+  o[0] = a[1] * b[2] - a[2] * b[1];
+  o[1] = a[2] * b[0] - a[0] * b[2];
+  o[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ void qmul(const float* a, const float* b, float* o) {
+  const float x1 = a[0], y1 = a[1], z1 = a[2], w1 = a[3];
+  const float x2 = b[0], y2 = b[1], z2 = b[2], w2 = b[3];
+  o[0] = w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2;
+  o[1] = w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2;
+  o[2] = w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2;
+  o[3] = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2;
+}
+
+// rotate v by q (xyzw): v + w t + xyz x t, t = 2 xyz x v
+__device__ __forceinline__ void qrot(const float* q, const float* v, float* o) {
+  float t[3], u[3];
+  cross3(q, v, t);
+  t[0] *= 2.f; t[1] *= 2.f; t[2] *= 2.f;
+  cross3(q, t, u);
+  for (int k = 0; k < 3; ++k) o[k] = v[k] + q[3] * t[k] + u[k];
+}
+
+__device__ __forceinline__ void qnormalize(float* q) {
+  const float n = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
+  const float inv = 1.f / fmaxf(n, 1e-9f);
+  for (int k = 0; k < 4; ++k) q[k] *= inv;
+}
+
+// rotation vector -> quaternion, Taylor branch near 0 (fused.py _qexp)
+__device__ __forceinline__ void qexp(const float* p, float* o) {
+  const float a2 = p[0] * p[0] + p[1] * p[1] + p[2] * p[2];
+  const float angle = sqrtf(fmaxf(a2, 1e-24f));
+  const bool small = a2 < 1e-12f;
+  const float s = small ? 0.5f - a2 / 48.f : sinf(0.5f * angle) / angle;
+  const float w = small ? 1.f - a2 / 8.f : cosf(0.5f * angle);
+  o[0] = p[0] * s; o[1] = p[1] * s; o[2] = p[2] * s; o[3] = w;
+}
+
+// FK of body b from its parent (fused.py _fk), plus the velocity-product
+// acceleration zeta of the bias force (fused.py:733-741).
+__device__ void fk_body(const float* __restrict__ sp, float* __restrict__ e, int b) {
+  const int p = (int)sp[O_PARENT + b];
+  float xp[3] = {0.f, 0.f, 0.f}, qp[4] = {0.f, 0.f, 0.f, 1.f};
+  float vp[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, zet[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (p >= 0) {
+    for (int k = 0; k < 3; ++k) xp[k] = e[E_X + 3 * p + k];
+    for (int k = 0; k < 4; ++k) qp[k] = e[E_QT + 4 * p + k];
+    for (int k = 0; k < 6; ++k) {
+      vp[k] = e[E_V + 6 * p + k];
+      zet[k] = e[E_ZETA + 6 * p + k];
+    }
+  }
+  float rr[3], Xx[3], Xq[4];
+  qrot(qp, sp + O_BPOS + 3 * b, rr);
+  for (int k = 0; k < 3; ++k) Xx[k] = xp[k] + rr[k];
+  qmul(qp, sp + O_BQUAT + 4 * b, Xq);
+  const int jt = (int)sp[O_JTYPE + b];
+  const int qa = (int)sp[O_QADR + b], va = (int)sp[O_VADR + b];
+  const float* q = e + E_Q;
+  const float* qd = e + E_QD;
+  float xi[3], qi[4], vi[6];
+  if (jt == FREE) {
+    for (int k = 0; k < 3; ++k) xi[k] = q[qa + k];
+    for (int k = 0; k < 4; ++k) qi[k] = q[qa + 3 + k];
+    qnormalize(qi);
+    float vl[3], om[3], cwx[3];
+    for (int k = 0; k < 3; ++k) { vl[k] = qd[va + k]; om[k] = qd[va + 3 + k]; }
+    cross3(om, xi, cwx);
+    for (int k = 0; k < 3; ++k) { vi[k] = om[k]; vi[3 + k] = vl[k] - cwx[k]; }
+    for (int k = 0; k < 3; ++k) {
+      float* S = e + E_S + 6 * (va + k);
+      float* Sd = e + E_SD + 6 * (va + k);
+      for (int c = 0; c < 6; ++c) { S[c] = (c == 3 + k) ? 1.f : 0.f; Sd[c] = 0.f; }
+    }
+    for (int k = 0; k < 3; ++k) {
+      const float ek[3] = {k == 0 ? 1.f : 0.f, k == 1 ? 1.f : 0.f, k == 2 ? 1.f : 0.f};
+      float cxe[3], cve[3];
+      cross3(xi, ek, cxe);
+      cross3(vl, ek, cve);
+      float* S = e + E_S + 6 * (va + 3 + k);
+      float* Sd = e + E_SD + 6 * (va + 3 + k);
+      for (int c = 0; c < 3; ++c) {
+        S[c] = ek[c]; S[3 + c] = cxe[c];
+        Sd[c] = 0.f; Sd[3 + c] = cve[c];
+      }
+    }
+    for (int d = va; d < va + 6; ++d)
+      for (int k = 0; k < 6; ++k) zet[k] = zet[k] + e[E_SD + 6 * d + k] * qd[d];
+  } else if (jt == HINGE || jt == SLIDE) {
+    const float* ax = sp + O_JAXIS + 3 * b;
+    const float* jp = sp + O_JPOS + 3 * b;
+    const float s = q[qa], sd = qd[va];
+    float axw[3], Srow[6], Sdrow[6];
+    qrot(Xq, ax, axw);
+    const float* wp = vp;
+    const float* vop = vp + 3;
+    if (jt == HINGE) {
+      const float half = 0.5f * s;
+      const float sh = sinf(half), ch = cosf(half);
+      const float jq[4] = {ax[0] * sh, ax[1] * sh, ax[2] * sh, ch};
+      qmul(Xq, jq, qi);
+      float r1[3], r2[3], anchor[3];
+      qrot(Xq, jp, r1);
+      for (int k = 0; k < 3; ++k) anchor[k] = Xx[k] + r1[k];
+      qrot(qi, jp, r2);
+      for (int k = 0; k < 3; ++k) xi[k] = anchor[k] - r2[k];
+      float cax[3], axd[3], cwa[3], van[3], cva[3], cad[3];
+      cross3(anchor, axw, cax);
+      cross3(wp, axw, axd);
+      cross3(wp, anchor, cwa);
+      for (int k = 0; k < 3; ++k) van[k] = vop[k] + cwa[k];
+      cross3(van, axw, cva);
+      cross3(anchor, axd, cad);
+      for (int k = 0; k < 3; ++k) {
+        Srow[k] = axw[k]; Srow[3 + k] = cax[k];
+        Sdrow[k] = axd[k]; Sdrow[3 + k] = cva[k] + cad[k];
+      }
+    } else {
+      for (int k = 0; k < 4; ++k) qi[k] = Xq[k];
+      for (int k = 0; k < 3; ++k) xi[k] = Xx[k] + axw[k] * s;
+      float cwa[3];
+      cross3(wp, axw, cwa);
+      for (int k = 0; k < 3; ++k) {
+        Srow[k] = 0.f; Srow[3 + k] = axw[k];
+        Sdrow[k] = 0.f; Sdrow[3 + k] = cwa[k];
+      }
+    }
+    for (int k = 0; k < 6; ++k) {
+      vi[k] = vp[k] + Srow[k] * sd;
+      e[E_S + 6 * va + k] = Srow[k];
+      e[E_SD + 6 * va + k] = Sdrow[k];
+      zet[k] = zet[k] + Sdrow[k] * sd;
+    }
+  } else {  // FIXED
+    for (int k = 0; k < 3; ++k) xi[k] = Xx[k];
+    for (int k = 0; k < 4; ++k) qi[k] = Xq[k];
+    for (int k = 0; k < 6; ++k) vi[k] = vp[k];
+  }
+  for (int k = 0; k < 3; ++k) e[E_X + 3 * b + k] = xi[k];
+  for (int k = 0; k < 4; ++k) e[E_QT + 4 * b + k] = qi[k];
+  for (int k = 0; k < 6; ++k) {
+    e[E_V + 6 * b + k] = vi[k];
+    e[E_ZETA + 6 * b + k] = zet[k];
+  }
+}
+
+// World-origin spatial inertia of body b (fused.py _spatial_inertia) into
+// E_IC, and its net bias wrench Io (zeta - a_g) + v x* Io v - xfrc.
+__device__ void inertia_and_net(const float* __restrict__ sp, float* __restrict__ e, int b) {
+  const float x = e[E_QT + 4 * b], y = e[E_QT + 4 * b + 1];
+  const float z = e[E_QT + 4 * b + 2], w = e[E_QT + 4 * b + 3];
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  const float Rm[3][3] = {
+      {1.f - 2.f * (yy + zz), 2.f * (xy - wz), 2.f * (xz + wy)},
+      {2.f * (xy + wz), 1.f - 2.f * (xx + zz), 2.f * (yz - wx)},
+      {2.f * (xz - wy), 2.f * (yz + wx), 1.f - 2.f * (xx + yy)}};
+  const float* ipos = sp + O_IPOS + 3 * b;
+  const float* Ib = sp + O_INERTIA + 9 * b;
+  const float m = sp[O_MASS + b];
+  float com[3];
+  for (int k = 0; k < 3; ++k)
+    com[k] = e[E_X + 3 * b + k] + (Rm[k][0] * ipos[0] + Rm[k][1] * ipos[1] + Rm[k][2] * ipos[2]);
+  float RI[3][3], Iw[3][3];
+  for (int a = 0; a < 3; ++a)
+    for (int c = 0; c < 3; ++c)
+      RI[a][c] = Rm[a][0] * Ib[0 * 3 + c] + Rm[a][1] * Ib[1 * 3 + c] + Rm[a][2] * Ib[2 * 3 + c];
+  for (int a = 0; a < 3; ++a)
+    for (int c = 0; c < 3; ++c)
+      Iw[a][c] = RI[a][0] * Rm[c][0] + RI[a][1] * Rm[c][1] + RI[a][2] * Rm[c][2];
+  const float cx = com[0], cy = com[1], cz = com[2];
+  const float c2 = cx * cx + cy * cy + cz * cz;
+  const float sk[3][3] = {{0.f, -cz, cy}, {cz, 0.f, -cx}, {-cy, cx, 0.f}};
+  float Io[6][6];
+  for (int a = 0; a < 3; ++a)
+    for (int c = 0; c < 3; ++c) {
+      Io[a][c] = Iw[a][c] + m * ((a == c ? c2 : 0.f) - com[a] * com[c]);
+      const float v = (a == c) ? 0.f : m * sk[a][c];
+      Io[a][3 + c] = v;
+      Io[3 + a][c] = -v;
+      Io[3 + a][3 + c] = (a == c) ? m : 0.f;
+    }
+  float* IC = e + E_IC + 36 * b;
+  for (int r = 0; r < 6; ++r)
+    for (int c = 0; c < 6; ++c) IC[6 * r + c] = Io[r][c];
+  const float* zet = e + E_ZETA + 6 * b;
+  const float* V = e + E_V + 6 * b;
+  float xin[6];
+  for (int k = 0; k < 3; ++k) {
+    xin[k] = zet[k];
+    xin[3 + k] = zet[3 + k] - sp[P_G + k];
+  }
+  float net[6], Iov[6];
+  for (int r = 0; r < 6; ++r) {
+    float a1 = 0.f, a2 = 0.f;
+    for (int k = 0; k < 6; ++k) { a1 += Io[r][k] * xin[k]; a2 += Io[r][k] * V[k]; }
+    net[r] = a1; Iov[r] = a2;
+  }
+  float c1[3], c2v[3], c3[3];
+  cross3(V, Iov, c1);
+  cross3(V + 3, Iov + 3, c2v);
+  cross3(V, Iov + 3, c3);
+  for (int k = 0; k < 3; ++k) {
+    net[k] = net[k] + c1[k] + c2v[k];
+    net[3 + k] = net[3 + k] + c3[k];
+  }
+  for (int k = 0; k < 6; ++k) e[E_NET + 6 * b + k] = net[k] - e[E_XFRC + k * NB + b];
+}
+
+__device__ __forceinline__ void project(float t1, float t2, float n, float mu, float act,
+                                        float* o) {
+  const float ln = fmaxf(n, 0.f);
+  const float tn = sqrtf(t1 * t1 + t2 * t2 + 1e-12f);
+  const float sc = fminf(mu * ln / tn, 1.f) * act;
+  o[0] = t1 * sc; o[1] = t2 * sc; o[2] = ln * act;
+}
+
+// One env, all slices. `e` is the env's shared-memory block; every lane of
+// the warp calls this.
+__device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int lane,
+                        int n_slices, int iters) {
+  const float h = sp[P_H], h2 = sp[P_H2], inv_h = sp[P_INVH];
+  const float erp = sp[P_ERP], maxdep = sp[P_MAXDEP], margin = sp[P_MARGIN];
+  const float bounce_thr = sp[P_BOUNCE], limk = sp[P_LIMK], limd = sp[P_LIMD];
+  const float maxv = sp[P_MAXV];
+  const int nlev = (int)sp[P_NLEV];
+  const float* betas = sp + SPEC_BASE;
+
+  float warm[CPL][3];  // physical impulses, zero at each call
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) warm[c][0] = warm[c][1] = warm[c][2] = 0.f;
+
+  for (int sl = 0; sl < n_slices; ++sl) {
+    // ---- FK + zeta, level by level over the tree
+    for (int lev = 0; lev < nlev; ++lev) {
+      for (int b = lane; b < NB; b += 32)
+        if ((int)sp[O_DEPTH + b] == lev) fk_body(sp, e, b);
+      __syncwarp();
+    }
+    // ---- spatial inertia and bias wrench per body
+    for (int b = lane; b < NB; b += 32) inertia_and_net(sp, e, b);
+    __syncwarp();
+    // ---- composite inertia, reverse topological, one entry per lane
+    for (int x = lane; x < 36; x += 32)
+      for (int b = NB - 1; b >= 0; --b) {
+        const int p = (int)sp[O_PARENT + b];
+        if (p >= 0) e[E_IC + 36 * p + x] += e[E_IC + 36 * b + x];
+      }
+    __syncwarp();
+    // ---- F[d] = IC[body(d)] S[d]
+    for (int x = lane; x < 6 * NV; x += 32) {
+      const int d = x / 6, r = x % 6;
+      const float* IC = e + E_IC + 36 * (int)sp[O_DOFBODY + d] + 6 * r;
+      const float* S = e + E_S + 6 * d;
+      float a = 0.f;
+      for (int k = 0; k < 6; ++k) a += IC[k] * S[k];
+      e[E_F + x] = a;
+    }
+    __syncwarp();
+    // ---- mass matrix (symmetrised lower part) into AG, identity into MINV
+    for (int x = lane; x < NV * NV; x += 32) {
+      const int i = x / NV, j = x % NV;
+      const int hi = i > j ? i : j, lo = i > j ? j : i;
+      const float* F = e + E_F + 6 * hi;
+      const float* S = e + E_S + 6 * lo;
+      float a = 0.f;
+      for (int r = 0; r < 6; ++r) a += F[r] * S[r];
+      e[E_AG + x] = a * sp[O_DMASK + hi * NV + lo];
+      e[E_MINV + x] = (i == j) ? 1.f : 0.f;
+    }
+    __syncwarp();
+    // ---- per dof: bias C, passive forces, implicit diagonal, rhs
+    for (int d = lane; d < NV; d += 32) {
+      const int db = (int)sp[O_DOFBODY + d];
+      float Fs[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int b = 0; b < NB; ++b)
+        if (sp[O_ANC + b * NB + db] != 0.f)
+          for (int k = 0; k < 6; ++k) Fs[k] += e[E_NET + 6 * b + k];
+      const float* S = e + E_S + 6 * d;
+      float C = 0.f;
+      for (int k = 0; k < 6; ++k) C += S[k] * Fs[k];
+      const int sq = (int)sp[O_SQADR + d];
+      const float qs = sq >= 0 ? e[E_Q + sq] : 0.f;
+      const float kst = sp[O_STIFF + d], lim = sp[O_LIMITED + d];
+      float tau = -kst * (qs - sp[O_SETPT + d]);
+      const float over = fmaxf(qs - sp[O_HI + d], 0.f);
+      const float under = fmaxf(sp[O_LO + d] - qs, 0.f);
+      const float viol = (over > 0.f || under > 0.f) ? 1.f : 0.f;
+      tau = tau + lim * (-limk * (over - under));
+      const float qdv = e[E_QD + d];
+      float D = sp[O_DAMP + d] + lim * viol * limd;
+      D = D + sp[O_FRIC + d] / (fabsf(qdv) + 2e-3f);
+      const float K = kst + lim * viol * limk;
+      e[E_AG + d * NV + d] += sp[O_ARM + d] + h * D + h2 * K;
+      e[E_RHS + d] = e[E_QFRC + d] + tau - D * qdv - C;
+    }
+    __syncwarp();
+    // ---- Gauss-Jordan inverse without pivoting (fused.py:821-844)
+    for (int j = 0; j < NV; ++j) {
+      const float dj = 1.f / e[E_AG + j * NV + j];
+      for (int x = lane; x < 3 * NV; x += 32) {
+        if (x < NV) e[E_PIVA + x] = e[E_AG + j * NV + x] * dj;
+        else if (x < 2 * NV) e[E_PIVI + x - NV] = e[E_MINV + j * NV + x - NV] * dj;
+        else {
+          const int i = x - 2 * NV;
+          e[E_CC + i] = e[E_AG + i * NV + j] - (i == j ? 1.f : 0.f);
+        }
+      }
+      __syncwarp();
+      for (int x = lane; x < 2 * NV * NV; x += 32) {
+        if (x < NV * NV) {
+          e[E_AG + x] -= e[E_CC + x / NV] * e[E_PIVA + x % NV];
+        } else {
+          const int y = x - NV * NV;
+          e[E_MINV + y] -= e[E_CC + y / NV] * e[E_PIVI + y % NV];
+        }
+      }
+      __syncwarp();
+    }
+    // ---- unconstrained velocity
+    for (int i = lane; i < NV; i += 32) {
+      float a = 0.f;
+      for (int j = 0; j < NV; ++j) a += e[E_MINV + i * NV + j] * e[E_RHS + j];
+      e[E_QDF + i] = e[E_QD + i] + h * a;
+    }
+    __syncwarp();
+
+    // ---- plane rows: one contact per lane
+    float xc[CPL][3], act[CPL], mu[CPL], s_c[CPL], bv[CPL][3];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int i = lane + 32 * c;
+      act[c] = 0.f; mu[c] = 0.f; s_c[c] = 0.f;
+      xc[c][0] = xc[c][1] = xc[c][2] = 0.f;
+      bv[c][0] = bv[c][1] = bv[c][2] = 0.f;
+      if (i < NC) {
+        const int b = (int)sp[O_CPBODY + i];
+        float rot[3];
+        qrot(e + E_QT + 4 * b, sp + O_CPPOS + 3 * i, rot);
+        for (int k = 0; k < 3; ++k) xc[c][k] = e[E_X + 3 * b + k] + rot[k];
+        const float phi = sp[O_CPRAD + i] - xc[c][2];
+        act[c] = phi > -margin ? 1.f : 0.f;
+        mu[c] = sp[O_CPMU + i];
+        for (int v = 0; v < NV; ++v) {
+          const float pm = sp[O_PATH + i * NV + v];
+          const float* S = e + E_S + 6 * v;
+          for (int k = 0; k < 3; ++k) {
+            const int a = (k + 1) % 3, bb = (k + 2) % 3;
+            const float crossk = S[a] * xc[c][bb] - S[bb] * xc[c][a];
+            e[E_J + v * R + k * NC + i] = (S[3 + k] + crossk) * pm;
+          }
+        }
+        float vnt = phi > 0.f ? fminf(erp * phi / h, maxdep) : phi / h;
+        float dg[3];
+        for (int k = 0; k < 3; ++k) {
+          const int r = k * NC + i;
+          float bb = 0.f, dd = 0.f;
+          for (int v = 0; v < NV; ++v) {
+            float wv = 0.f;
+            for (int jj = 0; jj < NV; ++jj) wv += e[E_MINV + v * NV + jj] * e[E_J + jj * R + r];
+            e[E_W + v * R + r] = wv;
+            const float jv = e[E_J + v * R + r];
+            bb += jv * e[E_QDF + v];
+            dd += jv * wv;
+          }
+          bv[c][k] = bb;
+          dg[k] = dd;
+        }
+        // Newton restitution: bv[c][2] is the pre-solve normal velocity
+        const float rest = sp[O_REST + i];
+        const float vn_pre = bv[c][2];
+        if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
+        bv[c][2] = vn_pre - vnt;
+        const float dcm = (dg[0] + dg[1] + dg[2]) / 3.f + 1e-6f;
+        s_c[c] = rsqrtf(fmaxf(dcm, 1e-12f));
+        e[E_SC + i] = s_c[c];
+        for (int k = 0; k < 3; ++k) bv[c][k] *= s_c[c];
+      }
+    }
+    __syncwarp();
+    // ---- Lipschitz bound of the scaled system: max row sum of |A|
+    float lip = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int i = lane + 32 * c;
+      if (i < NC) {
+        float Jr[3][NV], acc[3] = {0.f, 0.f, 0.f};
+        for (int k = 0; k < 3; ++k)
+          for (int v = 0; v < NV; ++v) Jr[k][v] = e[E_J + v * R + k * NC + i];
+        for (int col = 0; col < R; ++col) {
+          float Wc[NV];
+          for (int v = 0; v < NV; ++v) Wc[v] = e[E_W + v * R + col];
+          const float sc = e[E_SC + col % NC];
+          for (int k = 0; k < 3; ++k) {
+            float a = 0.f;
+            for (int v = 0; v < NV; ++v) a += Jr[k][v] * Wc[v];
+            acc[k] += fabsf(a * s_c[c] * sc);
+          }
+        }
+        const float reg = 1e-6f * (s_c[c] * s_c[c]);
+        for (int k = 0; k < 3; ++k) lip = fmaxf(lip, acc[k] + reg);
+      }
+    }
+    lip = warp_max(lip);
+    const float step = 1.f / fmaxf(lip, 1e-8f);
+
+    // ---- APGD with friction-cone projection
+    float lam[CPL][3], yv[CPL][3];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const float sw = (lane + 32 * c < NC) ? s_c[c] : 1.f;
+      project(warm[c][0] / sw, warm[c][1] / sw, warm[c][2] / sw, mu[c], act[c], lam[c]);
+      for (int k = 0; k < 3; ++k) yv[c][k] = lam[c][k];
+    }
+    for (int it = 0; it < iters; ++it) {
+      float u[NV];
+      for (int v = 0; v < NV; ++v) u[v] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int i = lane + 32 * c;
+        if (i < NC)
+          for (int k = 0; k < 3; ++k) {
+            const float ys = s_c[c] * yv[c][k];
+            for (int v = 0; v < NV; ++v) u[v] += e[E_W + v * R + k * NC + i] * ys;
+          }
+      }
+      for (int v = 0; v < NV; ++v) u[v] = warp_sum(u[v]);
+      const float beta = betas[it];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int i = lane + 32 * c;
+        float z[3] = {0.f, 0.f, 0.f};
+        if (i < NC) {
+          const float reg = 1e-6f * (s_c[c] * s_c[c]);
+          for (int k = 0; k < 3; ++k) {
+            float a = 0.f;
+            for (int v = 0; v < NV; ++v) a += e[E_J + v * R + k * NC + i] * u[v];
+            const float g = s_c[c] * a + reg * yv[c][k] + bv[c][k];
+            z[k] = yv[c][k] - step * g;
+          }
+        }
+        float ln[3];
+        project(z[0], z[1], z[2], mu[c], act[c], ln);
+        for (int k = 0; k < 3; ++k) {
+          yv[c][k] = ln[k] + beta * (ln[k] - lam[c][k]);
+          lam[c][k] = ln[k];
+        }
+      }
+    }
+    // ---- impulses back to physical units, generalized contact force
+    float qcon[NV];
+    for (int v = 0; v < NV; ++v) qcon[v] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int i = lane + 32 * c;
+      for (int k = 0; k < 3; ++k) {
+        lam[c][k] *= s_c[c];
+        warm[c][k] = lam[c][k];
+      }
+      if (i < NC)
+        for (int k = 0; k < 3; ++k)
+          for (int v = 0; v < NV; ++v) qcon[v] += e[E_J + v * R + k * NC + i] * lam[c][k];
+    }
+    for (int v = 0; v < NV; ++v) qcon[v] = warp_sum(qcon[v]);
+    // ---- new velocity (clipped), then integrate per body
+    for (int i = lane; i < NV; i += 32) {
+      float a = 0.f;
+      for (int j = 0; j < NV; ++j) a += e[E_MINV + i * NV + j] * qcon[j];
+      const float vnew = e[E_QDF + i] + a;
+      e[E_QD + i] = fminf(fmaxf(vnew, -maxv), maxv);
+    }
+    __syncwarp();
+    for (int b = lane; b < NB; b += 32) {
+      const int jt = (int)sp[O_JTYPE + b];
+      const int qa = (int)sp[O_QADR + b], va = (int)sp[O_VADR + b];
+      float* q = e + E_Q;
+      const float* qd = e + E_QD;
+      if (jt == FREE) {
+        for (int k = 0; k < 3; ++k) q[qa + k] = q[qa + k] + h * qd[va + k];
+        const float om[3] = {qd[va + 3] * h, qd[va + 4] * h, qd[va + 5] * h};
+        float dq[4], quat[4], qn[4];
+        qexp(om, dq);
+        for (int k = 0; k < 4; ++k) quat[k] = q[qa + 3 + k];
+        qnormalize(quat);
+        qmul(dq, quat, qn);
+        qnormalize(qn);
+        for (int k = 0; k < 4; ++k) q[qa + 3 + k] = qn[k];
+      } else if (jt == HINGE || jt == SLIDE) {
+        q[qa] = q[qa] + h * qd[va];
+      }
+    }
+    // ---- sensors of the last slice
+    if (sl == n_slices - 1) {
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int i = lane + 32 * c;
+        if (i < NC) {
+          const int b = (int)sp[O_CPBODY + i];
+          const float Fp[3] = {lam[c][0] * inv_h, lam[c][1] * inv_h, lam[c][2] * inv_h};
+          float rel[3], tq[3];
+          for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * b + k];
+          cross3(rel, Fp, tq);
+          for (int k = 0; k < 3; ++k) {
+            e[E_FS + k * NC + i] = Fp[k];
+            e[E_FS + (3 + k) * NC + i] = tq[k];
+          }
+        }
+      }
+      for (int v = lane; v < NV; v += 32) {
+        float qv = 0.f;
+        for (int j = 0; j < NV; ++j) qv = (j == v) ? qcon[j] : qv;
+        e[E_DF + v] = qv * inv_h;
+      }
+      __syncwarp();
+      for (int x = lane; x < 6 * NB; x += 32) {
+        const int k = x / NB, b = x % NB;
+        float a = 0.f;
+        for (int i = 0; i < NC; ++i)
+          if ((int)sp[O_CPBODY + i] == b) a += e[E_FS + k * NC + i];
+        if (k < 3) e[E_BF + k * NB + b] = a;
+        else e[E_BT + (k - 3) * NB + b] = a;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// (rows, N) global <-> per-env shared rows; neighbouring threads take
+// neighbouring envs, the ragged edge is masked.
+__device__ __forceinline__ void load_rows(const float* __restrict__ src, float* envs, int off,
+                                          int rows, int env0, int n_env) {
+  for (int x = threadIdx.x; x < rows * EPB; x += blockDim.x) {
+    const int r = x / EPB, w = x % EPB, n = env0 + w;
+    envs[w * ENV_FLOATS + off + r] = (src != nullptr && n < n_env) ? src[(size_t)r * n_env + n] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float* envs, int off,
+                                           int rows, int env0, int n_env) {
+  for (int x = threadIdx.x; x < rows * EPB; x += blockDim.x) {
+    const int r = x / EPB, w = x % EPB, n = env0 + w;
+    if (n < n_env) dst[(size_t)r * n_env + n] = envs[w * ENV_FLOATS + off + r];
+  }
+}
+
+__global__ void __launch_bounds__(32 * EPB)
+fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
+                  const float* __restrict__ qfrc_in, const float* __restrict__ xfrc_in,
+                  float* __restrict__ q_out, float* __restrict__ qd_out,
+                  float* __restrict__ bf_out, float* __restrict__ bt_out,
+                  float* __restrict__ df_out, const float* __restrict__ spec, int spec_len,
+                  int n_env, int n_slices, int iters) {
+  extern __shared__ float smem[];
+  const int spec_pad = (spec_len + 3) & ~3;
+  float* sp = smem;
+  float* envs = smem + spec_pad;
+  const int env0 = blockIdx.x * EPB;
+  for (int x = threadIdx.x; x < spec_len; x += blockDim.x) sp[x] = spec[x];
+  load_rows(q_in, envs, E_Q, NQ, env0, n_env);
+  load_rows(qd_in, envs, E_QD, NV, env0, n_env);
+  load_rows(qfrc_in, envs, E_QFRC, NV, env0, n_env);
+  load_rows(xfrc_in, envs, E_XFRC, 6 * NB, env0, n_env);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (env0 + warp < n_env) run_env(sp, envs + warp * ENV_FLOATS, lane, n_slices, iters);
+  __syncthreads();
+  store_rows(q_out, envs, E_Q, NQ, env0, n_env);
+  store_rows(qd_out, envs, E_QD, NV, env0, n_env);
+  store_rows(bf_out, envs, E_BF, 3 * NB, env0, n_env);
+  store_rows(bt_out, envs, E_BT, 3 * NB, env0, n_env);
+  store_rows(df_out, envs, E_DF, NV, env0, n_env);
+}
+
+}  // namespace
+
+extern "C" {
+
+// out[0..6] = nbody, nq, nv, nc, spec floats before the betas, per-env
+// shared floats, envs per block.
+int fused_step_layout(int* out) {
+  out[0] = NB; out[1] = NQ; out[2] = NV; out[3] = NC;
+  out[4] = SPEC_BASE; out[5] = ENV_FLOATS; out[6] = EPB;
+  return 0;
+}
+
+// Launches one fused step on `stream`. Arrays are float32, (rows, n_env)
+// row-major; xfrc may be null (no external wrenches). Returns the CUDA
+// error code of the launch (0 on success).
+int fused_step_launch(const void* q, const void* qd, const void* qfrc, const void* xfrc,
+                      void* q_out, void* qd_out, void* bf_out, void* bt_out, void* df_out,
+                      const void* spec, int spec_len, int n_env, int n_slices, int iters,
+                      void* stream) {
+  if (n_env <= 0) return 0;
+  const size_t bytes = sizeof(float) * (size_t)(((spec_len + 3) & ~3) + EPB * ENV_FLOATS);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n_env + EPB - 1) / EPB;
+  fused_step_kernel<<<grid, 32 * EPB, bytes, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)qd, (const float*)qfrc, (const float*)xfrc,
+      (float*)q_out, (float*)qd_out, (float*)bf_out, (float*)bt_out, (float*)df_out,
+      (const float*)spec, spec_len, n_env, n_slices, iters);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

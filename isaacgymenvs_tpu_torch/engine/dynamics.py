@@ -1,0 +1,207 @@
+"""Simulation parameters, state and kinematics (port of
+isaacgymenvs_tpu/engine/dynamics.py, the parts the fused path uses).
+
+Formulation as in the JAX package: Featherstone spatial algebra in world
+coordinates about the world origin.
+
+  motion vector v = (omega, v_o)  -- angular velocity, linear velocity of the
+                                     body-fixed point at the world origin
+  force  vector f = (n_o, f)      -- torque about the origin, linear force
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .. import maths
+from ..model.spec import FREE, HINGE, SLIDE, Model
+
+
+@dataclasses.dataclass(frozen=True)
+class SimParams:
+    """Simulation operating point (cfg/task/*.yaml `sim:` block)."""
+
+    dt: float = 1.0 / 60.0
+    substeps: int = 2
+    solver_iterations: int = 1  # extra internal slices per substep
+    solver: str = "apgd"
+    solver_pgs_iterations: int = 8
+    solver_apgd_iterations: int = 32
+    max_active_contacts: int = 0  # 0 = no cap
+    gravity: Tuple[float, float, float] = (0.0, 0.0, -9.81)
+    baumgarte_erp: float = 0.2
+    baumgarte_erp_attractor: float = 0.7
+    max_depenetration_velocity: float = 10.0
+    bounce_threshold_velocity: float = 0.2
+    contact_margin: float = 0.0
+    limit_stiffness: float = 400.0
+    limit_damping: float = 20.0
+    max_dof_velocity: float = 1000.0
+
+
+@dataclasses.dataclass
+class SimState:
+    """Generalized state, env-leading: q (N, nq), qd (N, nv)."""
+
+    q: torch.Tensor
+    qd: torch.Tensor
+
+
+class Kin(NamedTuple):
+    """Forward-kinematics products (world frame), env-leading."""
+
+    x: torch.Tensor  # (N, nbody, 3) body frame origins
+    quat: torch.Tensor  # (N, nbody, 4)
+    com: torch.Tensor  # (N, nbody, 3)
+    inertia_w: torch.Tensor  # (N, nbody, 3, 3) rotational inertia about CoM
+    S: torch.Tensor  # (N, nv, 6) joint motion subspace
+    Sdot: torch.Tensor  # (N, nv, 6)
+    v: torch.Tensor  # (N, nbody, 6) spatial velocity (origin-referenced)
+
+
+# ---------------------------------------------------------------------------
+# static topology helpers (host, numpy)
+# ---------------------------------------------------------------------------
+
+
+def ancestor_matrix(model: Model) -> np.ndarray:
+    """A[i, j] = 1 iff body j is an ancestor of (or equal to) body i."""
+    n = model.nbody
+    A = np.zeros((n, n), np.float32)
+    for i in range(n):
+        j = i
+        while j != -1:
+            A[i, j] = 1.0
+            j = model.body_parent[j]
+    return A
+
+
+def dof_ancestor_mask(model: Model) -> np.ndarray:
+    """L[i, j] = 1 iff dof j is on an ancestor-or-self body of dof i's body
+    AND j <= i (the lower-triangular inclusion that assembles M)."""
+    A = ancestor_matrix(model)
+    L = np.zeros((model.nv, model.nv), np.float32)
+    for i in range(model.nv):
+        for j in range(i + 1):
+            if A[model.dof_body[i], model.dof_body[j]]:
+                L[i, j] = 1.0
+    return L
+
+
+def scalar_dof_q_adr(model: Model) -> np.ndarray:
+    """q index per dof for scalar (hinge/slide) dofs, -1 for free dofs."""
+    out = np.full(model.nv, -1, np.int64)
+    for i in range(model.nbody):
+        if model.jnt_type[i] in (HINGE, SLIDE):
+            out[model.v_adr[i]] = model.q_adr[i]
+    return out
+
+
+class KinMeta(NamedTuple):
+    """Host-precomputed static index sets (the fields the fused path reads)."""
+
+    free_bodies: tuple  # body indices with FREE joints
+    # (nq, nv) 0/1 matrix mapping dofs to the q rows they integrate linearly
+    int_mat: np.ndarray
+
+
+def kin_meta(model: Model) -> KinMeta:
+    sq = scalar_dof_q_adr(model)
+    sv = np.where(sq >= 0)[0]
+    free_bodies = tuple(i for i in range(model.nbody) if model.jnt_type[i] == FREE)
+    int_mat = np.zeros((model.nq, model.nv), np.float32)
+    int_mat[sq[sv], sv] = 1.0
+    for i in free_bodies:
+        qa, va = int(model.q_adr[i]), int(model.v_adr[i])
+        int_mat[qa:qa + 3, va:va + 3] = np.eye(3, dtype=np.float32)
+    return KinMeta(free_bodies=free_bodies, int_mat=int_mat)
+
+
+# ---------------------------------------------------------------------------
+# kinematics
+# ---------------------------------------------------------------------------
+
+
+def forward_kinematics(model: Model, q: torch.Tensor, qd: torch.Tensor) -> Kin:
+    """Batched tree sweep over bodies in topological order.
+
+    q (N, nq), qd (N, nv) -> Kin, env-leading. Same products as the JAX
+    package's level-batched forward_kinematics under vmap.
+    """
+    N, dev = q.shape[0], q.device
+    mt = model.to(dev)
+    e3 = torch.eye(3, device=dev).expand(N, 3, 3)
+    zero3 = q.new_zeros(N, 3)
+    X, Q, V = [], [], []
+    S = [None] * model.nv
+    Sd = [None] * model.nv
+    for i in range(model.nbody):
+        p = model.body_parent[i]
+        if p == -1:
+            xp, qp, vp = zero3, q.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(N, 4), q.new_zeros(N, 6)
+        else:
+            xp, qp, vp = X[p], Q[p], V[p]
+        w_p, vo_p = vp[:, :3], vp[:, 3:]
+        X_x = xp + maths.quat_rotate(qp, mt.body_pos[i])
+        X_q = maths.quat_mul(qp, mt.body_quat[i].expand(N, 4))
+        jt, qa, va = model.jnt_type[i], model.q_adr[i], model.v_adr[i]
+        if jt == FREE:
+            xi = q[:, qa:qa + 3]
+            qi = maths.quat_unit(q[:, qa + 3:qa + 7])
+            vel_lin, omega = qd[:, va:va + 3], qd[:, va + 3:va + 6]
+            vi = torch.cat([omega, vel_lin - torch.linalg.cross(omega, xi, dim=-1)], -1)
+            for k in range(3):
+                S[va + k] = torch.cat([zero3, e3[:, k]], -1)
+                Sd[va + k] = q.new_zeros(N, 6)
+                S[va + 3 + k] = torch.cat([e3[:, k], torch.linalg.cross(xi, e3[:, k], dim=-1)], -1)
+                Sd[va + 3 + k] = torch.cat(
+                    [zero3, torch.linalg.cross(vel_lin, e3[:, k], dim=-1)], -1
+                )
+        elif jt in (HINGE, SLIDE):
+            s, sd = q[:, qa:qa + 1], qd[:, va:va + 1]
+            ax_w = maths.quat_rotate(X_q, mt.jnt_axis[i])
+            if jt == HINGE:
+                axis = maths.normalize(mt.jnt_axis[i])
+                jq = maths.quat_unit(
+                    torch.cat([axis * torch.sin(s / 2), torch.cos(s / 2)], -1)
+                )
+                qi = maths.quat_mul(X_q, jq)
+                anchor = X_x + maths.quat_rotate(X_q, mt.jnt_pos[i])
+                xi = anchor - maths.quat_rotate(qi, mt.jnt_pos[i])
+                Srow = torch.cat([ax_w, torch.linalg.cross(anchor, ax_w, dim=-1)], -1)
+                ax_dot = torch.linalg.cross(w_p, ax_w, dim=-1)
+                v_anchor = vo_p + torch.linalg.cross(w_p, anchor, dim=-1)
+                Sdrow = torch.cat([
+                    ax_dot,
+                    torch.linalg.cross(v_anchor, ax_w, dim=-1)
+                    + torch.linalg.cross(anchor, ax_dot, dim=-1),
+                ], -1)
+            else:
+                qi = X_q
+                xi = X_x + ax_w * s
+                Srow = torch.cat([zero3, ax_w], -1)
+                Sdrow = torch.cat([zero3, torch.linalg.cross(w_p, ax_w, dim=-1)], -1)
+            vi = vp + Srow * sd
+            S[va], Sd[va] = Srow, Sdrow
+        else:  # FIXED
+            xi, qi, vi = X_x, X_q, vp
+        X.append(xi)
+        Q.append(qi)
+        V.append(vi)
+    x, quat, v = torch.stack(X, 1), torch.stack(Q, 1), torch.stack(V, 1)
+    x0, y0, z0, w0 = quat.unbind(-1)
+    R = torch.stack([
+        torch.stack([1 - 2 * (y0 * y0 + z0 * z0), 2 * (x0 * y0 - w0 * z0), 2 * (x0 * z0 + w0 * y0)], -1),
+        torch.stack([2 * (x0 * y0 + w0 * z0), 1 - 2 * (x0 * x0 + z0 * z0), 2 * (y0 * z0 - w0 * x0)], -1),
+        torch.stack([2 * (x0 * z0 - w0 * y0), 2 * (y0 * z0 + w0 * x0), 1 - 2 * (x0 * x0 + y0 * y0)], -1),
+    ], -2)
+    com = x + torch.einsum("nbij,bj->nbi", R, mt.body_ipos)
+    inertia_w = torch.einsum("nbij,bjk,nblk->nbil", R, mt.body_inertia, R)
+    if model.nv:
+        S_t, Sd_t = torch.stack(S, 1), torch.stack(Sd, 1)
+    else:
+        S_t = Sd_t = q.new_zeros(N, 0, 6)
+    return Kin(x=x, quat=quat, com=com, inertia_w=inertia_w, S=S_t, Sdot=Sd_t, v=v)

@@ -1,0 +1,223 @@
+"""Vectorized task runtime (port of isaacgymenvs_tpu/envcore/vec_task.py).
+
+An environment is a `VecTask` subclass that supplies batched hooks; the
+env batch is the leading axis of every tensor. `reset` and `step` keep the
+JAX package's ordering contract:
+  1. clip actions, apply them, advance physics `control_freq_inv` times;
+  2. progress += 1;
+  3. envs flagged done on the PREVIOUS step are reset (fresh init states
+     for every env, selected with a where over the done mask);
+  4. observations on the post-reset state;
+  5. reward and new done flags;
+  6. `time_outs` = progress >= max_episode_length - 1 AND done.
+
+Physics always goes through `engine.fused.physics_step_fused`: on a CUDA
+tensor that is the hand-written kernel, on a CPU tensor its plain version.
+A model outside the kernel's feature set raises NotImplementedError; there
+is no eager fallback. Domain randomization, ADR, PD-target drives,
+terrain and merged decimation windows are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..engine import dynamics as _dyn
+from ..engine.dynamics import SimParams, SimState
+from ..engine.fused import physics_step_fused
+from ..model.spec import Model
+
+
+class Sensors(NamedTuple):
+    """Per-env sensor readings of the physics step."""
+
+    body_force: torch.Tensor  # (N, nbody, 3) contact force per body (world)
+    body_torque: torch.Tensor  # (N, nbody, 3) contact torque about body origin
+    dof_force: torch.Tensor  # (N, nv) generalized contact force
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Batched environment state: everything that evolves across steps."""
+
+    sim: SimState  # q (N, nq), qd (N, nv)
+    progress: torch.Tensor  # (N,) int32, steps since reset
+    reset_buf: torch.Tensor  # (N,) bool, done flags from the last step
+    rng: torch.Generator  # draws the init states of partial resets
+    actions: torch.Tensor  # (N, num_acts) last applied actions
+    task: Any = None  # task-specific tensors (potentials, ...)
+
+
+def _select(mask: torch.Tensor, a, b):
+    """where(mask, a, b) over a tensor or a tuple/dict of tensors."""
+    if isinstance(a, tuple):
+        return tuple(_select(mask, x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return {k: _select(mask, a[k], b[k]) for k in a}
+    return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+class VecTask:
+    """Base class: subclasses define the model and the batched hooks.
+
+    Hooks (batched over envs, env-leading tensors):
+      build_model() -> (Model, SimParams)                     [host, once]
+      sample_init(generator, n) -> (q, qd, task)
+      compute_force(actions, q, qd, task) -> (qfrc, xfrc)
+      observe(q, qd, kin, sensors, task, actions, progress) -> obs
+      reward_done(obs, q, qd, kin, sensors, task, actions, progress)
+          -> (reward, done, new_task)
+    """
+
+    num_obs: int = 0
+    num_acts: int = 0
+    # False when the hooks never read `kin`: step then skips the forward
+    # kinematics pass, as XLA drops it from the JAX package's jitted step
+    uses_kin: bool = True
+
+    def __init__(self, cfg: Dict[str, Any], device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        env_cfg = cfg.get("env", {})
+        self.num_envs = int(env_cfg.get("numEnvs", 64))
+        self.max_episode_length = int(env_cfg.get("episodeLength", 500))
+        self.clip_obs = float(env_cfg.get("clipObservations", np.inf))
+        self.clip_actions = float(env_cfg.get("clipActions", np.inf))
+        self.control_freq_inv = int(env_cfg.get("controlFrequencyInv", 1))
+        self.terrain = None
+        self.model, self.sim_params = self.build_model()
+        task_cfg = cfg.get("task", {}) or {}
+        sim_cfg = cfg.get("sim", {}) or {}
+        adr_cfg = env_cfg.get("adr") or cfg.get("adr")
+        if task_cfg.get("randomize") or (adr_cfg and adr_cfg.get("use_adr")):
+            raise NotImplementedError("domain randomization and ADR are not ported yet")
+        if sim_cfg.get("fused_merge_control_slices"):
+            raise NotImplementedError("merged decimation windows are not ported yet")
+        self.dt = self.sim_params.dt * self.control_freq_inv
+        # model constants the step reads, kept on the device: a copy from
+        # host memory inside the step would wait for the card every step
+        m = self.model
+        self._act_dof = torch.as_tensor(np.asarray(m.actuator_dof, np.int64), device=self.device)
+        self._gear = torch.as_tensor(np.asarray(m.gear, np.float32), device=self.device)
+
+    # ---- hooks ---------------------------------------------------------
+    def build_model(self) -> Tuple[Model, SimParams]:
+        raise NotImplementedError
+
+    def sample_init(self, generator: torch.Generator, n: int):
+        raise NotImplementedError
+
+    def compute_force(self, actions, q, qd, task):
+        raise NotImplementedError
+
+    def observe(self, q, qd, kin, sensors, task, actions, progress):
+        raise NotImplementedError
+
+    def reward_done(self, obs, q, qd, kin, sensors, task, actions, progress):
+        raise NotImplementedError
+
+    # ---- helpers shared by tasks --------------------------------------
+    def sim_params_from_cfg(self) -> SimParams:
+        """SimParams from the reference-schema `sim:` cfg block."""
+        sim = self.cfg.get("sim", {})
+        physx = sim.get("physx", {})
+        return SimParams(
+            dt=float(sim.get("dt", 1.0 / 60.0)),
+            substeps=int(sim.get("substeps", 2)),
+            solver_pgs_iterations=int(physx.get("num_position_iterations", 4)) * 2,
+            solver_apgd_iterations=int(physx.get("num_position_iterations", 4)) * 4,
+            gravity=tuple(float(g) for g in sim.get("gravity", [0.0, 0.0, -9.81])),
+            max_depenetration_velocity=float(physx.get("max_depenetration_velocity", 10.0)),
+            bounce_threshold_velocity=float(physx.get("bounce_threshold_velocity", 0.2)),
+            contact_margin=float(physx.get("contact_offset", 0.02)),
+            max_active_contacts=int(physx.get("max_active_contacts", 0)),
+        )
+
+    def qfrc_from_actuators(self, actions: torch.Tensor) -> torch.Tensor:
+        """qfrc[:, dof(a)] += gear[a] * actions[:, a] (DOF_MODE_EFFORT)."""
+        qfrc = actions.new_zeros(actions.shape[0], self.model.nv)
+        return qfrc.index_add_(1, self._act_dof, self._gear * actions)
+
+    @property
+    def scalar_dof_indices(self) -> np.ndarray:
+        """Indices into qd of the scalar (hinge/slide) dofs."""
+        sq = _dyn.scalar_dof_q_adr(self.model)
+        return np.where(sq >= 0)[0]
+
+    def _no_sensors(self, n: int) -> Sensors:
+        z = lambda *s: torch.zeros(s, device=self.device)
+        return Sensors(z(n, self.model.nbody, 3), z(n, self.model.nbody, 3), z(n, self.model.nv))
+
+    def _kin(self, q, qd):
+        return _dyn.forward_kinematics(self.model, q, qd) if self.uses_kin else None
+
+    # ---- the batched entry points -------------------------------------
+    def reset(self, seed: int = 0) -> Tuple[EnvState, torch.Tensor]:
+        """Full reset of all envs; partial resets later draw from the
+        state's generator, seeded here."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        n = self.num_envs
+        q, qd, task = self.sample_init(gen, n)
+        actions = torch.zeros(n, self.num_acts, device=self.device)
+        progress = torch.zeros(n, dtype=torch.int32, device=self.device)
+        obs = self.observe(q, qd, self._kin(q, qd), self._no_sensors(n), task, actions, progress)
+        state = EnvState(
+            sim=SimState(q=q, qd=qd),
+            progress=progress,
+            reset_buf=torch.zeros(n, dtype=torch.bool, device=self.device),
+            rng=gen,
+            actions=actions,
+            task=task,
+        )
+        return state, torch.clamp(obs, -self.clip_obs, self.clip_obs)
+
+    def step(
+        self, state: EnvState, actions: torch.Tensor
+    ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """One vectorized env step; see the module docstring for the order."""
+        n = self.num_envs
+        actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
+
+        # 1. apply actions + physics
+        q, qd = state.sim.q, state.sim.qd
+        qfrc, xfrc = self.compute_force(actions, q, qd, state.task)
+        for _ in range(self.control_freq_inv):
+            out = physics_step_fused(self.model, self.sim_params, q, qd, qfrc, xfrc=xfrc)
+            q, qd = out.q, out.qd
+        sensors = Sensors(out.body_force, out.body_torque, out.dof_force)
+
+        # 2. bookkeeping
+        progress = state.progress + 1
+
+        # 3. partial resets of envs flagged done last step
+        init_q, init_qd, init_task = self.sample_init(state.rng, n)
+        done_prev = state.reset_buf
+        q = _select(done_prev, init_q, q)
+        qd = _select(done_prev, init_qd, qd)
+        task = _select(done_prev, init_task, state.task)
+        sensors = Sensors(*(_select(done_prev, torch.zeros_like(x), x) for x in sensors))
+        progress = torch.where(done_prev, torch.zeros_like(progress), progress)
+
+        # 4. observe on the post-reset state
+        kin = self._kin(q, qd)
+        obs = self.observe(q, qd, kin, sensors, task, actions, progress)
+        obs = torch.clamp(obs, -self.clip_obs, self.clip_obs)
+
+        # 5. reward + new done flags
+        reward, done, task = self.reward_done(obs, q, qd, kin, sensors, task, actions, progress)
+
+        # 6. timeout flag
+        timeout = (progress >= self.max_episode_length - 1) & done
+        new_state = EnvState(
+            sim=SimState(q=q, qd=qd),
+            progress=progress,
+            reset_buf=done,
+            rng=state.rng,
+            actions=actions,
+            task=task,
+        )
+        return new_state, obs, reward, done, {"time_outs": timeout}

@@ -1,0 +1,87 @@
+"""Quaternion helpers on batched tensors (port of isaacgymenvs_tpu/maths.py).
+
+Only what the Ant task and the fused step use. Conventions as in the JAX
+package: quaternions are (x, y, z, w) with the scalar last, rotations are
+active, angles are radians, and every function broadcasts over leading
+batch dimensions.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def normalize(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """Unit-normalize along the last axis."""
+    n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x / torch.clamp(n, min=eps)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b, xyzw layout."""
+    x1, y1, z1, w1 = a.unbind(-1)
+    x2, y2, z2, w2 = b.unbind(-1)
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def quat_unit(q: torch.Tensor) -> torch.Tensor:
+    return normalize(q)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by q over broadcastable batch dims."""
+    xyz, w = q[..., :3], q[..., 3:4]
+    xyz, v = torch.broadcast_tensors(xyz, v)
+    t = 2.0 * torch.linalg.cross(xyz, v, dim=-1)
+    return v + w * t + torch.linalg.cross(xyz, t, dim=-1)
+
+
+def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return quat_rotate(quat_conjugate(q), v)
+
+
+def quat_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rotation vector (..., 3) -> quaternion (..., 4), Taylor-safe at 0."""
+    angle_sq = torch.sum(phi * phi, dim=-1, keepdim=True)
+    angle = torch.sqrt(torch.clamp(angle_sq, min=1e-24))
+    small = angle_sq < 1e-12
+    s = torch.where(small, 0.5 - angle_sq / 48.0, torch.sin(0.5 * angle) / angle)
+    w = torch.where(small, 1.0 - angle_sq / 8.0, torch.cos(0.5 * angle))
+    return torch.cat([phi * s, w], dim=-1)
+
+
+def get_euler_xyz(q: torch.Tensor):
+    """Quaternion -> (roll, pitch, yaw), each wrapped to [0, 2pi)."""
+    qx, qy, qz, qw = q.unbind(-1)
+    roll = torch.atan2(2.0 * (qw * qx + qy * qz), qw * qw - qx * qx - qy * qy + qz * qz)
+    sinp = 2.0 * (qw * qy - qz * qx)
+    pitch = torch.where(
+        torch.abs(sinp) >= 1.0,
+        torch.sign(sinp) * (math.pi / 2.0),
+        torch.asin(torch.clamp(sinp, -1.0, 1.0)),
+    )
+    yaw = torch.atan2(2.0 * (qw * qz + qx * qy), qw * qw + qx * qx - qy * qy - qz * qz)
+    two_pi = 2.0 * math.pi
+    return roll % two_pi, pitch % two_pi, yaw % two_pi
+
+
+def normalize_angle(x: torch.Tensor) -> torch.Tensor:
+    """Wrap to (-pi, pi]."""
+    return torch.atan2(torch.sin(x), torch.cos(x))
+
+
+def unscale(x, lower, upper):
+    return (2.0 * x - upper - lower) / (upper - lower)
