@@ -4,23 +4,40 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the fused-step kernel from engine/csrc/fused_step.cu with nvcc
-   (sm_90a) and prints the build seconds;
-3. holds the kernel against its plain PyTorch version on the card: Ant at
+2. builds both instantiations of the fused-step kernel from
+   engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
+   together: Ant's (25 plane contacts) and Cartpole's contact-free one
+   (-DFS_NC=0), and prints the build seconds;
+3. holds each against its plain PyTorch version on the card. Ant at
    N=RAGGED_ENVS=1003 for 3 steps (not a multiple of the kernel's envs per
    block, so the last block is part-full and its masked loads, stores and
-   idle warps run) and at the main path's N=4096 for
-   one step, random qfrc and xfrc, tolerances q 2e-4, qd 2e-3, forces 2e-2;
-4. drives the main path: the Ant VecTask at 4096 envs, a 16-step PPO
+   idle warps run) and at the main path's N=4096 for one step, random qfrc
+   and xfrc. Cartpole at N=1003 for 3 steps, at N=4096 and at its training
+   path's N=512 for one step, random qfrc, no xfrc; its three force outputs
+   must be exactly zero. Tolerances q 2e-4, qd 2e-3, forces 2e-2;
+4. drives the rollout path: the Ant VecTask at 4096 envs, a 16-step PPO
    rollout under an ActorCritic made from a seed, with the launch count
    reset just before and read just after (one launch per env step);
    checks the outputs are finite, then settles 60 zero-action steps and
    checks the summed foot contact force against the Ant's weight;
 5. measures env.step throughput, profiles a few env steps (device busy
-   share, top device ops), times the kernel (CUDA events, median ms per
-   launch) and its plain version at the main path's shapes, and prints one
-   `kernels` JSON line;
-6. ends with {"ok": true, "device": {...}}.
+   share, top device ops), times the Ant kernel (CUDA events, median ms per
+   launch) and its plain version at the main path's shapes;
+6. drives the training path on Ant at full width: `load_config(["task=Ant"])`
+   (4096 envs, AntPPO.yaml as it stands: horizon 16, batch 65,536,
+   minibatch 32,768, 4 mini-epochs, MLP [256, 128, 64]), one warm-up epoch
+   and three timed ones through `PPO.train_epoch`; per epoch the launch
+   count must equal the env steps, every metric be finite, the lr stay in
+   [min_lr, max_lr], kl >= 0; the parameters must have moved;
+7. trains Cartpole to a result through `train.main` in-process (the yaml's
+   512 envs, CartpolePPO.yaml, 100 epochs, into a temporary run directory):
+   the mean episode return must pass RETURN_BAR, every env step must be one
+   launch of the contact-free kernel, a fresh agent must restore the last
+   checkpoint bit for bit (parameters, lr, running stats, Adam moments) and
+   `test=True checkpoint=...` must play past the same bar;
+8. times the contact-free kernel and its plain version at N=512 and N=4096
+   and prints one `kernels` JSON line with both instantiations;
+9. ends with {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository around it; without either it
 exits non-zero before printing a result.
@@ -32,7 +49,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,6 +59,14 @@ import torch
 NUM_ENVS = 4096
 HORIZON = 16
 RAGGED_ENVS = 1003
+CARTPOLE_ENVS = 512  # numEnvs of cfg/task/Cartpole.yaml
+CARTPOLE_EPOCHS = 100
+# Mean episode return Cartpole must pass after 100 epochs, in training and
+# in play. An untrained policy returns 1-3 and an episode ends at 500 steps
+# of reward <= 1. The first run of this script on an NVIDIA H100 80GB HBM3
+# (700 W) trained to 359.88 and played to 498.62; the bar leaves a margin
+# of 3.6x.
+RETURN_BAR = 100.0
 TOL = {"q": 2e-4, "qd": 2e-3, "body_force": 2e-2, "body_torque": 2e-2, "dof_force": 2e-2}
 # data-sheet peaks of the H100 parts: (fp32 FLOP/s outside the tensor
 # cores, memory bytes/s); the SXM part unless the name says otherwise
@@ -57,6 +84,14 @@ def ant_env(n: int):
     return task_map["Ant"](cfg, device="cuda")
 
 
+def cartpole_env(n: int):
+    from isaacgymenvs_tpu_torch.tasks import task_map
+
+    cfg = {"env": {"numEnvs": n, "clipObservations": 5.0, "clipActions": 1.0},
+           "sim": {"dt": 0.0166, "substeps": 2}}
+    return task_map["Cartpole"](cfg, device="cuda")
+
+
 def rows(t):
     return t.T.contiguous()
 
@@ -66,9 +101,10 @@ def xfrc_rows(x):
     return x.permute(2, 1, 0).reshape(6 * nb, n).contiguous()
 
 
-def compare(env, steps: int, seed: int) -> dict:
+def compare(env, steps: int, seed: int, qfrc_max: float = 3.0, with_xfrc: bool = True) -> dict:
     """Kernel vs plain version from the same inputs, each step; the plain
-    output carries the trajectory. Returns the max abs error per output."""
+    output carries the trajectory. Returns the max abs error per output;
+    without contacts (nc == 0) the force outputs must be exactly zero."""
     from isaacgymenvs_tpu_torch.engine import fused
 
     m, p = env.model, env.sim_params
@@ -76,14 +112,15 @@ def compare(env, steps: int, seed: int) -> dict:
     state, _ = env.reset(seed)
     rng = np.random.RandomState(seed)
     cuda = lambda a: torch.tensor(a.astype(np.float32), device="cuda")
-    qfrc = cuda(rng.uniform(-3, 3, (n, m.nv)))
-    xfrc = cuda(rng.uniform(-1, 1, (n, m.nbody, 6)))
-    plain = fused._step_math_torch(fused._extract(m), p, torch.device("cuda"))
+    qfrc = cuda(rng.uniform(-qfrc_max, qfrc_max, (n, m.nv)))
+    xfrc = cuda(rng.uniform(-1, 1, (n, m.nbody, 6))) if with_xfrc else None
+    s = fused._extract(m)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"))
     q, qd = state.sim.q, state.sim.qd
     err = {k: 0.0 for k in TOL}
     for _ in range(steps):
         ko = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc)
-        po = plain(rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc))
+        po = plain(rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc) if with_xfrc else None)
         nb = m.nbody
         ref = {
             "q": po[0].T, "qd": po[1].T,
@@ -96,6 +133,10 @@ def compare(env, steps: int, seed: int) -> dict:
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"kernel output {k} is not finite")
             err[k] = max(err[k], float((got - ref[k]).abs().max()))
+            if s.nc == 0 and "force" in k and float(got.abs().max()) != 0.0:
+                raise AssertionError(f"contact-free kernel wrote a non-zero {k}")
+        if not float((ko.q - q).abs().max()) > 0.0:
+            raise AssertionError("the step left q where it was")
         q, qd = ref["q"].contiguous(), ref["qd"].contiguous()
     torch.cuda.synchronize()
     bad = {k: (e, TOL[k]) for k, e in err.items() if not e < TOL[k]}
@@ -117,31 +158,202 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profile_env_step(env, steps: int = 8) -> None:
-    """Device busy share and the largest device-time entries of env.step
-    under random actions, from torch.profiler (CUDA activity)."""
+def kernel_device_ms(fn, reps: int = 20) -> float:
+    """ms per launch of fn() with the launches queued back to back: large
+    matrix products hold the device while the host enqueues all `reps`
+    launches, so the two events bracket device time only (the kernel and
+    the gap to the next one), not the wrapper's host side."""
+    blocker = torch.randn(4096, 4096, device="cuda")
+    n_block = 4
+    while n_block <= 64:
+        torch.cuda.synchronize()
+        for _ in range(n_block):
+            blocker @ blocker
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_ahead = not a.query()  # the device had not reached the first launch yet
+        b.synchronize()
+        if queued_ahead:
+            return a.elapsed_time(b) / reps
+        n_block *= 2
+    raise AssertionError("the host could not queue the launches ahead of the device")
+
+
+def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50) -> dict:
+    """ms per launch of the kernel (CUDA events around the wrapper, and
+    queued back to back behind other device work), of its plain version,
+    and its bound,
+    at (rows, N) inputs on the card."""
+    from isaacgymenvs_tpu_torch.engine import _cuda, fused
+
+    s, p, n = fused._extract(env.model), env.sim_params, q.shape[-1]
+    _, step = fused._prepared(env.model, p, torch.device("cuda"))
+    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    for _ in range(3):
+        step(q, qd, qfrc, xfrc)
+    ms = event_ms(lambda: step(q, qd, qfrc, xfrc), reps)
+    device_ms = kernel_device_ms(lambda: step(q, qd, qfrc, xfrc))
+    plain(q, qd, qfrc, xfrc)
+    plain_ms = event_ms(lambda: plain(q, qd, qfrc, xfrc), 5)
+    flop_s, byte_s = peaks(name)
+    flops = _cuda.kernel_flops(s, p) * n
+    nbytes = _cuda.kernel_bytes(s, n, xfrc is not None)
+    t_ops, t_bytes = 1e3 * flops / flop_s, 1e3 * nbytes / byte_s
+    bound = max(t_ops, t_bytes)
+    print(f"fused step nc={s.nc} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
+          f"plain {plain_ms:.2f} ms, bound {bound:.6f} ms ({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB), "
+          f"{flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, {100 * bound / ms:.2f} % of the bound")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def train_ant() -> int:
+    """Three timed PPO epochs on Ant at the yaml's full width; returns the
+    kernel launches of the timed epochs."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.learn import PPO
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    cfg = load_config(["task=Ant"])
+    env = task_map["Ant"](cfg["task"], device="cuda")
+    agent = PPO(env, cfg["train"]["params"], seed=int(cfg["seed"]))
+    c = agent.cfg
+    if (env.num_envs, c.horizon_length, agent.batch_size, agent.minibatch_size, c.mini_epochs) != \
+            (NUM_ENVS, HORIZON, 65536, 32768, 4):
+        raise AssertionError("AntPPO.yaml is not at its full width")
+    split = {}
+    rollout = agent.rollout
+
+    def timed_rollout(ts, noise=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rollout(ts, noise)
+        torch.cuda.synchronize()
+        split["rollout"] = time.perf_counter() - t0
+        return out
+
+    agent.rollout = timed_rollout
+    ts = agent.init()
+    before = [p.detach().clone() for p in agent.network.parameters()]
+    ts, _ = agent.train_epoch(ts)  # warm-up
+    total = 0
+    for epoch in range(3):
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, metrics = agent.train_epoch(ts)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        total += launches
+        if launches != HORIZON * env.control_freq_inv:
+            raise AssertionError(f"{launches} kernel launches in an epoch of {HORIZON} env steps")
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+        if bad or not c.min_lr <= metrics["lr"] <= c.max_lr or not metrics["kl"] >= 0.0:
+            raise AssertionError(f"epoch metrics out of range: {metrics}")
+        print(f"Ant train epoch {epoch}: {sec:.4f} s = rollout {split['rollout']:.4f} s + update "
+              f"{sec - split['rollout']:.4f} s, {agent.batch_size / sec:.1f} env-steps/s, {launches} launches, "
+              f"a_loss {metrics['a_loss']:.5f} c_loss {metrics['c_loss']:.5f} kl {metrics['kl']:.5f} "
+              f"lr {metrics['lr']:.2e}")
+    profile_window(lambda: agent.train_epoch(ts), "Ant train epoch", 1, "epoch")
+    moved = max(float((p.detach() - b).abs().max()) for p, b in zip(agent.network.parameters(), before))
+    if not moved > 0.0 or not all(bool(torch.isfinite(p).all()) for p in agent.network.parameters()):
+        raise AssertionError("the update did not move the parameters, or left them not finite")
+    return total
+
+
+def train_cartpole() -> int:
+    """Cartpole through `train.main`: train, restore, play. Returns the
+    kernel launches of the training run."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.learn import PPO
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    with tempfile.TemporaryDirectory() as runs:
+        args = ["task=Cartpole", f"max_iterations={CARTPOLE_EPOCHS}", f"+train_dir={runs}"]
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, metrics = train.main(args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        steps = CARTPOLE_EPOCHS * HORIZON
+        if launches != steps or metrics["frames"] != steps * CARTPOLE_ENVS:
+            raise AssertionError(f"{launches} launches, {metrics['frames']} frames for {steps} env steps")
+        ret = metrics["mean_episode_return"]
+        print(f"Cartpole train: {CARTPOLE_EPOCHS} epochs x {CARTPOLE_ENVS} envs in {sec:.2f} s "
+              f"({metrics['frames'] / sec:.1f} env-steps/s with set-up), {launches} launches, "
+              f"mean episode return {ret:.2f} (bar {RETURN_BAR})")
+        if not ret > RETURN_BAR:
+            raise AssertionError(f"Cartpole trained to {ret:.2f}, not past {RETURN_BAR}")
+        ckpt = os.path.join(runs, "Cartpole", "nn", "last_Cartpole.pth")
+        if not os.path.exists(os.path.join(runs, "Cartpole", "config.yaml")):
+            raise AssertionError("train wrote no config.yaml")
+
+        # restore into a fresh agent: bit-equal to the trained state
+        cfg = load_config(args)
+        fresh = PPO(task_map["Cartpole"](cfg["task"], device="cuda"), cfg["train"]["params"], seed=1)
+        fts, epoch = fresh.restore(ckpt, fresh.init())
+        trained = ts.optimizer.param_groups[0]["params"]  # the trained network's parameters
+        same = epoch == CARTPOLE_EPOCHS and fts.lr == ts.lr
+        same &= all(torch.equal(a, b) for a, b in zip(fresh.network.parameters(), trained, strict=True))
+        for a, b in ((fts.obs_rms, ts.obs_rms), (fts.value_rms, ts.value_rms)):
+            same &= all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("mean", "var", "count"))
+        fst, tst = fts.optimizer.state_dict()["state"], ts.optimizer.state_dict()["state"]
+        same &= set(fst) == set(tst) and all(
+            torch.equal(fst[i][k].cpu(), tst[i][k].cpu()) for i in tst for k in ("step", "exp_avg", "exp_avg_sq"))
+        if not same:
+            raise AssertionError("restore did not give back the trained state bit for bit")
+
+        played = train.main(["task=Cartpole", "test=True", f"checkpoint={ckpt}"])
+        print(f"Cartpole restore: bit-equal (epoch {epoch}); play: mean return {played:.2f} (bar {RETURN_BAR})")
+        if not played > RETURN_BAR:
+            raise AssertionError(f"the restored policy played to {played:.2f}, not past {RETURN_BAR}")
+    return launches
+
+
+def profile_window(fn, label: str, units: int, unit: str) -> None:
+    """Device busy share and the largest device-time entries of fn(), which
+    covers `units` steps or epochs, from torch.profiler (CUDA activity)."""
     from torch.profiler import ProfilerActivity, profile
 
-    state, _ = env.reset(4)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    act = lambda: torch.rand(env.num_envs, env.num_acts, generator=gen, device="cuda") * 2 - 1
-    for _ in range(2):
-        state, _, _, _, _ = env.step(state, act())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _, _, _, _ = env.step(state, act())
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
     n_kernels = sum(e.count for e in ev if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"profile env.step x{steps}: wall {wall_ms / steps:.4f} ms/step (profiler on), "
-          f"device busy {busy_ms / steps:.4f} ms/step ({100 * busy_ms / wall_ms:.1f} %), "
-          f"{n_kernels / steps:.1f} device ops/step")
+    print(f"profile {label} x{units}: wall {wall_ms / units:.4f} ms/{unit} (profiler on), "
+          f"device busy {busy_ms / units:.4f} ms/{unit} ({100 * busy_ms / wall_ms:.1f} %), "
+          f"{n_kernels / units:.1f} device ops/{unit}")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  {e.self_device_time_total / 1e3 / steps:.4f} ms/step  x{e.count / steps:.1f}  {e.key[:90]}")
+        print(f"  {e.self_device_time_total / 1e3 / units:.4f} ms/{unit}  x{e.count / units:.1f}  {e.key[:90]}")
+
+
+def profile_env_step(env, steps: int = 8) -> None:
+    """env.step under random actions, profiled."""
+    state, _ = env.reset(4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    act = lambda: torch.rand(env.num_envs, env.num_acts, generator=gen, device="cuda") * 2 - 1
+    for _ in range(2):
+        state, _, _, _, _ = env.step(state, act())
+
+    def window():
+        st = state
+        for _ in range(steps):
+            st, _, _, _, _ = env.step(st, act())
+
+    profile_window(window, "env.step", steps, "step")
 
 
 def main() -> int:
@@ -162,13 +374,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build
+    # 2. build both instantiations, one nvcc each, started together
     env = ant_env(NUM_ENVS)
-    s = fused._extract(env.model)
-    sizes = (s.nbody, s.nq, s.nv, s.nc)
+    cart = cartpole_env(CARTPOLE_ENVS)
+    s, s0 = fused._extract(env.model), fused._extract(cart.model)
+    if s0.nc != 0 or s.nc == 0:
+        raise AssertionError("Cartpole should be contact-free and the Ant not")
+
+    def timed_build(spec):
+        t0 = time.perf_counter()
+        _cuda.build((spec.nbody, spec.nq, spec.nv, spec.nc), verbose=True)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _cuda.build(sizes, verbose=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s for sizes {sizes}")
+    with ThreadPoolExecutor(2) as pool:
+        secs = list(pool.map(timed_build, (s, s0)))
+    print(f"build: {time.perf_counter() - t0:.1f} s in all; Ant (nc={s.nc}) {secs[0]:.1f} s, "
+          f"Cartpole (nc=0) {secs[1]:.1f} s")
 
     # 3. kernel vs plain version
     if RAGGED_ENVS % _cuda.ENVS_PER_BLOCK == 0:
@@ -178,6 +400,11 @@ def main() -> int:
     err_main = compare(env, steps=1, seed=2)
     print(f"kernel vs plain, N={NUM_ENVS}, 1 step:", json.dumps(err_main))
     max_err = max(max(err_ragged.values()), max(err_main.values()))
+    max_err0 = 0.0
+    for n, steps in ((RAGGED_ENVS, 3), (NUM_ENVS, 1), (CARTPOLE_ENVS, 1)):
+        e = compare(cartpole_env(n), steps=steps, seed=1, qfrc_max=100.0, with_xfrc=False)
+        print(f"contact-free kernel vs plain, N={n}, {steps} step(s):", json.dumps(e))
+        max_err0 = max(max_err0, *e.values())
 
     # 4. the main path: a PPO rollout on the Ant VecTask
     train = {"network": {"mlp": {"units": [256, 128, 64], "activation": "elu"}},
@@ -223,38 +450,36 @@ def main() -> int:
     bench = measure(NUM_ENVS, HORIZON, reps=8, device="cuda")
     print(f"env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s")
     profile_env_step(env)
-    p = env.sim_params
-    _, step = fused._prepared(env.model, p, torch.device("cuda"))
-    plain = fused._step_math_torch(s, p, torch.device("cuda"))
     q, qd = rows(ts.env_state.sim.q), rows(ts.env_state.sim.qd)
     qfrc = rows(env.qfrc_from_actuators(torch.clamp(traj.action[-1], -1, 1)))
     xfrc = torch.zeros(6 * s.nbody, NUM_ENVS, device="cuda")
-    for _ in range(3):
-        step(q, qd, qfrc, xfrc)
-    ms = event_ms(lambda: step(q, qd, qfrc, xfrc), 50)
-    plain(q, qd, qfrc, xfrc)
-    plain_ms = event_ms(lambda: plain(q, qd, qfrc, xfrc), 5)
-    flop_s, byte_s = peaks(name)
-    flops = _cuda.kernel_flops(s, p) * NUM_ENVS
-    nbytes = _cuda.kernel_bytes(s, NUM_ENVS, True)
-    t_ops, t_bytes = 1e3 * flops / flop_s, 1e3 * nbytes / byte_s
-    print(f"fused_step: {ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
-          f"{100 * max(t_ops, t_bytes) / ms:.1f} % of the bound")
+    ant_t = kernel_times(env, q, qd, qfrc, xfrc, name)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_step",
-        "route": "cuda",
-        "source": "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu",
-        "replaces": "isaacgymenvs_tpu/engine/fused.py:1834",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }]}))
+    # 6. the training path on Ant, 7. on Cartpole
+    train_launches = train_ant()
+    cart_launches = train_cartpole()
+
+    # 8. the contact-free kernel at its training path's width and at 4096 envs
+    cart_t = {}
+    for n in (CARTPOLE_ENVS, NUM_ENVS):
+        cenv = cartpole_env(n)
+        state, _ = cenv.reset(6)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        act = torch.rand(n, 1, generator=gen, device="cuda") * 2 - 1
+        cart_t[n] = kernel_times(cenv, rows(state.sim.q), rows(state.sim.qd),
+                                 rows(cenv.compute_force(act, None, None, ())[0]), None, name)
+
+    source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
+    replaces = "isaacgymenvs_tpu/engine/fused.py:1834"
+    print(json.dumps({"kernels": [
+        {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": train_launches, "launches_rollout": launches, "max_abs_err": max_err,
+         **ant_t, "library_ms": None, "num_envs": NUM_ENVS},
+        {"name": "fused_step_nc0", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": cart_launches, "max_abs_err": max_err0,
+         **cart_t[CARTPOLE_ENVS], "library_ms": None, "num_envs": CARTPOLE_ENVS,
+         **{f"{k}_{NUM_ENVS}": v for k, v in cart_t[NUM_ENVS].items() if k != "bound_by"}},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,6 +1,7 @@
-"""Carry weights and models across from the JAX package as plain arrays.
+"""Carry weights, train states and models across from the JAX package as
+plain arrays.
 
-Both functions take numpy arrays only, so this package imports nothing of
+The functions take numpy arrays only, so this package imports nothing of
 the JAX one; the caller turns JAX arrays into numpy first.
 """
 from __future__ import annotations
@@ -28,15 +29,18 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
 def actor_critic_from_flax(params: Mapping) -> dict:
     """A flax `ActorCritic` params tree -> the port's ActorCritic state_dict.
 
-    Accepts the nested tree (with or without the top-level "params" key)
-    or its flattened form with "/"-joined keys. A flax Dense kernel is
-    (in, out), a torch Linear weight (out, in), so kernels are transposed.
+    Accepts the nested tree (with or without the top-level "policy" and
+    "params" keys) or its flattened form with "/"-joined keys. A flax Dense
+    kernel is (in, out), a torch Linear weight (out, in), so kernels are
+    transposed; that also carries the wider d2rl inputs and the separate
+    critic trunk (`critic_mlp.*`) across. With `learn_sigma=False` the flax
+    tree has no log_sigma, and neither has the port's state_dict.
     """
     flat = _flatten(params)
     sd = {}
     for key, arr in flat.items():
         parts = key.split("/")
-        if parts[0] == "params":
+        while parts[0] in ("policy", "params"):
             parts = parts[1:]
         if parts == ["log_sigma"]:
             sd["log_sigma"] = torch.tensor(arr, dtype=torch.float32)
@@ -50,6 +54,34 @@ def actor_critic_from_flax(params: Mapping) -> dict:
         else:
             raise KeyError(f"unexpected flax parameter {key}")
     return sd
+
+
+def train_state_from_jax(fields: Mapping, param_names) -> dict:
+    """The learnable part of a JAX `PPOTrainState` in the layout of the
+    port's checkpoints, for `PPO.load_state`.
+
+    `fields` holds numpy arrays: `params` (the flax tree), `obs_rms` and
+    `value_rms` (mean, var, count), `lr`, and optax's Adam state `mu`, `nu`
+    (trees shaped like `params`) and `count`. `param_names` is the port
+    network's parameter names in optimizer order
+    (`[n for n, _ in network.named_parameters()]`). Adam's moments become
+    `exp_avg` / `exp_avg_sq`, transposed as the weights are, and `count`
+    becomes every parameter's `step`.
+    """
+    mu = actor_critic_from_flax(fields["mu"])
+    nu = actor_critic_from_flax(fields["nu"])
+    step = torch.tensor(float(np.asarray(fields["count"])))
+    rms = lambda d: {k: torch.tensor(np.asarray(d[k], np.float32)) for k in ("mean", "var", "count")}
+    return {
+        "params": actor_critic_from_flax(fields["params"]),
+        "obs_rms": rms(fields["obs_rms"]),
+        "value_rms": rms(fields["value_rms"]),
+        "lr": float(np.asarray(fields["lr"])),
+        "opt_state": {"state": {
+            i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+            for i, n in enumerate(param_names)
+        }},
+    }
 
 
 def model_from_arrays(fields: Mapping) -> Model:

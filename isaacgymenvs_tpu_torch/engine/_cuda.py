@@ -3,7 +3,8 @@
 `csrc/fused_step.cu` is compiled with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, one library per model size tuple
 (nbody, nq, nv, nc), at first use, into `isaacgymenvs_tpu_torch/_build/`
-(listed in .gitignore). The library name carries a hash of the source and
+(listed in .gitignore). nc == 0 builds the contact-free instantiation
+(`-DFS_NC=0`): the same source with every contact stage compiled out. The library name carries a hash of the source and
 the flags, so an edited source is rebuilt. It is loaded with ctypes;
 pointers and the stream go in as `c_void_p`.
 
@@ -153,7 +154,9 @@ def kernel_flops(s, p: SimParams) -> int:
     (R(R+1)/2 dot products of length nv, each |entry| added to its row and,
     off the diagonal, to its column's row). The inverse is Gauss-Jordan in
     place, 2 nv^3. J is counted dense (its zeros depend on the tree, not on
-    the data). Per-body terms follow the joint type of each body.
+    the data). Per-body terms follow the joint type of each body. Without
+    contacts (nc == 0) the step ends after qd_free with the velocity clip
+    and the integration: no rows, solve, impulse or sensors.
     """
     nb, nv, nc = s.nbody, s.nv, s.nc
     r = 3 * nc
@@ -174,11 +177,12 @@ def kernel_flops(s, p: SimParams) -> int:
     rows = nc * (_QROT + 4 + 3 * nv * 5 + 3 + 10) + r * (2 * nv * nv + 4 * nv)
     lipschitz = (r * (r + 1) // 2) * (2 * nv + 2) + r * r + 4 * r
     apgd = nc * (3 + 13) + it * (4 * r * nv + 10 * r + 15 * nc)
-    impulse = r + 2 * r * nv + 2 * nv * nv + 3 * nv
+    # with contacts: J^T lambda, M^-1 of it, the add and the clip; without: the clip
+    impulse = r + 2 * r * nv + 2 * nv * nv + 3 * nv if nc else 2 * nv
     integrate = n_free * (6 + 3 + _QEXP + 2 * _QNORM + _QMUL) + n_hinge * 2
     per_slice = (fk + inertia_net + composite + crba + per_dof + inverse + qd_free + rows
                  + lipschitz + apgd + impulse + integrate)
-    sensors = nc * (3 + 3 + _CROSS) + 6 * nc + nv
+    sensors = nc * (3 + 3 + _CROSS) + 6 * nc + nv if nc else 0
     return int(p.substeps * p.solver_iterations * per_slice + sensors)
 
 
@@ -203,10 +207,6 @@ class FusedStepCall:
             raise ValueError(f"FusedStepCall needs a CUDA device, got {device}")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        if s.nc == 0:
-            raise NotImplementedError(
-                "the contact-free tier (nc == 0) has no CUDA kernel yet"
-            )
         self.sizes = (s.nbody, s.nq, s.nv, s.nc)
         self.lib = load(self.sizes)
         nb, nq, nv, nc, spec_base, _, _ = layout(self.lib)

@@ -3,8 +3,12 @@
 // Replaces the TPU kernel isaacgymenvs_tpu/engine/fused.py
 // `_build_call.<locals>.kernel` (launched by `pl.pallas_call`, fused.py:1883),
 // for the feature tiers K1 (articulated step) and K2 (plane contacts, APGD,
-// xfrc). One launch advances every env by `n_slices = substeps x
-// solver_iterations` slices; each slice is `_substep_fn.substep`
+// xfrc). Built with -DFS_NC=0 it is the contact-free instantiation of K1
+// (the `nct == 0` finish of `substep`, fused.py:846-855): qd_free, the
+// velocity clip, integration, and zero force outputs; every contact stage
+// is compiled out (`if constexpr`), and the per-env shared memory shrinks
+// to the articulated part. One launch advances every env by `n_slices =
+// substeps x solver_iterations` slices; each slice is `_substep_fn.substep`
 // (fused.py:686): FK, spatial inertia, CRBA, bias force with xfrc, implicit
 // passive forces, Gauss-Jordan inverse (no pivoting), plane rows with
 // Baumgarte and restitution, Jacobi-scaled Delassus, Lipschitz step, APGD
@@ -38,6 +42,12 @@
 // boundary the arrays keep the TPU's (rows, N) layout: a block loads and
 // stores its envs cooperatively, neighbouring threads on neighbouring envs,
 // and masks the ragged edge (N is not padded).
+//
+// The contact-free instantiation (Cartpole: nbody 3, nv 2, 2 slices) needs
+// about 4 KFLOP and 120 bytes of boundary traffic per env-step
+// (`kernel_flops`, `kernel_bytes`), so both of its bounds lie far below a
+// launch's fixed cost: at the sizes a task runs it (512 to 4096 envs) the
+// launch is latency-dominated.
 #include <cuda_runtime.h>
 
 #ifndef FS_NB
@@ -52,7 +62,8 @@ namespace {
 constexpr int NB = FS_NB, NQ = FS_NQ, NV = FS_NV, NC = FS_NC, EPB = FS_EPB;
 constexpr int R = 3 * NC;
 constexpr int CPL = (NC + 31) / 32;  // contacts per lane
-static_assert(NC > 0, "the contact-free tier (nc == 0) has no kernel yet; the CUDA path raises");
+constexpr int CPLA = CPL > 0 ? CPL : 1;  // size of the per-lane contact arrays (none of length 0)
+static_assert(NC >= 0, "negative contact count");
 static_assert(NV > 0 && NB > 0, "empty model");
 
 constexpr int FREE = 0, HINGE = 1, SLIDE = 2;
@@ -368,9 +379,9 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
   const int nlev = (int)sp[P_NLEV];
   const float* betas = sp + SPEC_BASE;
 
-  float warm[CPL][3];  // physical impulses, zero at each call
+  float warm[CPLA][3];  // physical impulses, zero at each call
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) warm[c][0] = warm[c][1] = warm[c][2] = 0.f;
+  for (int c = 0; c < CPLA; ++c) warm[c][0] = warm[c][1] = warm[c][2] = 0.f;
 
   for (int sl = 0; sl < n_slices; ++sl) {
     // ---- FK + zeta, level by level over the tree
@@ -467,148 +478,156 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
     }
     __syncwarp();
 
-    // ---- plane rows: one contact per lane
-    float xc[CPL][3], act[CPL], mu[CPL], s_c[CPL], bv[CPL][3];
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int i = lane + 32 * c;
-      act[c] = 0.f; mu[c] = 0.f; s_c[c] = 0.f;
-      xc[c][0] = xc[c][1] = xc[c][2] = 0.f;
-      bv[c][0] = bv[c][1] = bv[c][2] = 0.f;
-      if (i < NC) {
-        const int b = (int)sp[O_CPBODY + i];
-        float rot[3];
-        qrot(e + E_QT + 4 * b, sp + O_CPPOS + 3 * i, rot);
-        for (int k = 0; k < 3; ++k) xc[c][k] = e[E_X + 3 * b + k] + rot[k];
-        const float phi = sp[O_CPRAD + i] - xc[c][2];
-        act[c] = phi > -margin ? 1.f : 0.f;
-        mu[c] = sp[O_CPMU + i];
-        for (int v = 0; v < NV; ++v) {
-          const float pm = sp[O_PATH + i * NV + v];
-          const float* S = e + E_S + 6 * v;
-          for (int k = 0; k < 3; ++k) {
-            const int a = (k + 1) % 3, bb = (k + 2) % 3;
-            const float crossk = S[a] * xc[c][bb] - S[bb] * xc[c][a];
-            e[E_J + v * R + k * NC + i] = (S[3 + k] + crossk) * pm;
-          }
-        }
-        float vnt = phi > 0.f ? fminf(erp * phi / h, maxdep) : phi / h;
-        float dg[3];
-        for (int k = 0; k < 3; ++k) {
-          const int r = k * NC + i;
-          float bb = 0.f, dd = 0.f;
-          for (int v = 0; v < NV; ++v) {
-            float wv = 0.f;
-            for (int jj = 0; jj < NV; ++jj) wv += e[E_MINV + v * NV + jj] * e[E_J + jj * R + r];
-            e[E_W + v * R + r] = wv;
-            const float jv = e[E_J + v * R + r];
-            bb += jv * e[E_QDF + v];
-            dd += jv * wv;
-          }
-          bv[c][k] = bb;
-          dg[k] = dd;
-        }
-        // Newton restitution: bv[c][2] is the pre-solve normal velocity
-        const float rest = sp[O_REST + i];
-        const float vn_pre = bv[c][2];
-        if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
-        bv[c][2] = vn_pre - vnt;
-        const float dcm = (dg[0] + dg[1] + dg[2]) / 3.f + 1e-6f;
-        s_c[c] = rsqrtf(fmaxf(dcm, 1e-12f));
-        e[E_SC + i] = s_c[c];
-        for (int k = 0; k < 3; ++k) bv[c][k] *= s_c[c];
-      }
-    }
-    __syncwarp();
-    // ---- Lipschitz bound of the scaled system: max row sum of |A|
-    float lip = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int i = lane + 32 * c;
-      if (i < NC) {
-        float Jr[3][NV], acc[3] = {0.f, 0.f, 0.f};
-        for (int k = 0; k < 3; ++k)
-          for (int v = 0; v < NV; ++v) Jr[k][v] = e[E_J + v * R + k * NC + i];
-        for (int col = 0; col < R; ++col) {
-          float Wc[NV];
-          for (int v = 0; v < NV; ++v) Wc[v] = e[E_W + v * R + col];
-          const float sc = e[E_SC + col % NC];
-          for (int k = 0; k < 3; ++k) {
-            float a = 0.f;
-            for (int v = 0; v < NV; ++v) a += Jr[k][v] * Wc[v];
-            acc[k] += fabsf(a * s_c[c] * sc);
-          }
-        }
-        const float reg = 1e-6f * (s_c[c] * s_c[c]);
-        for (int k = 0; k < 3; ++k) lip = fmaxf(lip, acc[k] + reg);
-      }
-    }
-    lip = warp_max(lip);
-    const float step = 1.f / fmaxf(lip, 1e-8f);
-
-    // ---- APGD with friction-cone projection
-    float lam[CPL][3], yv[CPL][3];
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const float sw = (lane + 32 * c < NC) ? s_c[c] : 1.f;
-      project(warm[c][0] / sw, warm[c][1] / sw, warm[c][2] / sw, mu[c], act[c], lam[c]);
-      for (int k = 0; k < 3; ++k) yv[c][k] = lam[c][k];
-    }
-    for (int it = 0; it < iters; ++it) {
-      float u[NV];
-      for (int v = 0; v < NV; ++v) u[v] = 0.f;
+    // contact state that outlives the solve: points, impulses, J^T lambda
+    float xc[CPLA][3], lam[CPLA][3], qcon[NV];
+    if constexpr (NC > 0) {
+      // ---- plane rows: one contact per lane
+      float act[CPLA], mu[CPLA], s_c[CPLA], bv[CPLA][3];
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         const int i = lane + 32 * c;
-        if (i < NC)
-          for (int k = 0; k < 3; ++k) {
-            const float ys = s_c[c] * yv[c][k];
-            for (int v = 0; v < NV; ++v) u[v] += e[E_W + v * R + k * NC + i] * ys;
-          }
-      }
-      for (int v = 0; v < NV; ++v) u[v] = warp_sum(u[v]);
-      const float beta = betas[it];
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int i = lane + 32 * c;
-        float z[3] = {0.f, 0.f, 0.f};
+        act[c] = 0.f; mu[c] = 0.f; s_c[c] = 0.f;
+        xc[c][0] = xc[c][1] = xc[c][2] = 0.f;
+        bv[c][0] = bv[c][1] = bv[c][2] = 0.f;
         if (i < NC) {
-          const float reg = 1e-6f * (s_c[c] * s_c[c]);
+          const int b = (int)sp[O_CPBODY + i];
+          float rot[3];
+          qrot(e + E_QT + 4 * b, sp + O_CPPOS + 3 * i, rot);
+          for (int k = 0; k < 3; ++k) xc[c][k] = e[E_X + 3 * b + k] + rot[k];
+          const float phi = sp[O_CPRAD + i] - xc[c][2];
+          act[c] = phi > -margin ? 1.f : 0.f;
+          mu[c] = sp[O_CPMU + i];
+          for (int v = 0; v < NV; ++v) {
+            const float pm = sp[O_PATH + i * NV + v];
+            const float* S = e + E_S + 6 * v;
+            for (int k = 0; k < 3; ++k) {
+              const int a = (k + 1) % 3, bb = (k + 2) % 3;
+              const float crossk = S[a] * xc[c][bb] - S[bb] * xc[c][a];
+              e[E_J + v * R + k * NC + i] = (S[3 + k] + crossk) * pm;
+            }
+          }
+          float vnt = phi > 0.f ? fminf(erp * phi / h, maxdep) : phi / h;
+          float dg[3];
           for (int k = 0; k < 3; ++k) {
-            float a = 0.f;
-            for (int v = 0; v < NV; ++v) a += e[E_J + v * R + k * NC + i] * u[v];
-            const float g = s_c[c] * a + reg * yv[c][k] + bv[c][k];
-            z[k] = yv[c][k] - step * g;
+            const int r = k * NC + i;
+            float bb = 0.f, dd = 0.f;
+            for (int v = 0; v < NV; ++v) {
+              float wv = 0.f;
+              for (int jj = 0; jj < NV; ++jj) wv += e[E_MINV + v * NV + jj] * e[E_J + jj * R + r];
+              e[E_W + v * R + r] = wv;
+              const float jv = e[E_J + v * R + r];
+              bb += jv * e[E_QDF + v];
+              dd += jv * wv;
+            }
+            bv[c][k] = bb;
+            dg[k] = dd;
+          }
+          // Newton restitution: bv[c][2] is the pre-solve normal velocity
+          const float rest = sp[O_REST + i];
+          const float vn_pre = bv[c][2];
+          if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
+          bv[c][2] = vn_pre - vnt;
+          const float dcm = (dg[0] + dg[1] + dg[2]) / 3.f + 1e-6f;
+          s_c[c] = rsqrtf(fmaxf(dcm, 1e-12f));
+          e[E_SC + i] = s_c[c];
+          for (int k = 0; k < 3; ++k) bv[c][k] *= s_c[c];
+        }
+      }
+      __syncwarp();
+      // ---- Lipschitz bound of the scaled system: max row sum of |A|
+      float lip = 0.f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int i = lane + 32 * c;
+        if (i < NC) {
+          float Jr[3][NV], acc[3] = {0.f, 0.f, 0.f};
+          for (int k = 0; k < 3; ++k)
+            for (int v = 0; v < NV; ++v) Jr[k][v] = e[E_J + v * R + k * NC + i];
+          for (int kc = 0; kc < 3; ++kc)
+            for (int j = 0; j < NC; ++j) {
+              const int col = kc * NC + j;
+              float Wc[NV];
+              for (int v = 0; v < NV; ++v) Wc[v] = e[E_W + v * R + col];
+              const float sc = e[E_SC + j];
+              for (int k = 0; k < 3; ++k) {
+                float a = 0.f;
+                for (int v = 0; v < NV; ++v) a += Jr[k][v] * Wc[v];
+                acc[k] += fabsf(a * s_c[c] * sc);
+              }
+            }
+          const float reg = 1e-6f * (s_c[c] * s_c[c]);
+          for (int k = 0; k < 3; ++k) lip = fmaxf(lip, acc[k] + reg);
+        }
+      }
+      lip = warp_max(lip);
+      const float step = 1.f / fmaxf(lip, 1e-8f);
+
+      // ---- APGD with friction-cone projection
+      float yv[CPLA][3];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const float sw = (lane + 32 * c < NC) ? s_c[c] : 1.f;
+        project(warm[c][0] / sw, warm[c][1] / sw, warm[c][2] / sw, mu[c], act[c], lam[c]);
+        for (int k = 0; k < 3; ++k) yv[c][k] = lam[c][k];
+      }
+      for (int it = 0; it < iters; ++it) {
+        float u[NV];
+        for (int v = 0; v < NV; ++v) u[v] = 0.f;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int i = lane + 32 * c;
+          if (i < NC)
+            for (int k = 0; k < 3; ++k) {
+              const float ys = s_c[c] * yv[c][k];
+              for (int v = 0; v < NV; ++v) u[v] += e[E_W + v * R + k * NC + i] * ys;
+            }
+        }
+        for (int v = 0; v < NV; ++v) u[v] = warp_sum(u[v]);
+        const float beta = betas[it];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int i = lane + 32 * c;
+          float z[3] = {0.f, 0.f, 0.f};
+          if (i < NC) {
+            const float reg = 1e-6f * (s_c[c] * s_c[c]);
+            for (int k = 0; k < 3; ++k) {
+              float a = 0.f;
+              for (int v = 0; v < NV; ++v) a += e[E_J + v * R + k * NC + i] * u[v];
+              const float g = s_c[c] * a + reg * yv[c][k] + bv[c][k];
+              z[k] = yv[c][k] - step * g;
+            }
+          }
+          float ln[3];
+          project(z[0], z[1], z[2], mu[c], act[c], ln);
+          for (int k = 0; k < 3; ++k) {
+            yv[c][k] = ln[k] + beta * (ln[k] - lam[c][k]);
+            lam[c][k] = ln[k];
           }
         }
-        float ln[3];
-        project(z[0], z[1], z[2], mu[c], act[c], ln);
-        for (int k = 0; k < 3; ++k) {
-          yv[c][k] = ln[k] + beta * (ln[k] - lam[c][k]);
-          lam[c][k] = ln[k];
-        }
       }
-    }
-    // ---- impulses back to physical units, generalized contact force
-    float qcon[NV];
-    for (int v = 0; v < NV; ++v) qcon[v] = 0.f;
+      // ---- impulses back to physical units, generalized contact force
+      for (int v = 0; v < NV; ++v) qcon[v] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int i = lane + 32 * c;
-      for (int k = 0; k < 3; ++k) {
-        lam[c][k] *= s_c[c];
-        warm[c][k] = lam[c][k];
+      for (int c = 0; c < CPL; ++c) {
+        const int i = lane + 32 * c;
+        for (int k = 0; k < 3; ++k) {
+          lam[c][k] *= s_c[c];
+          warm[c][k] = lam[c][k];
+        }
+        if (i < NC)
+          for (int k = 0; k < 3; ++k)
+            for (int v = 0; v < NV; ++v) qcon[v] += e[E_J + v * R + k * NC + i] * lam[c][k];
       }
-      if (i < NC)
-        for (int k = 0; k < 3; ++k)
-          for (int v = 0; v < NV; ++v) qcon[v] += e[E_J + v * R + k * NC + i] * lam[c][k];
-    }
-    for (int v = 0; v < NV; ++v) qcon[v] = warp_sum(qcon[v]);
+      for (int v = 0; v < NV; ++v) qcon[v] = warp_sum(qcon[v]);
+    }  // NC > 0
     // ---- new velocity (clipped), then integrate per body
     for (int i = lane; i < NV; i += 32) {
-      float a = 0.f;
-      for (int j = 0; j < NV; ++j) a += e[E_MINV + i * NV + j] * qcon[j];
-      const float vnew = e[E_QDF + i] + a;
+      float vnew = e[E_QDF + i];
+      if constexpr (NC > 0) {
+        float a = 0.f;
+        for (int j = 0; j < NV; ++j) a += e[E_MINV + i * NV + j] * qcon[j];
+        vnew += a;
+      }
       e[E_QD + i] = fminf(fmaxf(vnew, -maxv), maxv);
     }
     __syncwarp();
@@ -632,37 +651,45 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
       }
     }
     // ---- sensors of the last slice
-    if (sl == n_slices - 1) {
+    if constexpr (NC > 0) {
+      if (sl == n_slices - 1) {
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int i = lane + 32 * c;
-        if (i < NC) {
-          const int b = (int)sp[O_CPBODY + i];
-          const float Fp[3] = {lam[c][0] * inv_h, lam[c][1] * inv_h, lam[c][2] * inv_h};
-          float rel[3], tq[3];
-          for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * b + k];
-          cross3(rel, Fp, tq);
-          for (int k = 0; k < 3; ++k) {
-            e[E_FS + k * NC + i] = Fp[k];
-            e[E_FS + (3 + k) * NC + i] = tq[k];
+        for (int c = 0; c < CPL; ++c) {
+          const int i = lane + 32 * c;
+          if (i < NC) {
+            const int b = (int)sp[O_CPBODY + i];
+            const float Fp[3] = {lam[c][0] * inv_h, lam[c][1] * inv_h, lam[c][2] * inv_h};
+            float rel[3], tq[3];
+            for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * b + k];
+            cross3(rel, Fp, tq);
+            for (int k = 0; k < 3; ++k) {
+              e[E_FS + k * NC + i] = Fp[k];
+              e[E_FS + (3 + k) * NC + i] = tq[k];
+            }
           }
         }
+        for (int v = lane; v < NV; v += 32) {
+          float qv = 0.f;
+          for (int j = 0; j < NV; ++j) qv = (j == v) ? qcon[j] : qv;
+          e[E_DF + v] = qv * inv_h;
+        }
+        __syncwarp();
+        for (int x = lane; x < 6 * NB; x += 32) {
+          const int k = x / NB, b = x % NB;
+          float a = 0.f;
+          for (int i = 0; i < NC; ++i)
+            if ((int)sp[O_CPBODY + i] == b) a += e[E_FS + k * NC + i];
+          if (k < 3) e[E_BF + k * NB + b] = a;
+          else e[E_BT + (k - 3) * NB + b] = a;
+        }
       }
-      for (int v = lane; v < NV; v += 32) {
-        float qv = 0.f;
-        for (int j = 0; j < NV; ++j) qv = (j == v) ? qcon[j] : qv;
-        e[E_DF + v] = qv * inv_h;
-      }
-      __syncwarp();
-      for (int x = lane; x < 6 * NB; x += 32) {
-        const int k = x / NB, b = x % NB;
-        float a = 0.f;
-        for (int i = 0; i < NC; ++i)
-          if ((int)sp[O_CPBODY + i] == b) a += e[E_FS + k * NC + i];
-        if (k < 3) e[E_BF + k * NB + b] = a;
-        else e[E_BT + (k - 3) * NB + b] = a;
-      }
-    }
+    }  // NC > 0
+    __syncwarp();
+  }
+  if constexpr (NC == 0) {
+    // no contacts: body force, body torque (contiguous) and dof force are zero
+    for (int x = lane; x < 6 * NB; x += 32) e[E_BF + x] = 0.f;
+    for (int v = lane; v < NV; v += 32) e[E_DF + v] = 0.f;
     __syncwarp();
   }
 }

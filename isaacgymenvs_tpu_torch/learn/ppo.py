@@ -1,54 +1,127 @@
-"""PPO rollout (port of the rollout half of isaacgymenvs_tpu/learn/ppo.py).
+"""PPO (port of isaacgymenvs_tpu/learn/ppo.py).
 
-`PPO.rollout` collects `horizon_length` transitions over all envs under
-the current policy: running-mean-std obs normalization, Gaussian action
-sampling from an explicit `torch.Generator`, shaped reward with timeout
-value bootstrap, episode bookkeeping, and the bootstrap value of the
-state after the last transition. GAE, the loss, the update, checkpoints
-and `play` are not ported yet.
+Semantics follow the rl_games agent the train yamls configure
+(`params.config`):
+  * rollout of `horizon_length` steps over all envs, then `mini_epochs` x
+    minibatched clipped-surrogate updates;
+  * running-mean-std obs and value normalization (normalize_input /
+    normalize_value);
+  * GAE(gamma, tau) with timeout value-bootstrap: shaped reward +=
+    gamma * V(s_t) * time_out;
+  * adaptive-KL learning-rate schedule: lr adjusted after every minibatch
+    from the analytic Gaussian KL against the rollout policy; or `linear`;
+  * clipped value loss, bounds loss on mu (soft bound 1.1), entropy bonus;
+  * reward shaping by scale_value.
+
+The rollout runs under `torch.no_grad()`, the update under autograd. All
+of it is float32; TF32 is switched off, as the JAX package runs its matrix
+products at the highest precision. `mixed_precision` in the yaml is
+ignored, as there. The policy's parameters live in `PPO.network` (an
+`nn.Module`): a `PPOTrainState` does not own them, it carries the
+optimizer bound to them, the learning rate, the normalizers and the env.
+
+Not ported yet, each raising NotImplementedError by name: the central
+value net (`env.num_states > 0`), recurrent networks (`network.rnn`),
+per-episode cumulative extras (`extras['episode_cumulative']`),
+`capture_extras`, `local_shuffle` (multi-device).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple
+import os
+import time
+from typing import Any, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..envcore.vec_task import EnvState, VecTask
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .networks import ActorCritic
 from .running_stats import RunningMeanStd, rms_denormalize, rms_normalize, rms_update
 
+_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+_LOG_2PI_E = math.log(2.0 * math.pi * math.e)
+
 
 class PPOConfig(NamedTuple):
-    """The rollout's hyperparameters; names follow the train-yaml keys.
-    Input and value normalization are always on, as in AntPPO.yaml."""
+    """Static hyperparameters; names follow the train-yaml keys."""
 
     gamma: float = 0.99
+    tau: float = 0.95
+    learning_rate: float = 3e-4
+    lr_schedule: str = "adaptive"
+    kl_threshold: float = 0.008
+    e_clip: float = 0.2
     horizon_length: int = 16
+    minibatch_size: int = 32768
+    mini_epochs: int = 4
+    critic_coef: float = 2.0
+    entropy_coef: float = 0.0
+    bounds_loss_coef: float = 0.0001
+    grad_norm: float = 1.0
+    truncate_grads: bool = True
+    clip_value: bool = True
+    normalize_input: bool = True
+    normalize_value: bool = True
+    normalize_advantage: bool = True
     value_bootstrap: bool = False
     reward_scale: float = 1.0  # reward_shaper.scale_value
+    max_epochs: int = 500
+    score_to_win: float = 1e9
+    save_frequency: int = 0
+    min_lr: float = 1e-6
+    max_lr: float = 1e-2
 
     @classmethod
     def from_train_cfg(cls, params: Dict[str, Any]) -> "PPOConfig":
+        """Build from the train dict (`params.config`)."""
         c = params.get("config", params)
+        if c.get("local_shuffle"):
+            raise NotImplementedError("config.local_shuffle (multi-device) is not ported yet")
+        shaper = c.get("reward_shaper", {})
         return cls(
             gamma=float(c.get("gamma", 0.99)),
+            tau=float(c.get("tau", 0.95)),
+            learning_rate=float(c.get("learning_rate", 3e-4)),
+            lr_schedule=str(c.get("lr_schedule", "adaptive")),
+            kl_threshold=float(c.get("kl_threshold", 0.008)),
+            e_clip=float(c.get("e_clip", 0.2)),
             horizon_length=int(c.get("horizon_length", 16)),
+            minibatch_size=int(c.get("minibatch_size", 32768)),
+            mini_epochs=int(c.get("mini_epochs", 4)),
+            critic_coef=float(c.get("critic_coef", 2.0)),
+            entropy_coef=float(c.get("entropy_coef", 0.0)),
+            bounds_loss_coef=float(c.get("bounds_loss_coef", 0.0) or 0.0),
+            grad_norm=float(c.get("grad_norm", 1.0)),
+            truncate_grads=bool(c.get("truncate_grads", True)),
+            clip_value=bool(c.get("clip_value", True)),
+            normalize_input=bool(c.get("normalize_input", True)),
+            normalize_value=bool(c.get("normalize_value", True)),
+            normalize_advantage=bool(c.get("normalize_advantage", True)),
             value_bootstrap=bool(c.get("value_bootstrap", False)),
-            reward_scale=float(c.get("reward_shaper", {}).get("scale_value", 1.0)),
+            reward_scale=float(shaper.get("scale_value", 1.0)),
+            max_epochs=int(c.get("max_epochs", 500)),
+            score_to_win=float(c.get("score_to_win", 1e9)),
+            save_frequency=int(c.get("save_frequency", 0)),
         )
 
 
 @dataclasses.dataclass
 class PPOTrainState:
+    """What evolves across epochs, except the policy's parameters: those
+    live in `PPO.network`, and `optimizer` is bound to them."""
+
     env_state: EnvState
     obs: torch.Tensor  # (N, num_obs) last observation
     obs_rms: RunningMeanStd
     value_rms: RunningMeanStd
     ep_return: torch.Tensor  # (N,) running episode return (raw rewards)
     ep_len: torch.Tensor  # (N,) int32
-    generator: torch.Generator  # action noise
+    generator: torch.Generator  # action noise and minibatch shuffles
+    optimizer: torch.optim.Adam
+    lr: float  # dynamic (adaptive KL schedule)
 
 
 class Transition(NamedTuple):
@@ -65,9 +138,7 @@ class Transition(NamedTuple):
     ep_ret_done: torch.Tensor  # (T,) sum of returns of episodes finished
     ep_len_done: torch.Tensor
     n_done: torch.Tensor
-
-
-_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+    extras: Dict[str, Any]  # {"_env_metrics": {name: (T,) step means}}
 
 
 def _gaussian_logp(x, mu, log_sigma):
@@ -76,8 +147,23 @@ def _gaussian_logp(x, mu, log_sigma):
     )
 
 
+def _policy_kl(mu0, log_s0, mu1, log_s1):
+    """Analytic KL(N0 || N1), summed over action dims, mean over the batch."""
+    s0sq = torch.exp(2.0 * log_s0)
+    s1sq = torch.exp(2.0 * log_s1)
+    kl = log_s1 - log_s0 + (s0sq + (mu1 - mu0) ** 2) / (2.0 * s1sq) - 0.5
+    return torch.mean(torch.sum(kl, dim=-1))
+
+
+def _rms_state(rms: RunningMeanStd) -> Dict[str, torch.Tensor]:
+    return {"mean": rms.mean, "var": rms.var, "count": rms.count}
+
+
 class PPO:
-    """PPO bound to a VecTask env (the rollout half)."""
+    """PPO trainer bound to a VecTask env."""
+
+    # env-extras keys captured into the rollout (AMP observations); none ported
+    capture_extras: tuple = ()
 
     def __init__(self, env: VecTask, train_params: Dict[str, Any], seed: int = 0):
         self.env = env
@@ -85,28 +171,38 @@ class PPO:
         net_cfg = train_params.get("network", {})
         mlp = net_cfg.get("mlp", {})
         space = net_cfg.get("space", {}).get("continuous", {})
-        c = train_params.get("config", train_params)
-        unsupported = {
-            "mlp.activation": mlp.get("activation", "elu") != "elu",
-            "mlp.d2rl": bool(mlp.get("d2rl", False)),
-            "network.separate": bool(net_cfg.get("separate", False)),
-            "space.learn_sigma": not space.get("learn_sigma", True),
-            "config.normalize_input": not c.get("normalize_input", True),
-            "config.normalize_value": not c.get("normalize_value", True),
-        }
-        if any(unsupported.values()):
+        if getattr(env, "num_states", 0):
             raise NotImplementedError(
-                f"train config options not ported: {[k for k, v in unsupported.items() if v]}"
+                "the central value net (env.num_states > 0) is not ported yet"
             )
+        if net_cfg.get("rnn"):
+            raise NotImplementedError("recurrent networks (network.rnn) are not ported yet")
+        if self.capture_extras:
+            raise NotImplementedError("capture_extras is not ported yet")
         self.seed = seed
+        # float32 matrix products in full precision, as the JAX package runs them
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         torch.manual_seed(seed)
         self.network = ActorCritic(
             env.num_obs,
             env.num_acts,
             units=tuple(mlp.get("units", (256, 128, 64))),
+            act=str(mlp.get("activation", "elu")),
+            d2rl=bool(mlp.get("d2rl", False)),
             sigma_init=float(space.get("sigma_init", {}).get("val", 0.0)),
+            separate=bool(net_cfg.get("separate", False)),
+            learn_sigma=bool(space.get("learn_sigma", True)),
         ).to(env.device)
+        self.batch_size = self.cfg.horizon_length * env.num_envs
+        self.minibatch_size = min(self.cfg.minibatch_size, self.batch_size)
+        if self.batch_size % self.minibatch_size:
+            raise ValueError(
+                f"batch {self.batch_size} not divisible by minibatch {self.minibatch_size}"
+            )
+        self.num_minibatches = self.batch_size // self.minibatch_size
 
+    # ------------------------------------------------------------------
     def init(self) -> PPOTrainState:
         env, dev = self.env, self.env.device
         env_state, obs = env.reset(self.seed)
@@ -118,7 +214,25 @@ class PPO:
             ep_return=torch.zeros(env.num_envs, device=dev),
             ep_len=torch.zeros(env.num_envs, dtype=torch.int32, device=dev),
             generator=torch.Generator(device=dev).manual_seed(self.seed + 1),
+            # Adam as optax.scale_by_adam(eps=1e-8) followed by -lr * u: the
+            # group's lr is set to the current lr before every step
+            optimizer=torch.optim.Adam(
+                self.network.parameters(), lr=self.cfg.learning_rate, eps=1e-8
+            ),
+            lr=self.cfg.learning_rate,
         )
+
+    # ------------------------------------------------------------------
+    def _norm_obs(self, rms, obs):
+        return rms_normalize(rms, obs) if self.cfg.normalize_input else obs
+
+    def _denorm_value(self, rms, v_norm):
+        return rms_denormalize(rms, v_norm) if self.cfg.normalize_value else v_norm
+
+    def env_step(self, env_state, obs, action):
+        """One (macro-)transition of the env as seen by the learner; a
+        hierarchical agent overrides it to expand a latent action."""
+        return self.env.step(env_state, action)
 
     @torch.no_grad()
     def rollout(self, ts: PPOTrainState, noise: torch.Tensor | None = None):
@@ -130,11 +244,12 @@ class PPO:
         cfg = self.cfg
         env_state, obs, obs_rms = ts.env_state, ts.obs, ts.obs_rms
         ep_ret, ep_len = ts.ep_return, ts.ep_len
-        steps = []
+        steps, env_metrics = [], []
         for t in range(cfg.horizon_length):
-            obs_rms = rms_update(obs_rms, obs)
-            mu, log_sigma, v_norm = self.network(rms_normalize(obs_rms, obs))
-            value = rms_denormalize(ts.value_rms, v_norm)
+            if cfg.normalize_input:
+                obs_rms = rms_update(obs_rms, obs)
+            mu, log_sigma, v_norm = self.network(self._norm_obs(obs_rms, obs))
+            value = self._denorm_value(ts.value_rms, v_norm)
             eps = (
                 noise[t]
                 if noise is not None
@@ -143,26 +258,424 @@ class PPO:
             action = mu + torch.exp(log_sigma) * eps
             logp = _gaussian_logp(action, mu, log_sigma)
 
-            env_state, next_obs, reward, done, extras = self.env.step(env_state, action)
+            env_state, next_obs, reward, done, extras = self.env_step(env_state, obs, action)
+            if "episode_cumulative" in extras:
+                raise NotImplementedError(
+                    "extras['episode_cumulative'] (ep_cum statistics) is not ported yet"
+                )
+            # every per-env numeric extra is logged as its mean over the envs
+            env_metrics.append({
+                k: torch.mean(v.to(torch.float32))
+                for k, v in extras.items()
+                if k not in ("states", "time_outs") and isinstance(v, torch.Tensor) and v.dim() == 1
+            })
             shaped = reward * cfg.reward_scale
             if cfg.value_bootstrap:
                 shaped = shaped + cfg.gamma * value * extras["time_outs"].to(value.dtype)
             ep_ret = ep_ret + reward
             ep_len = ep_len + 1
-            steps.append(Transition(
-                obs=obs, action=action, mu=mu, sigma=log_sigma, logp=logp, value=value,
-                reward=shaped, done=done,
-                ep_ret_done=torch.sum(torch.where(done, ep_ret, torch.zeros_like(ep_ret))),
-                ep_len_done=torch.sum(torch.where(done, ep_len, torch.zeros_like(ep_len))),
-                n_done=torch.sum(done),
+            steps.append((
+                obs, action, mu, log_sigma, logp, value, shaped, done,
+                torch.sum(torch.where(done, ep_ret, torch.zeros_like(ep_ret))),
+                torch.sum(torch.where(done, ep_len, torch.zeros_like(ep_len))),
+                torch.sum(done),
             ))
             ep_ret = torch.where(done, torch.zeros_like(ep_ret), ep_ret)
             ep_len = torch.where(done, torch.zeros_like(ep_len), ep_len)
             obs = next_obs
-        traj = Transition(*(torch.stack(x) for x in zip(*steps)))
+        traj = Transition(
+            *(torch.stack(x) for x in zip(*steps)),
+            extras={"_env_metrics": {
+                k: torch.stack([m[k] for m in env_metrics]) for k in env_metrics[0]
+            }},
+        )
         ts = dataclasses.replace(
             ts, env_state=env_state, obs=obs, obs_rms=obs_rms, ep_return=ep_ret, ep_len=ep_len
         )
         # bootstrap value for the state after the last transition
-        _, _, v_norm = self.network(rms_normalize(obs_rms, obs))
-        return ts, traj, rms_denormalize(ts.value_rms, v_norm)
+        _, _, v_norm = self.network(self._norm_obs(obs_rms, obs))
+        return ts, traj, self._denorm_value(ts.value_rms, v_norm)
+
+    def _gae(self, traj: Transition, last_value):
+        cfg = self.cfg
+        not_done = 1.0 - traj.done.to(torch.float32)
+        adv = torch.zeros_like(last_value)
+        value_next = last_value
+        advantages = [None] * traj.reward.shape[0]
+        for t in reversed(range(traj.reward.shape[0])):
+            delta = traj.reward[t] + cfg.gamma * value_next * not_done[t] - traj.value[t]
+            adv = delta + cfg.gamma * cfg.tau * not_done[t] * adv
+            advantages[t] = adv
+            value_next = traj.value[t]
+        advantages = torch.stack(advantages)
+        return advantages, advantages + traj.value
+
+    # ------------------------------------------------------------------
+    def extra_dataset(self, ts, traj, flat) -> tuple:
+        """Hook: extra per-sample tensors appended to the minibatch tuple."""
+        return ()
+
+    def extra_loss(self, batch_extra):
+        """Hook: additional loss terms from the extra dataset entries."""
+        return 0.0, {}
+
+    def shape_rollout_rewards(self, ts, traj):
+        """Hook for subclasses to modify rollout rewards (style rewards)
+        before GAE. Returns (ts, traj, aux_metrics)."""
+        return ts, traj, {}
+
+    def _loss(self, batch, value_rms=None):
+        """Loss of one minibatch under the current `self.network`.
+
+        batch = (nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm,
+        adv, ret_norm, *extra). Returns (total, (a_loss, c_loss, entropy,
+        b_loss, kl)).
+        """
+        cfg = self.cfg
+        nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm, adv, ret_norm = batch[:8]
+        mu, log_sigma, v_norm = self.network(nobs)
+        logp = _gaussian_logp(action, mu, log_sigma)
+        ratio = torch.exp(logp - old_logp)
+        surr1 = adv * ratio
+        surr2 = adv * torch.clamp(ratio, 1.0 - cfg.e_clip, 1.0 + cfg.e_clip)
+        a_loss = -torch.mean(torch.minimum(surr1, surr2))
+
+        if cfg.clip_value:
+            v_clipped = old_vnorm + torch.clamp(v_norm - old_vnorm, -cfg.e_clip, cfg.e_clip)
+            c_loss = torch.maximum((v_norm - ret_norm) ** 2, (v_clipped - ret_norm) ** 2)
+        else:
+            c_loss = (v_norm - ret_norm) ** 2
+        c_loss = torch.mean(c_loss)
+
+        entropy = torch.mean(torch.sum(log_sigma + 0.5 * _LOG_2PI_E, dim=-1))
+        # bounds loss, soft bound 1.1
+        b_loss = torch.mean(torch.sum(
+            torch.clamp(mu - 1.1, min=0.0) ** 2 + torch.clamp(mu + 1.1, max=0.0) ** 2, dim=-1
+        ))
+        total = (
+            a_loss
+            + 0.5 * cfg.critic_coef * c_loss
+            - cfg.entropy_coef * entropy
+            + cfg.bounds_loss_coef * b_loss
+        )
+        xloss, _ = self.extra_loss(batch[8:])
+        total = total + xloss
+        kl = _policy_kl(old_mu, old_log_sigma, mu, log_sigma)
+        return total, (a_loss, c_loss, entropy, b_loss, kl)
+
+    def _update_lr(self, lr: float, kl: float) -> float:
+        cfg = self.cfg
+        if cfg.lr_schedule != "adaptive":
+            return lr
+        if kl > 2.0 * cfg.kl_threshold:
+            lr = lr / 1.5
+        if kl < 0.5 * cfg.kl_threshold:
+            lr = lr * 1.5
+        return min(max(lr, cfg.min_lr), cfg.max_lr)
+
+    def _clip_grads(self) -> None:
+        """Scale the gradients by max_norm / max(global_norm, max_norm), as
+        optax.clip_by_global_norm does (no epsilon in the denominator)."""
+        grads = [p.grad for p in self.network.parameters() if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        scale = torch.clamp(self.cfg.grad_norm / norm, max=1.0)
+        for g in grads:
+            g.mul_(scale)
+
+    def _minibatch_step(self, ts: PPOTrainState, mb, value_rms):
+        """One optimizer step at `ts.lr`; returns the loss's aux tuple."""
+        opt = ts.optimizer
+        with torch.enable_grad():
+            total, aux = self._loss(mb, value_rms)
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        if self.cfg.truncate_grads:
+            self._clip_grads()
+        for group in opt.param_groups:
+            group["lr"] = ts.lr
+        opt.step()
+        return tuple(a.detach() for a in aux)
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, ts: PPOTrainState, noise=None, perms=None):
+        """One full PPO epoch: rollout + mini_epochs of minibatch updates.
+
+        `noise` (T, N, num_acts) replaces the action noise of the rollout
+        and `perms` (mini_epochs, B) int64 the minibatch shuffles, both
+        otherwise drawn from `ts.generator`. Returns (new_ts, metrics), the
+        metrics as Python floats.
+        """
+        cfg = self.cfg
+        ts, traj, last_value = self.rollout(ts, noise)
+        ts, traj, aux_metrics = self.shape_rollout_rewards(ts, traj)
+        with torch.no_grad():
+            advantages, returns = self._gae(traj, last_value)
+            # the value normalizer trains on the fresh values, then the returns;
+            # the loss sees the normalizer after this update
+            value_rms = ts.value_rms
+            if cfg.normalize_value:
+                value_rms = rms_update(value_rms, traj.value)
+                value_rms = rms_update(value_rms, returns)
+                old_vnorm = rms_normalize(value_rms, traj.value, clip=np.inf)
+                ret_norm = rms_normalize(value_rms, returns, clip=np.inf)
+            else:
+                old_vnorm, ret_norm = traj.value, returns
+            ts = dataclasses.replace(ts, value_rms=value_rms)
+
+            B = self.batch_size
+            flat = lambda x: x.reshape((B,) + x.shape[2:])
+            adv = flat(advantages)
+            if cfg.normalize_advantage:
+                adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
+            dataset = (
+                flat(self._norm_obs(ts.obs_rms, traj.obs)),
+                flat(traj.action),
+                flat(traj.mu),
+                flat(traj.sigma),
+                flat(traj.logp),
+                flat(old_vnorm),
+                adv,
+                flat(ret_norm),
+            ) + self.extra_dataset(ts, traj, flat)
+
+        auxs = []
+        for e in range(cfg.mini_epochs):
+            perm = (
+                perms[e]
+                if perms is not None
+                else torch.randperm(B, generator=ts.generator, device=adv.device)
+            )
+            # minibatches are contiguous slices of the permuted dataset
+            for idx in perm.reshape(self.num_minibatches, self.minibatch_size):
+                aux = self._minibatch_step(ts, tuple(x[idx] for x in dataset), value_rms)
+                ts.lr = self._update_lr(ts.lr, float(aux[4]))
+                auxs.append(aux)
+        a_loss, c_loss, entropy, b_loss, kl = (torch.stack(x) for x in zip(*auxs))
+        n_done = torch.sum(traj.n_done)
+        metrics = {
+            "a_loss": torch.mean(a_loss),
+            "c_loss": torch.mean(c_loss),
+            "entropy": torch.mean(entropy),
+            "b_loss": torch.mean(b_loss),
+            "kl": torch.mean(kl[-self.num_minibatches:]),  # the last mini-epoch
+            "lr": ts.lr,
+            "ep_return_sum": torch.sum(traj.ep_ret_done),
+            "ep_len_sum": torch.sum(traj.ep_len_done),
+            "n_episodes": n_done,
+            **{f"env/{k}": torch.mean(v) for k, v in traj.extras["_env_metrics"].items()},
+            "reward_mean_step": torch.mean(traj.reward),
+            **aux_metrics,
+        }
+        return ts, {k: float(v) for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    def save(self, path: str, ts: PPOTrainState, epoch: int = 0, frames: int = 0):
+        save_checkpoint(
+            path,
+            {
+                "params": self.network.state_dict(),
+                "obs_rms": _rms_state(ts.obs_rms),
+                "value_rms": _rms_state(ts.value_rms),
+                "lr": float(ts.lr),
+                "opt_state": ts.optimizer.state_dict(),
+                "epoch": int(epoch),
+                "frames": int(frames),
+                # env-side curriculum / task state round-trips with the checkpoint
+                "env_task_state": ts.env_state.task,
+            },
+        )
+
+    def load_state(self, ts: PPOTrainState, state: Dict[str, Any]) -> PPOTrainState:
+        """Put a checkpoint's contents (the dict `save` writes, or the one
+        `convert.train_state_from_jax` makes) into the network, the
+        optimizer and `ts`. Of the optimizer only the per-parameter moments
+        and step counts are taken: its hyperparameters are the config's."""
+        dev = self.env.device
+        self.network.load_state_dict(state["params"])
+        opt_sd = ts.optimizer.state_dict()
+        # the step counts stay on the host, where Adam reads them
+        opt_sd["state"] = {
+            i: {k: (v.cpu() if k == "step" else v) for k, v in st.items()}
+            for i, st in state["opt_state"]["state"].items()
+        }
+        ts.optimizer.load_state_dict(opt_sd)
+        rms = lambda d: RunningMeanStd(**{k: v.to(dev) for k, v in d.items()})
+        env_state = ts.env_state
+        task = state.get("env_task_state")
+        if task is not None and env_state.task is not None:
+            env_state = dataclasses.replace(env_state, task=task)
+        return dataclasses.replace(
+            ts,
+            obs_rms=rms(state["obs_rms"]),
+            value_rms=rms(state["value_rms"]),
+            lr=float(state["lr"]),
+            env_state=env_state,
+        )
+
+    def restore(self, path: str, ts: PPOTrainState) -> Tuple[PPOTrainState, int]:
+        """Re-hydrate the network, the optimizer, the normalizers, the
+        learning rate and the env-side task state from a checkpoint."""
+        ck = load_checkpoint(path, self.env.device)
+        return self.load_state(ts, ck), int(ck.get("epoch", 0))
+
+    def override_sigma(self, ts: PPOTrainState, sigma: float) -> PPOTrainState:
+        """Fixed-sigma override (the `sigma=` CLI flag): replace the
+        policy's learned log-std with log(sigma)."""
+        if isinstance(self.network.log_sigma, torch.nn.Parameter):
+            with torch.no_grad():
+                self.network.log_sigma.fill_(math.log(sigma))
+        return ts
+
+    @torch.no_grad()
+    def act(self, ts: PPOTrainState, obs, deterministic: bool = True, generator=None):
+        """Policy action for eval/play."""
+        mu, log_sigma, _ = self.network(self._norm_obs(ts.obs_rms, obs))
+        if deterministic:
+            return mu
+        return mu + torch.exp(log_sigma) * torch.randn(
+            mu.shape, generator=generator, device=mu.device
+        )
+
+    def _play_step(self, ts, obs, prev_done):
+        """One eval policy step; stateful players override this to thread
+        their carry through `ts` and reset it for done envs."""
+        return self.act(ts, obs), ts
+
+    def play(self, checkpoint: str | None = None, num_episodes: int = 32) -> float:
+        """Inference loop: deterministic policy, mean finished-episode return."""
+        ts = self.init()
+        if checkpoint:
+            ts, _ = self.restore(checkpoint, ts)
+        env_state, obs = self.env.reset(self.seed + 1)
+        n = self.env.num_envs
+        ep_ret = torch.zeros(n, device=self.env.device)
+        done = torch.zeros(n, dtype=torch.bool, device=self.env.device)
+        finished, total = 0, 0.0
+        stat_sums: Dict[str, float] = {}
+        succ_hist: Dict[int, int] = {}
+        while finished < num_episodes:
+            a, ts = self._play_step(ts, obs, done)
+            env_state, obs, rew, done, extras = self.env.step(env_state, a)
+            ep_ret = ep_ret + rew
+            n_done = int(done.sum())
+            if n_done:
+                total += float(ep_ret[done].sum())
+                finished += n_done
+                ep_ret = torch.where(done, torch.zeros_like(ep_ret), ep_ret)
+                # end-of-episode env stats
+                for k, v in extras.items():
+                    if k in ("states", "time_outs") or not isinstance(v, torch.Tensor):
+                        continue
+                    if v.dim() == 1 and v.shape[0] == n:
+                        stat_sums[k] = stat_sums.get(k, 0.0) + float(v[done].double().sum())
+                        if k == "successes":
+                            for s in v[done].tolist():
+                                succ_hist[int(s)] = succ_hist.get(int(s), 0) + 1
+        mean_ret = total / max(finished, 1)
+        print(f"played {finished} episodes | mean return {mean_ret:.2f}")
+        for k, v in sorted(stat_sums.items()):
+            print(f"  {k}: {v / max(finished, 1):.3f} (mean at episode end)")
+        if succ_hist:
+            tot = sum(succ_hist.values())
+            print(f"  max successes: {max(succ_hist)}")
+            print("  successes distribution: "
+                  + ", ".join(f"{k}: {100.0 * v / tot:.1f}%" for k, v in sorted(succ_hist.items())))
+        return mean_ret
+
+    # ------------------------------------------------------------------
+    def train(
+        self,
+        max_epochs: int | None = None,
+        log_every: int = 10,
+        on_epoch=None,
+        checkpoint: str | None = None,
+        train_dir: str | None = None,
+        name: str = "run",
+        save_best_after: int = 100,
+        logger=None,
+    ) -> Tuple[PPOTrainState, Dict[str, float]]:
+        """Host training loop. Returns the final state and the last metrics.
+
+        Checkpoints go to <train_dir>/<name>/nn: `last_<name>_ep_<n>.pth`
+        every `save_frequency` epochs, `<name>.pth` at each new best mean
+        return from `save_best_after` on, `last_<name>.pth` at the end.
+        """
+        cfg = self.cfg
+        ts = self.init()
+        start_epoch = 0
+        if checkpoint:
+            ts, start_epoch = self.restore(checkpoint, ts)
+        nn_dir = None
+        if train_dir:
+            nn_dir = os.path.join(train_dir, name, "nn")
+            os.makedirs(nn_dir, exist_ok=True)
+        best_ret = -float("inf")
+        epoch = start_epoch
+        max_epochs = max_epochs or cfg.max_epochs
+        steps_per_epoch = cfg.horizon_length * self.env.num_envs
+        game_returns: list = []  # mean over the last 100 epochs that finished episodes
+        last_metrics: Dict[str, float] = {}
+        t_start = time.time()
+        for epoch in range(start_epoch + 1, max_epochs + 1):
+            t0 = time.time()
+            if cfg.lr_schedule == "linear":
+                # the lr decays to ~0 over max_epochs
+                ts.lr = cfg.learning_rate * max(0.0, 1.0 - (epoch - 1) / max(1, max_epochs))
+            ts, metrics = self.train_epoch(ts)
+            dt_epoch = time.time() - t0
+            n_eps = metrics["n_episodes"]
+            if n_eps > 0:
+                game_returns.append(metrics["ep_return_sum"] / n_eps)
+                game_returns = game_returns[-100:]
+            mean_ret = float(np.mean(game_returns)) if game_returns else float("nan")
+            frames = epoch * steps_per_epoch
+            last_metrics = {
+                **metrics,
+                "mean_episode_return": mean_ret,
+                "epoch": epoch,
+                "frames": frames,
+                "fps": steps_per_epoch / dt_epoch,
+                "time": time.time() - t_start,
+            }
+            if logger is not None:
+                logger.log(
+                    {
+                        # rl_games scalar names
+                        "rewards/frame": mean_ret,
+                        "rewards/iter": mean_ret,
+                        "episode_lengths/frame": metrics["ep_len_sum"] / max(n_eps, 1),
+                        "losses/a_loss": metrics["a_loss"],
+                        "losses/c_loss": metrics["c_loss"],
+                        "losses/entropy": metrics["entropy"],
+                        "losses/bounds_loss": metrics["b_loss"],
+                        "info/last_lr": metrics["lr"],
+                        "info/kl": metrics["kl"],
+                        "performance/total_fps": last_metrics["fps"],
+                        "performance/step_fps": last_metrics["fps"],
+                        **{k: v for k, v in metrics.items() if k.startswith("env/")},
+                    },
+                    frames,
+                )
+            stop_requested = bool(on_epoch(ts, last_metrics)) if on_epoch is not None else False
+            if epoch % log_every == 0 or epoch == 1:
+                print(
+                    f"epoch {epoch:5d} | return {mean_ret:10.2f} | "
+                    f"fps {last_metrics['fps']:9.0f} | kl {metrics['kl']:.4f} "
+                    f"| lr {metrics['lr']:.2e}"
+                )
+            if nn_dir is not None:
+                if cfg.save_frequency and epoch % cfg.save_frequency == 0:
+                    self.save(os.path.join(nn_dir, f"last_{name}_ep_{epoch}.pth"), ts, epoch, frames)
+                if epoch >= save_best_after and game_returns and mean_ret > best_ret:
+                    best_ret = mean_ret
+                    self.save(os.path.join(nn_dir, f"{name}.pth"), ts, epoch, frames)
+            if stop_requested:
+                break
+            if mean_ret == mean_ret and mean_ret >= cfg.score_to_win:
+                print(f"score_to_win {cfg.score_to_win} reached at epoch {epoch}")
+                break
+        if nn_dir is not None:
+            self.save(
+                os.path.join(nn_dir, f"last_{name}.pth"), ts, epoch, epoch * steps_per_epoch
+            )
+        return ts, last_metrics

@@ -13,3 +13,4 @@ from .spec import (  # noqa: F401
     ModelBuilder,
 )
 from .mjcf import load_mjcf, parse_mjcf  # noqa: F401
+from .urdf import load_urdf, parse_urdf  # noqa: F401

@@ -1,0 +1,237 @@
+"""URDF parser -> Model (port of isaacgymenvs_tpu/model/urdf.py).
+
+Host-side numpy. Covers the subset the bundled `cartpole.urdf` uses and
+what comes with it at no cost:
+
+  * links with <inertial> (mass, origin, inertia) and box / sphere /
+    cylinder / capsule <collision> geometry; URDF <box size> is FULL
+    extents (MJCF uses half sizes);
+  * fixed / prismatic / revolute / continuous / floating joints with
+    origin, axis, <limit> and <dynamics damping= friction=>;
+  * `fix_base`: the root link is welded to the world;
+  * a link with a mass but no (or a zero) <inertia> tensor gets its
+    rotational inertia from its collision shapes scaled to that mass; a
+    link with no <inertial> gets mass and inertia from its collision
+    shapes at `default_density`; <density value=> inside <inertial> gives
+    the mass from the collision volume.
+
+Mesh geometry (OBJ, STL) and `collapse_fixed` are not ported yet and raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import xml.etree.ElementTree as ET
+
+import numpy as np
+
+from . import spec
+from .mjcf import _quat_to_mat_xyzw
+from .spec import (
+    FIXED,
+    FREE,
+    GEOM_BOX,
+    GEOM_CAPSULE,
+    GEOM_CYLINDER,
+    GEOM_SPHERE,
+    HINGE,
+    SLIDE,
+    Model,
+    ModelBuilder,
+)
+
+_JOINT_MAP = {
+    "revolute": HINGE,
+    "continuous": HINGE,
+    "prismatic": SLIDE,
+    "fixed": FIXED,
+    "floating": FREE,
+}
+
+_UNIT_INERTIA = {
+    GEOM_SPHERE: lambda size: spec.sphere_inertia(1.0, size[0]),
+    GEOM_CAPSULE: lambda size: spec.capsule_inertia(1.0, size[0], size[1]),
+    GEOM_BOX: lambda size: spec.box_inertia(1.0, size),
+    GEOM_CYLINDER: lambda size: spec.cylinder_inertia(1.0, size[0], size[1]),
+}
+
+
+def _fv(s, n=None):
+    v = np.array(s.split(), dtype=np.float64)
+    if n is not None and v.size != n:
+        raise ValueError(f"expected {n} floats, got {s!r}")
+    return v
+
+
+def _quat_from_rpy(rpy):
+    r, p, y = rpy
+    cy, sy = np.cos(y / 2), np.sin(y / 2)
+    cr, sr = np.cos(r / 2), np.sin(r / 2)
+    cp, sp = np.cos(p / 2), np.sin(p / 2)
+    return np.array([
+        cy * sr * cp - sy * cr * sp,
+        cy * cr * sp + sy * sr * cp,
+        sy * cr * cp - cy * sr * sp,
+        cy * cr * cp + sy * sr * sp,
+    ])
+
+
+def _origin(elem):
+    if elem is None:
+        return np.zeros(3), np.array([0.0, 0, 0, 1])
+    xyz = _fv(elem.get("xyz", "0 0 0"), 3)
+    rpy = _fv(elem.get("rpy", "0 0 0"), 3)
+    return xyz, _quat_from_rpy(rpy)
+
+
+def _parse_geometry(geo_elem):
+    """(gtype, size3) of a <geometry>, or None when it holds no shape."""
+    if geo_elem is None:
+        return None
+    if geo_elem.find("mesh") is not None:
+        raise NotImplementedError("URDF mesh geometry (OBJ/STL) is not ported yet")
+    box = geo_elem.find("box")
+    if box is not None:
+        return GEOM_BOX, _fv(box.get("size"), 3) / 2.0
+    sph = geo_elem.find("sphere")
+    if sph is not None:
+        return GEOM_SPHERE, np.array([float(sph.get("radius")), 0, 0])
+    for tag, gtype in (("cylinder", GEOM_CYLINDER), ("capsule", GEOM_CAPSULE)):
+        el = geo_elem.find(tag)
+        if el is not None:
+            return gtype, np.array([float(el.get("radius")), float(el.get("length")) / 2.0, 0])
+    return None
+
+
+def _shape_inertia(geoms, com, scale):
+    """Inertia about `com` of the collision shapes at `scale` x unit density."""
+    total = np.zeros((3, 3))
+    for gtype, gpos, gquat, gsize in geoms:
+        m_u, i_u = _UNIT_INERTIA[gtype](gsize)
+        R = _quat_to_mat_xyzw(gquat)
+        d = gpos - com
+        total += R @ (i_u * scale) @ R.T + m_u * scale * (np.dot(d, d) * np.eye(3) - np.outer(d, d))
+    return total
+
+
+def _link_props(link_elem, default_density):
+    """mass, com, inertia (3x3 about the com, link frame), collision geoms."""
+    geoms = []
+    for col in link_elem.findall("collision"):
+        g = _parse_geometry(col.find("geometry"))
+        if g is not None:
+            gpos, gquat = _origin(col.find("origin"))
+            geoms.append((g[0], gpos, gquat, g[1]))
+    unit_mass = sum(_UNIT_INERTIA[gt](gs)[0] for gt, _, _, gs in geoms)
+    inertial = link_elem.find("inertial")
+    mass, com, inertia = 0.0, np.zeros(3), np.zeros((3, 3))
+    if inertial is None:
+        if geoms:
+            mass = unit_mass * default_density
+            if mass > 0:
+                com = sum(_UNIT_INERTIA[gt](gs)[0] * default_density * gp for gt, gp, _, gs in geoms) / mass
+            inertia = _shape_inertia(geoms, com, default_density)
+        return mass, com, inertia, geoms
+    mass_el = inertial.find("mass")
+    mass = float(mass_el.get("value")) if mass_el is not None else 0.0
+    dens_el = inertial.find("density")
+    if mass == 0.0 and dens_el is not None:
+        mass = unit_mass * float(dens_el.get("value", 1000.0))
+    com, _ = _origin(inertial.find("origin"))
+    it = inertial.find("inertia")
+    if it is not None:
+        ixx, iyy, izz, ixy, ixz, iyz = (float(it.get(k, 0)) for k in ("ixx", "iyy", "izz", "ixy", "ixz", "iyz"))
+        inertia = np.array([[ixx, ixy, ixz], [ixy, iyy, iyz], [ixz, iyz, izz]])
+    if np.allclose(inertia, 0.0) and mass > 0 and geoms:
+        inertia = _shape_inertia(geoms, com, mass / max(unit_mass, 1e-12))
+    return mass, com, inertia, geoms
+
+
+def load_urdf(
+    path: str,
+    fix_base: bool = False,
+    default_friction: float = 1.0,
+    collapse_fixed: bool = False,
+    default_density: float = 1000.0,
+) -> Model:
+    return parse_urdf(
+        ET.parse(path).getroot(),
+        fix_base=fix_base,
+        default_friction=default_friction,
+        collapse_fixed=collapse_fixed,
+        default_density=default_density,
+    )
+
+
+def parse_urdf(
+    root: ET.Element,
+    fix_base: bool = False,
+    default_friction: float = 1.0,
+    collapse_fixed: bool = False,
+    default_density: float = 1000.0,
+) -> Model:
+    if collapse_fixed:
+        raise NotImplementedError("collapse_fixed is not ported yet")
+    links = {l.get("name"): l for l in root.findall("link")}
+    children_of, child_links = {}, set()
+    for j in root.findall("joint"):
+        children_of.setdefault(j.find("parent").get("link"), []).append(j)
+        child_links.add(j.find("child").get("link"))
+    roots = [n for n in links if n not in child_links]
+    if len(roots) != 1:
+        raise ValueError(f"URDF must have exactly one root link, got {roots}")
+
+    b = ModelBuilder()
+
+    def add_link(link_name, parent_idx, jnt_elem):
+        mass, com, inertia, geoms = _link_props(links[link_name], default_density)
+        rng, damping, fric, max_eff, max_vel = (None, None), 0.0, 0.0, np.inf, np.inf
+        if jnt_elem is None:  # root link
+            jtype = FIXED if fix_base else FREE
+            pos, quat = np.zeros(3), np.array([0.0, 0, 0, 1])
+            axis = np.array([0.0, 0, 1])
+            jname = f"{link_name}_root"
+        else:
+            jtype = _JOINT_MAP[jnt_elem.get("type")]
+            pos, quat = _origin(jnt_elem.find("origin"))
+            ax = jnt_elem.find("axis")
+            axis = _fv(ax.get("xyz"), 3) if ax is not None else np.array([1.0, 0, 0])
+            n = np.linalg.norm(axis)
+            axis = axis / n if n > 0 else np.array([1.0, 0, 0])
+            jname = jnt_elem.get("name")
+            lim = jnt_elem.find("limit")
+            if lim is not None:
+                if jnt_elem.get("type") != "continuous" and lim.get("lower") is not None:
+                    rng = (float(lim.get("lower")), float(lim.get("upper")))
+                if lim.get("effort") is not None:
+                    max_eff = float(lim.get("effort"))
+                if lim.get("velocity") is not None:
+                    max_vel = float(lim.get("velocity"))
+            dyn = jnt_elem.find("dynamics")
+            if dyn is not None:
+                damping = float(dyn.get("damping", 0))
+                fric = float(dyn.get("friction", 0))  # Coulomb joint friction
+        idx = b.add_body(
+            parent=parent_idx,
+            name=link_name,
+            pos=pos,
+            quat=quat,
+            jnt_type=jtype,
+            jnt_axis=axis,
+            jnt_pos=np.zeros(3),  # URDF joints anchor at the child frame origin
+            joint_name=jname,
+            mass=mass,
+            ipos=com,
+            inertia=inertia,
+            damping=damping,
+            friction_loss=fric,
+            limit=rng,
+            max_effort=max_eff,
+            max_velocity=max_vel,
+        )
+        for gtype, gpos, gquat, gsize in geoms:
+            b.add_geom(idx, gtype, gpos, gquat, gsize, default_friction)
+        for child_joint in children_of.get(link_name, []):
+            add_link(child_joint.find("child").get("link"), idx, child_joint)
+
+    add_link(roots[0], -1, None)
+    return b.finalize()

@@ -5,5 +5,6 @@ from typing import Dict, Type
 
 from ..envcore.vec_task import VecTask
 from .ant import Ant
+from .cartpole import Cartpole
 
-task_map: Dict[str, Type[VecTask]] = {"Ant": Ant}
+task_map: Dict[str, Type[VecTask]] = {"Ant": Ant, "Cartpole": Cartpole}

@@ -1,0 +1,121 @@
+"""Train / play entry point of the port.
+
+    python -m isaacgymenvs_tpu_torch.train task=Ant
+    python -m isaacgymenvs_tpu_torch.train task=Cartpole max_iterations=100
+    python -m isaacgymenvs_tpu_torch.train task=Cartpole test=True checkpoint=runs/Cartpole/nn/Cartpole.pth
+
+The flags are those of the JAX package's root train.py (the IsaacGymEnvs
+Hydra launcher's): any config leaf can be overridden with a dotted path,
+e.g. `train.params.config.minibatch_size=16384`, `num_envs=512`, `seed=7`,
+`experiment=MyAnt`, `sigma=0.5`. `+train_dir=<dir>` puts the run directory
+(`<dir>/<name>/{config.yaml,nn/,summaries/}`) elsewhere than `runs/`.
+
+It runs on the card. `pipeline=cpu` or a `sim_device` that starts with
+`cpu` asks for the CPU; without a GPU and without such a flag it fails
+with the device error, it does not train on the CPU. Options whose code is
+not ported yet (SAC, AMP, HRL, recurrent networks, PBT, multi-GPU, video
+capture, profiling) exit with a message that says so.
+"""
+from __future__ import annotations
+
+import os
+import random
+import sys
+
+import yaml
+
+from .learn import PPO
+from .tasks import task_map
+from .utils.config import load_config
+from .utils.loggers import build_logger
+
+
+def _unported(cfg, train_params):
+    """Names of the requested options that the port does not carry yet."""
+    algo = str(train_params.get("algo", {}).get("name", "a2c_continuous"))
+    asked = {
+        f"algo.name={algo}": algo in ("sac", "amp_continuous", "hrl_continuous"),
+        "network.rnn": bool(train_params.get("network", {}).get("rnn")),
+        "pbt.enabled": bool((cfg.get("pbt") or {}).get("enabled")),
+        "multi_gpu": bool(cfg.get("multi_gpu")),
+        "capture_video": bool(cfg.get("capture_video")),
+        "profile": bool(cfg.get("profile")),
+    }
+    return [k for k, v in asked.items() if v]
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = load_config(argv)
+
+    on_cpu = str(cfg.get("pipeline", "gpu")) == "cpu" or str(cfg.get("sim_device", "")).startswith("cpu")
+    device = "cpu" if on_cpu else "cuda"
+
+    seed = int(cfg.get("seed", 42) or 42)
+    if seed == -1:
+        seed = random.randint(0, 2**31 - 1)
+        print(f"seed=-1 -> sampled seed {seed}")
+
+    train_params = cfg.get("train", {}).get("params", {})
+    unported = _unported(cfg, train_params)
+    if unported:
+        raise SystemExit(f"not ported yet: {', '.join(unported)}")
+
+    task_name = cfg["task_name"]
+    if task_name not in task_map:
+        # variant configs alias an implemented class through their name: field
+        yaml_name = (cfg.get("task") or {}).get("name")
+        if yaml_name in task_map:
+            task_name = yaml_name
+    if task_name not in task_map:
+        raise SystemExit(f"unknown task {task_name!r}; available: {sorted(task_map)}")
+    env = task_map[task_name](cfg["task"], device=device)
+    print(
+        f"task={task_name} num_envs={env.num_envs} num_obs={env.num_obs} "
+        f"num_acts={env.num_acts} device={env.device}"
+    )
+
+    agent = PPO(env, train_params, seed=seed)
+    run_name = train_params.get("config", {}).get("name") or task_name
+    checkpoint = str(cfg.get("checkpoint") or "") or None
+
+    sigma = cfg.get("sigma")
+    if sigma not in (None, ""):
+        # fixed exploration sigma, applied to fresh inits and after a restore
+        orig_init, orig_restore = agent.init, agent.restore
+
+        def init_with_sigma():
+            return agent.override_sigma(orig_init(), float(sigma))
+
+        def restore_with_sigma(path, ts):
+            ts2, epoch = orig_restore(path, ts)
+            return agent.override_sigma(ts2, float(sigma)), epoch
+
+        agent.init, agent.restore = init_with_sigma, restore_with_sigma
+
+    if cfg.get("test"):
+        return agent.play(checkpoint=checkpoint)
+
+    train_dir = str(cfg.get("train_dir") or "runs")
+    run_dir = os.path.join(train_dir, run_name)
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f, default_flow_style=False, sort_keys=False)
+
+    max_iters = cfg.get("max_iterations")
+    logger = build_logger(cfg, run_name, train_dir)
+    try:
+        return agent.train(
+            max_epochs=int(max_iters) if max_iters else None,
+            checkpoint=checkpoint,
+            train_dir=train_dir,
+            name=run_name,
+            save_best_after=int(train_params.get("config", {}).get("save_best_after", 100)),
+            logger=logger,
+        )
+    finally:
+        logger.close()
+
+
+if __name__ == "__main__":
+    main()

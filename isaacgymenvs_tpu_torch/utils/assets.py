@@ -1,10 +1,10 @@
 """Asset root resolution for the port.
 
-Robot descriptions (MJCF) are data. Resolution order:
+Robot descriptions (MJCF, URDF) are data. Resolution order:
   1. $ISAACGYMENVS_TPU_ASSETS, when it names a directory;
   2. <repo>/assets, when present (the IsaacGymEnvs asset tree);
   3. this package's own assets/ directory, which holds the hand-written
-     Ant (assets/mjcf/nv_ant.xml).
+     Ant (assets/mjcf/nv_ant.xml) and Cartpole (assets/urdf/cartpole.urdf).
 """
 from __future__ import annotations
 

@@ -1,0 +1,48 @@
+"""The port's config loader against the JAX package's: the same composed
+dict for the tasks the port carries, apart from the device flags."""
+import os
+
+import pytest
+
+from isaacgymenvs_tpu.utils.config import load_config as jax_load_config
+from isaacgymenvs_tpu_torch.utils import config as tconfig
+
+DEVICE_FLAGS = ("sim_device", "rl_device")
+OVERRIDES = ["num_envs=64", "train.params.config.minibatch_size=1024", "max_iterations=7", "experiment=X"]
+
+
+@pytest.mark.parametrize("overrides", [[], OVERRIDES], ids=["defaults", "overrides"])
+@pytest.mark.parametrize("task", ["Ant", "Cartpole"])
+def test_load_config_matches_jax(task, overrides):
+    args = [f"task={task}", *overrides]
+    jcfg, tcfg = jax_load_config(args), tconfig.load_config(args)
+    assert tcfg["sim_device"] == "cuda:0" and tcfg["rl_device"] == "cuda:0"
+    strip = lambda c: {k: v for k, v in c.items() if k not in DEVICE_FLAGS}
+    assert strip(tcfg) == strip(jcfg)
+    if overrides:
+        assert tcfg["task"]["env"]["numEnvs"] == 64
+        conf = tcfg["train"]["params"]["config"]
+        assert (conf["minibatch_size"], conf["max_epochs"], conf["name"]) == (1024, 7, "X")
+
+
+def test_cfg_dir_is_the_ports_own():
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(tconfig.__file__)))
+    assert tconfig.cfg_dir() == os.path.join(pkg, "cfg")
+    assert os.path.exists(os.path.join(tconfig.cfg_dir(), "task", "Cartpole.yaml"))
+
+
+def test_unknown_task_raises():
+    with pytest.raises(FileNotFoundError, match="Humanoid"):
+        tconfig.load_config(["task=Humanoid"])
+
+
+def test_resolvers_and_overrides():
+    cfg = {"a": {"b": 3, "c": "${.b}", "d": "${..top}"}, "top": "x",
+           "e": "${resolve_default:7,${a.missing}}", "f": "${if:${eq:${top},x},then,else}",
+           "g": "${contains:x,${top}yz}"}
+    cfg["a"]["missing"] = ""
+    out = tconfig.resolve(tconfig.apply_overrides(cfg, ["a.b=5", "+new.key=1.5"]))
+    assert out["a"] == {"b": 5, "c": 5, "d": "x", "missing": ""}
+    assert (out["e"], out["f"], out["g"], out["new"]["key"]) == (7, "then", True, 1.5)
+    with pytest.raises(ValueError):
+        tconfig.apply_overrides({}, ["novalue"])

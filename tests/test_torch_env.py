@@ -1,4 +1,5 @@
-"""The port's Ant VecTask against the JAX env step, from the same state.
+"""The port's Ant and Cartpole VecTasks against the JAX env step, from the
+same state.
 
 The JAX step runs op by op (not under jit) with its fused physics math:
 under jit XLA fuses the reward and rounds the ~6e4-sized potentials
@@ -105,3 +106,65 @@ def test_partial_reset(envs):
     assert torch.all(dof_vel.abs() <= 0.1)
     assert torch.all(qd[:, :6] == 0)
     assert torch.all(obs1[reset, 28:52] == 0)  # sensors of reset envs are zero
+
+
+# ---- Cartpole ---------------------------------------------------------------
+
+CP_CFG = {"env": {"numEnvs": N, "clipObservations": 5.0, "clipActions": 1.0},
+          "sim": {"dt": 0.0166, "substeps": 2}}
+
+
+@pytest.fixture(scope="module")
+def cartpoles():
+    from isaacgymenvs_tpu.tasks import task_map as jtasks
+    from isaacgymenvs_tpu_torch.tasks import task_map as ttasks
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ISAACGYMENVS_TPU_ASSETS", package_asset_root())
+        jenv = jtasks["Cartpole"]({"env": dict(CP_CFG["env"]), "sim": {**CP_CFG["sim"], "use_fused": True}})
+        tenv = ttasks["Cartpole"]({k: dict(v) for k, v in CP_CFG.items()}, device="cpu")
+    jstate, _ = jenv.reset(jax.random.PRNGKey(1))
+    return jenv, tenv, jstate
+
+
+def test_cartpole_step_matches_jax(cartpoles):
+    """Obs, reward, done and time-outs over four steps, atol 1e-4 (float32
+    physics of a 2-dof chain; the port and the JAX step share the math)."""
+    jenv, tenv, jstate = cartpoles
+    assert tenv.num_obs == 4 and tenv.num_acts == 1 and tenv.max_episode_length == 500
+    assert tenv.clip_obs == 5.0 and tenv.model.body_pos[0, 2] == 2.0
+    # env 3 starts with its pole beyond pi/2: it dies on the first step
+    q = np.asarray(jstate.sim.q).copy()
+    q[3, 1] = 1.7
+    jstate = jstate.replace(sim=jstate.sim.replace(q=jnp.asarray(q)))
+    tstate = port_state_from(tenv, jstate)
+    rng = np.random.RandomState(11)
+    for k in range(4):
+        a = rng.uniform(-1.2, 1.2, (N, 1)).astype(np.float32)
+        jstate, jobs, jrew, jdone, jex = jenv.step(jstate, jnp.asarray(a))
+        tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
+        if k == 0:
+            assert bool(tdone[3]) and float(trew[3]) == -2.0 and not bool(tex["time_outs"][3])
+            # from here the reset draws differ (each package has its own generator)
+            keep = [0, 1, 2]
+        np.testing.assert_allclose(tobs.numpy()[keep], np.asarray(jobs)[keep], atol=1e-4)
+        np.testing.assert_allclose(trew.numpy()[keep], np.asarray(jrew)[keep], atol=1e-4)
+        np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
+        np.testing.assert_array_equal(tex["time_outs"].numpy(), np.asarray(jex["time_outs"]))
+
+
+def test_cartpole_time_outs_and_reset(cartpoles):
+    jenv, tenv, jstate = cartpoles
+    jstate = jstate.replace(progress=jnp.asarray(np.array([498, 498, 3, 3], np.int32)))
+    tstate = port_state_from(tenv, jstate)
+    a = np.zeros((N, 1), np.float32)
+    jstate, _, _, jdone, jex = jenv.step(jstate, jnp.asarray(a))
+    tstate, _, _, tdone, tex = tenv.step(tstate, torch.tensor(a))
+    np.testing.assert_array_equal(tdone.numpy(), [True, True, False, False])
+    np.testing.assert_array_equal(tex["time_outs"].numpy(), np.asarray(jex["time_outs"]))
+    np.testing.assert_array_equal(tex["time_outs"].numpy(), [True, True, False, False])
+    # the next step resets envs 0 and 1 to a fresh sample_init state
+    tstate, obs, _, _, _ = tenv.step(tstate, torch.tensor(a))
+    np.testing.assert_array_equal(tstate.progress.numpy(), [0, 0, 5, 5])
+    assert torch.all(tstate.sim.q[:2].abs() <= 0.1) and torch.all(tstate.sim.qd[:2].abs() <= 0.25)
+    assert tstate.task == ()

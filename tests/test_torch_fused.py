@@ -75,6 +75,61 @@ def test_twin_matches_jax_ant(ant, with_xfrc):
     _compare(jenv.model, jenv.sim_params, tenv.model, tenv.sim_params, q, qd, qfrc, xfrc, 3)
 
 
+@pytest.fixture(scope="module")
+def cartpole():
+    """JAX Cartpole env and the port's, both reading the bundled URDF."""
+    from isaacgymenvs_tpu.tasks import task_map as jtasks
+    from isaacgymenvs_tpu_torch.tasks import task_map as ttasks
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ISAACGYMENVS_TPU_ASSETS", package_asset_root())
+        jenv = jtasks["Cartpole"]({k: dict(v) for k, v in CFG.items()})
+        tenv = ttasks["Cartpole"]({k: dict(v) for k, v in CFG.items()}, device="cpu")
+    return jenv, tenv
+
+
+@pytest.mark.parametrize("jax_rows", ["nc0", "nc24"])
+def test_twin_matches_jax_cartpole(cartpole, jax_rows):
+    """The contact-free step (nc == 0) against the JAX fused math: against
+    its own nc == 0 branch (the model with plane_contacts off), and against
+    the JAX Cartpole as it is, whose 24 candidate rows hang a metre above
+    the ground and never act."""
+    jenv, tenv = cartpole
+    jm = jenv.model.replace(plane_contacts=False) if jax_rows == "nc0" else jenv.model
+    assert tfused._extract(tenv.model).nc == 0 and jenv.model.ncp == 24
+    rng = np.random.RandomState(3)
+    q = rng.uniform(-1, 1, (4, 2)).astype(np.float32)
+    qd = rng.uniform(-2, 2, (4, 2)).astype(np.float32)
+    qfrc = rng.uniform(-100, 100, (4, 2)).astype(np.float32)
+    q2, _ = _compare(jm, jenv.sim_params, tenv.model, tenv.sim_params, q, qd, qfrc, None, 3)
+    assert float(np.abs(q2 - q).max()) > 0.05  # the step moved the state
+    out = tfused.physics_step_fused(tenv.model, tenv.sim_params, torch.tensor(q), torch.tensor(qd),
+                                    torch.tensor(qfrc))
+    for k in ("body_force", "body_torque", "dof_force"):
+        assert float(getattr(out, k).abs().max()) == 0.0
+
+
+def test_contact_free_counts_and_layout(ant, cartpole):
+    """kernel_flops without contacts is positive and below the count with
+    one; the spec buffer's contact regions have zero width."""
+    _, tenv = cartpole
+    m, p = tenv.model, tenv.sim_params
+    s = tfused._extract(m)
+    with_contacts = tfused._extract(m.replace(plane_contacts=True))
+    assert (s.nbody, s.nq, s.nv, s.nc) == (3, 2, 2, 0) and with_contacts.nc == 24
+    assert 0 < _cuda.kernel_flops(s, p) < _cuda.kernel_flops(with_contacts, p)
+    one = with_contacts._replace(nc=1)
+    assert _cuda.kernel_flops(s, p) < _cuda.kernel_flops(one, p)
+    assert _cuda.kernel_bytes(s, 512, False) == 4 * 512 * (2 + 2 * 2 + 2 + 2 + 6 * 3 + 2)
+    spec = _cuda.pack_spec(s, p, tfused.apgd_betas(p.solver_apgd_iterations))
+    nb, nv = s.nbody, s.nv
+    base = 16 + 5 * nb + 3 * nb + 4 * nb + 3 * nb + 9 * nb + nb + 6 * nb + 10 * nv + nv * nv + nb * nb
+    assert spec.shape == (base + p.solver_apgd_iterations,) and spec.dtype == np.float32
+    # Ant's count is what it was before the contact-free gate
+    _, aenv, _, _ = ant
+    assert _cuda.kernel_flops(tfused._extract(aenv.model), aenv.sim_params) == 471095
+
+
 def test_port_sim_params_match_jax(ant):
     jenv, tenv, _, _ = ant
     jp, tp = jenv.sim_params, tenv.sim_params

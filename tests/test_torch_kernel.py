@@ -78,6 +78,34 @@ def test_kernel_matches_plain_version():
 
 
 @pytest.mark.cuda
+def test_contact_free_kernel_matches_plain_version():
+    """The nc == 0 instantiation (Cartpole) against `_step_math_torch`:
+    q within 2e-4 and qd within 2e-3, the three force outputs exactly 0."""
+    _needs_card()
+    n = 37
+    cfg = {"env": {"numEnvs": n, "clipActions": 1.0}, "sim": {"dt": 1 / 60, "substeps": 2}}
+    env = task_map["Cartpole"](cfg, device="cuda")
+    m, p = env.model, env.sim_params
+    assert fused._extract(m).nc == 0
+    state, _ = env.reset(1)
+    rng = np.random.RandomState(2)
+    qfrc = torch.tensor(rng.uniform(-100, 100, (n, m.nv)).astype(np.float32), device="cuda")
+    plain = fused._step_math_torch(fused._extract(m), p, torch.device("cuda"))
+    q, qd = state.sim.q, state.sim.qd
+    for _ in range(3):
+        before = _cuda.FusedStepCall.launches
+        ko = fused.physics_step_fused(m, p, q, qd, qfrc)
+        assert _cuda.FusedStepCall.launches == before + 1
+        po = plain(q.T.contiguous(), qd.T.contiguous(), qfrc.T.contiguous(), None)
+        torch.cuda.synchronize()
+        assert float((ko.q - po[0].T).abs().max()) < TOL["q"]
+        assert float((ko.qd - po[1].T).abs().max()) < TOL["qd"]
+        for k in ("body_force", "body_torque", "dof_force"):
+            assert float(getattr(ko, k).abs().max()) == 0.0
+        q, qd = po[0].T.contiguous(), po[1].T.contiguous()
+
+
+@pytest.mark.cuda
 def test_unsupported_model_raises_on_card():
     _needs_card()
     env = _ant(4, "cuda")

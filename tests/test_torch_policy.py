@@ -133,16 +133,30 @@ def test_rollout_matches_jax_math(flax_policy):
     assert int(ts.ep_len[0]) == horizon
 
 
-@pytest.mark.parametrize("train", [
-    {"network": {"mlp": {"activation": "relu"}}},
-    {"network": {"mlp": {"d2rl": True}}},
-    {"network": {"separate": True}},
-    {"network": {"space": {"continuous": {"learn_sigma": False}}}},
-    {"config": {"normalize_input": False}},
-    {"config": {"normalize_value": False}},
-])
-def test_ppo_rejects_unported_options(train):
-    """Options of the train yaml that the port does not carry raise
-    instead of being ignored."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PPO(None, train)
+@pytest.mark.parametrize("kwargs", [
+    {"act": "relu"}, {"act": "tanh"}, {"act": "selu"}, {"act": "swish"}, {"act": "gelu"},
+    {"act": "sigmoid"}, {"d2rl": True}, {"separate": True}, {"learn_sigma": False},
+    {"act": "gelu", "d2rl": True, "separate": True},
+], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
+def test_network_options_match_flax(kwargs):
+    """Every activation of the table, the d2rl skip-concatenation, the
+    separate critic trunk and the fixed sigma: flax weights carried across,
+    outputs within 1e-5 (float32 sums in another order)."""
+    kw = {"sigma_init": -0.3, **kwargs}
+    net = jnet.ActorCritic(num_actions=ACT, units=(32, 24, 16), **kw)
+    params = net.init(jax.random.PRNGKey(4), jnp.zeros((1, OBS)))
+    port = tnet.ActorCritic(OBS, ACT, units=(32, 24, 16), **kw)
+    sd = actor_critic_from_flax(jax.tree_util.tree_map(np.asarray, params))
+    assert set(sd) == set(port.state_dict())
+    port.load_state_dict(sd)
+    obs = np.random.RandomState(6).normal(size=(16, OBS)).astype(np.float32) * 2.0
+    mu, ls, v = net.apply(params, jnp.asarray(obs))
+    tmu, tls, tv = (x.detach() for x in port(torch.tensor(obs)))
+    np.testing.assert_allclose(tmu.numpy(), np.asarray(mu), atol=1e-5)
+    np.testing.assert_allclose(tls.numpy(), np.asarray(ls), atol=1e-5)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(v), atol=1e-5)
+    names = {n for n, _ in port.named_parameters()}
+    assert ("log_sigma" in names) == kw.get("learn_sigma", True)
+    assert any(n.startswith("critic_mlp.") for n in names) == kw.get("separate", False)
+    if kw.get("d2rl"):
+        assert port.actor_mlp.fc1.in_features == 32 + OBS
