@@ -4,10 +4,15 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds both instantiations of the fused-step kernel from
+2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together: Ant's (25 plane contacts) and Cartpole's contact-free one
-   (-DFS_NC=0), and prints the build seconds;
+   together: Ant's (25 plane contacts), Cartpole's contact-free one
+   (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
+   contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
+   one point-vs-cylinder pair row, three bilateral anchors, q_target input)
+   and the example model's (10 plane contacts, point-vs-box and
+   point-vs-sphere pair rows); prints ptxas's register, spill and stack
+   figures, the shared memory per block and the build seconds;
 3. holds each against its plain PyTorch version on the card. Ant at
    N=RAGGED_ENVS=1003 for 3 steps (not a multiple of the kernel's envs per
    block, so the last block is part-full and its masked loads, stores and
@@ -35,9 +40,29 @@
    launch of the contact-free kernel, a fresh agent must restore the last
    checkpoint bit for bit (parameters, lr, running stats, Adam moments) and
    `test=True checkpoint=...` must play past the same bar;
-8. times the contact-free kernel and its plain version at N=512 and N=4096
-   and prints one `kernels` JSON line with both instantiations;
-9. ends with {"ok": true, "device": {...}}.
+8. times the contact-free kernel and its plain version at N=512 and N=4096;
+9. holds each new instantiation against its plain version at N=1003 for 3
+   steps and at its full width for one step, with xfrc and q_target where
+   the task has them, gentle inputs, in states where the rows act: a third
+   of the Ingenuity and Quadcopter envs rest on the ground, BallBalance's
+   ball lies on the tray (pair row active: the tray's body force must be
+   non-zero), the example model's spheres press on the box and on each
+   other. Tolerances as in 3 (BallBalance q 5e-4);
+10. settles BallBalance at full width under zero actions with the ball on
+   the tray: the three anchor points must sit within ANCHOR_TOL of their
+   targets and the tray must carry about the ball's weight; settles the
+   example model through `physics_step_fused` and checks that the box
+   carries both spheres;
+11. for Ingenuity, Quadcopter and BallBalance: one warm-up and three timed
+   full-width `PPO.train_epoch`s from `load_config(["task=<name>"])`, launch
+   count = horizon x control_freq_inv per epoch, finite metrics, parameters
+   moved; env-steps/s and the rollout/update split printed;
+12. trains BallBalance through `train.main` for BALL_EPOCHS epochs past
+   BALL_RETURN_BAR (mean over the run) and BALL_LAST_EPOCH_BAR, one launch
+   per env step, and plays the checkpoint;
+13. times every new instantiation and its plain version at full width and
+   prints one `kernels` JSON line with all instantiations;
+14. ends with {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository around it; without either it
 exits non-zero before printing a result.
@@ -68,6 +93,19 @@ CARTPOLE_EPOCHS = 100
 # of 3.6x.
 RETURN_BAR = 100.0
 TOL = {"q": 2e-4, "qd": 2e-3, "body_force": 2e-2, "body_torque": 2e-2, "dof_force": 2e-2}
+BALL_TOL = {**TOL, "q": 5e-4}
+# the procedural-model tasks at the width of their yaml: (envs, horizon)
+NEW_TASKS = {"Ingenuity": (4096, 16), "Quadcopter": (8192, 8), "BallBalance": (4096, 16)}
+BALL_EPOCHS = 40
+# Mean episode return BallBalance must pass after BALL_EPOCHS epochs of 65,536
+# env steps: the mean over the run's epochs, as `train` reports it, and the
+# mean of the episodes that ended in the last epoch. The first ten epochs
+# average 11 (a policy that has learnt nothing yet); the first run of this
+# phase on an NVIDIA H100 80GB HBM3 (700 W) gave 30.56 over the run and 65.39
+# in the last epoch, so the bars leave margins of 1.5x and 2.2x.
+BALL_RETURN_BAR = 20.0
+BALL_LAST_EPOCH_BAR = 30.0
+ANCHOR_TOL = 0.005  # metres between a settled anchor point and its target
 # data-sheet peaks of the H100 parts: (fp32 FLOP/s outside the tensor
 # cores, memory bytes/s); the SXM part unless the name says otherwise
 PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
@@ -92,6 +130,175 @@ def cartpole_env(n: int):
     return task_map["Cartpole"](cfg, device="cuda")
 
 
+def task_env(name: str, n: int):
+    """A task of the port from its own yaml at `n` envs."""
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    return task_map[name](load_config([f"task={name}", f"num_envs={n}"])["task"], device="cuda")
+
+
+def example_model():
+    """The example model with BOX and SPHERE pair rows and its parameters,
+    as an object with `.model` and `.sim_params` like a task."""
+    from types import SimpleNamespace
+
+    from isaacgymenvs_tpu_torch.engine.dynamics import SimParams
+    from isaacgymenvs_tpu_torch.model.examples import pair_row_example
+
+    return SimpleNamespace(model=pair_row_example(), use_pd_targets=False, sim_params=SimParams(
+        dt=1 / 60, substeps=2, solver_apgd_iterations=16, contact_margin=0.02))
+
+
+# chassis heights at which the lowest contact candidates rest up to 1 mm in
+# the ground: a deeper start is pushed out in the first slice and the last
+# slice, whose forces the step returns, sees no contact
+GROUND_HEIGHT = {"Ingenuity": (0.059, 0.06), "Quadcopter": (0.014, 0.015)}
+
+
+def contact_inputs(name: str, env, n: int, seed: int):
+    """Gentle inputs (q, qd, qfrc, xfrc, q_target), env-leading, in a state
+    where the contact rows of `name` act."""
+    from isaacgymenvs_tpu_torch.model.examples import pair_row_example_state
+
+    m = env.model
+    rng = np.random.RandomState(seed)
+    cuda = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    u = lambda lim, *shape: cuda(rng.uniform(-lim, lim, shape))
+    if name == "Example":
+        q, qd = (cuda(a) for a in pair_row_example_state(m, n, seed))
+        return q, qd, u(0.3, n, m.nv), u(0.2, n, m.nbody, 6), None
+    if name == "BallBalance":
+        q = env.qpos0.repeat(n, 1)
+        q[:, env.ball_q:env.ball_q + 2] = u(0.2, n, 2)
+        q[:, env.ball_q + 2] = env.tray_height + 0.01 + env.ball_radius - 0.002  # 2 mm into the tray
+        return q, torch.zeros(n, m.nv, device="cuda"), u(0.5, n, m.nv), None, q + u(0.02, n, m.nq)
+    state, _ = env.reset(seed)
+    q = state.sim.q.clone()
+    lo, hi = GROUND_HEIGHT[name]
+    q[::3, 2] = cuda(rng.uniform(lo, hi, len(q[::3])))
+    qt = q + u(0.1, n, m.nq) if env.use_pd_targets else None
+    qd = u(0.1, n, m.nv)
+    qd[::3] = 0.0  # the grounded envs start at rest
+    # gentle: a Quadcopter rotor arm weighs under a gram, so a wrench of 1 N
+    # would spin it to velocities whose float32 rounding alone passes 2e-3
+    return q, qd, u(0.02, n, m.nv), u(0.02, n, m.nbody, 6), qt
+
+
+def compare_new(name: str, make_env, full: int) -> float:
+    """A new instantiation against its plain version at the ragged N for 3
+    steps and at full width for 1; returns the largest error."""
+    worst = 0.0
+    for n, steps in ((RAGGED_ENVS, 3), (full, 1)):
+        env = make_env(n)
+        q, qd, qfrc, xfrc, qt = contact_inputs(name, env, n, seed=11)
+        # the body whose contact force shows that the rows act: the tray under
+        # the ball, sphere A on the box, the copters' chassis on the ground
+        body = {"BallBalance": getattr(env, "tray_body", 0), "Example": 1}.get(name, 0)
+        err = compare_model(env.model, env.sim_params, q, qd, qfrc, xfrc, qt, steps,
+                            tol=BALL_TOL if name == "BallBalance" else TOL, force_of=body)
+        seen = err.pop("seen_force")
+        print(f"{name} kernel vs plain, N={n}, {steps} step(s), body {body} pressed in "
+              f"{100 * seen:.1f} % of envs:", json.dumps(err))
+        # a third of the copters rest on the ground; every ball and sphere presses
+        if not seen > (0.25 if name in GROUND_HEIGHT else 0.5):
+            raise AssertionError(f"{name}: the contact rows were active in only {100 * seen:.1f} % of envs")
+        worst = max(worst, *err.values())
+    return worst
+
+
+def settle_ball_balance(n: int) -> None:
+    """Zero actions with the ball on the tray: the anchors hold the feet at
+    their targets and the tray carries the ball's weight."""
+    from isaacgymenvs_tpu_torch import maths
+    from isaacgymenvs_tpu_torch.engine import dynamics
+
+    env = task_env("BallBalance", n)
+    state, _ = env.reset(5)
+    q, qd, _, _, _ = contact_inputs("BallBalance", env, n, seed=12)
+    q[:, env.ball_q:env.ball_q + 2] *= 0.5  # within 0.1 m of the centre
+    state.sim = dynamics.SimState(q=q, qd=qd)
+    zero = torch.zeros(n, env.num_acts, device="cuda")
+    for _ in range(150):
+        state, obs, _, _, _ = env.step(state, zero)
+    m = env.model
+    kin = dynamics.forward_kinematics(m, state.sim.q, state.sim.qd)
+    feet = list(m.att_body)
+    offset = torch.tensor(np.asarray(m.att_offset, np.float32), device="cuda")
+    target = torch.tensor(np.asarray(m.att_target, np.float32), device="cuda")
+    points = kin.x[:, feet] + maths.quat_rotate(kin.quat[:, feet], offset)
+    dist = float(torch.linalg.vector_norm(points - target, dim=-1).max())
+    weight = float(m.body_mass[env.ball_body]) * 9.81
+    on_tray = state.sim.q[:, env.ball_q + 2] > env.tray_height  # not dropped and reset
+    ratio = float((-obs[:, 14] * 20.0)[on_tray].mean()) / weight
+    print(f"settled BallBalance: anchor points within {dist:.5f} m of their targets (max over {n} envs), "
+          f"tray fz / ball weight {ratio:.4f}, ball on the tray in {100 * float(on_tray.float().mean()):.1f} % of envs")
+    if not dist < ANCHOR_TOL or not 0.8 < ratio < 1.25 or not float(on_tray.float().mean()) > 0.9:
+        raise AssertionError(f"BallBalance did not settle: anchors {dist:.4f} m, tray force {ratio:.3f} x weight")
+
+
+def settle_example(n: int) -> int:
+    """The example model through `physics_step_fused` for 60 steps with no
+    applied force: each sphere's contact force is about its weight. Returns
+    the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda, fused
+
+    ex = example_model()
+    m = ex.model
+    q, _, _, _, _ = contact_inputs("Example", ex, n, seed=13)
+    qd = torch.zeros(n, m.nv, device="cuda")
+    zero = torch.zeros(n, m.nv, device="cuda")
+    torch.cuda.synchronize()
+    _cuda.FusedStepCall.launches = 0
+    for _ in range(60):
+        out = fused.physics_step_fused(m, ex.sim_params, q, qd, zero)
+        q, qd = out.q, out.qd
+    torch.cuda.synchronize()
+    launches = _cuda.FusedStepCall.launches
+    ratios = [float(out.body_force[:, b, 2].mean()) / (float(m.body_mass[b]) * 9.81) for b in (1, 2)]
+    print(f"settled example model: sphere contact fz / weight {ratios[0]:.4f}, {ratios[1]:.4f} "
+          f"(mean over {n} envs), {launches} launches")
+    if launches != 60 or not all(0.8 < r < 1.25 for r in ratios) or not bool(torch.isfinite(q).all()):
+        raise AssertionError(f"the example model did not settle: {ratios}, {launches} launches")
+    return launches
+
+
+def train_ball_balance() -> int:
+    """BallBalance through `train.main` at the yaml's 4096 envs for
+    BALL_EPOCHS epochs, then play from the checkpoint. Returns the kernel
+    launches of the training run."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    envs, horizon = NEW_TASKS["BallBalance"]
+    with tempfile.TemporaryDirectory() as runs:
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, metrics = train.main(["task=BallBalance", f"max_iterations={BALL_EPOCHS}", f"+train_dir={runs}"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        steps = BALL_EPOCHS * horizon
+        if launches != steps or metrics["frames"] != steps * envs:
+            raise AssertionError(f"{launches} launches, {metrics['frames']} frames for {steps} env steps")
+        ret = metrics["mean_episode_return"]
+        last = metrics["ep_return_sum"] / max(metrics["n_episodes"], 1)
+        print(f"BallBalance train: {BALL_EPOCHS} epochs x {envs} envs in {sec:.2f} s "
+              f"({metrics['frames'] / sec:.1f} env-steps/s with set-up), {launches} launches, mean episode "
+              f"return {ret:.2f} over the run (bar {BALL_RETURN_BAR}), {last:.2f} in the last epoch "
+              f"(bar {BALL_LAST_EPOCH_BAR})")
+        if not ret > BALL_RETURN_BAR or not last > BALL_LAST_EPOCH_BAR:
+            raise AssertionError(f"BallBalance trained to {ret:.2f} / {last:.2f}, not past "
+                                 f"{BALL_RETURN_BAR} / {BALL_LAST_EPOCH_BAR}")
+        ckpt = os.path.join(runs, "BallBalance", "nn", "last_BallBalance.pth")
+        played = train.main(["task=BallBalance", "test=True", f"checkpoint={ckpt}"])
+        print(f"BallBalance play: mean return of the first episodes to end {played:.2f}")
+        if not np.isfinite(played):
+            raise AssertionError("BallBalance play returned a non-finite mean return")
+    return launches
+
+
 def rows(t):
     return t.T.contiguous()
 
@@ -102,25 +309,34 @@ def xfrc_rows(x):
 
 
 def compare(env, steps: int, seed: int, qfrc_max: float = 3.0, with_xfrc: bool = True) -> dict:
-    """Kernel vs plain version from the same inputs, each step; the plain
-    output carries the trajectory. Returns the max abs error per output;
-    without contacts (nc == 0) the force outputs must be exactly zero."""
-    from isaacgymenvs_tpu_torch.engine import fused
-
-    m, p = env.model, env.sim_params
-    n = env.num_envs
+    """Kernel vs plain version from the env's reset state under random qfrc
+    (and xfrc); see `compare_model`."""
+    m, n = env.model, env.num_envs
     state, _ = env.reset(seed)
     rng = np.random.RandomState(seed)
     cuda = lambda a: torch.tensor(a.astype(np.float32), device="cuda")
     qfrc = cuda(rng.uniform(-qfrc_max, qfrc_max, (n, m.nv)))
     xfrc = cuda(rng.uniform(-1, 1, (n, m.nbody, 6))) if with_xfrc else None
+    return compare_model(m, env.sim_params, state.sim.q, state.sim.qd, qfrc, xfrc, None, steps)
+
+
+def compare_model(m, p, q, qd, qfrc, xfrc, q_target, steps: int, tol=TOL, force_of=None) -> dict:
+    """Kernel vs plain version from the same inputs, each step; the plain
+    output carries the trajectory. Returns the max abs error per output;
+    without contacts the force outputs must be exactly zero. With
+    `force_of` (a body index) also returns, under "seen_force", the share of
+    envs whose kernel body force on that body exceeded 1 mN at some step."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    n = q.shape[0]
     s = fused._extract(m)
     plain = fused._step_math_torch(s, p, torch.device("cuda"))
-    q, qd = state.sim.q, state.sim.qd
-    err = {k: 0.0 for k in TOL}
+    err = {k: 0.0 for k in tol}
+    pressed = torch.zeros(n, dtype=torch.bool, device="cuda")
     for _ in range(steps):
-        ko = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc)
-        po = plain(rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc) if with_xfrc else None)
+        ko = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=q_target)
+        po = plain(rows(q), rows(qd), rows(qfrc), None if xfrc is None else xfrc_rows(xfrc),
+                   None if q_target is None else rows(q_target))
         nb = m.nbody
         ref = {
             "q": po[0].T, "qd": po[1].T,
@@ -128,20 +344,24 @@ def compare(env, steps: int, seed: int, qfrc_max: float = 3.0, with_xfrc: bool =
             "body_torque": po[3].reshape(3, nb, n).permute(2, 1, 0),
             "dof_force": po[4].T,
         }
-        for k in TOL:
+        for k in tol:
             got = getattr(ko, k)
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"kernel output {k} is not finite")
             err[k] = max(err[k], float((got - ref[k]).abs().max()))
-            if s.nc == 0 and "force" in k and float(got.abs().max()) != 0.0:
+            if s.nct == 0 and "force" in k and float(got.abs().max()) != 0.0:
                 raise AssertionError(f"contact-free kernel wrote a non-zero {k}")
         if not float((ko.q - q).abs().max()) > 0.0:
             raise AssertionError("the step left q where it was")
+        if force_of is not None:
+            pressed |= torch.linalg.vector_norm(ko.body_force[:, force_of], dim=-1) > 1e-3
         q, qd = ref["q"].contiguous(), ref["qd"].contiguous()
     torch.cuda.synchronize()
-    bad = {k: (e, TOL[k]) for k, e in err.items() if not e < TOL[k]}
+    bad = {k: (e, tol[k]) for k, e in err.items() if not e < tol[k]}
     if bad:
         raise AssertionError(f"kernel disagrees with the plain version at N={n}: {bad}")
+    if force_of is not None:
+        err["seen_force"] = float(pressed.float().mean())
     return err
 
 
@@ -182,49 +402,50 @@ def kernel_device_ms(fn, reps: int = 20) -> float:
     raise AssertionError("the host could not queue the launches ahead of the device")
 
 
-def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50) -> dict:
+def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None) -> dict:
     """ms per launch of the kernel (CUDA events around the wrapper, and
     queued back to back behind other device work), of its plain version,
-    and its bound,
-    at (rows, N) inputs on the card."""
+    and its bound, at (rows, N) inputs on the card. `env` gives the model and
+    the parameters (anything with `.model` and `.sim_params`)."""
     from isaacgymenvs_tpu_torch.engine import _cuda, fused
 
     s, p, n = fused._extract(env.model), env.sim_params, q.shape[-1]
-    _, step = fused._prepared(env.model, p, torch.device("cuda"))
+    _, step = fused._prepared(env.model, p, torch.device("cuda"), qt is not None)
     plain = fused._step_math_torch(s, p, torch.device("cuda"))
     for _ in range(3):
-        step(q, qd, qfrc, xfrc)
-    ms = event_ms(lambda: step(q, qd, qfrc, xfrc), reps)
-    device_ms = kernel_device_ms(lambda: step(q, qd, qfrc, xfrc))
-    plain(q, qd, qfrc, xfrc)
-    plain_ms = event_ms(lambda: plain(q, qd, qfrc, xfrc), 5)
+        step(q, qd, qfrc, xfrc, qt)
+    ms = event_ms(lambda: step(q, qd, qfrc, xfrc, qt), reps)
+    device_ms = kernel_device_ms(lambda: step(q, qd, qfrc, xfrc, qt))
+    plain(q, qd, qfrc, xfrc, qt)
+    plain_ms = event_ms(lambda: plain(q, qd, qfrc, xfrc, qt), 5)
     flop_s, byte_s = peaks(name)
     flops = _cuda.kernel_flops(s, p) * n
-    nbytes = _cuda.kernel_bytes(s, n, xfrc is not None)
+    nbytes = _cuda.kernel_bytes(s, n, xfrc is not None, qt is not None)
     t_ops, t_bytes = 1e3 * flops / flop_s, 1e3 * nbytes / byte_s
     bound = max(t_ops, t_bytes)
-    print(f"fused step nc={s.nc} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
+    print(f"fused step {'_'.join(map(str, _cuda.sizes_of(s, qt is not None)))} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
           f"plain {plain_ms:.2f} ms, bound {bound:.6f} ms ({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB), "
           f"{flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, {100 * bound / ms:.2f} % of the bound")
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def train_ant() -> int:
-    """Three timed PPO epochs on Ant at the yaml's full width; returns the
-    kernel launches of the timed epochs."""
+def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), profile: bool = True) -> int:
+    """Three timed PPO epochs on `task` at its yaml's full width (`width` =
+    envs, horizon, batch, minibatch, mini-epochs); returns the kernel
+    launches of the timed epochs."""
     from isaacgymenvs_tpu_torch.engine import _cuda
     from isaacgymenvs_tpu_torch.learn import PPO
     from isaacgymenvs_tpu_torch.tasks import task_map
     from isaacgymenvs_tpu_torch.utils.config import load_config
 
-    cfg = load_config(["task=Ant"])
-    env = task_map["Ant"](cfg["task"], device="cuda")
+    cfg = load_config([f"task={task}"])
+    env = task_map[task](cfg["task"], device="cuda")
     agent = PPO(env, cfg["train"]["params"], seed=int(cfg["seed"]))
     c = agent.cfg
-    if (env.num_envs, c.horizon_length, agent.batch_size, agent.minibatch_size, c.mini_epochs) != \
-            (NUM_ENVS, HORIZON, 65536, 32768, 4):
-        raise AssertionError("AntPPO.yaml is not at its full width")
+    horizon = width[1]
+    if (env.num_envs, c.horizon_length, agent.batch_size, agent.minibatch_size, c.mini_epochs) != tuple(width):
+        raise AssertionError(f"{task}PPO.yaml is not at its full width")
     split = {}
     rollout = agent.rollout
 
@@ -250,16 +471,17 @@ def train_ant() -> int:
         sec = time.perf_counter() - t0
         launches = _cuda.FusedStepCall.launches
         total += launches
-        if launches != HORIZON * env.control_freq_inv:
-            raise AssertionError(f"{launches} kernel launches in an epoch of {HORIZON} env steps")
+        if launches != horizon * env.control_freq_inv:
+            raise AssertionError(f"{launches} kernel launches in an epoch of {horizon} env steps")
         bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
         if bad or not c.min_lr <= metrics["lr"] <= c.max_lr or not metrics["kl"] >= 0.0:
             raise AssertionError(f"epoch metrics out of range: {metrics}")
-        print(f"Ant train epoch {epoch}: {sec:.4f} s = rollout {split['rollout']:.4f} s + update "
+        print(f"{task} train epoch {epoch}: {sec:.4f} s = rollout {split['rollout']:.4f} s + update "
               f"{sec - split['rollout']:.4f} s, {agent.batch_size / sec:.1f} env-steps/s, {launches} launches, "
               f"a_loss {metrics['a_loss']:.5f} c_loss {metrics['c_loss']:.5f} kl {metrics['kl']:.5f} "
               f"lr {metrics['lr']:.2e}")
-    profile_window(lambda: agent.train_epoch(ts), "Ant train epoch", 1, "epoch")
+    if profile:
+        profile_window(lambda: agent.train_epoch(ts), f"{task} train epoch", 1, "epoch")
     moved = max(float((p.detach() - b).abs().max()) for p, b in zip(agent.network.parameters(), before))
     if not moved > 0.0 or not all(bool(torch.isfinite(p).all()) for p in agent.network.parameters()):
         raise AssertionError("the update did not move the parameters, or left them not finite")
@@ -374,23 +596,30 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build both instantiations, one nvcc each, started together
+    # 2. build every instantiation, one nvcc each, started together
     env = ant_env(NUM_ENVS)
     cart = cartpole_env(CARTPOLE_ENVS)
     s, s0 = fused._extract(env.model), fused._extract(cart.model)
-    if s0.nc != 0 or s.nc == 0:
+    if s0.nct != 0 or s.nc == 0:
         raise AssertionError("Cartpole should be contact-free and the Ant not")
+    built = {"Ant": env, "Cartpole": cart, **{t: task_env(t, 8) for t in NEW_TASKS}, "Example": example_model()}
+    sizes = {t: _cuda.sizes_of(fused._extract(e.model), e.use_pd_targets) for t, e in built.items()}
+    if sizes["Quadcopter"][3] <= 32 or sizes["BallBalance"][4:] != (1, 3, 1) or sizes["Example"][4] != 3:
+        raise AssertionError(f"unexpected size tuples {sizes}")
 
-    def timed_build(spec):
+    def timed_build(size):
         t0 = time.perf_counter()
-        _cuda.build((spec.nbody, spec.nq, spec.nv, spec.nc), verbose=True)
+        _cuda.build(size, verbose=True)
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        secs = list(pool.map(timed_build, (s, s0)))
-    print(f"build: {time.perf_counter() - t0:.1f} s in all; Ant (nc={s.nc}) {secs[0]:.1f} s, "
-          f"Cartpole (nc=0) {secs[1]:.1f} s")
+    with ThreadPoolExecutor(len(sizes)) as pool:
+        secs = list(pool.map(timed_build, sizes.values()))
+    print(f"build: {time.perf_counter() - t0:.1f} s in all; " + ", ".join(
+        f"{t} {'_'.join(map(str, sz))} {sec:.1f} s" for (t, sz), sec in zip(sizes.items(), secs)))
+    for t, e in built.items():
+        _, step = fused._prepared(e.model, e.sim_params, torch.device("cuda"), e.use_pd_targets)
+        print(f"shared memory per block, {t}: {step.smem_bytes} bytes ({_cuda.ENVS_PER_BLOCK} envs)")
 
     # 3. kernel vs plain version
     if RAGGED_ENVS % _cuda.ENVS_PER_BLOCK == 0:
@@ -456,7 +685,7 @@ def main() -> int:
     ant_t = kernel_times(env, q, qd, qfrc, xfrc, name)
 
     # 6. the training path on Ant, 7. on Cartpole
-    train_launches = train_ant()
+    train_launches = train_epochs()
     cart_launches = train_cartpole()
 
     # 8. the contact-free kernel at its training path's width and at 4096 envs
@@ -469,8 +698,37 @@ def main() -> int:
         cart_t[n] = kernel_times(cenv, rows(state.sim.q), rows(state.sim.qd),
                                  rows(cenv.compute_force(act, None, None, ())[0]), None, name)
 
+    # 9. the new instantiations against their plain versions
+    makers = {**{t: (lambda n, t=t: task_env(t, n)) for t in NEW_TASKS}, "Example": lambda n: example_model()}
+    widths = {**{t: w[0] for t, w in NEW_TASKS.items()}, "Example": NUM_ENVS}
+    new_err = {t: compare_new(t, makers[t], widths[t]) for t in makers}
+
+    # 10. physical checks: BallBalance's anchors and tray force, the example model's spheres
+    settle_ball_balance(NEW_TASKS["BallBalance"][0])
+    new_launches = {"Example": settle_example(NUM_ENVS)}
+
+    # 11. three timed full-width epochs per new task, 12. BallBalance through train.main
+    conf = {"Ingenuity": (16384, 8), "Quadcopter": (16384, 8), "BallBalance": (8192, 8)}
+    for t, (envs, horizon) in NEW_TASKS.items():
+        new_launches[t] = train_epochs(t, (envs, horizon, envs * horizon, *conf[t]), profile=t == "BallBalance")
+        bench = measure(envs, horizon, reps=4, device="cuda", task=t)
+        print(f"{t} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s")
+    new_launches["BallBalance"] += train_ball_balance()
+
+    # 13. kernel times of the new instantiations at full width
+    new_t = {}
+    for t in makers:
+        e = makers[t](widths[t])
+        q, qd, qfrc, xfrc, qt = contact_inputs(t, e, widths[t], seed=14)
+        new_t[t] = kernel_times(e, rows(q), rows(qd), rows(qfrc), None if xfrc is None else xfrc_rows(xfrc),
+                                name, qt=None if qt is None else rows(qt))
+
+    if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values())):
+        raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
     replaces = "isaacgymenvs_tpu/engine/fused.py:1834"
+    names = {"Ingenuity": "fused_step_ingenuity", "Quadcopter": "fused_step_quadcopter_qt",
+             "BallBalance": "fused_step_ballbalance_k4_qt", "Example": "fused_step_example_k4"}
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "max_abs_err": max_err,
@@ -479,6 +737,9 @@ def main() -> int:
          "launches": cart_launches, "max_abs_err": max_err0,
          **cart_t[CARTPOLE_ENVS], "library_ms": None, "num_envs": CARTPOLE_ENVS,
          **{f"{k}_{NUM_ENVS}": v for k, v in cart_t[NUM_ENVS].items() if k != "bound_by"}},
+        *({"name": names[t], "route": "cuda", "source": source, "replaces": replaces,
+           "launches": new_launches[t], "max_abs_err": new_err[t], **new_t[t], "library_ms": None,
+           "num_envs": widths[t], "sizes": list(sizes[t])} for t in makers),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
-"""Ant env-steps/s of the port: the counterpart of the root bench.py's
+"""env.step env-steps/s of the port: the counterpart of the root bench.py's
 `measure("Ant", 4096, horizon=16)`.
 
-Steps the Ant VecTask under uniform random actions in [-1, 1] for
-`reps` windows of `horizon` steps after one warm-up window, and prints
-one JSON line. Runs on the card unless `--device cpu` is given:
+Steps a task's VecTask (its own yaml at `--num-envs`) under uniform random
+actions in [-1, 1] for `reps` windows of `horizon` steps after one warm-up
+window, and prints one JSON line. Runs on the card unless `--device cpu` is
+given:
 
-    python -m isaacgymenvs_tpu_torch.bench [--num-envs 4096] [--horizon 16]
+    python -m isaacgymenvs_tpu_torch.bench [--task Ant] [--num-envs 4096] [--horizon 16]
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from .device import resolve_device
 from .tasks import task_map
+from .utils.config import load_config
 
 
 def _sync(device: torch.device) -> None:
@@ -24,12 +26,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def measure(num_envs: int = 4096, horizon: int = 16, reps: int = 8, device="cuda") -> dict:
-    """Env-steps/s of Ant at `num_envs`, timed on the host clock around
+def measure(num_envs: int = 4096, horizon: int = 16, reps: int = 8, device="cuda",
+            task: str = "Ant") -> dict:
+    """Env-steps/s of `task` at `num_envs`, timed on the host clock around
     work that ends in a device synchronize."""
     dev = resolve_device(device)
-    cfg = {"env": {"numEnvs": num_envs, "clipActions": 1.0}, "sim": {"dt": 1 / 60, "substeps": 2}}
-    env = task_map["Ant"](cfg, device=dev)
+    cfg = load_config([f"task={task}", f"num_envs={num_envs}"])["task"]
+    env = task_map[task](cfg, device=dev)
     state, _ = env.reset(0)
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -49,6 +52,7 @@ def measure(num_envs: int = 4096, horizon: int = 16, reps: int = 8, device="cuda
     return {
         "env_steps_per_s": reps * horizon * num_envs / sec,
         "seconds": sec,
+        "task": task,
         "num_envs": num_envs,
         "horizon": horizon,
         "reps": reps,
@@ -59,14 +63,15 @@ def measure(num_envs: int = 4096, horizon: int = 16, reps: int = 8, device="cuda
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", default="Ant", choices=sorted(task_map))
     ap.add_argument("--num-envs", type=int, default=4096)
     ap.add_argument("--horizon", type=int, default=16)
     ap.add_argument("--reps", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
-    r = measure(a.num_envs, a.horizon, a.reps, a.device)
+    r = measure(a.num_envs, a.horizon, a.reps, a.device, a.task)
     print(json.dumps({
-        "metric": f"Ant env-steps/s ({a.num_envs} envs, {r['device']})",
+        "metric": f"{a.task} env-steps/s ({a.num_envs} envs, {r['device']})",
         "value": r["env_steps_per_s"],
         "unit": "env-steps/s",
         **r,

@@ -2,11 +2,12 @@
 
 `csrc/fused_step.cu` is compiled with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, one library per model size tuple
-(nbody, nq, nv, nc), at first use, into `isaacgymenvs_tpu_torch/_build/`
-(listed in .gitignore). nc == 0 builds the contact-free instantiation
-(`-DFS_NC=0`): the same source with every contact stage compiled out. The library name carries a hash of the source and
-the flags, so an edited source is rebuilt. It is loaded with ctypes;
-pointers and the stream go in as `c_void_p`.
+(nbody, nq, nv, plane rows, pair rows, anchors, q_target input or not), at
+first use, into `isaacgymenvs_tpu_torch/_build/` (listed in .gitignore).
+Without any row it is the contact-free instantiation (`-DFS_NC=0`): the
+same source with every contact stage compiled out. The library name carries
+a hash of the source and the flags, so an edited source is rebuilt. It is
+loaded with ctypes; pointers and the stream go in as `c_void_p`.
 
 Nothing here runs at import: the CPU tests import this module without a
 compiler or a card.
@@ -48,21 +49,28 @@ def nvcc() -> str:
     return path
 
 
+def sizes_of(s, has_qt: bool = False) -> tuple:
+    """The size tuple of a model's kernel instantiation: (nbody, nq, nv,
+    plane rows, pair rows, anchors, 1 with a q_target input)."""
+    return (s.nbody, s.nq, s.nv, s.nc, s.pp_nc, s.att_n, int(bool(has_qt)))
+
+
 def _defines(sizes) -> list:
-    nb, nq, nv, nc = sizes
+    nb, nq, nv, nc, npp, natt, qt = sizes
     return [f"-DFS_NB={nb}", f"-DFS_NQ={nq}", f"-DFS_NV={nv}", f"-DFS_NC={nc}",
-            f"-DFS_EPB={ENVS_PER_BLOCK}"]
+            f"-DFS_NPP={npp}", f"-DFS_NATT={natt}", f"-DFS_QT={qt}", f"-DFS_EPB={ENVS_PER_BLOCK}"]
 
 
 def library_path(sizes) -> str:
     with open(SOURCE, "rb") as f:
         src = f.read()
     tag = hashlib.sha256(src + " ".join(_ARCH + _FLAGS + _defines(sizes)).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, "libfused_step_{}_{}_{}_{}_{}.so".format(*sizes, tag))
+    return os.path.join(BUILD_DIR, "libfused_step_{}_{}.so".format("_".join(map(str, sizes)), tag))
 
 
 def build(sizes, verbose: bool = False) -> str:
-    """Compile the kernel for `sizes` = (nbody, nq, nv, nc) unless built."""
+    """Compile the kernel for `sizes` (see `sizes_of`) unless built; with
+    `verbose`, print ptxas's register, spill and stack figures."""
     out = library_path(sizes)
     if os.path.exists(out):
         return out
@@ -78,7 +86,7 @@ def build(sizes, verbose: bool = False) -> str:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     if verbose and res.stderr:
-        print(res.stderr.strip())
+        print(f"ptxas {'_'.join(map(str, sizes))}:\n{res.stderr.strip()}")
     os.replace(tmp, out)
     return out
 
@@ -92,15 +100,16 @@ def load(sizes):
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.fused_step_layout.restype = ci
-            lib.fused_step_launch.argtypes = [vp] * 10 + [ci, ci, ci, ci, vp]
+            lib.fused_step_launch.argtypes = [vp] * 11 + [ci, ci, ci, ci, vp]
             lib.fused_step_launch.restype = ci
             _libs[tuple(sizes)] = lib
     return lib
 
 
 def layout(lib) -> tuple:
-    """(nbody, nq, nv, nc, spec_base, env_floats, envs_per_block) compiled in."""
-    out = (ctypes.c_int * 7)()
+    """The compiled-in size tuple (see `sizes_of`) followed by spec_base,
+    env_floats and envs_per_block."""
+    out = (ctypes.c_int * 10)()
     lib.fused_step_layout(out)
     return tuple(out)
 
@@ -123,9 +132,12 @@ def pack_spec(s, p: SimParams, betas) -> np.ndarray:
     depth = body_depth(s.parent)
     head = np.zeros(_NPARAM, np.float64)
     head[0:3] = np.asarray(p.gravity, np.float64)
-    head[3:14] = [h, h * h, 1.0 / h, p.baumgarte_erp, p.max_depenetration_velocity,
+    head[3:15] = [h, h * h, 1.0 / h, p.baumgarte_erp, p.max_depenetration_velocity,
                   p.contact_margin, p.bounce_threshold_velocity, p.limit_stiffness,
-                  p.limit_damping, p.max_dof_velocity, int(depth.max()) + 1]
+                  p.limit_damping, p.max_dof_velocity, int(depth.max()) + 1,
+                  p.baumgarte_erp_attractor]
+    cat = lambda *a: np.concatenate([np.asarray(x, np.float64) for x in a], 0)
+    zeros = np.zeros(s.att_n)
     setpoint = np.where(s.sq_adr >= 0, s.qpos0[np.maximum(s.sq_adr, 0)], 0.0)
     parts = [
         head, s.parent, s.jnt_type, s.q_adr, s.v_adr, depth,
@@ -134,7 +146,12 @@ def pack_spec(s, p: SimParams, betas) -> np.ndarray:
         s.dof_body, s.sq_adr, s.armature, s.dof_damping, s.dof_friction,
         s.dof_stiffness, s.dof_limit_lower, s.dof_limit_upper, s.dof_limited, setpoint,
         s.dof_mask, s.anc,
-        s.cp_body, s.cp_pos, s.cp_radius, s.cp_mu, s.rest, s.path_mask,
+        # per contact, in row order: plane, pair, anchor
+        cat(s.cp_body, s.pp_a, s.att_body), cat(s.cp_pos, s.pp_pos, s.att_offset),
+        cat(s.cp_radius, s.pp_radius, zeros), cat(s.cp_mu, s.pp_mu, zeros), cat(s.rest, zeros),
+        cat(s.path_mask, s.pp_path.T, s.att_path.T),
+        # per pair row: the geom; per anchor: the target
+        s.pp_b, s.pp_gtype, s.pp_gpos, s.pp_gquat, s.pp_gsize, s.att_target,
         np.asarray(betas, np.float64),
     ]
     return np.concatenate([np.asarray(a, np.float64).reshape(-1) for a in parts]).astype(np.float32)
@@ -154,12 +171,16 @@ def kernel_flops(s, p: SimParams) -> int:
     (R(R+1)/2 dot products of length nv, each |entry| added to its row and,
     off the diagonal, to its column's row). The inverse is Gauss-Jordan in
     place, 2 nv^3. J is counted dense (its zeros depend on the tree, not on
-    the data). Per-body terms follow the joint type of each body. Without
-    contacts (nc == 0) the step ends after qd_free with the velocity clip
-    and the integration: no rows, solve, impulse or sensors.
+    the data). Per-body terms follow the joint type of each body. Pair rows
+    and anchors are contacts of the same solve (three rows each): a pair row
+    adds its narrowphase (by geom type), its frame and the rotation of its
+    Jacobian and force, an anchor its point and error drive. Without any
+    contact the step ends after qd_free with the velocity clip and the
+    integration: no rows, solve, impulse or sensors.
     """
-    nb, nv, nc = s.nbody, s.nv, s.nc
-    r = 3 * nc
+    nb, nv, nc, npp, natt = s.nbody, s.nv, s.nc, s.pp_nc, s.att_n
+    nct = nc + npp + natt
+    r = 3 * nct
     it = p.solver_apgd_iterations
     jt = np.asarray(s.jnt_type)
     n_free, n_hinge = int(np.sum(jt == 0)), int(np.sum((jt == 1) | (jt == 2)))
@@ -175,20 +196,31 @@ def kernel_flops(s, p: SimParams) -> int:
     inverse = 2 * nv ** 3 + nv * nv + nv
     qd_free = 2 * nv * nv + 2 * nv
     rows = nc * (_QROT + 4 + 3 * nv * 5 + 3 + 10) + r * (2 * nv * nv + 4 * nv)
+    # pair row: point and geom pose in the world, the point in the geom's
+    # frame, narrowphase, normal and surface point back to the world, tangent
+    # basis, world Jacobian rotated into the frame, velocity target
+    gt = np.asarray(s.pp_gtype)
+    narrow = int(np.sum(np.where(gt == 2, 30, np.where(gt == 3, 40, 16))))
+    rows += npp * (2 * (_QROT + 3) + _QMUL + 3 + _QROT + 2 * _QROT + 3 + 2 * _CROSS + 8
+                   + 3 * nv * 5 + 3 * nv * 5 + 13) + narrow
+    # anchor: its point, the error drive on three axes, world Jacobian
+    rows += natt * (_QROT + 3 + 9 + 3 * nv * 5)
     lipschitz = (r * (r + 1) // 2) * (2 * nv + 2) + r * r + 4 * r
-    apgd = nc * (3 + 13) + it * (4 * r * nv + 10 * r + 15 * nc)
+    apgd = nct * (3 + 13) + it * (4 * r * nv + 10 * r + 15 * nct)
     # with contacts: J^T lambda, M^-1 of it, the add and the clip; without: the clip
-    impulse = r + 2 * r * nv + 2 * nv * nv + 3 * nv if nc else 2 * nv
+    impulse = r + 2 * r * nv + 2 * nv * nv + 3 * nv if nct else 2 * nv
     integrate = n_free * (6 + 3 + _QEXP + 2 * _QNORM + _QMUL) + n_hinge * 2
     per_slice = (fk + inertia_net + composite + crba + per_dof + inverse + qd_free + rows
                  + lipschitz + apgd + impulse + integrate)
-    sensors = nc * (3 + 3 + _CROSS) + 6 * nc + nv if nc else 0
+    # per contact force, arm and torque, summed per body; a pair row also
+    # turns its force to world axes and takes a second arm for the geom's body
+    sensors = nct * (3 + 3 + _CROSS) + 6 * nct + nv + npp * (15 + 3 + _CROSS + 6) if nct else 0
     return int(p.substeps * p.solver_iterations * per_slice + sensors)
 
 
-def kernel_bytes(s, n_env: int, has_xfrc: bool) -> int:
+def kernel_bytes(s, n_env: int, has_xfrc: bool, has_qt: bool = False) -> int:
     """Boundary traffic of one launch: inputs read once, outputs written once."""
-    rows_in = s.nq + 2 * s.nv + (6 * s.nbody if has_xfrc else 0)
+    rows_in = s.nq + 2 * s.nv + (6 * s.nbody if has_xfrc else 0) + (s.nq if has_qt else 0)
     rows_out = s.nq + s.nv + 6 * s.nbody + s.nv
     return 4 * n_env * (rows_in + rows_out)
 
@@ -202,30 +234,38 @@ class FusedStepCall:
 
     launches = 0
 
-    def __init__(self, s, params: SimParams, betas, device: torch.device):
+    def __init__(self, s, params: SimParams, betas, device: torch.device, has_qt: bool = False):
         if device.type != "cuda":
             raise ValueError(f"FusedStepCall needs a CUDA device, got {device}")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        self.sizes = (s.nbody, s.nq, s.nv, s.nc)
+        self.sizes = sizes_of(s, has_qt)
+        self.has_qt = bool(has_qt)
         self.lib = load(self.sizes)
-        nb, nq, nv, nc, spec_base, _, _ = layout(self.lib)
-        if (nb, nq, nv, nc) != self.sizes:
-            raise RuntimeError(f"kernel built for {(nb, nq, nv, nc)}, model is {self.sizes}")
+        *built, spec_base, env_floats, epb = layout(self.lib)
+        if tuple(built) != self.sizes:
+            raise RuntimeError(f"kernel built for {tuple(built)}, model is {self.sizes}")
         spec = pack_spec(s, params, betas)
         if spec.size != spec_base + len(betas):
             raise RuntimeError("spec buffer layout disagrees with the kernel")
         self.spec = torch.as_tensor(spec, device=device)
+        # dynamic shared memory a block asks for: the spec and its envs
+        self.smem_bytes = 4 * (((spec.size + 3) & ~3) + epb * env_floats)
         self.n_slices = params.substeps * params.solver_iterations
         self.iters = params.solver_apgd_iterations
         self.device = device
         self.s = s
 
-    def __call__(self, q, qd, qfrc, xfrc):
+    def __call__(self, q, qd, qfrc, xfrc, q_target=None):
         s, n = self.s, q.shape[-1]
+        if (q_target is not None) != self.has_qt:
+            raise ValueError("this kernel instantiation was built {} a q_target input".format(
+                "with" if self.has_qt else "without"))
         ins = [(q, s.nq), (qd, s.nv), (qfrc, s.nv)]
         if xfrc is not None:
             ins.append((xfrc, 6 * s.nbody))
+        if q_target is not None:
+            ins.append((q_target, s.nq))
         for t, rows in ins:
             if t.device != self.device or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError("fused step inputs must be contiguous float32 on the kernel's device")
@@ -237,7 +277,7 @@ class FusedStepCall:
         ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         rc = self.lib.fused_step_launch(
-            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc),
+            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc), ptr(q_target),
             ptr(q2), ptr(qd2), ptr(bf), ptr(bt), ptr(df),
             ptr(self.spec), int(self.spec.numel()), int(n), int(self.n_slices),
             int(self.iters), ctypes.c_void_p(stream),

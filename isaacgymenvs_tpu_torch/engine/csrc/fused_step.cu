@@ -2,23 +2,29 @@
 //
 // Replaces the TPU kernel isaacgymenvs_tpu/engine/fused.py
 // `_build_call.<locals>.kernel` (launched by `pl.pallas_call`, fused.py:1883),
-// for the feature tiers K1 (articulated step) and K2 (plane contacts, APGD,
-// xfrc). Built with -DFS_NC=0 it is the contact-free instantiation of K1
+// for the feature tiers K1 (articulated step, with PD-drive setpoints from a
+// q_target input under -DFS_QT=1, fused.py:774-777), K2 (plane contacts,
+// APGD, xfrc) and K4 (point-vs-geom pair rows, -DFS_NPP, fused.py:918-1089,
+// and bilateral point anchors, -DFS_NATT, fused.py:1129-1147, in the same
+// solve as the plane rows). Built with no rows at all it is the
+// contact-free instantiation of K1
 // (the `nct == 0` finish of `substep`, fused.py:846-855): qd_free, the
 // velocity clip, integration, and zero force outputs; every contact stage
 // is compiled out (`if constexpr`), and the per-env shared memory shrinks
 // to the articulated part. One launch advances every env by `n_slices =
 // substeps x solver_iterations` slices; each slice is `_substep_fn.substep`
 // (fused.py:686): FK, spatial inertia, CRBA, bias force with xfrc, implicit
-// passive forces, Gauss-Jordan inverse (no pivoting), plane rows with
-// Baumgarte and restitution, Jacobi-scaled Delassus, Lipschitz step, APGD
-// with cone projection (warm start zero at each call, carried across its
-// slices), impulse to qd, velocity clip, integration, and sensors of the
-// last slice. The plain PyTorch twin is `_step_math_torch` in fused.py.
+// passive forces, Gauss-Jordan inverse (no pivoting), contact rows (plane,
+// pair, anchor) with Baumgarte, restitution and the anchors' error drive,
+// Jacobi-scaled Delassus, Lipschitz step, APGD with cone projection that
+// leaves bilateral rows unprojected (warm start zero at each call, carried
+// across its slices), impulse to qd, velocity clip, integration, and
+// sensors of the last slice. The plain PyTorch twin is `_step_math_torch` in
+// fused.py.
 //
 // What bounds it. Per env and slice the work the step needs is dominated by
 // the Lipschitz row sums of the symmetric |J^T M^-1 J| (R(R+1)/2 x nv
-// multiply-adds, R = 3 nc) and the APGD matvecs, then W = M^-1 J and the
+// multiply-adds, R = 3 x contacts) and the APGD matvecs, then W = M^-1 J and the
 // Gauss-Jordan inverse; for Ant (nv 14, nc 25, 16 APGD iterations, 2
 // slices) that is about 0.47 MFLOP per env-step (`kernel_flops` in
 // engine/_cuda.py counts it) against about 0.8 KB of boundary traffic per
@@ -27,13 +33,13 @@
 // sums (twice the needed Lipschitz work) and inverts with an identity
 // companion matrix (twice the needed Gauss-Jordan work).
 //
-// Design. Sizes (nbody, nq, nv, nc) are compile-time constants (-DFS_NB ..),
-// one library per size tuple; the body tree, the model constants and the
+// Design. Sizes (nbody, nq, nv, plane rows, pair rows, anchors, q_target or
+// not) are compile-time constants (-DFS_NB ..), one library per size tuple; the body tree, the model constants and the
 // solver parameters come in a small float buffer that each block copies to
 // shared memory. A warp owns one env: its state, J, W = M^-1 J and M^-1 stay
 // in shared memory (~16 KB for Ant) across all slices and APGD iterations.
 // Lanes own contacts (a contact's three rows stay in registers through the
-// solve), bodies (FK and the bias force run level by level over the tree),
+// solve; with more than 32 contacts a lane owns several), bodies (FK and the bias force run level by level over the tree),
 // dofs, or matrix entries. The dense Delassus matrix is never stored: the
 // APGD matvec runs as J^T (W (s y)), O(R nv) instead of O(R^2), which also
 // saves 22.5 KB of shared memory per env; the one pass that needs the
@@ -43,6 +49,17 @@
 // stores its envs cooperatively, neighbouring threads on neighbouring envs,
 // and masks the ragged edge (N is not padded).
 //
+// Row kinds. The lane that owns a contact branches on its kind: a plane row
+// has the world axes as its frame and phi = radius - z; a pair row runs the
+// narrowphase of its geom type (a real branch per row: box, cylinder or
+// sphere), builds the frame (t1, t2, n) from the normal, takes the Jacobian at
+// the surface point with the signed dof path (point body minus geom body) and
+// rotates it into the frame, which it parks in shared memory for the sensors;
+// an anchor has the world axes, phi = 0, is always active and bilateral, and
+// drives its point error on all three rows. The sensors give +F to a pair
+// row's point body and -F to its geom body, each with its own torque arm;
+// every (component, body) output is summed by one lane, without atomics.
+//
 // The contact-free instantiation (Cartpole: nbody 3, nv 2, 2 slices) needs
 // about 4 KFLOP and 120 bytes of boundary traffic per env-step
 // (`kernel_flops`, `kernel_bytes`), so both of its bounds lie far below a
@@ -51,27 +68,43 @@
 #include <cuda_runtime.h>
 
 #ifndef FS_NB
-#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts>"
+#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts> [-DFS_NPP=<pair rows> -DFS_NATT=<anchors> -DFS_QT=1]"
 #endif
 #ifndef FS_EPB
 #define FS_EPB 4
+#endif
+#ifndef FS_NPP
+#define FS_NPP 0  // point-vs-geom pair rows
+#endif
+#ifndef FS_NATT
+#define FS_NATT 0  // bilateral point anchors
+#endif
+#ifndef FS_QT
+#define FS_QT 0  // 1: PD-drive setpoints come per env in a q_target input
 #endif
 
 namespace {
 
 constexpr int NB = FS_NB, NQ = FS_NQ, NV = FS_NV, NC = FS_NC, EPB = FS_EPB;
-constexpr int R = 3 * NC;
-constexpr int CPL = (NC + 31) / 32;  // contacts per lane
+constexpr int NPP = FS_NPP, NATT = FS_NATT;
+constexpr bool QT = FS_QT != 0;
+// contacts of the solve in row order: plane, pair, anchor; a contact has
+// three rows, stored comp-major [t1 | t2 | n] in blocks of NCT
+constexpr int NUNI = NC + NPP;     // unilateral contacts
+constexpr int NCT = NUNI + NATT;
+constexpr int R = 3 * NCT;
+constexpr int CPL = (NCT + 31) / 32;  // contacts per lane
 constexpr int CPLA = CPL > 0 ? CPL : 1;  // size of the per-lane contact arrays (none of length 0)
-static_assert(NC >= 0, "negative contact count");
+static_assert(NC >= 0 && NPP >= 0 && NATT >= 0, "negative contact count");
 static_assert(NV > 0 && NB > 0, "empty model");
 
 constexpr int FREE = 0, HINGE = 1, SLIDE = 2;
+constexpr int GEOM_BOX = 2, GEOM_CYLINDER = 3;  // any other pair geom is a sphere
 
 // ---- spec buffer layout (mirrored by _pack_spec in engine/_cuda.py) ----
 constexpr int P_G = 0, P_H = 3, P_H2 = 4, P_INVH = 5, P_ERP = 6, P_MAXDEP = 7,
               P_MARGIN = 8, P_BOUNCE = 9, P_LIMK = 10, P_LIMD = 11,
-              P_MAXV = 12, P_NLEV = 13, NPARAM = 16;
+              P_MAXV = 12, P_NLEV = 13, P_ERPATT = 14, NPARAM = 16;
 constexpr int O_PARENT = NPARAM;
 constexpr int O_JTYPE = O_PARENT + NB;
 constexpr int O_QADR = O_JTYPE + NB;
@@ -96,20 +129,32 @@ constexpr int O_LIMITED = O_HI + NV;
 constexpr int O_SETPT = O_LIMITED + NV;
 constexpr int O_DMASK = O_SETPT + NV;
 constexpr int O_ANC = O_DMASK + NV * NV;
+// per contact (NCT): the body of the candidate point / pair point / anchor,
+// that point in the body's frame, its radius, friction, restitution, and the
+// dof path mask of its Jacobian (signed A - B for a pair row)
 constexpr int O_CPBODY = O_ANC + NB * NB;
-constexpr int O_CPPOS = O_CPBODY + NC;
-constexpr int O_CPRAD = O_CPPOS + 3 * NC;
-constexpr int O_CPMU = O_CPRAD + NC;
-constexpr int O_REST = O_CPMU + NC;
-constexpr int O_PATH = O_REST + NC;
-constexpr int SPEC_BASE = O_PATH + NC * NV;  // followed by betas[iters]
+constexpr int O_CPPOS = O_CPBODY + NCT;
+constexpr int O_CPRAD = O_CPPOS + 3 * NCT;
+constexpr int O_CPMU = O_CPRAD + NCT;
+constexpr int O_REST = O_CPMU + NCT;
+constexpr int O_PATH = O_REST + NCT;
+// per pair row (NPP): the geom's body, type, pose in that body, half sizes
+constexpr int O_PPB = O_PATH + NCT * NV;
+constexpr int O_PPTYPE = O_PPB + NPP;
+constexpr int O_PPGPOS = O_PPTYPE + NPP;
+constexpr int O_PPGQUAT = O_PPGPOS + 3 * NPP;
+constexpr int O_PPGSIZE = O_PPGQUAT + 4 * NPP;
+// per anchor (NATT): world target
+constexpr int O_ATTTGT = O_PPGSIZE + 3 * NPP;
+constexpr int SPEC_BASE = O_ATTTGT + 3 * NATT;  // followed by betas[iters]
 
 // ---- per-env shared-memory layout ----
 constexpr int E_Q = 0;
 constexpr int E_QD = E_Q + NQ;
 constexpr int E_QFRC = E_QD + NV;
 constexpr int E_XFRC = E_QFRC + NV;      // (6, NB) comp-major
-constexpr int E_QDF = E_XFRC + 6 * NB;   // qd_free
+constexpr int E_QTGT = E_XFRC + 6 * NB;  // (NQ,) q_target, only with QT
+constexpr int E_QDF = E_QTGT + (QT ? NQ : 0);  // qd_free
 constexpr int E_RHS = E_QDF + NV;
 constexpr int E_X = E_RHS + NV;          // (NB, 3)
 constexpr int E_QT = E_X + 3 * NB;       // (NB, 4)
@@ -125,11 +170,13 @@ constexpr int E_MINV = E_AG + NV * NV;
 constexpr int E_PIVA = E_MINV + NV * NV;
 constexpr int E_PIVI = E_PIVA + NV;
 constexpr int E_CC = E_PIVI + NV;
-constexpr int E_SC = E_CC + NV;          // (NC,) Jacobi scale per contact
-constexpr int E_J = E_SC + NC;           // (NV, R) comp-major rows
+constexpr int E_SC = E_CC + NV;          // (NCT,) Jacobi scale per contact
+constexpr int E_J = E_SC + NCT;          // (NV, R) comp-major rows
 constexpr int E_W = E_J + NV * R;        // (NV, R) = M^-1 J
-constexpr int E_FS = E_W + NV * R;       // (6, NC) contact force, torque
-constexpr int E_BF = E_FS + 6 * NC;      // (3, NB)
+constexpr int E_FS = E_W + NV * R;       // (6, NCT) world contact force, torque about the point's body
+constexpr int E_FSB = E_FS + 6 * NCT;    // (3, NPP) the same force's torque about the geom's body
+constexpr int E_FR = E_FSB + 3 * NPP;    // (NPP, 9) pair-row frame t1, t2, n (world)
+constexpr int E_BF = E_FR + 9 * NPP;     // (3, NB)
 constexpr int E_BT = E_BF + 3 * NB;      // (3, NB)
 constexpr int E_DF = E_BT + 3 * NB;      // (NV,)
 constexpr int ENV_FLOATS = ((E_DF + NV + 3) / 4) * 4;
@@ -360,12 +407,104 @@ __device__ void inertia_and_net(const float* __restrict__ sp, float* __restrict_
   for (int k = 0; k < 6; ++k) e[E_NET + 6 * b + k] = net[k] - e[E_XFRC + k * NB + b];
 }
 
+// Cone projection of one contact; a bilateral (anchor) contact is left
+// unprojected (fused.py:1398-1410).
 __device__ __forceinline__ void project(float t1, float t2, float n, float mu, float act,
-                                        float* o) {
-  const float ln = fmaxf(n, 0.f);
+                                        bool bil, float* o) {
+  const float ln = bil ? n : fmaxf(n, 0.f);
   const float tn = sqrtf(t1 * t1 + t2 * t2 + 1e-12f);
-  const float sc = fminf(mu * ln / tn, 1.f) * act;
+  const float sc = (bil ? 1.f : fminf(mu * ln / tn, 1.f)) * act;
   o[0] = t1 * sc; o[1] = t2 * sc; o[2] = ln * act;
+}
+
+// kind of contact i: plane row, pair row or bilateral anchor
+__device__ __forceinline__ bool is_pair(int i) { return NPP > 0 && i >= NC && i < NUNI; }
+__device__ __forceinline__ bool is_anchor(int i) { return NATT > 0 && i >= NUNI && i < NCT; }
+
+// Pair row j: the candidate point xw (world) against the analytic geom of
+// body B (fused.py:932-1077). Gives phi, the surface point xs and the frame
+// (t1, t2, n), all in world coordinates; n points from the geom to the point.
+__device__ void pair_row(const float* __restrict__ sp, const float* __restrict__ e, int j,
+                         const float* xw, float radius, float* phi, float* xs, float* t1,
+                         float* t2, float* nw) {
+  const int bB = (int)sp[O_PPB + j];
+  const float* bQ = e + E_QT + 4 * bB;
+  float rr[3], Xg[3], Qg[4], d[3], dv[3];
+  qrot(bQ, sp + O_PPGPOS + 3 * j, rr);
+  for (int k = 0; k < 3; ++k) Xg[k] = e[E_X + 3 * bB + k] + rr[k];
+  qmul(bQ, sp + O_PPGQUAT + 4 * j, Qg);
+  const float Qc[4] = {-Qg[0], -Qg[1], -Qg[2], Qg[3]};
+  for (int k = 0; k < 3; ++k) d[k] = xw[k] - Xg[k];
+  qrot(Qc, d, dv);  // the point in the geom's frame
+  const float* half = sp + O_PPGSIZE + 3 * j;
+  const int gt = (int)sp[O_PPTYPE + j];
+  float nl[3], surf[3];
+  if (gt == GEOM_BOX) {
+    float cb[3], rel[3], gaps[3];
+    for (int k = 0; k < 3; ++k) {
+      cb[k] = fminf(fmaxf(dv[k], -half[k]), half[k]);
+      rel[k] = dv[k] - cb[k];
+      gaps[k] = half[k] - fabsf(dv[k]);
+    }
+    if (gaps[0] > 0.f && gaps[1] > 0.f && gaps[2] > 0.f) {
+      // inside: leave through the nearest face
+      const int kk = (gaps[0] <= gaps[1] && gaps[0] <= gaps[2]) ? 0
+                     : ((gaps[1] < gaps[0] && gaps[1] <= gaps[2]) ? 1 : 2);
+      for (int k = 0; k < 3; ++k) {
+        const float sg = dv[k] >= 0.f ? 1.f : -1.f;
+        nl[k] = k == kk ? sg : 0.f;
+        surf[k] = k == kk ? sg * half[k] : dv[k];
+      }
+      *phi = radius + fminf(gaps[0], fminf(gaps[1], gaps[2]));
+    } else {
+      const float dist = sqrtf(rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2] + 1e-18f);
+      const float inv = 1.f / fmaxf(dist, 1e-9f);
+      for (int k = 0; k < 3; ++k) { nl[k] = rel[k] * inv; surf[k] = cb[k]; }
+      *phi = radius - dist;
+    }
+  } else if (gt == GEOM_CYLINDER) {
+    // axis along local z: radius half[0], half-height half[1]
+    const float dxy = sqrtf(dv[0] * dv[0] + dv[1] * dv[1] + 1e-18f);
+    if (dxy < half[0] && fabsf(dv[2]) < half[1]) {
+      const float gap_r = half[0] - dxy, gap_z = half[1] - fabsf(dv[2]);
+      const float big = dxy > 1e-6f ? 1.f : 0.f;
+      const float inv_dxy = 1.f / fmaxf(dxy, 1e-9f);
+      const float rd0 = big * dv[0] * inv_dxy + (1.f - big), rd1 = big * dv[1] * inv_dxy;
+      const float sgz = dv[2] > 0.f ? 1.f : (dv[2] < 0.f ? -1.f : 0.f);
+      if (gap_r < gap_z) {  // leave through the side
+        nl[0] = rd0; nl[1] = rd1; nl[2] = 0.f;
+        surf[0] = rd0 * half[0]; surf[1] = rd1 * half[0]; surf[2] = dv[2];
+      } else {  // leave through a cap
+        nl[0] = 0.f; nl[1] = 0.f; nl[2] = sgz;
+        surf[0] = dv[0]; surf[1] = dv[1]; surf[2] = sgz * half[1];
+      }
+      *phi = radius + fminf(gap_r, gap_z);
+    } else {
+      const float sc = fminf(1.f, half[0] / fmaxf(dxy, 1e-9f));
+      surf[0] = dv[0] * sc; surf[1] = dv[1] * sc;
+      surf[2] = fminf(fmaxf(dv[2], -half[1]), half[1]);
+      const float r0 = dv[0] - surf[0], r1 = dv[1] - surf[1], r2 = dv[2] - surf[2];
+      const float dist = sqrtf(r0 * r0 + r1 * r1 + r2 * r2 + 1e-18f);
+      const float inv = 1.f / fmaxf(dist, 1e-9f);
+      nl[0] = r0 * inv; nl[1] = r1 * inv; nl[2] = r2 * inv;
+      *phi = radius - dist;
+    }
+  } else {  // sphere of radius half[0]
+    const float dist = sqrtf(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2] + 1e-18f);
+    const float inv = 1.f / fmaxf(dist, 1e-9f);
+    for (int k = 0; k < 3; ++k) { nl[k] = dv[k] * inv; surf[k] = nl[k] * half[0]; }
+    *phi = half[0] + radius - dist;
+  }
+  qrot(Qg, nl, nw);
+  qrot(Qg, surf, rr);
+  for (int k = 0; k < 3; ++k) xs[k] = Xg[k] + rr[k];
+  // tangent basis: t1 = ref x n normalised, ref = z unless n is near z
+  const float uz = fabsf(nw[2]) < 0.9f ? 1.f : 0.f;
+  const float ref[3] = {1.f - uz, 0.f, uz};
+  cross3(ref, nw, t1);
+  const float tn = 1.f / fmaxf(sqrtf(t1[0] * t1[0] + t1[1] * t1[1] + t1[2] * t1[2]), 1e-9f);
+  for (int k = 0; k < 3; ++k) t1[k] *= tn;
+  cross3(nw, t1, t2);
 }
 
 // One env, all slices. `e` is the env's shared-memory block; every lane of
@@ -376,6 +515,7 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
   const float erp = sp[P_ERP], maxdep = sp[P_MAXDEP], margin = sp[P_MARGIN];
   const float bounce_thr = sp[P_BOUNCE], limk = sp[P_LIMK], limd = sp[P_LIMD];
   const float maxv = sp[P_MAXV];
+  const float ke_att = sp[P_ERPATT] / h;  // anchor error drive, erp_att / h
   const int nlev = (int)sp[P_NLEV];
   const float* betas = sp + SPEC_BASE;
 
@@ -435,7 +575,10 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
       const int sq = (int)sp[O_SQADR + d];
       const float qs = sq >= 0 ? e[E_Q + sq] : 0.f;
       const float kst = sp[O_STIFF + d], lim = sp[O_LIMITED + d];
-      float tau = -kst * (qs - sp[O_SETPT + d]);
+      float setp;
+      if constexpr (QT) setp = sq >= 0 ? e[E_QTGT + sq] : 0.f;
+      else setp = sp[O_SETPT + d];
+      float tau = -kst * (qs - setp);
       const float over = fmaxf(qs - sp[O_HI + d], 0.f);
       const float under = fmaxf(sp[O_LO + d] - qs, 0.f);
       const float viol = (over > 0.f || under > 0.f) ? 1.f : 0.f;
@@ -480,8 +623,11 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
 
     // contact state that outlives the solve: points, impulses, J^T lambda
     float xc[CPLA][3], lam[CPLA][3], qcon[NV];
-    if constexpr (NC > 0) {
-      // ---- plane rows: one contact per lane
+    if constexpr (NCT > 0) {
+      // ---- contact rows, a contact per lane: plane rows (frame = world
+      // axes, phi = radius - z), pair rows (narrowphase against the geom,
+      // frame from its normal, Jacobian at the surface point with the
+      // signed path) and anchors (world axes, phi = 0, bilateral)
       float act[CPLA], mu[CPLA], s_c[CPLA], bv[CPLA][3];
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
@@ -489,27 +635,42 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
         act[c] = 0.f; mu[c] = 0.f; s_c[c] = 0.f;
         xc[c][0] = xc[c][1] = xc[c][2] = 0.f;
         bv[c][0] = bv[c][1] = bv[c][2] = 0.f;
-        if (i < NC) {
+        if (i < NCT) {
           const int b = (int)sp[O_CPBODY + i];
           float rot[3];
           qrot(e + E_QT + 4 * b, sp + O_CPPOS + 3 * i, rot);
           for (int k = 0; k < 3; ++k) xc[c][k] = e[E_X + 3 * b + k] + rot[k];
-          const float phi = sp[O_CPRAD + i] - xc[c][2];
+          float phi;
+          float fr[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
+          if (is_pair(i)) {
+            const float xw[3] = {xc[c][0], xc[c][1], xc[c][2]};
+            pair_row(sp, e, i - NC, xw, sp[O_CPRAD + i], &phi, xc[c], fr, fr + 3, fr + 6);
+            for (int k = 0; k < 9; ++k) e[E_FR + 9 * (i - NC) + k] = fr[k];
+          } else if (is_anchor(i)) {
+            phi = 0.f;
+          } else {
+            phi = sp[O_CPRAD + i] - xc[c][2];
+          }
           act[c] = phi > -margin ? 1.f : 0.f;
           mu[c] = sp[O_CPMU + i];
           for (int v = 0; v < NV; ++v) {
             const float pm = sp[O_PATH + i * NV + v];
             const float* S = e + E_S + 6 * v;
+            float jw[3];
             for (int k = 0; k < 3; ++k) {
               const int a = (k + 1) % 3, bb = (k + 2) % 3;
               const float crossk = S[a] * xc[c][bb] - S[bb] * xc[c][a];
-              e[E_J + v * R + k * NC + i] = (S[3 + k] + crossk) * pm;
+              jw[k] = (S[3 + k] + crossk) * pm;
             }
+            for (int k = 0; k < 3; ++k)
+              e[E_J + v * R + k * NCT + i] =
+                  is_pair(i) ? fr[3 * k] * jw[0] + fr[3 * k + 1] * jw[1] + fr[3 * k + 2] * jw[2]
+                             : jw[k];
           }
           float vnt = phi > 0.f ? fminf(erp * phi / h, maxdep) : phi / h;
           float dg[3];
           for (int k = 0; k < 3; ++k) {
-            const int r = k * NC + i;
+            const int r = k * NCT + i;
             float bb = 0.f, dd = 0.f;
             for (int v = 0; v < NV; ++v) {
               float wv = 0.f;
@@ -522,11 +683,17 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
             bv[c][k] = bb;
             dg[k] = dd;
           }
-          // Newton restitution: bv[c][2] is the pre-solve normal velocity
-          const float rest = sp[O_REST + i];
-          const float vn_pre = bv[c][2];
-          if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
-          bv[c][2] = vn_pre - vnt;
+          if (is_anchor(i)) {
+            // drive the anchor point's error to zero on all three axes
+            const float* tgt = sp + O_ATTTGT + 3 * (i - NUNI);
+            for (int k = 0; k < 3; ++k) bv[c][k] -= (tgt[k] - xc[c][k]) * ke_att;
+          } else {
+            // Newton restitution: bv[c][2] is the pre-solve normal velocity
+            const float rest = sp[O_REST + i];
+            const float vn_pre = bv[c][2];
+            if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
+            bv[c][2] = vn_pre - vnt;
+          }
           const float dcm = (dg[0] + dg[1] + dg[2]) / 3.f + 1e-6f;
           s_c[c] = rsqrtf(fmaxf(dcm, 1e-12f));
           e[E_SC + i] = s_c[c];
@@ -539,13 +706,13 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         const int i = lane + 32 * c;
-        if (i < NC) {
+        if (i < NCT) {
           float Jr[3][NV], acc[3] = {0.f, 0.f, 0.f};
           for (int k = 0; k < 3; ++k)
-            for (int v = 0; v < NV; ++v) Jr[k][v] = e[E_J + v * R + k * NC + i];
+            for (int v = 0; v < NV; ++v) Jr[k][v] = e[E_J + v * R + k * NCT + i];
           for (int kc = 0; kc < 3; ++kc)
-            for (int j = 0; j < NC; ++j) {
-              const int col = kc * NC + j;
+            for (int j = 0; j < NCT; ++j) {
+              const int col = kc * NCT + j;
               float Wc[NV];
               for (int v = 0; v < NV; ++v) Wc[v] = e[E_W + v * R + col];
               const float sc = e[E_SC + j];
@@ -566,8 +733,10 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
       float yv[CPLA][3];
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
-        const float sw = (lane + 32 * c < NC) ? s_c[c] : 1.f;
-        project(warm[c][0] / sw, warm[c][1] / sw, warm[c][2] / sw, mu[c], act[c], lam[c]);
+        const int i = lane + 32 * c;
+        const float sw = (i < NCT) ? s_c[c] : 1.f;
+        project(warm[c][0] / sw, warm[c][1] / sw, warm[c][2] / sw, mu[c], act[c], is_anchor(i),
+                lam[c]);
         for (int k = 0; k < 3; ++k) yv[c][k] = lam[c][k];
       }
       for (int it = 0; it < iters; ++it) {
@@ -576,10 +745,10 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
           const int i = lane + 32 * c;
-          if (i < NC)
+          if (i < NCT)
             for (int k = 0; k < 3; ++k) {
               const float ys = s_c[c] * yv[c][k];
-              for (int v = 0; v < NV; ++v) u[v] += e[E_W + v * R + k * NC + i] * ys;
+              for (int v = 0; v < NV; ++v) u[v] += e[E_W + v * R + k * NCT + i] * ys;
             }
         }
         for (int v = 0; v < NV; ++v) u[v] = warp_sum(u[v]);
@@ -588,17 +757,17 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
         for (int c = 0; c < CPL; ++c) {
           const int i = lane + 32 * c;
           float z[3] = {0.f, 0.f, 0.f};
-          if (i < NC) {
+          if (i < NCT) {
             const float reg = 1e-6f * (s_c[c] * s_c[c]);
             for (int k = 0; k < 3; ++k) {
               float a = 0.f;
-              for (int v = 0; v < NV; ++v) a += e[E_J + v * R + k * NC + i] * u[v];
+              for (int v = 0; v < NV; ++v) a += e[E_J + v * R + k * NCT + i] * u[v];
               const float g = s_c[c] * a + reg * yv[c][k] + bv[c][k];
               z[k] = yv[c][k] - step * g;
             }
           }
           float ln[3];
-          project(z[0], z[1], z[2], mu[c], act[c], ln);
+          project(z[0], z[1], z[2], mu[c], act[c], is_anchor(i), ln);
           for (int k = 0; k < 3; ++k) {
             yv[c][k] = ln[k] + beta * (ln[k] - lam[c][k]);
             lam[c][k] = ln[k];
@@ -614,16 +783,16 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
           lam[c][k] *= s_c[c];
           warm[c][k] = lam[c][k];
         }
-        if (i < NC)
+        if (i < NCT)
           for (int k = 0; k < 3; ++k)
-            for (int v = 0; v < NV; ++v) qcon[v] += e[E_J + v * R + k * NC + i] * lam[c][k];
+            for (int v = 0; v < NV; ++v) qcon[v] += e[E_J + v * R + k * NCT + i] * lam[c][k];
       }
       for (int v = 0; v < NV; ++v) qcon[v] = warp_sum(qcon[v]);
-    }  // NC > 0
+    }  // NCT > 0
     // ---- new velocity (clipped), then integrate per body
     for (int i = lane; i < NV; i += 32) {
       float vnew = e[E_QDF + i];
-      if constexpr (NC > 0) {
+      if constexpr (NCT > 0) {
         float a = 0.f;
         for (int j = 0; j < NV; ++j) a += e[E_MINV + i * NV + j] * qcon[j];
         vnew += a;
@@ -651,20 +820,33 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
       }
     }
     // ---- sensors of the last slice
-    if constexpr (NC > 0) {
+    if constexpr (NCT > 0) {
       if (sl == n_slices - 1) {
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
           const int i = lane + 32 * c;
-          if (i < NC) {
+          if (i < NCT) {
             const int b = (int)sp[O_CPBODY + i];
-            const float Fp[3] = {lam[c][0] * inv_h, lam[c][1] * inv_h, lam[c][2] * inv_h};
+            float Fp[3] = {lam[c][0] * inv_h, lam[c][1] * inv_h, lam[c][2] * inv_h};
+            if (is_pair(i)) {
+              // row impulses are in the contact frame: back to world axes
+              const float* fr = e + E_FR + 9 * (i - NC);
+              const float l0 = Fp[0], l1 = Fp[1], l2 = Fp[2];
+              for (int k = 0; k < 3; ++k) Fp[k] = fr[k] * l0 + fr[3 + k] * l1 + fr[6 + k] * l2;
+            }
             float rel[3], tq[3];
             for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * b + k];
             cross3(rel, Fp, tq);
             for (int k = 0; k < 3; ++k) {
-              e[E_FS + k * NC + i] = Fp[k];
-              e[E_FS + (3 + k) * NC + i] = tq[k];
+              e[E_FS + k * NCT + i] = Fp[k];
+              e[E_FS + (3 + k) * NCT + i] = tq[k];
+            }
+            if (is_pair(i)) {
+              // the geom's body takes -F, with its own torque arm
+              const int bB = (int)sp[O_PPB + i - NC];
+              for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * bB + k];
+              cross3(rel, Fp, tq);
+              for (int k = 0; k < 3; ++k) e[E_FSB + k * NPP + i - NC] = tq[k];
             }
           }
         }
@@ -674,19 +856,25 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
           e[E_DF + v] = qv * inv_h;
         }
         __syncwarp();
+        // each (component, body) output is owned by one lane: no atomics
         for (int x = lane; x < 6 * NB; x += 32) {
           const int k = x / NB, b = x % NB;
           float a = 0.f;
-          for (int i = 0; i < NC; ++i)
-            if ((int)sp[O_CPBODY + i] == b) a += e[E_FS + k * NC + i];
+          for (int i = 0; i < NCT; ++i)
+            if ((int)sp[O_CPBODY + i] == b) a += e[E_FS + k * NCT + i];
+          if constexpr (NPP > 0) {
+            for (int j = 0; j < NPP; ++j)
+              if ((int)sp[O_PPB + j] == b)
+                a -= k < 3 ? e[E_FS + k * NCT + NC + j] : e[E_FSB + (k - 3) * NPP + j];
+          }
           if (k < 3) e[E_BF + k * NB + b] = a;
           else e[E_BT + (k - 3) * NB + b] = a;
         }
       }
-    }  // NC > 0
+    }  // NCT > 0
     __syncwarp();
   }
-  if constexpr (NC == 0) {
+  if constexpr (NCT == 0) {
     // no contacts: body force, body torque (contiguous) and dof force are zero
     for (int x = lane; x < 6 * NB; x += 32) e[E_BF + x] = 0.f;
     for (int v = lane; v < NV; v += 32) e[E_DF + v] = 0.f;
@@ -715,7 +903,7 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float*
 __global__ void __launch_bounds__(32 * EPB)
 fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
                   const float* __restrict__ qfrc_in, const float* __restrict__ xfrc_in,
-                  float* __restrict__ q_out, float* __restrict__ qd_out,
+                  const float* __restrict__ qt_in, float* __restrict__ q_out, float* __restrict__ qd_out,
                   float* __restrict__ bf_out, float* __restrict__ bt_out,
                   float* __restrict__ df_out, const float* __restrict__ spec, int spec_len,
                   int n_env, int n_slices, int iters) {
@@ -729,6 +917,7 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
   load_rows(qd_in, envs, E_QD, NV, env0, n_env);
   load_rows(qfrc_in, envs, E_QFRC, NV, env0, n_env);
   load_rows(xfrc_in, envs, E_XFRC, 6 * NB, env0, n_env);
+  if constexpr (QT) load_rows(qt_in, envs, E_QTGT, NQ, env0, n_env);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (env0 + warp < n_env) run_env(sp, envs + warp * ENV_FLOATS, lane, n_slices, iters);
@@ -744,22 +933,26 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
 
 extern "C" {
 
-// out[0..6] = nbody, nq, nv, nc, spec floats before the betas, per-env
-// shared floats, envs per block.
+// out[0..9] = nbody, nq, nv, plane rows, pair rows, anchors, 1 with a
+// q_target input, spec floats before the betas, per-env shared floats, envs
+// per block.
 int fused_step_layout(int* out) {
-  out[0] = NB; out[1] = NQ; out[2] = NV; out[3] = NC;
-  out[4] = SPEC_BASE; out[5] = ENV_FLOATS; out[6] = EPB;
+  out[0] = NB; out[1] = NQ; out[2] = NV; out[3] = NC; out[4] = NPP; out[5] = NATT;
+  out[6] = QT ? 1 : 0; out[7] = SPEC_BASE; out[8] = ENV_FLOATS; out[9] = EPB;
   return 0;
 }
 
 // Launches one fused step on `stream`. Arrays are float32, (rows, n_env)
-// row-major; xfrc may be null (no external wrenches). Returns the CUDA
-// error code of the launch (0 on success).
+// row-major; xfrc may be null (no external wrenches); q_target (nq, n_env)
+// is read only by a library built with -DFS_QT=1, which refuses a null one
+// (cudaErrorInvalidValue). Returns the CUDA error code of the launch (0 on
+// success).
 int fused_step_launch(const void* q, const void* qd, const void* qfrc, const void* xfrc,
-                      void* q_out, void* qd_out, void* bf_out, void* bt_out, void* df_out,
+                      const void* q_target, void* q_out, void* qd_out, void* bf_out, void* bt_out, void* df_out,
                       const void* spec, int spec_len, int n_env, int n_slices, int iters,
                       void* stream) {
   if (n_env <= 0) return 0;
+  if (QT && q_target == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes = sizeof(float) * (size_t)(((spec_len + 3) & ~3) + EPB * ENV_FLOATS);
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -767,7 +960,7 @@ int fused_step_launch(const void* q, const void* qd, const void* qfrc, const voi
   const int grid = (n_env + EPB - 1) / EPB;
   fused_step_kernel<<<grid, 32 * EPB, bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)qd, (const float*)qfrc, (const float*)xfrc,
-      (float*)q_out, (float*)qd_out, (float*)bf_out, (float*)bt_out, (float*)df_out,
+      (const float*)q_target, (float*)q_out, (float*)qd_out, (float*)bf_out, (float*)bt_out, (float*)df_out,
       (const float*)spec, spec_len, n_env, n_slices, iters);
   return (int)cudaGetLastError();
 }

@@ -17,10 +17,13 @@ on a CPU tensor it runs `_step_math_torch`, the plain twin of the JAX
 `chip_smoke.py` holds the kernel against on the card.
 
 Feature set (`fused_supported`): free/hinge/slide/fixed joints, plane
-contacts from candidate points, external body wrenches, joint limits,
-implicit damping/stiffness, joint friction, Newton restitution. Pair
-rows, anchors, top-K, tendons, q_target drives, per-env model leaves,
-terrain and SDF rows are later tiers and raise NotImplementedError.
+contacts from candidate points, point-vs-geom pair rows (sphere, box and
+cylinder geoms; a mesh geom rides the cylinder branch), bilateral point
+anchors, external body wrenches, PD-drive setpoints (`q_target`), joint
+limits, implicit damping/stiffness, joint friction, Newton restitution.
+Geom-geom pairs, SDF pairs, top-K, tendons, per-env model leaves, terrain
+and merged decimation windows are later tiers and raise
+NotImplementedError by name.
 """
 from __future__ import annotations
 
@@ -44,21 +47,35 @@ class FusedOut(NamedTuple):
     dof_force: torch.Tensor  # (N, nv)
 
 
-def fused_supported(model: Model, params: SimParams, terrain=None) -> bool:
-    """True when the port's kernel (and its twin) covers this model."""
+# geom types a pair row's narrowphase covers: SPHERE, BOX, CYLINDER, and
+# MESH, which takes the cylinder branch on its bounding half-extents
+_PAIR_GEOM_TYPES = (0, 2, 3, 5)
+
+
+def unsupported_features(model: Model, params: SimParams, terrain=None) -> list:
+    """Names of what this model or operating point asks for beyond the
+    ported kernel tiers (empty when the kernel and its twin cover it)."""
     n_plane = model.ncp if model.plane_contacts else 0
+    nct = n_plane + len(model.ppair_point) + len(model.spair_point) + len(model.att_body)
     cap = params.max_active_contacts
     has_tendons = model.tendon_coef is not None and model.tendon_coef.shape[0] > 0
-    return (
-        terrain is None
-        and params.solver == "apgd"
-        and not model.pair_geom_a
-        and not model.ppair_point
-        and not model.spair_point
-        and not model.att_body
-        and not has_tendons
-        and not (cap and cap < n_plane)
-    )
+    asked = {
+        "terrain": terrain is not None,
+        f"solver={params.solver}": params.solver != "apgd",
+        "geom-geom pairs (pair_geom_a)": bool(len(model.pair_geom_a)),
+        "SDF pair rows (spair_point)": bool(len(model.spair_point)),
+        "pair rows against capsule or plane geoms": any(
+            model.geom_type[g] not in _PAIR_GEOM_TYPES for g in model.ppair_geom
+        ),
+        "tendons": has_tendons,
+        f"top-K active set (max_active_contacts={cap} < {nct} rows)": bool(cap and cap < nct),
+    }
+    return [k for k, v in asked.items() if v]
+
+
+def fused_supported(model: Model, params: SimParams, terrain=None) -> bool:
+    """True when the port's kernel (and its twin) covers this model."""
+    return not unsupported_features(model, params, terrain)
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +137,25 @@ class _Spec(NamedTuple):
     nq: int
     nv: int
     nc: int  # plane contact rows
+    # point-vs-geom pair rows: candidate point on body A against an
+    # analytic geom on body B, static per row
+    pp_nc: int
+    pp_a: np.ndarray  # (npp,) point body
+    pp_b: np.ndarray  # (npp,) geom body
+    pp_pos: np.ndarray  # (npp, 3) point in body-A frame
+    pp_radius: np.ndarray  # (npp,)
+    pp_mu: np.ndarray  # (npp,) mean of point and geom friction
+    pp_gtype: np.ndarray  # (npp,) 0 sphere, 2 box, 3 cylinder (mesh folded in)
+    pp_gpos: np.ndarray  # (npp, 3) geom offset in body-B frame
+    pp_gquat: np.ndarray  # (npp, 4)
+    pp_gsize: np.ndarray  # (npp, 3)
+    pp_path: np.ndarray  # (nv, npp) SIGNED dof path mask (A - B)
+    # bilateral point anchors
+    att_n: int
+    att_body: np.ndarray  # (natt,)
+    att_offset: np.ndarray  # (natt, 3) anchor point in body frame
+    att_target: np.ndarray  # (natt, 3) world target
+    att_path: np.ndarray  # (nv, natt) dof path mask
     parent: np.ndarray
     jnt_type: np.ndarray
     q_adr: np.ndarray
@@ -150,8 +186,13 @@ class _Spec(NamedTuple):
     cp_mu: np.ndarray
     path_mask: np.ndarray  # (nc, nv) contact-path dof mask
     body_of_contact: np.ndarray  # (nbody, nc) 0/1 accumulation matrix
-    rest: np.ndarray  # (nc,) per-row Newton restitution
+    rest: np.ndarray  # (nc + npp,) per-row Newton restitution
     free_bodies: tuple
+
+    @property
+    def nct(self) -> int:
+        """Contacts in the solve: plane, pair and anchor rows, in that order."""
+        return self.nc + self.pp_nc + self.att_n
 
 
 def _extract(model: Model) -> _Spec:
@@ -163,16 +204,46 @@ def _extract(model: Model) -> _Spec:
     path_mask = anc[cp_body][:, np.asarray(model.dof_body, np.int64)].astype(np.float32)
     boc = np.zeros((model.nbody, nc), np.float32)
     boc[cp_body, np.arange(nc)] = 1.0
-    rest = (
-        f32(model.cpoint_restitution)[:nc]
+    dof_body = np.asarray(model.dof_body, np.int64)
+    # pair rows in the order of the JAX package: grouped by geom, stable
+    geoms = np.asarray(model.ppair_geom, np.int64)
+    order = np.argsort(geoms, kind="stable")
+    pts, geoms = np.asarray(model.ppair_point, np.int64)[order], geoms[order]
+    npp = len(pts)
+    pp_a = np.asarray(model.cpoint_body, np.int64)[pts]
+    pp_b = np.asarray(model.geom_body, np.int64)[geoms]
+    pp_gtype = np.asarray(model.geom_type, np.int64)[geoms]
+    pp_gtype = np.where(pp_gtype == 5, 3, pp_gtype)  # MESH takes the cylinder branch
+    pp_path = (anc[pp_a][:, dof_body] - anc[pp_b][:, dof_body]).astype(np.float32).T
+    att_b = np.asarray(model.att_body, np.int64)
+    natt = len(att_b)
+    rst = (
+        f32(model.cpoint_restitution)
         if model.cpoint_restitution is not None
-        else np.zeros(nc, np.float32)
+        else np.zeros(model.ncp, np.float32)
     )
+    rest = np.concatenate([rst[:nc], rst[pts]])
     return _Spec(
         nbody=model.nbody,
         nq=model.nq,
         nv=model.nv,
         nc=nc,
+        pp_nc=npp,
+        pp_a=pp_a,
+        pp_b=pp_b,
+        pp_pos=f32(model.cpoint_pos)[pts],
+        pp_radius=f32(model.cpoint_radius)[pts],
+        pp_mu=0.5 * (f32(model.cpoint_friction)[pts] + f32(model.geom_friction)[geoms]),
+        pp_gtype=pp_gtype,
+        pp_gpos=f32(model.geom_pos).reshape(-1, 3)[geoms],
+        pp_gquat=f32(model.geom_quat).reshape(-1, 4)[geoms],
+        pp_gsize=f32(model.geom_size).reshape(-1, 3)[geoms],
+        pp_path=pp_path,
+        att_n=natt,
+        att_body=att_b,
+        att_offset=f32(model.att_offset).reshape(-1, 3)[:natt] if natt else np.zeros((0, 3), np.float32),
+        att_target=f32(model.att_target).reshape(-1, 3)[:natt] if natt else np.zeros((0, 3), np.float32),
+        att_path=anc[att_b][:, dof_body].astype(np.float32).T,
         parent=np.asarray(model.body_parent, np.int64),
         jnt_type=np.asarray(model.jnt_type, np.int64),
         q_adr=np.asarray(model.q_adr, np.int64),
@@ -310,8 +381,9 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
     T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     rev_topo = list(range(s.nbody))[::-1]
     dof_of_body = [[d for d in range(s.nv) if s.dof_body[d] == b] for b in range(s.nbody)]
-    nc = s.nc
-    erp = p.baumgarte_erp
+    nc, npp, natt, nct = s.nc, s.pp_nc, s.att_n, s.nct
+    nuni = nc + npp  # unilateral rows come first, anchors last
+    erp, erp_att = p.baumgarte_erp, p.baumgarte_erp_attractor
     gravity = [float(g) for g in p.gravity]
     sel_q = np.zeros((s.nv, s.nq), np.float32)
     for d in range(s.nv):
@@ -342,11 +414,25 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
         cp_pick=T(cp_pick),
         cp_pos=[T(s.cp_pos[:, k:k + 1]) for k in range(3)],
         cp_radius=T(s.cp_radius[:, None]),
-        mu=T(s.cp_mu[:, None]),
-        rest=T(s.rest[:, None]),
+        mu=T(np.concatenate([s.cp_mu, s.pp_mu, np.zeros(natt)])[:, None]),
+        rest=T(np.concatenate([s.rest, np.zeros(natt)])[:, None]),
+        bil=T(np.concatenate([np.zeros(nuni), np.ones(natt)])[:, None]) > 0,
         Pm=T(s.path_mask.T[:, :, None]),
         boc=T(s.body_of_contact),
+        pp_pos=[T(s.pp_pos[:, k:k + 1]) for k in range(3)],
+        pp_radius=T(s.pp_radius[:, None]),
+        pp_gpos=[T(s.pp_gpos[:, k:k + 1]) for k in range(3)],
+        pp_gquat=[T(s.pp_gquat[:, k:k + 1]) for k in range(4)],
+        pp_half=[T(s.pp_gsize[:, k:k + 1]) for k in range(3)],
+        is_box=T(s.pp_gtype[:, None] == 2) > 0,
+        is_cyl=T(s.pp_gtype[:, None] == 3) > 0,
+        Pm_pp=T(s.pp_path[:, :, None]),
+        att_offset=[T(s.att_offset[:, k:k + 1]) for k in range(3)],
+        att_target=[T(s.att_target[:, k:k + 1]) for k in range(3)],
+        Pm_att=T(s.att_path[:, :, None]),
     )
+    idx = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    pp_a, pp_b, att_b = idx(s.pp_a), idx(s.pp_b), idx(s.att_body)
     has_fric = bool(np.any(s.dof_friction))
     has_rest = bool(np.any(s.rest))
 
@@ -392,7 +478,69 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
             q_new = torch.cat([q_new[:qa + 3], torch.cat(qn, 0), q_new[qa + 7:]], 0)
         return q_new
 
-    def substep(q, qd, qfrc, xfrc, warm):
+    def pair_narrowphase(dvec, half, radius):
+        """Point (in the geom's frame) against its box, sphere or cylinder:
+        phi, the geom-frame normal (geom -> point) and the surface point."""
+        norm = lambda v: torch.sqrt(v[0] ** 2 + v[1] ** 2 + v[2] ** 2 + 1e-18)
+        # BOX: clamp to the volume; inside, leave through the nearest face
+        cb = [torch.minimum(torch.maximum(dvec[k], -half[k]), half[k]) for k in range(3)]
+        rel = [dvec[k] - cb[k] for k in range(3)]
+        dist_box = norm(rel)
+        gaps = [half[k] - torch.abs(dvec[k]) for k in range(3)]
+        inside = (gaps[0] > 0) & (gaps[1] > 0) & (gaps[2] > 0)
+        g_min = torch.minimum(gaps[0], torch.minimum(gaps[1], gaps[2]))
+        k0 = ((gaps[0] <= gaps[1]) & (gaps[0] <= gaps[2])).to(dvec[0].dtype)
+        k1 = ((gaps[1] < gaps[0]) & (gaps[1] <= gaps[2])).to(dvec[0].dtype) * (1.0 - k0)
+        ks = [k0, k1, 1.0 - k0 - k1]
+        sgn = [torch.where(dvec[k] >= 0.0, 1.0, -1.0) for k in range(3)]
+        inv_dist = 1.0 / torch.clamp(dist_box, min=1e-9)
+        phi_box = torch.where(inside, radius + g_min, radius - dist_box)
+        nl_box = [torch.where(inside, ks[k] * sgn[k], rel[k] * inv_dist) for k in range(3)]
+        surf_box = [
+            torch.where(inside, ks[k] * sgn[k] * half[k] + (1.0 - ks[k]) * dvec[k], cb[k])
+            for k in range(3)
+        ]
+        # SPHERE: radial closest point
+        dist_sph = norm(dvec)
+        inv_sph = 1.0 / torch.clamp(dist_sph, min=1e-9)
+        nl_sph = [dvec[k] * inv_sph for k in range(3)]
+        phi_sph = half[0] + radius - dist_sph
+        surf_sph = [nl_sph[k] * half[0] for k in range(3)]
+        # CYLINDER along local z: radius half[0], half-height half[1]
+        dxy = torch.sqrt(dvec[0] ** 2 + dvec[1] ** 2 + 1e-18)
+        sc_c = torch.clamp(half[0] / torch.clamp(dxy, min=1e-9), max=1.0)
+        c_cyl = [dvec[0] * sc_c, dvec[1] * sc_c,
+                 torch.minimum(torch.maximum(dvec[2], -half[1]), half[1])]
+        inside_c = (dxy < half[0]) & (torch.abs(dvec[2]) < half[1])
+        gap_r = half[0] - dxy
+        gap_z = half[1] - torch.abs(dvec[2])
+        big = (dxy > 1e-6).to(dxy.dtype)
+        inv_dxy = 1.0 / torch.clamp(dxy, min=1e-9)
+        rd = [big * dvec[0] * inv_dxy + (1.0 - big), big * dvec[1] * inv_dxy]
+        use_r = (gap_r < gap_z).to(dxy.dtype)
+        sgn_z = torch.sign(dvec[2])
+        c_in_c = [
+            use_r * rd[0] * half[0] + (1.0 - use_r) * dvec[0],
+            use_r * rd[1] * half[0] + (1.0 - use_r) * dvec[1],
+            use_r * dvec[2] + (1.0 - use_r) * sgn_z * half[1],
+        ]
+        n_in_c = [use_r * rd[0], use_r * rd[1], (1.0 - use_r) * sgn_z]
+        rel_c = [dvec[k] - c_cyl[k] for k in range(3)]
+        dist_c = norm(rel_c)
+        inv_dc = 1.0 / torch.clamp(dist_c, min=1e-9)
+        phi_cyl = torch.where(inside_c, radius + torch.minimum(gap_r, gap_z), radius - dist_c)
+        nl_cyl = [torch.where(inside_c, n_in_c[k], rel_c[k] * inv_dc) for k in range(3)]
+        surf_cyl = [torch.where(inside_c, c_in_c[k], c_cyl[k]) for k in range(3)]
+        # the row's geom type picks its branch
+        is_box, is_cyl = c["is_box"], c["is_cyl"]
+        pick = lambda b, cy, sp: torch.where(is_box, b, torch.where(is_cyl, cy, sp))
+        return (
+            pick(phi_box, phi_cyl, phi_sph),
+            [pick(nl_box[k], nl_cyl[k], nl_sph[k]) for k in range(3)],
+            [pick(surf_box[k], surf_cyl[k], surf_sph[k]) for k in range(3)],
+        )
+
+    def substep(q, qd, qfrc, xfrc, q_target, warm):
         N = q.shape[-1]
         Xl, Ql, Vl, S, Sdot = _fk(s, q, qd)
         Xb = [_stackb(Xl, k) for k in range(3)]
@@ -444,7 +592,8 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
 
         # passive forces (implicit spring/damping, limits, joint friction)
         q_scalar = c["sel_q"] @ q
-        tau_p = -c["kstiff"] * (q_scalar - c["setpoint"])
+        setpoint = c["setpoint"] if q_target is None else c["sel_q"] @ q_target
+        tau_p = -c["kstiff"] * (q_scalar - setpoint)
         over = torch.clamp(q_scalar - c["hi"], min=0.0)
         under = torch.clamp(c["lo"] - q_scalar, min=0.0)
         violating = ((over > 0) | (under > 0)).to(q.dtype)
@@ -472,23 +621,67 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
         qd_free = qd + h * torch.sum(Minv * rhs[None], dim=1)
 
         zs = q.new_zeros(s.nbody * 3, N)
-        if nc == 0:
+        if nct == 0:
             qd_new = torch.clamp(qd_free, -p.max_dof_velocity, p.max_dof_velocity)
             return integrate(q, qd_new), qd_new, warm, zs, zs, q.new_zeros(s.nv, N)
 
-        # plane rows: candidate points vs the ground (frame = world axes)
-        bQ = [c["cp_pick"] @ Qb[k] for k in range(4)]
-        bX = [c["cp_pick"] @ Xb[k] for k in range(3)]
-        rot = _qrot(bQ, c["cp_pos"])
-        xc = [bX[k] + rot[k] for k in range(3)]
-        Jp = []
-        for k in range(3):
-            a, b = (k + 1) % 3, (k + 2) % 3
-            crossk = S[a][:, None, :] * xc[b][None] - S[b][:, None, :] * xc[a][None]
-            Jp.append((S[3 + k][:, None, :] + crossk) * c["Pm"])
-        phi = c["cp_radius"] - xc[2]
+        def point_jac_world(xw, Pm):
+            """World-component point-Jacobian rows, 3 x (nv, k, N), masked
+            (for pair rows signed) by the dof path Pm."""
+            out = []
+            for k in range(3):
+                a, b = (k + 1) % 3, (k + 2) % 3
+                crossk = S[a][:, None, :] * xw[b][None] - S[b][:, None, :] * xw[a][None]
+                out.append((S[3 + k][:, None, :] + crossk) * Pm)
+            return out
+
+        Jt1, Jt2, Jn, phis = [], [], [], []
+
+        def add_rows(rows3, phi_block):
+            for blocks, rows in zip((Jt1, Jt2, Jn), rows3):
+                blocks.append(rows)
+            phis.append(phi_block)
+
+        if nc:
+            # plane rows: candidate points vs the ground (frame = world axes)
+            bQ = [c["cp_pick"] @ Qb[k] for k in range(4)]
+            bX = [c["cp_pick"] @ Xb[k] for k in range(3)]
+            rot = _qrot(bQ, c["cp_pos"])
+            xc = [bX[k] + rot[k] for k in range(3)]
+            add_rows(point_jac_world(xc, c["Pm"]), c["cp_radius"] - xc[2])
+        if npp:
+            # pair rows: a candidate point of body A against a geom of body B
+            aX = [Xb[k][pp_a] for k in range(3)]
+            xw = [aX[k] + r for k, r in enumerate(_qrot([Qb[k][pp_a] for k in range(4)], c["pp_pos"]))]
+            bQg = [Qb[k][pp_b] for k in range(4)]
+            bXg = [Xb[k][pp_b] for k in range(3)]
+            Xg = [bXg[k] + o for k, o in enumerate(_qrot(bQg, c["pp_gpos"]))]
+            Qg = _qmul(bQg, c["pp_gquat"])
+            Qg_c = [-Qg[0], -Qg[1], -Qg[2], Qg[3]]
+            dvec = _qrot(Qg_c, [xw[k] - Xg[k] for k in range(3)])
+            phi_pp, n_l, surf = pair_narrowphase(dvec, c["pp_half"], c["pp_radius"])
+            n_w = _qrot(Qg, n_l)  # world normal, geom -> point
+            xs_w = [Xg[k] + o for k, o in enumerate(_qrot(Qg, surf))]
+            # branchless tangent basis
+            use_z = (torch.abs(n_w[2]) < 0.9).to(q.dtype)
+            t1r = _cross([1.0 - use_z, torch.zeros_like(use_z), use_z], n_w)
+            t1n = 1.0 / torch.clamp(torch.sqrt(t1r[0] ** 2 + t1r[1] ** 2 + t1r[2] ** 2), min=1e-9)
+            t1 = [t1r[k] * t1n for k in range(3)]
+            t2 = _cross(n_w, t1)
+            Jpp = point_jac_world(xs_w, c["Pm_pp"])  # at the surface point, signed A - B
+            add_rows([sum(f[k][None] * Jpp[k] for k in range(3)) for f in (t1, t2, n_w)], phi_pp)
+        if natt:
+            # bilateral anchors: three world-axis rows per anchor, always on
+            aXat = [Xb[k][att_b] for k in range(3)]
+            rot_a = _qrot([Qb[k][att_b] for k in range(4)], c["att_offset"])
+            xa = [aXat[k] + rot_a[k] for k in range(3)]
+            err_att = [c["att_target"][k] - xa[k] for k in range(3)]
+            add_rows(point_jac_world(xa, c["Pm_att"]), q.new_zeros(natt, N))
+
+        phi = torch.cat(phis, 0)  # (nct, N): plane, pair, anchor
         active = (phi > -p.contact_margin).to(q.dtype)
-        J = torch.cat(Jp, dim=1)  # (nv, 3nc, N), comp-major rows
+        J = torch.cat([torch.cat(Jt1, 1), torch.cat(Jt2, 1), torch.cat(Jn, 1)], dim=1)  # (nv, 3nct, N), comp-major
+        # velocity targets: Baumgarte / approach on unilateral normal rows
         vn_t = torch.where(
             phi > 0,
             torch.clamp(erp * phi / h, max=p.max_depenetration_velocity),
@@ -496,24 +689,34 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
         )
         if has_rest:
             rest = c["rest"]
-            vn_pre = torch.sum(J[:, 2 * nc:] * qd_free[:, None], dim=0)
+            vn_pre = torch.sum(J[:, 2 * nct:] * qd_free[:, None], dim=0)
             bounce = (
                 (rest > 0.0)
                 & (phi > -p.contact_margin)
                 & (vn_pre < -p.bounce_threshold_velocity)
             )
             vn_t = torch.where(bounce, torch.maximum(vn_t, -rest * vn_pre), vn_t)
-        warm = q.new_zeros(3 * nc, N) if warm is None else warm
+        warm = q.new_zeros(3 * nct, N) if warm is None else warm
 
         # Delassus A = J^T Minv J
         W = sum(Minv[:, j:j + 1, :] * J[j][None] for j in range(s.nv))
         A = sum(J[v][:, None, :] * W[v][None] for v in range(s.nv))
         b_vec = torch.sum(J * qd_free[:, None], dim=0)
-        b_vec = torch.cat([b_vec[:2 * nc], b_vec[2 * nc:] - vn_t], 0)
+        if natt:
+            # anchors drive their 3-D point error to zero at erp_att / h
+            ke = erp_att / h
+            zu = q.new_zeros(nuni, N)
+            b_vec = torch.cat([
+                b_vec[:nct] - torch.cat([zu, err_att[0] * ke], 0),
+                b_vec[nct:2 * nct] - torch.cat([zu, err_att[1] * ke], 0),
+                b_vec[2 * nct:] - torch.cat([vn_t[:nuni], err_att[2] * ke], 0),
+            ], 0)
+        else:
+            b_vec = torch.cat([b_vec[:2 * nct], b_vec[2 * nct:] - vn_t], 0)
 
         # per-contact Jacobi scaling by the mean block diagonal
         diagA = torch.sum(J * W, dim=0)
-        d_c = (diagA[:nc] + diagA[nc:2 * nc] + diagA[2 * nc:]) / 3.0 + 1e-6
+        d_c = (diagA[:nct] + diagA[nct:2 * nct] + diagA[2 * nct:]) / 3.0 + 1e-6
         s_c = torch.rsqrt(torch.clamp(d_c, min=1e-12))
         s3 = torch.cat([s_c, s_c, s_c], 0)
         s3sq = s3 * s3
@@ -522,14 +725,15 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
         # Lipschitz bound incl. the scaled 1e-6 regularization of the matvec
         Lip = torch.amax(torch.sum(torch.abs(A), dim=1) + 1e-6 * s3sq, dim=0, keepdim=True)
         step = 1.0 / torch.clamp(Lip, min=1e-8)
-        mu = c["mu"]
+        mu, bil = c["mu"], c["bil"]
 
         def project(y):
-            ln = torch.clamp(y[2 * nc:], min=0.0)
-            t1, t2 = y[:nc], y[nc:2 * nc]
-            tn = torch.sqrt(t1 * t1 + t2 * t2 + 1e-12)
-            sc = torch.clamp(mu * ln / tn, max=1.0) * active
-            return torch.cat([t1 * sc, t2 * sc, ln * active], 0)
+            lnc = y[2 * nct:]
+            ln = torch.where(bil, lnc, torch.clamp(lnc, min=0.0))  # bilateral rows: unprojected
+            t1_, t2_ = y[:nct], y[nct:2 * nct]
+            tn = torch.sqrt(t1_ * t1_ + t2_ * t2_ + 1e-12)
+            sc = torch.where(bil, torch.ones_like(ln), torch.clamp(mu * ln / tn, max=1.0)) * active
+            return torch.cat([t1_ * sc, t2_ * sc, ln * active], 0)
 
         lam = project(warm / s3)
         y = lam
@@ -545,15 +749,32 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
         qd_new = torch.clamp(qd_free + dqd, -p.max_dof_velocity, p.max_dof_velocity)
         q_new = integrate(q, qd_new)
 
-        # sensors: per-body contact force/torque (world), dof force
+        # sensors: per-body contact force/torque (world, about the body's
+        # origin), dof force
         inv_h = 1.0 / h
-        Fp = [lam[:nc] * inv_h, lam[nc:2 * nc] * inv_h, lam[2 * nc:] * inv_h]
-        rel = [xc[k] - bX[k] for k in range(3)]
-        tq = _cross(rel, Fp)
-        boc = c["boc"]
-        body_force = torch.cat([boc @ Fp[k] for k in range(3)], 0)
-        body_torque = torch.cat([boc @ tq[k] for k in range(3)], 0)
-        return q_new, qd_new, lam, body_force, body_torque, qfrc_con * inv_h
+        lt1, lt2, ln_ = lam[:nct] * inv_h, lam[nct:2 * nct] * inv_h, lam[2 * nct:] * inv_h
+        bf = [q.new_zeros(s.nbody, N) for _ in range(3)]
+        bt = [q.new_zeros(s.nbody, N) for _ in range(3)]
+        if nc:
+            Fp = [lt1[:nc], lt2[:nc], ln_[:nc]]
+            tq = _cross([xc[k] - bX[k] for k in range(3)], Fp)
+            boc = c["boc"]
+            bf = [bf[k] + boc @ Fp[k] for k in range(3)]
+            bt = [bt[k] + boc @ tq[k] for k in range(3)]
+        if npp:
+            r1, r2, rn = lt1[nc:nuni], lt2[nc:nuni], ln_[nc:nuni]
+            Fw = [t1[k] * r1 + t2[k] * r2 + n_w[k] * rn for k in range(3)]
+            tq_a = _cross([xs_w[k] - aX[k] for k in range(3)], Fw)
+            tq_b = _cross([xs_w[k] - bXg[k] for k in range(3)], Fw)
+            # +F on the point's body, -F on the geom's
+            bf = [bf[k].index_add(0, pp_a, Fw[k]).index_add(0, pp_b, -Fw[k]) for k in range(3)]
+            bt = [bt[k].index_add(0, pp_a, tq_a[k]).index_add(0, pp_b, -tq_b[k]) for k in range(3)]
+        if natt:
+            Fa = [lt1[nuni:], lt2[nuni:], ln_[nuni:]]
+            tq_at = _cross([xa[k] - aXat[k] for k in range(3)], Fa)
+            bf = [bf[k].index_add(0, att_b, Fa[k]) for k in range(3)]
+            bt = [bt[k].index_add(0, att_b, tq_at[k]) for k in range(3)]
+        return q_new, qd_new, lam, torch.cat(bf, 0), torch.cat(bt, 0), qfrc_con * inv_h
 
     return substep
 
@@ -561,16 +782,17 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
 def _step_math_torch(s: _Spec, p: SimParams, device):
     """Plain PyTorch version of the whole step on (rows, N) tensors.
 
-    Returns run(q, qd, qfrc, xfrc) -> (q, qd, body_force, body_torque,
-    dof_force), all (rows, N); xfrc is (6*nbody, N) comp-major or None.
+    Returns run(q, qd, qfrc, xfrc, q_target=None) -> (q, qd, body_force,
+    body_torque, dof_force), all (rows, N); xfrc is (6*nbody, N) comp-major
+    or None, q_target (nq, N) PD-drive setpoints or None (then qpos0).
     """
     n_slices = p.substeps * p.solver_iterations
     substep = _substep_fn(s, p, p.dt / n_slices, device)
 
-    def run(q, qd, qfrc, xfrc):
+    def run(q, qd, qfrc, xfrc, q_target=None):
         warm = None  # zeros at each call, carried across its slices
         for _ in range(n_slices):
-            q, qd, warm, bf, bt, doff = substep(q, qd, qfrc, xfrc, warm)
+            q, qd, warm, bf, bt, doff = substep(q, qd, qfrc, xfrc, q_target, warm)
         return q, qd, bf, bt, doff
 
     return run
@@ -580,13 +802,15 @@ def _step_math_torch(s: _Spec, p: SimParams, device):
 # entry point
 # ---------------------------------------------------------------------------
 
-# (model, params, device) -> prepared step; the model and params objects
-# are held so that their ids stay unique while the entry lives
+# (model, params, device, has q_target) -> prepared step; the model and
+# params objects are held so that their ids stay unique while the entry
+# lives. On the card a call with q_target is another kernel instantiation
+# than one without.
 _CACHE: dict = {}
 
 
-def _prepared(model: Model, params: SimParams, device: torch.device):
-    key = (id(model), id(params), str(device))
+def _prepared(model: Model, params: SimParams, device: torch.device, has_qt: bool = False):
+    key = (id(model), id(params), str(device), bool(has_qt))
     hit = _CACHE.get(key)
     if hit is None or hit[0] is not model or hit[1] is not params:
         s = _extract(model)
@@ -594,7 +818,7 @@ def _prepared(model: Model, params: SimParams, device: torch.device):
             from . import _cuda
 
             step = _cuda.FusedStepCall(
-                s, params, apgd_betas(params.solver_apgd_iterations), device
+                s, params, apgd_betas(params.solver_apgd_iterations), device, has_qt=has_qt
             )
         else:
             step = _step_math_torch(s, params, device)
@@ -610,7 +834,7 @@ def physics_step_fused(
     qd: torch.Tensor,  # (N, nv)
     qfrc: torch.Tensor,  # (N, nv)
     xfrc: torch.Tensor | None = None,  # (N, nbody, 6): torque, force
-    q_target: torch.Tensor | None = None,
+    q_target: torch.Tensor | None = None,  # (N, nq) PD-drive setpoints
     dyn: dict | None = None,
     warm_reset_every: int = 0,
 ) -> FusedOut:
@@ -619,26 +843,24 @@ def physics_step_fused(
     Env-leading inputs and outputs; internally (rows, N). A CUDA tensor
     launches the CUDA kernel; a CPU tensor runs the plain version.
     """
-    if not fused_supported(model, params):
-        raise NotImplementedError(
-            "model features beyond the ported kernel tiers (pair rows, "
-            "anchors, top-K, tendons or terrain)"
-        )
-    if q_target is not None or dyn or warm_reset_every:
-        raise NotImplementedError(
-            "q_target drives, per-env model leaves and merged decimation "
-            "windows are not ported yet"
-        )
+    beyond = unsupported_features(model, params)
+    if dyn:
+        beyond.append("per-env model leaves (dyn)")
+    if warm_reset_every:
+        beyond.append("merged decimation windows (warm_reset_every)")
+    if beyond:
+        raise NotImplementedError("beyond the ported kernel tiers: " + ", ".join(beyond))
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
     N = q.shape[0]
-    s, step = _prepared(model, params, q.device)
+    s, step = _prepared(model, params, q.device, q_target is not None)
     f32 = lambda a: a.to(torch.float32).T.contiguous()
     xf = None
     if xfrc is not None:
         # (N, nbody, 6) -> comp-major rows (6*nbody, N)
         xf = xfrc.to(torch.float32).permute(2, 1, 0).reshape(6 * s.nbody, N).contiguous()
-    q2, qd2, bf, bt, doff = step(f32(q), f32(qd), f32(qfrc), xf)
+    qt = None if q_target is None else f32(q_target)
+    q2, qd2, bf, bt, doff = step(f32(q), f32(qd), f32(qfrc), xf, qt)
     return FusedOut(
         q=q2.T,
         qd=qd2.T,

@@ -14,8 +14,10 @@ JAX package's ordering contract:
 Physics always goes through `engine.fused.physics_step_fused`: on a CUDA
 tensor that is the hand-written kernel, on a CPU tensor its plain version.
 A model outside the kernel's feature set raises NotImplementedError; there
-is no eager fallback. Domain randomization, ADR, PD-target drives,
-terrain and merged decimation windows are not ported yet and raise.
+is no eager fallback. A task with `use_pd_targets` also returns PD-drive
+setpoints, which every physics step of the control loop receives. Domain
+randomization, ADR, terrain and merged decimation windows are not ported
+yet and raise.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ class VecTask:
       build_model() -> (Model, SimParams)                     [host, once]
       sample_init(generator, n) -> (q, qd, task)
       compute_force(actions, q, qd, task) -> (qfrc, xfrc)
+          or, with use_pd_targets, (qfrc, xfrc, q_target)
       observe(q, qd, kin, sensors, task, actions, progress) -> obs
       reward_done(obs, q, qd, kin, sensors, task, actions, progress)
           -> (reward, done, new_task)
@@ -78,6 +81,9 @@ class VecTask:
     # False when the hooks never read `kin`: step then skips the forward
     # kinematics pass, as XLA drops it from the JAX package's jitted step
     uses_kin: bool = True
+    # True when compute_force also returns q_target, an (N, nq) vector of
+    # PD-drive setpoints that the physics re-evaluates every slice
+    use_pd_targets: bool = False
 
     def __init__(self, cfg: Dict[str, Any], device="cuda"):
         self.cfg = cfg
@@ -184,9 +190,14 @@ class VecTask:
 
         # 1. apply actions + physics
         q, qd = state.sim.q, state.sim.qd
-        qfrc, xfrc = self.compute_force(actions, q, qd, state.task)
+        if self.use_pd_targets:
+            qfrc, xfrc, q_target = self.compute_force(actions, q, qd, state.task)
+        else:
+            (qfrc, xfrc), q_target = self.compute_force(actions, q, qd, state.task), None
         for _ in range(self.control_freq_inv):
-            out = physics_step_fused(self.model, self.sim_params, q, qd, qfrc, xfrc=xfrc)
+            out = physics_step_fused(
+                self.model, self.sim_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target
+            )
             q, qd = out.q, out.qd
         sensors = Sensors(out.body_force, out.body_torque, out.dof_force)
 

@@ -1,6 +1,6 @@
 """Quaternion helpers on batched tensors (port of isaacgymenvs_tpu/maths.py).
 
-Only what the Ant task and the fused step use. Conventions as in the JAX
+Only what the ported tasks and the fused step use. Conventions as in the JAX
 package: quaternions are (x, y, z, w) with the scalar last, rotations are
 active, angles are radians, and every function broadcasts over leading
 batch dimensions.
@@ -51,6 +51,13 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_rotate(quat_conjugate(q), v)
+
+
+def quat_axis(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """The basis vector `axis` rotated by q."""
+    basis = q.new_zeros(q.shape[:-1] + (3,))
+    basis[..., axis] = 1.0
+    return quat_rotate(q, basis)
 
 
 def quat_exp(phi: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,15 @@ from typing import Dict, Type
 
 from ..envcore.vec_task import VecTask
 from .ant import Ant
+from .ball_balance import BallBalance
 from .cartpole import Cartpole
+from .ingenuity import Ingenuity
+from .quadcopter import Quadcopter
 
-task_map: Dict[str, Type[VecTask]] = {"Ant": Ant, "Cartpole": Cartpole}
+task_map: Dict[str, Type[VecTask]] = {
+    "Ant": Ant,
+    "BallBalance": BallBalance,
+    "Cartpole": Cartpole,
+    "Ingenuity": Ingenuity,
+    "Quadcopter": Quadcopter,
+}

@@ -12,7 +12,7 @@ OVERRIDES = ["num_envs=64", "train.params.config.minibatch_size=1024", "max_iter
 
 
 @pytest.mark.parametrize("overrides", [[], OVERRIDES], ids=["defaults", "overrides"])
-@pytest.mark.parametrize("task", ["Ant", "Cartpole"])
+@pytest.mark.parametrize("task", ["Ant", "Cartpole", "Ingenuity", "Quadcopter", "BallBalance"])
 def test_load_config_matches_jax(task, overrides):
     args = [f"task={task}", *overrides]
     jcfg, tcfg = jax_load_config(args), tconfig.load_config(args)

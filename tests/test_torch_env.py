@@ -168,3 +168,200 @@ def test_cartpole_time_outs_and_reset(cartpoles):
     np.testing.assert_array_equal(tstate.progress.numpy(), [0, 0, 5, 5])
     assert torch.all(tstate.sim.q[:2].abs() <= 0.1) and torch.all(tstate.sim.qd[:2].abs() <= 0.25)
     assert tstate.task == ()
+
+
+# ---- the procedural-model tasks: Ingenuity, Quadcopter, BallBalance ----------
+
+PROCEDURAL = ["Ingenuity", "Quadcopter", "BallBalance"]
+
+
+def _jax_fields(m):
+    import dataclasses
+
+    return {f.name: (np.asarray(getattr(m, f.name)) if hasattr(getattr(m, f.name), "shape")
+                     else getattr(m, f.name)) for f in dataclasses.fields(m)}
+
+
+@pytest.fixture(scope="module", params=PROCEDURAL)
+def procedural(request):
+    """(name, JAX env, port env, JAX state) at 4 envs from each package's
+    own yaml; the JAX env steps through its fused math."""
+    from isaacgymenvs_tpu.tasks import task_map as jtasks
+    from isaacgymenvs_tpu.utils.config import load_config as jload
+    from isaacgymenvs_tpu_torch.tasks import task_map as ttasks
+    from isaacgymenvs_tpu_torch.utils.config import load_config as tload
+
+    name = request.param
+    args = [f"task={name}", f"num_envs={N}"]
+    jcfg = jload(args)["task"]
+    jcfg["sim"]["use_fused"] = True
+    jenv = jtasks[name](jcfg)
+    tenv = ttasks[name](tload(args)["task"], device="cpu")
+    jstate, _ = jenv.reset(jax.random.PRNGKey(2))
+    return name, jenv, tenv, jstate
+
+
+def _procedural_state(name, tenv, jstate):
+    """The port's EnvState with the JAX state's contents. Ingenuity's task
+    differs by declaration: the JAX PRNG key has no counterpart, the port's
+    own list of episode targets stays."""
+    st, _ = tenv.reset(0)
+    t = lambda a: torch.tensor(np.asarray(a))
+    st.sim = SimState(q=t(jstate.sim.q), qd=t(jstate.sim.qd))
+    st.progress = t(jstate.progress).to(torch.int32)
+    st.reset_buf = t(jstate.reset_buf)
+    st.actions = t(jstate.actions)
+    if name == "Ingenuity":
+        st.task = (t(jstate.task[0]), st.task[1])
+    elif name == "Quadcopter":
+        st.task = tuple(t(x) for x in jstate.task)
+    else:
+        st.task = t(jstate.task)
+    return st
+
+
+def _task_arrays(name, task):
+    if name == "Ingenuity":
+        return [task[0]]
+    return list(task) if name == "Quadcopter" else [task]
+
+
+def _start(name, jenv, jstate):
+    """A start state that makes the step's branches run: BallBalance with
+    the ball resting on the tray in envs 0 and 1 (tray force sensors read
+    its weight), every task with env 3 about to die."""
+    q = np.asarray(jstate.sim.q).copy()
+    qd = np.asarray(jstate.sim.qd).copy()
+    if name == "BallBalance":
+        bq, bv = jenv.ball_q, jenv.model.v_adr[jenv.ball_body]
+        for e, xy in ((0, (0.05, -0.1)), (1, (-0.15, 0.1))):
+            q[e, bq:bq + 3] = (*xy, jenv.tray_height + 0.01 + jenv.ball_radius - 0.004)
+            qd[e, bv:bv + 3] = 0.0
+        q[3, bq + 2] = 0.1  # below 1.5 radii: done
+    else:
+        q[3, 2] = 0.2  # below the height floor of both copters: done
+    return jstate.replace(sim=jstate.sim.replace(q=jnp.asarray(q), qd=jnp.asarray(qd)))
+
+
+def test_procedural_model_matches_jax(procedural):
+    """`build_model` of the port equals the JAX task's model carried through
+    `convert.model_from_arrays`, field by field (floats to 1e-6)."""
+    import dataclasses
+
+    from isaacgymenvs_tpu_torch.convert import model_from_arrays
+
+    name, jenv, tenv, _ = procedural
+    carried = model_from_arrays(_jax_fields(jenv.model))
+    for f in dataclasses.fields(tenv.model):
+        a, b = getattr(tenv.model, f.name), getattr(carried, f.name)
+        if isinstance(a, np.ndarray):
+            assert isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape, f.name
+            np.testing.assert_allclose(a, b, atol=1e-6, err_msg=f.name)
+        else:
+            assert type(a) is type(b) and a == b, f.name
+    if name == "BallBalance":
+        m = tenv.model
+        assert m.ppair_point == (m.cpoint_body.index(tenv.ball_body),) and len(m.att_body) == 3
+        assert isinstance(carried.ppair_point, tuple) and isinstance(carried.att_body, tuple)
+        assert carried.att_offset.dtype == np.float32 and carried.att_target.shape == (3, 3)
+    jp, tp = jenv.sim_params, tenv.sim_params
+    for f in ("dt", "substeps", "solver_apgd_iterations", "contact_margin", "baumgarte_erp_attractor",
+              "max_depenetration_velocity", "max_active_contacts"):
+        assert getattr(jp, f) == pytest.approx(getattr(tp, f)), f
+    np.testing.assert_allclose(np.asarray(jp.gravity), tp.gravity)
+
+
+def test_procedural_step_matches_jax(procedural):
+    """reset + 4 steps against the JAX env (its step op by op) from the same
+    injected state and actions: obs and reward atol 2e-3 (BallBalance's obs
+    carry contact forces / 20), done, time-outs and the integrated targets
+    in `task`. Env 3 dies on the first step; from then on its reset draws
+    differ (each package has its own generator)."""
+    name, jenv, tenv, jstate = procedural
+    jstate = _start(name, jenv, jstate)
+    tstate = _procedural_state(name, tenv, jstate)
+    rng = np.random.RandomState(5)
+    keep = [0, 1, 2, 3]
+    tray_fz = np.zeros(N)
+    for k in range(4):
+        a = rng.uniform(-1.2, 1.2, (N, tenv.num_acts)).astype(np.float32)
+        if name == "BallBalance":
+            a[:2] *= 0.1  # gentle: a tray that drops away would leave its ball in free fall
+        jstate, jobs, jrew, jdone, jex = jenv.step(jstate, jnp.asarray(a))
+        tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
+        assert tobs.shape == (N, tenv.num_obs) and tobs.dtype == torch.float32
+        if name == "BallBalance":
+            tray_fz = np.maximum(tray_fz, np.abs(tobs.numpy()[:, 14]) * 20.0)
+        np.testing.assert_allclose(tobs.numpy()[keep], np.asarray(jobs)[keep], atol=2e-3)
+        np.testing.assert_allclose(trew.numpy()[keep], np.asarray(jrew)[keep], atol=2e-3)
+        np.testing.assert_array_equal(tdone.numpy()[keep], np.asarray(jdone)[keep])
+        np.testing.assert_array_equal(tex["time_outs"].numpy()[keep], np.asarray(jex["time_outs"])[keep])
+        for ta, ja in zip(_task_arrays(name, tstate.task), _task_arrays(name, jstate.task)):
+            np.testing.assert_allclose(ta.numpy()[keep], np.asarray(ja)[keep], atol=1e-5)
+        if k == 0:
+            assert bool(tdone[3]) and not bool(tex["time_outs"][3])
+            keep = [0, 1, 2]
+    if name == "BallBalance":
+        # the ball presses on the tray in envs 0 and 1 (newtons), nowhere else
+        assert np.all(tray_fz[:2] > 1.0) and tray_fz[2] == 0.0
+    if name != "Ingenuity":
+        assert float(torch.abs(_task_arrays(name, tstate.task)[0]).max()) > 0.0  # the targets were integrated
+
+
+def test_procedural_partial_reset(procedural):
+    """Envs flagged done last step restart from `sample_init`; the others
+    take exactly the step they would have taken, and match the JAX env."""
+    name, jenv, tenv, jstate = procedural
+    prog = np.array([5, 6, 7, 8], np.int32)
+    flags = np.array([True, False, True, False])
+    jflagged = jstate.replace(progress=jnp.asarray(prog), reset_buf=jnp.asarray(flags))
+    base = _procedural_state(name, tenv, jstate.replace(progress=jnp.asarray(prog)))
+    flagged = _procedural_state(name, tenv, jflagged)
+    a = np.random.RandomState(9).uniform(-1, 1, (N, tenv.num_acts)).astype(np.float32)
+    s0, obs0, _, _, _ = tenv.step(base, torch.tensor(a))
+    s1, obs1, rew1, _, _ = tenv.step(flagged, torch.tensor(a))
+    jstate1, jobs, jrew, _, _ = jenv.step(jflagged, jnp.asarray(a))
+    keep = torch.tensor([1, 3])
+    assert torch.equal(s1.sim.q[keep], s0.sim.q[keep]) and torch.equal(s1.sim.qd[keep], s0.sim.qd[keep])
+    assert torch.equal(obs1[keep], obs0[keep])
+    np.testing.assert_allclose(obs1.numpy()[keep], np.asarray(jobs)[keep], atol=2e-3)
+    np.testing.assert_allclose(rew1.numpy()[keep], np.asarray(jrew)[keep], atol=2e-3)
+    np.testing.assert_array_equal(s1.progress.numpy(), [0, 7, 0, 9])
+    np.testing.assert_array_equal(s1.progress.numpy(), np.asarray(jstate1.progress))
+    # reset envs: a fresh sample_init state inside the task's ranges
+    reset = torch.tensor([0, 2])
+    q, qd = s1.sim.q[reset], s1.sim.qd[reset]
+    if name == "BallBalance":
+        bq, bv = tenv.ball_q, tenv.ball_v
+        assert torch.all((q[:, bq + 2] >= 1.0) & (q[:, bq + 2] <= 2.0)) and torch.all(qd[:, bv + 2] == -5.0)
+        assert torch.all(torch.linalg.vector_norm(q[:, bq:bq + 2], dim=-1) <= 0.5)
+        assert torch.all(obs1[reset, 12:24] == 0)  # sensors of reset envs are zero
+        # reward_done integrates this step's action onto the fresh zero targets
+        fresh = tenv._integrate_targets(torch.zeros(2, 6), torch.tensor(a)[reset])
+        assert torch.equal(s1.task[reset], fresh)
+    else:
+        assert torch.all(qd == 0) and torch.all((q[:, 2] >= 0.8) & (q[:, 2] <= 2.5))
+        assert torch.all(q[:, :2].abs() <= 1.5)
+    if name == "Quadcopter":
+        assert torch.all(q[:, tenv.dof_q_idx].abs() <= 0.2)
+        assert torch.all(s1.task[1][reset] == torch.clamp(0.01 * 200.0 * torch.tensor(a)[reset, 8:12], 0.0, 2.0))
+
+
+def test_ingenuity_target_moves_every_500_steps():
+    """The target steps to the episode's next pre-drawn one when progress
+    reaches a multiple of 500, and only then."""
+    from isaacgymenvs_tpu_torch.tasks import task_map as ttasks
+    from isaacgymenvs_tpu_torch.utils.config import load_config as tload
+
+    env = ttasks["Ingenuity"](tload(["task=Ingenuity", f"num_envs={N}"])["task"], device="cpu")
+    st, _ = env.reset(3)
+    assert env.max_episode_length == 2000 and env.num_targets == 4
+    target, targets = st.task
+    assert targets.shape == (N, 4, 3) and torch.equal(target, targets[:, 0])
+    assert torch.all((targets[..., :2].abs() <= 5.0)) and torch.all((targets[..., 2] >= 1.0) & (targets[..., 2] <= 2.0))
+    st.progress = torch.tensor([498, 499, 999, 1499], dtype=torch.int32)
+    st, _, _, _, _ = env.step(st, torch.zeros(N, 6))
+    np.testing.assert_array_equal(st.progress.numpy(), [499, 500, 1000, 1500])
+    assert torch.equal(st.task[0][0], targets[0, 0])
+    for e, w in ((1, 1), (2, 2), (3, 3)):
+        assert torch.equal(st.task[0][e], targets[e, w])

@@ -48,20 +48,26 @@ def ant():
     return jenv, tenv, np.asarray(state.sim.q), np.asarray(state.sim.qd)
 
 
-def _compare(jm, jp, tm, tp, q, qd, qfrc, xfrc, steps):
-    """Step both from the JAX trajectory; every output within TOL."""
+def _compare(jm, jp, tm, tp, q, qd, qfrc, xfrc, steps, q_target=None, tol=TOL, seen=None):
+    """Step both from the JAX trajectory; every output within `tol`. `seen`
+    collects the largest magnitude of each JAX output."""
     for _ in range(steps):
         jo = jfused.physics_step_fused(
             jm, jp, jnp.asarray(q), jnp.asarray(qd), jnp.asarray(qfrc),
-            xfrc=None if xfrc is None else jnp.asarray(xfrc), use_pallas=False,
+            xfrc=None if xfrc is None else jnp.asarray(xfrc),
+            q_target=None if q_target is None else jnp.asarray(q_target), use_pallas=False,
         )
         to = tfused.physics_step_fused(
             tm, tp, torch.tensor(q), torch.tensor(qd), torch.tensor(qfrc),
             xfrc=None if xfrc is None else torch.tensor(xfrc),
+            q_target=None if q_target is None else torch.tensor(q_target),
         )
-        for k, tol in TOL.items():
-            err = float(np.max(np.abs(np.asarray(getattr(jo, k)) - getattr(to, k).numpy())))
-            assert err < tol, (k, err)
+        for k, t in tol.items():
+            ref = np.asarray(getattr(jo, k))
+            err = float(np.max(np.abs(ref - getattr(to, k).numpy())))
+            assert err < t, (k, err)
+            if seen is not None:
+                seen[k] = max(seen.get(k, 0.0), float(np.abs(ref).max()))
         q, qd = np.asarray(jo.q), np.asarray(jo.qd)
     return q, qd
 
@@ -170,26 +176,48 @@ def test_twin_matches_jax_restitution_ball():
     assert bounced
 
 
-def _pair_row_model(tm):
-    return tm.replace(ppair_point=(0,), ppair_geom=(0,))
-
-
 def test_unsupported_models_raise(ant):
+    """What is still beyond the ported tiers raises by name: SDF pair rows,
+    geom-geom pairs, a pair row against a capsule, tendons, a top-K cap
+    below the row count (pair and anchor rows counted), terrain, per-env
+    leaves, merged decimation windows. Pair rows against sphere, box,
+    cylinder and mesh geoms, anchors and q_target no longer do."""
     _, tenv, q, qd = ant
     m, p = tenv.model, tenv.sim_params
     assert tfused.fused_supported(m, p)
-    topk = SimParams(**{**p.__dict__, "max_active_contacts": 8})
-    assert not tfused.fused_supported(_pair_row_model(m), p)
-    assert not tfused.fused_supported(m, topk)
     args = (torch.tensor(q), torch.tensor(qd), torch.zeros(4, m.nv))
-    # the feature check precedes any device dispatch, so the CUDA path
-    # raises the same way for these models
-    with pytest.raises(NotImplementedError):
-        tfused.physics_step_fused(_pair_row_model(m), p, *args)
-    with pytest.raises(NotImplementedError):
-        tfused.physics_step_fused(m, topk, *args)
-    with pytest.raises(NotImplementedError):
-        tfused.physics_step_fused(m, p, *args, q_target=torch.tensor(q))
+    topk = SimParams(**{**p.__dict__, "max_active_contacts": 8})
+    capsule = m.geom_type.index(1)
+    tendon = m.replace(tendon_coef=np.ones((1, m.nv), np.float32), tendon_range=np.zeros((1, 2), np.float32),
+                       tendon_stiffness=np.ones(1, np.float32), tendon_damping=np.ones(1, np.float32))
+    cases = [
+        (m.replace(spair_point=(0,), spair_sdf=(0,)), p, {}, "spair_point"),
+        (m.replace(pair_geom_a=(0,), pair_geom_b=(1,)), p, {}, "pair_geom_a"),
+        (m.replace(ppair_point=(0,), ppair_geom=(capsule,)), p, {}, "capsule"),
+        (tendon, p, {}, "tendons"),
+        (m, topk, {}, "top-K"),
+        (m, p, {"dyn": {"body_mass": torch.ones(4, m.nbody)}}, "dyn"),
+        (m, p, {"warm_reset_every": 2}, "warm_reset_every"),
+    ]
+    for model, params, kw, word in cases:
+        # the feature check precedes any device dispatch, so the CUDA path
+        # raises the same way for these
+        with pytest.raises(NotImplementedError, match=word):
+            tfused.physics_step_fused(model, params, *args, **kw)
+        if not kw:
+            assert not tfused.fused_supported(model, params)
+    assert not tfused.fused_supported(m, p, terrain=object())
+    # the cap counts pair and anchor rows: 25 plane rows + 1 pair row > 25
+    pair = m.replace(ppair_point=(0,), ppair_geom=(m.geom_type.index(0),))
+    cap25 = SimParams(**{**p.__dict__, "max_active_contacts": 25})
+    assert tfused.fused_supported(m, cap25) and tfused.fused_supported(pair, p)
+    assert not tfused.fused_supported(pair, cap25)
+    # MESH (5) pair geoms ride the cylinder branch
+    mesh = pair.replace(geom_type=tuple(5 if i == pair.ppair_geom[0] else t for i, t in enumerate(pair.geom_type)))
+    assert tfused.fused_supported(mesh, p) and tfused._extract(mesh).pp_gtype.tolist() == [3]
+    # ported now: q_target on a CPU tensor runs the plain version
+    out = tfused.physics_step_fused(m, p, *args, q_target=torch.tensor(q))
+    assert bool(torch.isfinite(out.q).all())
 
 
 def test_spec_buffer_layout(ant):
@@ -204,6 +232,166 @@ def test_spec_buffer_layout(ant):
     assert spec.shape == (base + p.solver_apgd_iterations,)
     assert spec.dtype == np.float32
     assert _cuda.kernel_flops(s, p) > 0 and _cuda.kernel_bytes(s, 4096, True) > 0
+    assert _cuda.sizes_of(s) == (9, 15, 14, 25, 0, 0, 0)
+
+
+# ---- q_target drives, pair rows and anchors ---------------------------------
+
+
+def _port_params(jp):
+    return SimParams(**{f.name: (tuple(np.asarray(getattr(jp, f.name)).tolist()) if f.name == "gravity"
+                                 else getattr(jp, f.name)) for f in dataclasses.fields(SimParams)})
+
+
+def _both_envs(name):
+    """(name, JAX env, port env) from each package's own yaml at 4 envs."""
+    from isaacgymenvs_tpu.tasks import task_map as jtasks
+    from isaacgymenvs_tpu.utils.config import load_config as jload
+    from isaacgymenvs_tpu_torch.tasks import task_map as ttasks
+    from isaacgymenvs_tpu_torch.utils.config import load_config as tload
+
+    args = [f"task={name}", "num_envs=4"]
+    return name, jtasks[name](jload(args)["task"]), ttasks[name](tload(args)["task"], device="cpu")
+
+
+@pytest.fixture(scope="module", params=["Ingenuity", "Quadcopter", "BallBalance"])
+def procedural(request):
+    return _both_envs(request.param)
+
+
+def test_twin_matches_jax_procedural_tasks(procedural):
+    """The plain version against the JAX fused math, 3 steps: Ingenuity with
+    xfrc (24 plane rows, Mars gravity), Quadcopter with xfrc and q_target (44
+    plane rows), both with two envs resting on the ground; BallBalance with
+    q_target, the ball resting on the tray so that the pair row acts (tray
+    body force checked non-zero) beside its three anchors, at q 5e-4, qd
+    5e-3, forces 5e-2 (the others q 2e-4, qd 2e-3, forces 2e-2)."""
+    name, jenv, tenv = procedural
+    jm, tm = jenv.model, tenv.model
+    assert tfused.fused_supported(tm, tenv.sim_params)
+    assert dataclasses.replace(_port_params(jenv.sim_params), gravity=tenv.sim_params.gravity) == tenv.sim_params
+    np.testing.assert_allclose(np.asarray(jenv.sim_params.gravity), tenv.sim_params.gravity)
+    n = 4
+    rng = np.random.RandomState(7)
+    q = np.tile(np.asarray(tm.qpos0), (n, 1)).astype(np.float32)
+    qd = rng.uniform(-0.3, 0.3, (n, tm.nv)).astype(np.float32)
+    qfrc = rng.uniform(-0.5, 0.5, (n, tm.nv)).astype(np.float32)
+    xfrc, qt, tol = None, None, TOL
+    if name == "BallBalance":
+        bq = tenv.ball_q
+        q[:, bq:bq + 2] = rng.uniform(-0.2, 0.2, (n, 2))
+        q[:, bq + 2] = tenv.tray_height + 0.01 + tenv.ball_radius - 0.002
+        qd[:] = 0.0
+        qt = q + rng.uniform(-0.02, 0.02, q.shape).astype(np.float32)
+        tol = {"q": 5e-4, "qd": 5e-3, "body_force": 5e-2, "body_torque": 5e-2, "dof_force": 5e-2}
+    else:
+        q[:2, 2] = (0.06, 0.065) if name == "Ingenuity" else (0.01, 0.02)
+        xfrc = rng.uniform(-1, 1, (n, tm.nbody, 6)).astype(np.float32)
+        if name == "Quadcopter":
+            q[:, 7:] = rng.uniform(-0.2, 0.2, (n, 8))
+            qt = q + rng.uniform(-0.1, 0.1, q.shape).astype(np.float32)
+    assert (qt is not None) == tenv.use_pd_targets
+    if name == "BallBalance":
+        out = tfused.physics_step_fused(tm, tenv.sim_params, torch.tensor(q), torch.tensor(qd),
+                                        torch.tensor(qfrc), q_target=torch.tensor(qt))
+        assert float(out.body_force[:, tenv.tray_body, 2].abs().min()) > 1.0  # the pair row is active
+    seen = {}
+    q2, _ = _compare(jm, jenv.sim_params, tm, tenv.sim_params, q, qd, qfrc, xfrc, 3, q_target=qt, tol=tol, seen=seen)
+    assert seen["body_force"] > 1.0 and float(np.abs(q2 - q).max()) > 1e-4
+
+
+def _jax_pair_row_example():
+    """The JAX-package build of `model.examples.pair_row_example`."""
+    from isaacgymenvs_tpu.model.spec import GEOM_BOX, box_inertia, sphere_inertia
+    from isaacgymenvs_tpu_torch.model import examples as ex
+
+    b = ModelBuilder()
+    quat = np.array([0, 0, 0, 1], np.float32)
+
+    def free_body(name, mass, inertia, pos):
+        i = b.add_body(parent=-1, name=name, pos=(0, 0, 0), quat=(0, 0, 0, 1),
+                       jnt_type=FREE, mass=mass, inertia=inertia)
+        b.qpos0_free[i] = (np.asarray(pos, np.float32), quat)
+        return i
+
+    top = 2 * ex.BOX_HALF[2]
+    box = free_body("box", *box_inertia(400.0, ex.BOX_HALF), (0, 0, ex.BOX_HALF[2]))
+    b.add_geom(box, GEOM_BOX, (0, 0, 0), (0, 0, 0, 1), ex.BOX_HALF, 1.0)
+    a = free_body("ball_a", *sphere_inertia(300.0, ex.RADIUS_A), (0, 0, top + ex.RADIUS_A))
+    b.add_geom(a, GEOM_SPHERE, (0, 0, 0), (0, 0, 0, 1), (ex.RADIUS_A, 0, 0), 0.8)
+    dx = float(np.sqrt((ex.RADIUS_A + ex.RADIUS_B) ** 2 - (ex.RADIUS_A - ex.RADIUS_B) ** 2))
+    bb = free_body("ball_b", *sphere_inertia(300.0, ex.RADIUS_B), (dx, 0, top + ex.RADIUS_B))
+    b.add_geom(bb, GEOM_SPHERE, (0, 0, 0), (0, 0, 0, 1), (ex.RADIUS_B, 0, 0), 0.6)
+    m = b.finalize()
+    cp_a, cp_b = m.cpoint_body.index(a), m.cpoint_body.index(bb)
+    return m.replace(ppair_point=(cp_a, cp_b, cp_b), ppair_geom=(0, 0, 1))
+
+
+@pytest.mark.parametrize("inside", [False, True], ids=["touching", "centre_inside_box"])
+def test_twin_matches_jax_box_and_sphere_pair_rows(inside):
+    """The example model (point vs BOX twice, point vs SPHERE once), all three
+    pair rows active, 3 steps against the JAX fused math with xfrc. With
+    `inside` sphere A's centre starts below the box's top face, which takes
+    the BOX branch's inside case (leave through the nearest face); that
+    start is violent, so it is held for one step."""
+    from isaacgymenvs_tpu_torch.model.examples import pair_row_example, pair_row_example_state
+
+    jm, tm = _jax_pair_row_example(), pair_row_example()
+    carried = model_from_arrays(_jax_fields(jm))
+    for f in dataclasses.fields(tm):
+        a, b = getattr(tm, f.name), getattr(carried, f.name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_allclose(a, b, atol=1e-6, err_msg=f.name)
+        else:
+            assert a == b, f.name
+    kw = dict(dt=1 / 60, substeps=2, solver_apgd_iterations=16, contact_margin=0.02)
+    jp, tp = JSimParams(**kw), SimParams(**kw)
+    s = tfused._extract(tm)
+    assert (s.nc, s.pp_nc, s.att_n, s.nct) == (10, 3, 0, 13) and s.pp_gtype.tolist() == [2, 2, 0]
+    n = 4
+    q, qd = pair_row_example_state(tm, n, 1)
+    if inside:
+        q[:, tm.q_adr[1] + 2] -= 0.105  # A's centre 7 mm under the face
+        qd[:] = 0.0
+    rng = np.random.RandomState(8)
+    qfrc = rng.uniform(-0.3, 0.3, (n, tm.nv)).astype(np.float32)
+    xfrc = rng.uniform(-0.2, 0.2, (n, tm.nbody, 6)).astype(np.float32)
+    seen = {}
+    _compare(jm, jp, tm, tp, q, qd, qfrc, xfrc, 1 if inside else 3, seen=seen)
+    assert seen["body_force"] > 1.0
+
+
+def test_extract_matches_jax_ball_balance():
+    """`_extract` of the port against the JAX `_extract`: every shared field,
+    and the pair-row and anchor fields, whose one-hot pick matrices are index
+    arrays here."""
+    _, jenv, tenv = _both_envs("BallBalance")
+    js, ts = jfused._extract(jenv.model), tfused._extract(tenv.model)
+    assert (ts.nc, ts.pp_nc, ts.att_n, ts.nct) == (21, 1, 3, 25) == (js.nc, js.pp_nc, js.att_n, 25)
+    assert _cuda.sizes_of(ts, True) == (8, 20, 18, 21, 1, 3, 1)
+    for f in ts._fields:
+        if f in ("pp_a", "pp_b", "att_body", "free_bodies"):
+            continue
+        a, b = getattr(ts, f), getattr(js, f)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_allclose(a, np.asarray(b), atol=1e-6, err_msg=f)
+        else:
+            assert a == b, f
+    assert ts.free_bodies == js.free_bodies
+    np.testing.assert_array_equal(ts.pp_a, np.argmax(js.pp_pick_a, 1))
+    np.testing.assert_array_equal(ts.pp_b, np.argmax(js.pp_pick_b, 1))
+    np.testing.assert_array_equal(ts.att_body, np.argmax(js.att_pick, 1))
+    assert ts.pp_gtype.tolist() == [3] and ts.pp_path.shape == (18, 1) and ts.att_path.shape == (18, 3)
+    # the spec buffer holds them at the kernel's offsets
+    p = tenv.sim_params
+    spec = _cuda.pack_spec(ts, p, tfused.apgd_betas(p.solver_apgd_iterations))
+    nb, nv, nct = ts.nbody, ts.nv, ts.nct
+    base = 16 + 5 * nb + 3 * nb + 4 * nb + 3 * nb + 9 * nb + nb + 6 * nb + 10 * nv + nv * nv \
+        + nb * nb + 7 * nct + nct * nv + 12 * ts.pp_nc + 3 * ts.att_n
+    assert spec.shape == (base + p.solver_apgd_iterations,) and spec[14] == np.float32(0.7)
+    np.testing.assert_allclose(spec[base - 9:base], ts.att_target.reshape(-1))
+    assert _cuda.kernel_flops(ts, p) > _cuda.kernel_flops(ts._replace(pp_nc=0, att_n=0, pp_gtype=ts.pp_gtype[:0]), p)
+    assert _cuda.kernel_bytes(ts, 8, False, True) - _cuda.kernel_bytes(ts, 8, False) == 4 * 8 * ts.nq
 
 
 def test_forward_kinematics_matches_jax(ant):

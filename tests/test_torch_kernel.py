@@ -6,6 +6,8 @@ This file imports no JAX, so it also runs on the GPU machine:
 
 The `cuda`-marked tests skip where there is no card.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -107,10 +109,126 @@ def test_contact_free_kernel_matches_plain_version():
 
 @pytest.mark.cuda
 def test_unsupported_model_raises_on_card():
+    """Features of later tiers raise by name on CUDA tensors too: an SDF
+    pair row, a top-K cap below the row count, per-env leaves, a merged
+    decimation window."""
     _needs_card()
     env = _ant(4, "cuda")
     state, _ = env.reset(0)
-    pair = env.model.replace(ppair_point=(0,), ppair_geom=(0,))
-    with pytest.raises(NotImplementedError):
-        fused.physics_step_fused(pair, env.sim_params, state.sim.q, state.sim.qd,
-                                 torch.zeros(4, env.model.nv, device="cuda"))
+    m, p = env.model, env.sim_params
+    args = (state.sim.q, state.sim.qd, torch.zeros(4, m.nv, device="cuda"))
+    capped = dataclasses.replace(p, max_active_contacts=8)
+    for model, params, kw, word in (
+        (m.replace(spair_point=(0,), spair_sdf=(0,)), p, {}, "SDF"),
+        (m, capped, {}, "top-K"),
+        (m, p, {"dyn": {"body_mass": torch.ones(4, m.nbody, device="cuda")}}, "dyn"),
+        (m, p, {"warm_reset_every": 2}, "warm_reset_every"),
+    ):
+        with pytest.raises(NotImplementedError, match=word):
+            fused.physics_step_fused(model, params, *args, **kw)
+
+
+def _held_against_plain(model, params, q, qd, qfrc, xfrc, q_target, steps, tol):
+    """Kernel and plain version from the same inputs each step, the plain
+    output carrying the trajectory; returns the largest |body_force|."""
+    n, nb = q.shape[0], model.nbody
+    rows = lambda a: None if a is None else a.T.contiguous()
+    plain = fused._step_math_torch(fused._extract(model), params, torch.device("cuda"))
+    xr = None if xfrc is None else xfrc.permute(2, 1, 0).reshape(6 * nb, n).contiguous()
+    force = 0.0
+    for _ in range(steps):
+        before = _cuda.FusedStepCall.launches
+        ko = fused.physics_step_fused(model, params, q, qd, qfrc, xfrc=xfrc, q_target=q_target)
+        assert _cuda.FusedStepCall.launches == before + 1
+        po = plain(rows(q), rows(qd), rows(qfrc), xr, rows(q_target))
+        torch.cuda.synchronize()
+        ref = {"q": po[0].T, "qd": po[1].T,
+               "body_force": po[2].reshape(3, nb, n).permute(2, 1, 0),
+               "body_torque": po[3].reshape(3, nb, n).permute(2, 1, 0),
+               "dof_force": po[4].T}
+        for k, t in tol.items():
+            assert float((getattr(ko, k) - ref[k]).abs().max()) < t, k
+        force = max(force, float(ko.body_force.abs().max()))
+        q, qd = ref["q"].contiguous(), ref["qd"].contiguous()
+    return force
+
+
+def _task(name, n):
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    return task_map[name](load_config([f"task={name}", f"num_envs={n}"])["task"], device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Ingenuity", "Quadcopter"])
+def test_copter_kernels_match_plain_version(name):
+    """Ingenuity (24 plane rows, xfrc) and Quadcopter (44 plane rows: two
+    contacts per lane; xfrc and q_target) at a ragged N = 37, a third of the
+    envs lowered onto the ground so that plane rows are active."""
+    _needs_card()
+    n = 37
+    env = _task(name, n)
+    m = env.model
+    state, _ = env.reset(1)
+    rng = np.random.RandomState(2)
+    cuda = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    q = state.sim.q.clone()
+    # chassis heights at which the lowest candidate points rest up to 1 mm
+    # in the ground (a deep start is pushed out in the first slice and the
+    # sensors of the last slice read nothing)
+    lo, hi = {"Ingenuity": (0.059, 0.06), "Quadcopter": (0.014, 0.015)}[name]
+    q[::3, 2] = cuda(rng.uniform(lo, hi, len(q[::3])))
+    # gentle inputs: a Quadcopter rotor arm weighs under a gram
+    qd = cuda(rng.uniform(-0.1, 0.1, (n, m.nv)))
+    qd[::3] = 0.0
+    qfrc = cuda(rng.uniform(-0.02, 0.02, (n, m.nv)))
+    xfrc = cuda(rng.uniform(-0.02, 0.02, (n, m.nbody, 6)))
+    qt = q + cuda(rng.uniform(-0.1, 0.1, q.shape)) if env.use_pd_targets else None
+    force = _held_against_plain(m, env.sim_params, q, qd, qfrc, xfrc, qt, 3, TOL)
+    assert force > 0.1  # ground contacts were active
+
+
+@pytest.mark.cuda
+def test_ball_balance_kernel_matches_plain_version():
+    """BallBalance (21 plane rows, the ball-vs-tray cylinder pair row, three
+    anchors, q_target; nv 18) with the ball resting on the tray, so the pair
+    row is active: the tray's body force must be non-zero. q 5e-4, the other
+    tolerances as everywhere."""
+    _needs_card()
+    n = 37
+    env = _task("BallBalance", n)
+    m = env.model
+    rng = np.random.RandomState(3)
+    cuda = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    q = env.qpos0.repeat(n, 1)
+    bq = env.ball_q
+    q[:, bq:bq + 2] = cuda(rng.uniform(-0.2, 0.2, (n, 2)))
+    q[:, bq + 2] = env.tray_height + 0.01 + env.ball_radius - 0.002
+    qd = torch.zeros(n, m.nv, device="cuda")
+    qfrc = cuda(rng.uniform(-0.5, 0.5, (n, m.nv)))
+    qt = q + cuda(rng.uniform(-0.02, 0.02, q.shape))
+    plain = fused._step_math_torch(fused._extract(m), env.sim_params, torch.device("cuda"))
+    tray = plain(q.T.contiguous(), qd.T.contiguous(), qfrc.T.contiguous(), None, qt.T.contiguous())[2]
+    pressed = tray.reshape(3, m.nbody, n)[2, env.tray_body].abs() > 1.0  # newtons
+    assert float(pressed.float().mean()) > 0.5  # where the drive drops the tray, the ball is in free fall
+    _held_against_plain(m, env.sim_params, q, qd, qfrc, None, qt, 3, {**TOL, "q": 5e-4})
+
+
+@pytest.mark.cuda
+def test_box_and_sphere_pair_rows_match_plain_version():
+    """The example model's three pair rows (point vs BOX twice, point vs
+    SPHERE), all active."""
+    _needs_card()
+    from isaacgymenvs_tpu_torch.engine.dynamics import SimParams
+    from isaacgymenvs_tpu_torch.model.examples import pair_row_example, pair_row_example_state
+
+    n = 37
+    m = pair_row_example()
+    p = SimParams(dt=1 / 60, substeps=2, solver_apgd_iterations=16, contact_margin=0.02)
+    q, qd = (torch.tensor(a, device="cuda") for a in pair_row_example_state(m, n, 1))
+    rng = np.random.RandomState(4)
+    cuda = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    qfrc = cuda(rng.uniform(-0.3, 0.3, (n, m.nv)))
+    xfrc = cuda(rng.uniform(-0.2, 0.2, (n, m.nbody, 6)))
+    force = _held_against_plain(m, p, q, qd, qfrc, xfrc, None, 3, TOL)
+    assert force > 1.0

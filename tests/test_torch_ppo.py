@@ -32,6 +32,11 @@ TASKS = {
     "Ant": (4, {"clipActions": 1.0}, {"dt": 1 / 60, "substeps": 2},
             {"truncate_grads": False, "critic_coef": 2, "value_bootstrap": True,
              "reward_shaper": {"scale_value": 0.01}}, 1.0),
+    # pair row, anchors and q_target drives in the step; fixed sigma as in BallBalancePPO.yaml
+    "BallBalance": (4, {"clipObservations": 5.0, "clipActions": 1.0, "actionSpeedScale": 20},
+                    {"dt": 0.01, "substeps": 1, "physx": {"num_position_iterations": 8, "contact_offset": 0.02,
+                                                          "max_depenetration_velocity": 1000.0}},
+                    {"truncate_grads": True, "critic_coef": 4, "reward_shaper": {"scale_value": 0.1}}, 0.3),
 }
 HORIZON, MINI_EPOCHS, NUM_MB = 4, 2, 2
 
@@ -72,7 +77,8 @@ def _port_state_from(tagent, jts):
     ts = tagent.load_state(tagent.init(), train_state_from_jax(fields, names))
     t = lambda a: torch.tensor(np.asarray(a))
     ts.env_state.sim = SimState(q=t(jts.env_state.sim.q), qd=t(jts.env_state.sim.qd))
-    ts.env_state.task = tuple(t(x) for x in jts.env_state.task)
+    jtask = jts.env_state.task
+    ts.env_state.task = tuple(t(x) for x in jtask) if isinstance(jtask, tuple) else t(jtask)
     ts.obs = t(jts.obs)
     return ts
 
@@ -320,7 +326,20 @@ def _jax_epoch(agent, ts, noise, perms):
     return ts, metrics
 
 
-@pytest.mark.parametrize("task", ["Cartpole", "Ant"])
+def _balls_on_trays(jagent, jts):
+    """BallBalance's reset drops the ball from 1-2 m; put it on the tray in
+    envs 0 and 1 so that the pair row acts inside the epochs."""
+    env = jagent.env
+    q, qd = np.asarray(jts.env_state.sim.q).copy(), np.asarray(jts.env_state.sim.qd).copy()
+    bq, bv = env.ball_q, env.model.v_adr[env.ball_body]
+    for e, xy in ((0, (0.05, -0.1)), (1, (-0.15, 0.1))):
+        q[e, bq:bq + 3] = (*xy, env.tray_height + 0.01 + env.ball_radius - 0.002)
+        qd[e, bv:bv + 3] = 0.0
+    es = jts.env_state
+    return jts.replace(env_state=es.replace(sim=es.sim.replace(q=jnp.asarray(q), qd=jnp.asarray(qd))))
+
+
+@pytest.mark.parametrize("task", ["Cartpole", "Ant", "BallBalance"])
 def test_two_epochs_match_jax(task):
     """A first epoch from a fresh state and a second one after it (non-zero
     Adam moments, moved normalizers and lr): metrics to rtol 2e-4 / atol
@@ -328,6 +347,8 @@ def test_two_epochs_match_jax(task):
     jagent, tagent = _agents(task)
     n, scale = TASKS[task][0], TASKS[task][4]
     jts = jagent.init()
+    if task == "BallBalance":
+        jts = _balls_on_trays(jagent, jts)
     tts = _port_state_from(tagent, jts)
     if task == "Cartpole":
         _fix_reset_state(jagent, tagent)

@@ -46,7 +46,7 @@ def _assert_same(a, b):
         assert torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else a[k] == b[k], k
 
 
-@pytest.mark.parametrize("task", ["Cartpole", "Ant"])
+@pytest.mark.parametrize("task", ["Cartpole", "Ant", "BallBalance"])
 def test_checkpoint_roundtrip_is_bit_equal_and_resumes(tmp_path, task):
     """save -> restore into a fresh agent gives back the parameters, Adam
     moments, running stats, lr and env task state bit for bit, and the epoch
@@ -121,6 +121,29 @@ def test_train_main_writes_run_and_plays(tmp_path, capsys):
     assert resumed["epoch"] == 3
     # play from the checkpoint, with the sigma override
     mean_ret = ttrain.main([*run, "test=True", f"checkpoint={last}", "sigma=0.3"])
+    assert np.isfinite(mean_ret) and "played" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("task", ["Ingenuity", "Quadcopter", "BallBalance"])
+def test_train_main_procedural_tasks(tmp_path, capsys, task):
+    """`train.main task=<name> pipeline=cpu` at 16 envs: two epochs with a
+    checkpoint each, a resume for a third, and play from the checkpoint."""
+    run = [f"task={task}", "pipeline=cpu", "num_envs=16", f"+train_dir={tmp_path}",
+           "train.params.config.minibatch_size=128"]
+    ts, metrics = ttrain.main([*run, "max_iterations=2", "train.params.config.save_frequency=1"])
+    horizon = {"Ingenuity": 16, "Quadcopter": 8, "BallBalance": 16}[task]
+    assert metrics["epoch"] == 2 and metrics["frames"] == 2 * horizon * 16
+    assert all(np.isfinite(metrics[k]) for k in ("a_loss", "c_loss", "kl", "lr"))
+    names = sorted(p.name for p in (tmp_path / task / "nn").iterdir())
+    assert names == [f"last_{task}.pth", f"last_{task}_ep_1.pth", f"last_{task}_ep_2.pth"]
+    last = str(tmp_path / task / "nn" / f"last_{task}.pth")
+    ck = load_checkpoint(last)
+    assert ck["epoch"] == 2 and ck["frames"] == metrics["frames"]
+    for a, b in zip(ck["env_task_state"], ts.env_state.task):  # the integrated targets travel with it
+        assert torch.equal(a, b)
+    _, resumed = ttrain.main([*run, "max_iterations=3", f"checkpoint={last}"])
+    assert resumed["epoch"] == 3
+    mean_ret = ttrain.main([*run, "test=True", f"checkpoint={last}"])
     assert np.isfinite(mean_ret) and "played" in capsys.readouterr().out
 
 
