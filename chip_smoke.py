@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together: Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of step 14 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -60,9 +60,32 @@
 12. trains BallBalance through `train.main` for BALL_EPOCHS epochs past
    BALL_RETURN_BAR (mean over the run) and BALL_LAST_EPOCH_BAR, one launch
    per env step, and plays the checkpoint;
-13. times every new instantiation and its plain version at full width and
-   prints one `kernels` JSON line with all instantiations;
-14. ends with {"ok": true, "device": {...}}.
+13. times every new instantiation and its plain version at full width;
+14. per-env model leaves (domain randomization) and tendons. Built in step 2
+   beside the others: Ant + the five leaves its yaml randomizes, Ant + every
+   leaf that has rows on it + gravity, the tendon example model alone and
+   with all fifteen leaves + gravity, BallBalance + the leaves a pair row
+   reads (cpoint_friction, cpoint_pos, geom_size, body_mass), and Cartpole,
+   Ingenuity, Quadcopter and BallBalance + the leaves of the randomization
+   block DR_BLOCK. Each is held against its plain version at N=1003 for 3
+   steps and at full width for 1, the leaves drawn with numpy from a seed
+   (`model.examples.random_leaves`), and must differ from the same step
+   without leaves; each is driven through `physics_step_fused` or a
+   randomized VecTask with the launches counted; each is timed;
+15. physical checks: an Ant in free fall under per-env gravity gains
+   qd = g_i t on all three axes; Ant with `task.randomize=True` (per-body
+   mass factors in [0.5, 1.5]) settles with its summed foot force near each
+   env's OWN weight (the spread over envs of fz / own weight must be well
+   under that of fz / nominal weight);
+16. the DR main path at full width: device ops per Ant env step with and
+   without `task.randomize=True`, `bench --randomize`, one warm-up and three
+   timed `train_epoch`s of `task=Ant task.randomize=True` (16 launches each),
+   then `train.main` with `task=Ant task.randomize=True` for ANT_DR_EPOCHS
+   epochs, a restore that is bit-equal (the DR sample is drawn anew, as in
+   the JAX package) and `play`; Cartpole, Ingenuity, Quadcopter and
+   BallBalance step with `task.randomize=True` and DR_BLOCK passed in;
+17. prints one `kernels` JSON line with all instantiations and ends with
+   {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository around it; without either it
 exits non-zero before printing a result.
@@ -106,6 +129,23 @@ BALL_EPOCHS = 40
 BALL_RETURN_BAR = 20.0
 BALL_LAST_EPOCH_BAR = 30.0
 ANCHOR_TOL = 0.005  # metres between a settled anchor point and its target
+ANT_DR_EPOCHS = 5
+ANT_YAML_LEAVES = ("dof_damping", "dof_stiffness", "dof_limit_lower", "dof_limit_upper", "body_mass")
+PAIR_ROW_LEAVES = ("body_mass", "cpoint_friction", "cpoint_pos", "geom_size")
+# a randomization block for the tasks whose yaml has none; its leaves in the step's order
+DR_BLOCK = {
+    "frequency": 2,
+    "observations": {"range": [0, 0.002], "operation": "additive", "distribution": "gaussian"},
+    "actions": {"range": [0.0, 0.02], "operation": "additive", "distribution": "gaussian"},
+    "sim_params": {"gravity": {"range": [0, 0.4], "operation": "additive", "distribution": "gaussian"}},
+    "actor_params": {"robot": {
+        "rigid_body_properties": {"mass": {"range": [0.5, 1.5], "operation": "scaling", "distribution": "uniform"}},
+        "rigid_shape_properties": {"friction": {"range": [0.5, 1.5], "operation": "scaling", "distribution": "uniform"}},
+        "dof_properties": {"damping": {"range": [0.5, 1.5], "operation": "scaling", "distribution": "loguniform"}},
+    }},
+}
+DR_BLOCK_LEAVES = ("dof_damping", "body_mass", "cpoint_friction", "gravity")
+DR_TASKS = {"Cartpole": CARTPOLE_ENVS, "Ingenuity": 4096, "Quadcopter": 8192, "BallBalance": 4096}
 # data-sheet peaks of the H100 parts: (fp32 FLOP/s outside the tensor
 # cores, memory bytes/s); the SXM part unless the name says otherwise
 PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
@@ -130,23 +170,29 @@ def cartpole_env(n: int):
     return task_map["Cartpole"](cfg, device="cuda")
 
 
-def task_env(name: str, n: int):
-    """A task of the port from its own yaml at `n` envs."""
+def task_env(name: str, n: int, randomize: bool = False):
+    """A task of the port from its own yaml at `n` envs; with `randomize`,
+    domain randomization on (Ant: the block of its yaml, else DR_BLOCK)."""
     from isaacgymenvs_tpu_torch.tasks import task_map
     from isaacgymenvs_tpu_torch.utils.config import load_config
 
-    return task_map[name](load_config([f"task={name}", f"num_envs={n}"])["task"], device="cuda")
+    cfg = load_config([f"task={name}", f"num_envs={n}", f"task.randomize={randomize}"])["task"]
+    if randomize and name != "Ant":
+        cfg["task"]["randomization_params"] = DR_BLOCK
+    return task_map[name](cfg, device="cuda")
 
 
-def example_model():
-    """The example model with BOX and SPHERE pair rows and its parameters,
-    as an object with `.model` and `.sim_params` like a task."""
+def example_model(tendons: bool = False):
+    """The example model with BOX and SPHERE pair rows (or, with `tendons`,
+    the arm with a fixed tendon pressing on a box) and its parameters, as an
+    object with `.model` and `.sim_params` like a task."""
     from types import SimpleNamespace
 
     from isaacgymenvs_tpu_torch.engine.dynamics import SimParams
-    from isaacgymenvs_tpu_torch.model.examples import pair_row_example
+    from isaacgymenvs_tpu_torch.model.examples import pair_row_example, tendon_chain_example
 
-    return SimpleNamespace(model=pair_row_example(), use_pd_targets=False, sim_params=SimParams(
+    model = tendon_chain_example() if tendons else pair_row_example()
+    return SimpleNamespace(model=model, use_pd_targets=False, sim_params=SimParams(
         dt=1 / 60, substeps=2, solver_apgd_iterations=16, contact_margin=0.02))
 
 
@@ -156,10 +202,16 @@ def example_model():
 GROUND_HEIGHT = {"Ingenuity": (0.059, 0.06), "Quadcopter": (0.014, 0.015)}
 
 
-def contact_inputs(name: str, env, n: int, seed: int):
+def contact_inputs(name: str, env, n: int, seed: int, light: bool = False):
     """Gentle inputs (q, qd, qfrc, xfrc, q_target), env-leading, in a state
-    where the contact rows of `name` act."""
-    from isaacgymenvs_tpu_torch.model.examples import pair_row_example_state
+    where the contact rows of `name` act. `light`: the step will run with
+    per-env masses down to half the model's. Quadcopter's q_target offsets
+    drive its rotor arms against a 47 g chassis, whose angular velocity
+    carries the comparison's largest error: 1.4e-3 of the 2e-3 allowed
+    without per-env leaves, 2.0-2.3e-3 with halved masses or per-env
+    gravity, 0.9e-3 with the offsets halved as well (all measured on an
+    NVIDIA H100 80GB HBM3). So a light step gets half the offsets."""
+    from isaacgymenvs_tpu_torch.model.examples import pair_row_example_state, tendon_chain_example_state
 
     m = env.model
     rng = np.random.RandomState(seed)
@@ -168,6 +220,14 @@ def contact_inputs(name: str, env, n: int, seed: int):
     if name == "Example":
         q, qd = (cuda(a) for a in pair_row_example_state(m, n, seed))
         return q, qd, u(0.3, n, m.nv), u(0.2, n, m.nbody, 6), None
+    if name == "Tendon":
+        q, qd = tendon_chain_example_state(m, n, seed)
+        qd[::2, 2] = -0.6  # half the boxes come down faster than the bounce threshold
+        return cuda(q), cuda(qd), u(0.3, n, m.nv), u(0.2, n, m.nbody, 6), None
+    if name in ("Ant", "Cartpole"):
+        state, _ = env.reset(seed)
+        xfrc = u(1.0, n, m.nbody, 6) if name == "Ant" else None
+        return state.sim.q, state.sim.qd, u(3.0 if name == "Ant" else 100.0, n, m.nv), xfrc, None
     if name == "BallBalance":
         q = env.qpos0.repeat(n, 1)
         q[:, env.ball_q:env.ball_q + 2] = u(0.2, n, 2)
@@ -177,34 +237,12 @@ def contact_inputs(name: str, env, n: int, seed: int):
     q = state.sim.q.clone()
     lo, hi = GROUND_HEIGHT[name]
     q[::3, 2] = cuda(rng.uniform(lo, hi, len(q[::3])))
-    qt = q + u(0.1, n, m.nq) if env.use_pd_targets else None
+    qt = q + u(0.05 if light else 0.1, n, m.nq) if env.use_pd_targets else None
     qd = u(0.1, n, m.nv)
     qd[::3] = 0.0  # the grounded envs start at rest
     # gentle: a Quadcopter rotor arm weighs under a gram, so a wrench of 1 N
     # would spin it to velocities whose float32 rounding alone passes 2e-3
     return q, qd, u(0.02, n, m.nv), u(0.02, n, m.nbody, 6), qt
-
-
-def compare_new(name: str, make_env, full: int) -> float:
-    """A new instantiation against its plain version at the ragged N for 3
-    steps and at full width for 1; returns the largest error."""
-    worst = 0.0
-    for n, steps in ((RAGGED_ENVS, 3), (full, 1)):
-        env = make_env(n)
-        q, qd, qfrc, xfrc, qt = contact_inputs(name, env, n, seed=11)
-        # the body whose contact force shows that the rows act: the tray under
-        # the ball, sphere A on the box, the copters' chassis on the ground
-        body = {"BallBalance": getattr(env, "tray_body", 0), "Example": 1}.get(name, 0)
-        err = compare_model(env.model, env.sim_params, q, qd, qfrc, xfrc, qt, steps,
-                            tol=BALL_TOL if name == "BallBalance" else TOL, force_of=body)
-        seen = err.pop("seen_force")
-        print(f"{name} kernel vs plain, N={n}, {steps} step(s), body {body} pressed in "
-              f"{100 * seen:.1f} % of envs:", json.dumps(err))
-        # a third of the copters rest on the ground; every ball and sphere presses
-        if not seen > (0.25 if name in GROUND_HEIGHT else 0.5):
-            raise AssertionError(f"{name}: the contact rows were active in only {100 * seen:.1f} % of envs")
-        worst = max(worst, *err.values())
-    return worst
 
 
 def settle_ball_balance(n: int) -> None:
@@ -299,6 +337,228 @@ def train_ball_balance() -> int:
     return launches
 
 
+# ---- per-env leaves (domain randomization) and tendons -----------------------
+
+# instantiations beyond Ant's and Cartpole's: key -> (what `contact_inputs`
+# calls the model, the per-env leaves ("all": every leaf with rows on the
+# model, and gravity), the full width). First those without per-env leaves.
+NEW_CASES = {**{t: (t, (), w[0]) for t, w in NEW_TASKS.items()}, "Example": ("Example", (), NUM_ENVS)}
+DYN_CASES = {
+    "Ant+yaml": ("Ant", ANT_YAML_LEAVES, NUM_ENVS),
+    "Ant+all": ("Ant", "all", NUM_ENVS),
+    "Tendon": ("Tendon", (), NUM_ENVS),
+    "Tendon+all": ("Tendon", "all", NUM_ENVS),
+    "BallBalance+pair": ("BallBalance", PAIR_ROW_LEAVES, 4096),
+    **{f"{t}+dr": (t, DR_BLOCK_LEAVES, w) for t, w in DR_TASKS.items()},
+}
+CASES = {**NEW_CASES, **DYN_CASES}
+
+
+def case(key: str, n: int):
+    """(model holder, leaf names in the step's order) of a CASES entry at `n` envs."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    base, names, _ = CASES[key]
+    holder = example_model(tendons=base == "Tendon") if base in ("Tendon", "Example") else task_env(base, n)
+    s = fused._extract(holder.model)
+    return holder, fused.dyn_names(s, fused.DYN_ORDER if names == "all" else names)
+
+
+def packed_leaves(holder, names, n: int, seed: int, only=None):
+    """Per-env leaves `names` drawn with numpy from `seed`, on the card and
+    packed as the step takes them (None without names). With `only`, every
+    other leaf holds the model's own values in every env."""
+    from isaacgymenvs_tpu_torch.engine import fused
+    from isaacgymenvs_tpu_torch.model.examples import random_leaves
+
+    if not names:
+        return None
+    m = holder.model
+    leaves = random_leaves(m, names, n, seed, holder.sim_params.gravity)
+    for k in names if only is not None else ():
+        if k not in only:
+            own = getattr(m, k)
+            leaves[k] = np.broadcast_to(0.0 if own is None else np.asarray(own, np.float32), leaves[k].shape).copy()
+    return fused.pack_dyn(fused._extract(m), {k: torch.tensor(v, device="cuda") for k, v in leaves.items()})
+
+
+def compare_case(key: str) -> float:
+    """A CASES instantiation against its plain version at the ragged N for 3
+    steps and at full width for 1, and, with per-env leaves, against its own
+    step without them; returns the largest error."""
+    base, _, full = CASES[key]
+    worst = 0.0
+    for n, steps in ((RAGGED_ENVS, 3), (full, 1)):
+        holder, names = case(key, n)
+        q, qd, qfrc, xfrc, qt = contact_inputs(base, holder, n, seed=11, light="body_mass" in names)
+        dyn = packed_leaves(holder, names, n, seed=22)
+        # the body whose contact force shows that the rows act: the tray under
+        # the ball, sphere A on the box, the arm's tip on the box, the copters'
+        # chassis on the ground (a third of them rest on it)
+        body = {"BallBalance": getattr(holder, "tray_body", 0), "Example": 1, "Tendon": 2,
+                **dict.fromkeys(GROUND_HEIGHT, 0)}.get(base)
+        err = compare_model(holder.model, holder.sim_params, q, qd, qfrc, xfrc, qt, steps,
+                            tol=BALL_TOL if base == "BallBalance" else TOL, force_of=body, dyn=dyn)
+        seen = err.pop("seen_force", None)
+        print(f"{key} kernel vs plain, N={n}, {steps} step(s), {len(names)} per-env leaves"
+              + (f" ({dyn.rows.shape[0]} rows)" if dyn is not None else "")
+              + (f", body {body} pressed in {100 * seen:.1f} % of envs" if seen is not None else "") + ":",
+              json.dumps(err))
+        if seen is not None and not seen > (0.25 if base in GROUND_HEIGHT else 0.5):
+            raise AssertionError(f"{key}: the contact rows were active in only {100 * seen:.1f} % of envs")
+        worst = max(worst, *err.values())
+    return worst
+
+
+def drive_case(key: str, steps: int = 20) -> int:
+    """`steps` steps of a CASES entry through `physics_step_fused` at full
+    width, the leaves passed as a dict the way a user would; returns the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda, fused
+    from isaacgymenvs_tpu_torch.model.examples import random_leaves
+
+    base, _, n = CASES[key]
+    holder, names = case(key, n)
+    q, qd, qfrc, xfrc, qt = contact_inputs(base, holder, n, seed=23)
+    leaves = {k: torch.tensor(v, device="cuda")
+              for k, v in random_leaves(holder.model, names, n, 24, holder.sim_params.gravity).items()}
+    torch.cuda.synchronize()
+    _cuda.FusedStepCall.launches = 0
+    for _ in range(steps):
+        out = fused.physics_step_fused(holder.model, holder.sim_params, q, qd, qfrc, xfrc=xfrc, q_target=qt,
+                                       dyn=leaves or None)
+        q, qd = out.q, out.qd
+    torch.cuda.synchronize()
+    launches = _cuda.FusedStepCall.launches
+    print(f"{key}: {steps} steps through physics_step_fused at N={n}, {launches} launches, "
+          f"max |qd| {float(qd.abs().max()):.3f}")
+    if launches != steps or not bool(torch.isfinite(q).all()) or not bool(torch.isfinite(qd).all()):
+        raise AssertionError(f"{key}: {launches} launches for {steps} steps, or a state that is not finite")
+    return launches
+
+
+def free_fall_under_per_env_gravity(n: int, steps: int = 10) -> int:
+    """An Ant dropped from 3 m with every leaf at the model's own value and
+    its own gravity vector per env: after t its base moves at g_i t on all
+    three axes. Runs the Ant + all leaves instantiation; returns the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda, fused
+
+    holder, names = case("Ant+all", n)
+    m, p = holder.model, holder.sim_params
+    dyn = packed_leaves(holder, names, n, seed=25, only=("gravity",))
+    g = dyn.rows[-3:].T  # (n, 3): gravity is the last leaf of the packed rows
+    q = torch.tensor(np.asarray(m.qpos0, np.float32), device="cuda").repeat(n, 1)
+    q[:, 2] = 3.0
+    qd = torch.zeros(n, m.nv, device="cuda")
+    zero = torch.zeros(n, m.nv, device="cuda")
+    torch.cuda.synchronize()
+    _cuda.FusedStepCall.launches = 0
+    for _ in range(steps):
+        out = fused.physics_step_fused(m, p, q, qd, zero, dyn=dyn)
+        q, qd = out.q, out.qd
+    torch.cuda.synchronize()
+    launches = _cuda.FusedStepCall.launches
+    t = steps * p.dt
+    rel = float(((qd[:, :3] - g * t).abs().max(dim=1).values / (torch.linalg.vector_norm(g, dim=1) * t)).max())
+    spread = float(g[:, 2].std())
+    print(f"free fall under per-env gravity: {steps} steps, g_z {float(g[:, 2].min()):.3f} to {float(g[:, 2].max()):.3f} "
+          f"m/s^2 over {n} envs, max |qd - g_i t| / |g_i t| = {rel:.2e}, {launches} launches")
+    if not rel < 1e-3 or not spread > 0.1 or launches != steps:
+        raise AssertionError(f"per-env gravity: relative error {rel:.2e}, spread of g_z {spread:.3f}")
+    return launches
+
+
+def settle_ant_with_randomized_mass(n: int, steps: int = 150) -> None:
+    """Ant with `task.randomize=True` under zero actions: the feet carry each
+    env's OWN weight (its bodies' masses times that env's factors), so the
+    spread over envs of fz / own weight is small beside that of fz / nominal."""
+    env = task_env("Ant", n, randomize=True)
+    state, obs = env.reset(8)
+    zero = torch.zeros(n, env.num_acts, device="cuda")
+    for _ in range(steps):
+        state, obs, _, _, _ = env.step(state, zero)
+    own = env.randomizer.batched_model(state.dr)["body_mass"].sum(1) * 9.81
+    nominal = float(np.sum(env.model.body_mass)) * 9.81
+    fz = obs[:, 28:52].reshape(n, 4, 6)[:, :, 2].sum(1) / env.contact_force_scale
+    up = state.sim.q[:, 2] > env.termination_height  # not fallen and reset
+    r_own, r_nom = (fz / own)[up], (fz / nominal)[up]
+    print(f"settled randomized Ant ({steps} steps, {100 * float(up.float().mean()):.1f} % of {n} envs up): "
+          f"own weight {float(own.min()):.2f} to {float(own.max()):.2f} N (nominal {nominal:.2f}), "
+          f"feet fz / own weight mean {float(r_own.mean()):.4f} std {float(r_own.std()):.4f}; "
+          f"fz / nominal weight std {float(r_nom.std()):.4f}")
+    if not 0.9 < float(r_own.mean()) < 1.3 or not float(r_own.std()) < 0.5 * float(r_nom.std()) \
+            or not float(up.float().mean()) > 0.9:
+        raise AssertionError("the randomized Ant's feet do not carry each env's own weight")
+
+
+def step_randomized_tasks() -> dict:
+    """Cartpole, Ingenuity, Quadcopter and BallBalance with `task.randomize=True`
+    and DR_BLOCK passed in, 8 env steps at the yaml's width under random
+    actions; returns the launches per task."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    out = {}
+    for t, n in DR_TASKS.items():
+        env = task_env(t, n, randomize=True)
+        state, _ = env.reset(9)
+        if state.dyn.names != DR_BLOCK_LEAVES:
+            raise AssertionError(f"{t}: per-env leaves {state.dyn.names}")
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        act = lambda: torch.rand(n, env.num_acts, generator=gen, device="cuda") * 2 - 1
+        state, obs, _, _, _ = env.step(state, act())  # warm-up: loads the kernel
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(8):
+            state, obs, _, _, _ = env.step(state, act())
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out[t] = _cuda.FusedStepCall.launches
+        print(f"{t} task.randomize=True: 8 env steps x {n} envs, {out[t]} launches, {8 * n / sec:.1f} env-steps/s, "
+              f"{state.dyn.rows.shape[0]} per-env rows, frames {int(state.frames)}")
+        if out[t] != 8 * env.control_freq_inv or not bool(torch.isfinite(obs).all()) or int(state.frames) != 9:
+            raise AssertionError(f"{t} with domain randomization: {out[t]} launches, or observations not finite")
+    return out
+
+
+def train_ant_randomized() -> int:
+    """`train.main task=Ant task.randomize=True` for ANT_DR_EPOCHS epochs at the
+    yaml's width, a bit-equal restore into a fresh agent (whose DR sample is
+    its own draw) and play. Returns the kernel launches of the training run."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    with tempfile.TemporaryDirectory() as runs:
+        args = ["task=Ant", "task.randomize=True", f"max_iterations={ANT_DR_EPOCHS}", f"+train_dir={runs}"]
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, metrics = train.main(args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        steps = ANT_DR_EPOCHS * HORIZON
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v) and k != "mean_episode_return"}
+        if launches != steps or metrics["frames"] != steps * NUM_ENVS or bad:
+            raise AssertionError(f"{launches} launches, {metrics['frames']} frames for {steps} env steps; {bad}")
+        st = ts.env_state
+        if st.dyn.names != ANT_YAML_LEAVES or int(st.frames) != steps:
+            raise AssertionError(f"the trained env state carries {st.dyn.names}, frames {int(st.frames)}")
+        print(f"Ant task.randomize=True train: {ANT_DR_EPOCHS} epochs x {NUM_ENVS} envs in {sec:.2f} s "
+              f"({metrics['frames'] / sec:.1f} env-steps/s with set-up), {launches} launches, "
+              f"mean episode return {metrics['mean_episode_return']:.2f}")
+        ckpt = os.path.join(runs, "Ant", "nn", "last_Ant.pth")
+        fts, epoch = restored_bit_equal("Ant", args, ckpt, ts, ANT_DR_EPOCHS)
+        mass = "ant.rigid_body_properties.mass"
+        if torch.equal(fts.env_state.dr[mass], st.dr[mass]):
+            raise AssertionError("the restored run did not draw its own DR sample")
+        played = train.main(["task=Ant", "task.randomize=True", "test=True", f"checkpoint={ckpt}"])
+        print(f"Ant task.randomize=True restore: bit-equal (epoch {epoch}), DR sample drawn anew; "
+              f"play: mean return {played:.2f}")
+        if not np.isfinite(played):
+            raise AssertionError("Ant play returned a non-finite mean return")
+    return launches
+
+
 def rows(t):
     return t.T.contiguous()
 
@@ -320,23 +580,32 @@ def compare(env, steps: int, seed: int, qfrc_max: float = 3.0, with_xfrc: bool =
     return compare_model(m, env.sim_params, state.sim.q, state.sim.qd, qfrc, xfrc, None, steps)
 
 
-def compare_model(m, p, q, qd, qfrc, xfrc, q_target, steps: int, tol=TOL, force_of=None) -> dict:
+def compare_model(m, p, q, qd, qfrc, xfrc, q_target, steps: int, tol=TOL, force_of=None, dyn=None) -> dict:
     """Kernel vs plain version from the same inputs, each step; the plain
     output carries the trajectory. Returns the max abs error per output;
     without contacts the force outputs must be exactly zero. With
     `force_of` (a body index) also returns, under "seen_force", the share of
-    envs whose kernel body force on that body exceeded 1 mN at some step."""
+    envs whose kernel body force on that body exceeded 1 mN at some step.
+    With `dyn` (a `fused.PackedDyn` of per-env leaves) the kernel's first
+    step must also differ from the kernel's step without them."""
     from isaacgymenvs_tpu_torch.engine import fused
 
     n = q.shape[0]
     s = fused._extract(m)
-    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    names, dyn_rows = (dyn.names, dyn.rows) if dyn is not None else ((), None)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
     err = {k: 0.0 for k in tol}
     pressed = torch.zeros(n, dtype=torch.bool, device="cuda")
+    if dyn is not None:
+        with_leaves = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=dyn)
+        without = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=q_target)
+        gap = float((with_leaves.qd - without.qd).abs().max())
+        if not gap > 1e-3:
+            raise AssertionError(f"the kernel's step ignores its per-env leaves {names}: qd differs by {gap:.2e}")
     for _ in range(steps):
-        ko = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=q_target)
+        ko = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=dyn)
         po = plain(rows(q), rows(qd), rows(qfrc), None if xfrc is None else xfrc_rows(xfrc),
-                   None if q_target is None else rows(q_target))
+                   None if q_target is None else rows(q_target), dyn_rows)
         nb = m.nbody
         ref = {
             "q": po[0].T, "qd": po[1].T,
@@ -402,45 +671,59 @@ def kernel_device_ms(fn, reps: int = 20) -> float:
     raise AssertionError("the host could not queue the launches ahead of the device")
 
 
-def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None) -> dict:
+def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn=None) -> dict:
     """ms per launch of the kernel (CUDA events around the wrapper, and
     queued back to back behind other device work), of its plain version,
     and its bound, at (rows, N) inputs on the card. `env` gives the model and
-    the parameters (anything with `.model` and `.sim_params`)."""
+    the parameters (anything with `.model` and `.sim_params`); `dyn` is a
+    `fused.PackedDyn` of per-env leaves, whose rows count in the bytes bound."""
     from isaacgymenvs_tpu_torch.engine import _cuda, fused
 
     s, p, n = fused._extract(env.model), env.sim_params, q.shape[-1]
-    _, step = fused._prepared(env.model, p, torch.device("cuda"), qt is not None)
-    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    names, dr = (dyn.names, dyn.rows) if dyn is not None else ((), None)
+    _, step = fused._prepared(env.model, p, torch.device("cuda"), qt is not None, names)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
     for _ in range(3):
-        step(q, qd, qfrc, xfrc, qt)
-    ms = event_ms(lambda: step(q, qd, qfrc, xfrc, qt), reps)
-    device_ms = kernel_device_ms(lambda: step(q, qd, qfrc, xfrc, qt))
-    plain(q, qd, qfrc, xfrc, qt)
-    plain_ms = event_ms(lambda: plain(q, qd, qfrc, xfrc, qt), 5)
+        step(q, qd, qfrc, xfrc, qt, dr)
+    ms = event_ms(lambda: step(q, qd, qfrc, xfrc, qt, dr), reps)
+    device_ms = kernel_device_ms(lambda: step(q, qd, qfrc, xfrc, qt, dr))
+    plain(q, qd, qfrc, xfrc, qt, dr)
+    plain_ms = event_ms(lambda: plain(q, qd, qfrc, xfrc, qt, dr), 5)
     flop_s, byte_s = peaks(name)
     flops = _cuda.kernel_flops(s, p) * n
-    nbytes = _cuda.kernel_bytes(s, n, xfrc is not None, qt is not None)
+    nbytes = _cuda.kernel_bytes(s, n, xfrc is not None, qt is not None, names)
     t_ops, t_bytes = 1e3 * flops / flop_s, 1e3 * nbytes / byte_s
     bound = max(t_ops, t_bytes)
-    print(f"fused step {'_'.join(map(str, _cuda.sizes_of(s, qt is not None)))} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
-          f"plain {plain_ms:.2f} ms, bound {bound:.6f} ms ({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB), "
-          f"{flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, {100 * bound / ms:.2f} % of the bound")
+    print(f"fused step {'_'.join(map(str, _cuda.sizes_of(s, qt is not None, names)))} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
+          f"plain {plain_ms:.2f} ms, bound {bound:.6f} ms by operations ({flops / 1e9:.4f} GFLOP), {t_bytes:.6f} ms by bytes "
+          f"({nbytes / 1e6:.4f} MB), {flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, {100 * bound / ms:.2f} % of the bound")
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), profile: bool = True) -> int:
+def time_case(key: str, card: str) -> dict:
+    """`kernel_times` of a CASES entry at its full width, in a state where its rows act."""
+    base, _, n = CASES[key]
+    holder, names = case(key, n)
+    q, qd, qfrc, xfrc, qt = contact_inputs(base, holder, n, seed=14, light="body_mass" in names)
+    return kernel_times(holder, rows(q), rows(qd), rows(qfrc), None if xfrc is None else xfrc_rows(xfrc), card,
+                        reps=30, qt=None if qt is None else rows(qt), dyn=packed_leaves(holder, names, n, seed=27))
+
+
+def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), profile: bool = True,
+                 overrides=()) -> int:
     """Three timed PPO epochs on `task` at its yaml's full width (`width` =
-    envs, horizon, batch, minibatch, mini-epochs); returns the kernel
-    launches of the timed epochs."""
+    envs, horizon, batch, minibatch, mini-epochs), with further config
+    `overrides` (e.g. task.randomize=True); returns the kernel launches of
+    the timed epochs."""
     from isaacgymenvs_tpu_torch.engine import _cuda
     from isaacgymenvs_tpu_torch.learn import PPO
     from isaacgymenvs_tpu_torch.tasks import task_map
     from isaacgymenvs_tpu_torch.utils.config import load_config
 
-    cfg = load_config([f"task={task}"])
+    cfg = load_config([f"task={task}", *overrides])
     env = task_map[task](cfg["task"], device="cuda")
+    label = task + (" " + " ".join(overrides) if overrides else "")
     agent = PPO(env, cfg["train"]["params"], seed=int(cfg["seed"]))
     c = agent.cfg
     horizon = width[1]
@@ -476,16 +759,40 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
         bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
         if bad or not c.min_lr <= metrics["lr"] <= c.max_lr or not metrics["kl"] >= 0.0:
             raise AssertionError(f"epoch metrics out of range: {metrics}")
-        print(f"{task} train epoch {epoch}: {sec:.4f} s = rollout {split['rollout']:.4f} s + update "
+        print(f"{label} train epoch {epoch}: {sec:.4f} s = rollout {split['rollout']:.4f} s + update "
               f"{sec - split['rollout']:.4f} s, {agent.batch_size / sec:.1f} env-steps/s, {launches} launches, "
               f"a_loss {metrics['a_loss']:.5f} c_loss {metrics['c_loss']:.5f} kl {metrics['kl']:.5f} "
               f"lr {metrics['lr']:.2e}")
     if profile:
-        profile_window(lambda: agent.train_epoch(ts), f"{task} train epoch", 1, "epoch")
+        profile_window(lambda: agent.train_epoch(ts), f"{label} train epoch", 1, "epoch")
     moved = max(float((p.detach() - b).abs().max()) for p, b in zip(agent.network.parameters(), before))
     if not moved > 0.0 or not all(bool(torch.isfinite(p).all()) for p in agent.network.parameters()):
         raise AssertionError("the update did not move the parameters, or left them not finite")
     return total
+
+
+def restored_bit_equal(task: str, args, ckpt: str, ts, epochs: int) -> list:
+    """Restore `ckpt` into a fresh agent of another seed: parameters, lr,
+    running stats and Adam moments must equal the trained state `ts` bit for
+    bit. Returns [the fresh agent's train state, the checkpoint's epoch]."""
+    from isaacgymenvs_tpu_torch.learn import PPO
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    cfg = load_config(args)
+    fresh = PPO(task_map[task](cfg["task"], device="cuda"), cfg["train"]["params"], seed=1)
+    fts, epoch = fresh.restore(ckpt, fresh.init())
+    trained = ts.optimizer.param_groups[0]["params"]  # the trained network's parameters
+    same = epoch == epochs and fts.lr == ts.lr
+    same &= all(torch.equal(a, b) for a, b in zip(fresh.network.parameters(), trained, strict=True))
+    for a, b in ((fts.obs_rms, ts.obs_rms), (fts.value_rms, ts.value_rms)):
+        same &= all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("mean", "var", "count"))
+    fst, tst = fts.optimizer.state_dict()["state"], ts.optimizer.state_dict()["state"]
+    same &= set(fst) == set(tst) and all(
+        torch.equal(fst[i][k].cpu(), tst[i][k].cpu()) for i in tst for k in ("step", "exp_avg", "exp_avg_sq"))
+    if not same:
+        raise AssertionError(f"{task}: restore did not give back the trained state bit for bit")
+    return [fts, epoch]
 
 
 def train_cartpole() -> int:
@@ -493,9 +800,6 @@ def train_cartpole() -> int:
     kernel launches of the training run."""
     from isaacgymenvs_tpu_torch import train
     from isaacgymenvs_tpu_torch.engine import _cuda
-    from isaacgymenvs_tpu_torch.learn import PPO
-    from isaacgymenvs_tpu_torch.tasks import task_map
-    from isaacgymenvs_tpu_torch.utils.config import load_config
 
     with tempfile.TemporaryDirectory() as runs:
         args = ["task=Cartpole", f"max_iterations={CARTPOLE_EPOCHS}", f"+train_dir={runs}"]
@@ -519,20 +823,7 @@ def train_cartpole() -> int:
         if not os.path.exists(os.path.join(runs, "Cartpole", "config.yaml")):
             raise AssertionError("train wrote no config.yaml")
 
-        # restore into a fresh agent: bit-equal to the trained state
-        cfg = load_config(args)
-        fresh = PPO(task_map["Cartpole"](cfg["task"], device="cuda"), cfg["train"]["params"], seed=1)
-        fts, epoch = fresh.restore(ckpt, fresh.init())
-        trained = ts.optimizer.param_groups[0]["params"]  # the trained network's parameters
-        same = epoch == CARTPOLE_EPOCHS and fts.lr == ts.lr
-        same &= all(torch.equal(a, b) for a, b in zip(fresh.network.parameters(), trained, strict=True))
-        for a, b in ((fts.obs_rms, ts.obs_rms), (fts.value_rms, ts.value_rms)):
-            same &= all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("mean", "var", "count"))
-        fst, tst = fts.optimizer.state_dict()["state"], ts.optimizer.state_dict()["state"]
-        same &= set(fst) == set(tst) and all(
-            torch.equal(fst[i][k].cpu(), tst[i][k].cpu()) for i in tst for k in ("step", "exp_avg", "exp_avg_sq"))
-        if not same:
-            raise AssertionError("restore did not give back the trained state bit for bit")
+        epoch = restored_bit_equal("Cartpole", args, ckpt, ts, CARTPOLE_EPOCHS).pop()
 
         played = train.main(["task=Cartpole", "test=True", f"checkpoint={ckpt}"])
         print(f"Cartpole restore: bit-equal (epoch {epoch}); play: mean return {played:.2f} (bar {RETURN_BAR})")
@@ -541,9 +832,10 @@ def train_cartpole() -> int:
     return launches
 
 
-def profile_window(fn, label: str, units: int, unit: str) -> None:
+def profile_window(fn, label: str, units: int, unit: str) -> float:
     """Device busy share and the largest device-time entries of fn(), which
-    covers `units` steps or epochs, from torch.profiler (CUDA activity)."""
+    covers `units` steps or epochs, from torch.profiler (CUDA activity).
+    Returns the device ops per unit."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -560,10 +852,11 @@ def profile_window(fn, label: str, units: int, unit: str) -> None:
           f"{n_kernels / units:.1f} device ops/{unit}")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / 1e3 / units:.4f} ms/{unit}  x{e.count / units:.1f}  {e.key[:90]}")
+    return n_kernels / units
 
 
-def profile_env_step(env, steps: int = 8) -> None:
-    """env.step under random actions, profiled."""
+def profile_env_step(env, steps: int = 8, label: str = "env.step") -> float:
+    """env.step under random actions, profiled; returns device ops per step."""
     state, _ = env.reset(4)
     gen = torch.Generator(device="cuda").manual_seed(5)
     act = lambda: torch.rand(env.num_envs, env.num_acts, generator=gen, device="cuda") * 2 - 1
@@ -575,7 +868,7 @@ def profile_env_step(env, steps: int = 8) -> None:
         for _ in range(steps):
             st, _, _, _, _ = env.step(st, act())
 
-    profile_window(window, "env.step", steps, "step")
+    return profile_window(window, label, steps, "step")
 
 
 def main() -> int:
@@ -602,9 +895,12 @@ def main() -> int:
     s, s0 = fused._extract(env.model), fused._extract(cart.model)
     if s0.nct != 0 or s.nc == 0:
         raise AssertionError("Cartpole should be contact-free and the Ant not")
-    built = {"Ant": env, "Cartpole": cart, **{t: task_env(t, 8) for t in NEW_TASKS}, "Example": example_model()}
-    sizes = {t: _cuda.sizes_of(fused._extract(e.model), e.use_pd_targets) for t, e in built.items()}
-    if sizes["Quadcopter"][3] <= 32 or sizes["BallBalance"][4:] != (1, 3, 1) or sizes["Example"][4] != 3:
+    built = {"Ant": (env, ()), "Cartpole": (cart, ()),
+             **{k: case(k, 8) for k in CASES}}
+    sizes = {t: _cuda.sizes_of(fused._extract(e.model), e.use_pd_targets, names) for t, (e, names) in built.items()}
+    if sizes["Quadcopter"][3] <= 32 or sizes["BallBalance"][4:7] != (1, 3, 1) or sizes["Example"][4] != 3 \
+            or sizes["Ant+yaml"][7:] != (0, 115, 0, 0) or sizes["Tendon+all"][7:] != (1, 65535, 10, 3) \
+            or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
     def timed_build(size):
@@ -617,9 +913,10 @@ def main() -> int:
         secs = list(pool.map(timed_build, sizes.values()))
     print(f"build: {time.perf_counter() - t0:.1f} s in all; " + ", ".join(
         f"{t} {'_'.join(map(str, sz))} {sec:.1f} s" for (t, sz), sec in zip(sizes.items(), secs)))
-    for t, e in built.items():
-        _, step = fused._prepared(e.model, e.sim_params, torch.device("cuda"), e.use_pd_targets)
-        print(f"shared memory per block, {t}: {step.smem_bytes} bytes ({_cuda.ENVS_PER_BLOCK} envs)")
+    for t, (e, names) in built.items():
+        _, step = fused._prepared(e.model, e.sim_params, torch.device("cuda"), e.use_pd_targets, names)
+        print(f"shared memory per block, {t}: {step.smem_bytes} bytes ({_cuda.ENVS_PER_BLOCK} envs), "
+              f"{step.dyn_rows} per-env rows")
 
     # 3. kernel vs plain version
     if RAGGED_ENVS % _cuda.ENVS_PER_BLOCK == 0:
@@ -678,7 +975,7 @@ def main() -> int:
 
     bench = measure(NUM_ENVS, HORIZON, reps=8, device="cuda")
     print(f"env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s")
-    profile_env_step(env)
+    ops_plain = profile_env_step(env)
     q, qd = rows(ts.env_state.sim.q), rows(ts.env_state.sim.qd)
     qfrc = rows(env.qfrc_from_actuators(torch.clamp(traj.action[-1], -1, 1)))
     xfrc = torch.zeros(6 * s.nbody, NUM_ENVS, device="cuda")
@@ -699,9 +996,7 @@ def main() -> int:
                                  rows(cenv.compute_force(act, None, None, ())[0]), None, name)
 
     # 9. the new instantiations against their plain versions
-    makers = {**{t: (lambda n, t=t: task_env(t, n)) for t in NEW_TASKS}, "Example": lambda n: example_model()}
-    widths = {**{t: w[0] for t, w in NEW_TASKS.items()}, "Example": NUM_ENVS}
-    new_err = {t: compare_new(t, makers[t], widths[t]) for t in makers}
+    new_err = {t: compare_case(t) for t in NEW_CASES}
 
     # 10. physical checks: BallBalance's anchors and tray force, the example model's spheres
     settle_ball_balance(NEW_TASKS["BallBalance"][0])
@@ -716,14 +1011,28 @@ def main() -> int:
     new_launches["BallBalance"] += train_ball_balance()
 
     # 13. kernel times of the new instantiations at full width
-    new_t = {}
-    for t in makers:
-        e = makers[t](widths[t])
-        q, qd, qfrc, xfrc, qt = contact_inputs(t, e, widths[t], seed=14)
-        new_t[t] = kernel_times(e, rows(q), rows(qd), rows(qfrc), None if xfrc is None else xfrc_rows(xfrc),
-                                name, qt=None if qt is None else rows(qt))
+    new_t = {t: time_case(t, name) for t in NEW_CASES}
 
-    if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values())):
+    # 14. per-env leaves and tendons: against the plain version and the step without leaves, then timed
+    dyn_err = {k: compare_case(k) for k in DYN_CASES}
+    dyn_t = {k: time_case(k, name) for k in DYN_CASES}
+
+    # 15. physical checks, and the instantiations no task drives yet through physics_step_fused
+    dyn_launches = {"Ant+all": free_fall_under_per_env_gravity(NUM_ENVS)}
+    settle_ant_with_randomized_mass(NUM_ENVS)
+    for k in ("Tendon", "Tendon+all", "BallBalance+pair"):
+        dyn_launches[k] = drive_case(k)
+
+    # 16. the DR main path: Ant with task.randomize=True at full width
+    ops_dr = profile_env_step(task_env("Ant", NUM_ENVS, randomize=True), label="env.step task.randomize=True")
+    print(f"device ops per Ant env step: {ops_plain:.1f} without domain randomization, {ops_dr:.1f} with")
+    bench = measure(NUM_ENVS, HORIZON, reps=8, device="cuda", randomize=True)
+    print(f"Ant task.randomize=True env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s")
+    dyn_launches["Ant+yaml"] = train_epochs("Ant", overrides=("task.randomize=True",)) + train_ant_randomized()
+    dyn_launches.update({f"{t}+dr": n for t, n in step_randomized_tasks().items()})
+
+    if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values())) \
+            or set(dyn_launches) != set(DYN_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
     replaces = "isaacgymenvs_tpu/engine/fused.py:1834"
@@ -739,7 +1048,11 @@ def main() -> int:
          **{f"{k}_{NUM_ENVS}": v for k, v in cart_t[NUM_ENVS].items() if k != "bound_by"}},
         *({"name": names[t], "route": "cuda", "source": source, "replaces": replaces,
            "launches": new_launches[t], "max_abs_err": new_err[t], **new_t[t], "library_ms": None,
-           "num_envs": widths[t], "sizes": list(sizes[t])} for t in makers),
+           "num_envs": NEW_CASES[t][2], "sizes": list(sizes[t])} for t in NEW_CASES),
+        *({"name": "fused_step_" + k.lower().replace("+", "_"), "route": "cuda", "source": source,
+           "replaces": replaces, "launches": dyn_launches[k], "max_abs_err": dyn_err[k], **dyn_t[k],
+           "library_ms": None, "num_envs": DYN_CASES[k][2], "sizes": list(sizes[k]),
+           "per_env_leaves": list(built[k][1])} for k in DYN_CASES),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

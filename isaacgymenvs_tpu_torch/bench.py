@@ -6,7 +6,11 @@ actions in [-1, 1] for `reps` windows of `horizon` steps after one warm-up
 window, and prints one JSON line. Runs on the card unless `--device cpu` is
 given:
 
-    python -m isaacgymenvs_tpu_torch.bench [--task Ant] [--num-envs 4096] [--horizon 16]
+    python -m isaacgymenvs_tpu_torch.bench [--task Ant] [--num-envs 4096] [--horizon 16] [--randomize]
+
+`--randomize` turns on the task yaml's domain randomization
+(`task.randomize=True`): per-env model leaves through the kernel, action and
+observation noise, re-randomization at resets.
 """
 from __future__ import annotations
 
@@ -27,11 +31,11 @@ def _sync(device: torch.device) -> None:
 
 
 def measure(num_envs: int = 4096, horizon: int = 16, reps: int = 8, device="cuda",
-            task: str = "Ant") -> dict:
+            task: str = "Ant", randomize: bool = False) -> dict:
     """Env-steps/s of `task` at `num_envs`, timed on the host clock around
     work that ends in a device synchronize."""
     dev = resolve_device(device)
-    cfg = load_config([f"task={task}", f"num_envs={num_envs}"])["task"]
+    cfg = load_config([f"task={task}", f"num_envs={num_envs}", f"task.randomize={bool(randomize)}"])["task"]
     env = task_map[task](cfg, device=dev)
     state, _ = env.reset(0)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -53,6 +57,7 @@ def measure(num_envs: int = 4096, horizon: int = 16, reps: int = 8, device="cuda
         "env_steps_per_s": reps * horizon * num_envs / sec,
         "seconds": sec,
         "task": task,
+        "randomize": bool(randomize),
         "num_envs": num_envs,
         "horizon": horizon,
         "reps": reps,
@@ -68,8 +73,9 @@ def main(argv=None) -> None:
     ap.add_argument("--horizon", type=int, default=16)
     ap.add_argument("--reps", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--randomize", action="store_true", help="the task yaml's domain randomization on")
     a = ap.parse_args(argv)
-    r = measure(a.num_envs, a.horizon, a.reps, a.device, a.task)
+    r = measure(a.num_envs, a.horizon, a.reps, a.device, a.task, a.randomize)
     print(json.dumps({
         "metric": f"{a.task} env-steps/s ({a.num_envs} envs, {r['device']})",
         "value": r["env_steps_per_s"],

@@ -103,3 +103,11 @@ def model_from_arrays(fields: Mapping) -> Model:
             arr = np.asarray(v)
             kw[k] = arr.astype(np.float32) if arr.dtype.kind == "f" else arr
     return Model(**kw)
+
+
+def dr_sample_from_jax(sample: Mapping, device="cpu") -> dict:
+    """A JAX-package DR sample {name: array (num_envs, ...)} as the port's:
+    the same names, float32 tensors on `device`. A test draws a sample with
+    the JAX randomizer and puts it on the port's env state (then re-packs
+    the per-env leaves with `VecTask.pack_dyn`)."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in sample.items()}

@@ -2,8 +2,10 @@
 
 `csrc/fused_step.cu` is compiled with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, one library per model size tuple
-(nbody, nq, nv, plane rows, pair rows, anchors, q_target input or not), at
-first use, into `isaacgymenvs_tpu_torch/_build/` (listed in .gitignore).
+(nbody, nq, nv, plane rows, pair rows, anchors, q_target input or not,
+tendons, the set of per-env leaves as a bitmask, and the model's candidate
+point and geom counts where a per-env leaf indexes them), at first use,
+into `isaacgymenvs_tpu_torch/_build/` (listed in .gitignore).
 Without any row it is the contact-free instantiation (`-DFS_NC=0`): the
 same source with every contact stage compiled out. The library name carries
 a hash of the source and the flags, so an edited source is rebuilt. It is
@@ -49,16 +51,25 @@ def nvcc() -> str:
     return path
 
 
-def sizes_of(s, has_qt: bool = False) -> tuple:
+def sizes_of(s, has_qt: bool = False, names: tuple = ()) -> tuple:
     """The size tuple of a model's kernel instantiation: (nbody, nq, nv,
-    plane rows, pair rows, anchors, 1 with a q_target input)."""
-    return (s.nbody, s.nq, s.nv, s.nc, s.pp_nc, s.att_n, int(bool(has_qt)))
+    plane rows, pair rows, anchors, 1 with a q_target input, tendons, the
+    per-env leaves `names` as a bitmask (`fused.dyn_mask`), and the model's
+    candidate-point and geom counts, 0 unless a per-env leaf of `names` is
+    laid out over them)."""
+    from .fused import dyn_mask
+
+    ncp = s.ncp_model if any(k.startswith("cpoint_") for k in names) else 0
+    ngeom = s.ngeom if "geom_size" in names else 0
+    return (s.nbody, s.nq, s.nv, s.nc, s.pp_nc, s.att_n, int(bool(has_qt)), s.nt,
+            dyn_mask(names), ncp, ngeom)
 
 
 def _defines(sizes) -> list:
-    nb, nq, nv, nc, npp, natt, qt = sizes
+    nb, nq, nv, nc, npp, natt, qt, nt, dyn, ncp, ngeom = sizes
     return [f"-DFS_NB={nb}", f"-DFS_NQ={nq}", f"-DFS_NV={nv}", f"-DFS_NC={nc}",
-            f"-DFS_NPP={npp}", f"-DFS_NATT={natt}", f"-DFS_QT={qt}", f"-DFS_EPB={ENVS_PER_BLOCK}"]
+            f"-DFS_NPP={npp}", f"-DFS_NATT={natt}", f"-DFS_QT={qt}", f"-DFS_NT={nt}",
+            f"-DFS_DYN={dyn}", f"-DFS_NCP={ncp}", f"-DFS_NG={ngeom}", f"-DFS_EPB={ENVS_PER_BLOCK}"]
 
 
 def library_path(sizes) -> str:
@@ -100,7 +111,7 @@ def load(sizes):
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.fused_step_layout.restype = ci
-            lib.fused_step_launch.argtypes = [vp] * 11 + [ci, ci, ci, ci, vp]
+            lib.fused_step_launch.argtypes = [vp] * 12 + [ci, ci, ci, ci, vp]
             lib.fused_step_launch.restype = ci
             _libs[tuple(sizes)] = lib
     return lib
@@ -108,8 +119,8 @@ def load(sizes):
 
 def layout(lib) -> tuple:
     """The compiled-in size tuple (see `sizes_of`) followed by spec_base,
-    env_floats and envs_per_block."""
-    out = (ctypes.c_int * 10)()
+    env_floats, envs_per_block and the rows of the packed per-env input."""
+    out = (ctypes.c_int * 15)()
     lib.fused_step_layout(out)
     return tuple(out)
 
@@ -138,6 +149,8 @@ def pack_spec(s, p: SimParams, betas) -> np.ndarray:
                   p.baumgarte_erp_attractor]
     cat = lambda *a: np.concatenate([np.asarray(x, np.float64) for x in a], 0)
     zeros = np.zeros(s.att_n)
+    tendons = ([s.tendon_coef, s.tendon_range, s.tendon_stiffness, s.tendon_damping] if s.nt
+               else [np.zeros(0)] * 4)
     setpoint = np.where(s.sq_adr >= 0, s.qpos0[np.maximum(s.sq_adr, 0)], 0.0)
     parts = [
         head, s.parent, s.jnt_type, s.q_adr, s.v_adr, depth,
@@ -150,8 +163,10 @@ def pack_spec(s, p: SimParams, betas) -> np.ndarray:
         cat(s.cp_body, s.pp_a, s.att_body), cat(s.cp_pos, s.pp_pos, s.att_offset),
         cat(s.cp_radius, s.pp_radius, zeros), cat(s.cp_mu, s.pp_mu, zeros), cat(s.rest, zeros),
         cat(s.path_mask, s.pp_path.T, s.att_path.T),
-        # per pair row: the geom; per anchor: the target
-        s.pp_b, s.pp_gtype, s.pp_gpos, s.pp_gquat, s.pp_gsize, s.att_target,
+        # per pair row: the geom, and where per-env leaves find the row's
+        # point and geom in the model's arrays; the tendons; per anchor: the target
+        s.pp_b, s.pp_gtype, s.pp_gpos, s.pp_gquat, s.pp_gsize,
+        s.pp_pt, s.pp_geom, s.pp_geom_fric, *tendons, s.att_target,
         np.asarray(betas, np.float64),
     ]
     return np.concatenate([np.asarray(a, np.float64).reshape(-1) for a in parts]).astype(np.float32)
@@ -174,7 +189,10 @@ def kernel_flops(s, p: SimParams) -> int:
     the data). Per-body terms follow the joint type of each body. Pair rows
     and anchors are contacts of the same solve (three rows each): a pair row
     adds its narrowphase (by geom type), its frame and the rotation of its
-    Jacobian and force, an anchor its point and error drive. Without any
+    Jacobian and force, an anchor its point and error drive. A tendon adds
+    its length and rate (two dot products over the dofs), its force, and that
+    force times its coefficients. Per-env leaves change where a constant is
+    read, not the count. Without any
     contact the step ends after qd_free with the velocity clip and the
     integration: no rows, solve, impulse or sensors.
     """
@@ -192,7 +210,7 @@ def kernel_flops(s, p: SimParams) -> int:
     inertia_net = nb * (36 + 18 + 45 + 45 + 5 + 42 + 3 + 144 + 3 * _CROSS + 9 + 6)
     composite = 36 * int(np.sum(np.asarray(s.parent) >= 0))
     crba = nv * 6 * 12 + (nv * (nv + 1) // 2) * 13
-    per_dof = int(np.sum(6 * subtree[np.asarray(s.dof_body)])) + nv * 42
+    per_dof = int(np.sum(6 * subtree[np.asarray(s.dof_body)])) + nv * 42 + s.nt * (6 * nv + 6)
     inverse = 2 * nv ** 3 + nv * nv + nv
     qd_free = 2 * nv * nv + 2 * nv
     rows = nc * (_QROT + 4 + 3 * nv * 5 + 3 + 10) + r * (2 * nv * nv + 4 * nv)
@@ -218,9 +236,13 @@ def kernel_flops(s, p: SimParams) -> int:
     return int(p.substeps * p.solver_iterations * per_slice + sensors)
 
 
-def kernel_bytes(s, n_env: int, has_xfrc: bool, has_qt: bool = False) -> int:
-    """Boundary traffic of one launch: inputs read once, outputs written once."""
+def kernel_bytes(s, n_env: int, has_xfrc: bool, has_qt: bool = False, names: tuple = ()) -> int:
+    """Boundary traffic of one launch: inputs read once (the per-env leaves
+    `names` among them), outputs written once."""
+    from .fused import dyn_rows
+
     rows_in = s.nq + 2 * s.nv + (6 * s.nbody if has_xfrc else 0) + (s.nq if has_qt else 0)
+    rows_in += sum(dyn_rows(s)[k] for k in names)
     rows_out = s.nq + s.nv + 6 * s.nbody + s.nv
     return 4 * n_env * (rows_in + rows_out)
 
@@ -234,17 +256,23 @@ class FusedStepCall:
 
     launches = 0
 
-    def __init__(self, s, params: SimParams, betas, device: torch.device, has_qt: bool = False):
+    def __init__(self, s, params: SimParams, betas, device: torch.device, has_qt: bool = False,
+                 names: tuple = ()):
+        from .fused import dyn_rows
+
         if device.type != "cuda":
             raise ValueError(f"FusedStepCall needs a CUDA device, got {device}")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        self.sizes = sizes_of(s, has_qt)
+        self.sizes = sizes_of(s, has_qt, names)
         self.has_qt = bool(has_qt)
+        self.names = tuple(names)
+        self.dyn_rows = sum(dyn_rows(s)[k] for k in names)
         self.lib = load(self.sizes)
-        *built, spec_base, env_floats, epb = layout(self.lib)
-        if tuple(built) != self.sizes:
-            raise RuntimeError(f"kernel built for {tuple(built)}, model is {self.sizes}")
+        *built, spec_base, env_floats, epb, rows = layout(self.lib)
+        if tuple(built) != self.sizes or rows != self.dyn_rows:
+            raise RuntimeError(f"kernel built for {tuple(built)} with {rows} per-env rows, "
+                               f"model is {self.sizes} with {self.dyn_rows}")
         spec = pack_spec(s, params, betas)
         if spec.size != spec_base + len(betas):
             raise RuntimeError("spec buffer layout disagrees with the kernel")
@@ -256,16 +284,20 @@ class FusedStepCall:
         self.device = device
         self.s = s
 
-    def __call__(self, q, qd, qfrc, xfrc, q_target=None):
+    def __call__(self, q, qd, qfrc, xfrc, q_target=None, dyn=None):
         s, n = self.s, q.shape[-1]
         if (q_target is not None) != self.has_qt:
             raise ValueError("this kernel instantiation was built {} a q_target input".format(
                 "with" if self.has_qt else "without"))
+        if (dyn is not None) != bool(self.names):
+            raise ValueError(f"this kernel instantiation was built for the per-env leaves {self.names}")
         ins = [(q, s.nq), (qd, s.nv), (qfrc, s.nv)]
         if xfrc is not None:
             ins.append((xfrc, 6 * s.nbody))
         if q_target is not None:
             ins.append((q_target, s.nq))
+        if dyn is not None:
+            ins.append((dyn, self.dyn_rows))
         for t, rows in ins:
             if t.device != self.device or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError("fused step inputs must be contiguous float32 on the kernel's device")
@@ -277,7 +309,7 @@ class FusedStepCall:
         ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         rc = self.lib.fused_step_launch(
-            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc), ptr(q_target),
+            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc), ptr(q_target), ptr(dyn),
             ptr(q2), ptr(qd2), ptr(bf), ptr(bt), ptr(df),
             ptr(self.spec), int(self.spec.numel()), int(n), int(self.n_slices),
             int(self.iters), ctypes.c_void_p(stream),

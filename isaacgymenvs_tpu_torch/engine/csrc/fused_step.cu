@@ -4,9 +4,12 @@
 // `_build_call.<locals>.kernel` (launched by `pl.pallas_call`, fused.py:1883),
 // for the feature tiers K1 (articulated step, with PD-drive setpoints from a
 // q_target input under -DFS_QT=1, fused.py:774-777), K2 (plane contacts,
-// APGD, xfrc) and K4 (point-vs-geom pair rows, -DFS_NPP, fused.py:918-1089,
+// APGD, xfrc), K4 (point-vs-geom pair rows, -DFS_NPP, fused.py:918-1089,
 // and bilateral point anchors, -DFS_NATT, fused.py:1129-1147, in the same
-// solve as the plane rows). Built with no rows at all it is the
+// solve as the plane rows), fixed tendons (-DFS_NT, fused.py:803-819) and K3
+// (per-env model leaves and per-env gravity, -DFS_DYN=<bitmask>,
+// fused.py:1693-1707: one packed (rows, N) input, see "Per-env leaves"
+// below). Built with no rows at all it is the
 // contact-free instantiation of K1
 // (the `nct == 0` finish of `substep`, fused.py:846-855): qd_free, the
 // velocity clip, integration, and zero force outputs; every contact stage
@@ -34,7 +37,7 @@
 // companion matrix (twice the needed Gauss-Jordan work).
 //
 // Design. Sizes (nbody, nq, nv, plane rows, pair rows, anchors, q_target or
-// not) are compile-time constants (-DFS_NB ..), one library per size tuple; the body tree, the model constants and the
+// not, tendons, the per-env leaf set) are compile-time constants (-DFS_NB ..), one library per size tuple; the body tree, the model constants and the
 // solver parameters come in a small float buffer that each block copies to
 // shared memory. A warp owns one env: its state, J, W = M^-1 J and M^-1 stay
 // in shared memory (~16 KB for Ant) across all slices and APGD iterations.
@@ -60,6 +63,19 @@
 // row's point body and -F to its geom body, each with its own torque arm;
 // every (component, body) output is summed by one lane, without atomics.
 //
+// Per-env leaves. Where the TPU kernel takes one operand per randomized
+// model leaf and swaps a constant for it at trace time, this kernel takes
+// one packed (DYN_ROWS, N) input: the leaves of the compile-time set FS_DYN
+// one after another in a fixed order (bit i of FS_DYN = leaf i of the L_*
+// list below; component leaves comp-major, row = component * entities +
+// entity). A block copies each env's rows into the env's shared-memory
+// block (E_DYN, sized by the compiled set, not by the full one), and every
+// randomizable constant is read through `leaf<>`, which folds to the spec
+// read when the leaf's bit is clear: a build without per-env leaves is the
+// kernel it was. Per env the input adds 4 x DYN_ROWS bytes of boundary
+// traffic (Ant with mass, damping, stiffness and both limits: 65 floats
+// beside about 150), so the step stays bound by operations.
+//
 // The contact-free instantiation (Cartpole: nbody 3, nv 2, 2 slices) needs
 // about 4 KFLOP and 120 bytes of boundary traffic per env-step
 // (`kernel_flops`, `kernel_bytes`), so both of its bounds lie far below a
@@ -68,7 +84,7 @@
 #include <cuda_runtime.h>
 
 #ifndef FS_NB
-#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts> [-DFS_NPP=<pair rows> -DFS_NATT=<anchors> -DFS_QT=1]"
+#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts> [-DFS_NPP=<pair rows> -DFS_NATT=<anchors> -DFS_QT=1 -DFS_NT=<tendons> -DFS_DYN=<leaf bitmask> -DFS_NCP=<model cpoints> -DFS_NG=<model geoms>]"
 #endif
 #ifndef FS_EPB
 #define FS_EPB 4
@@ -82,12 +98,26 @@
 #ifndef FS_QT
 #define FS_QT 0  // 1: PD-drive setpoints come per env in a q_target input
 #endif
+#ifndef FS_NT
+#define FS_NT 0  // fixed tendons
+#endif
+#ifndef FS_DYN
+#define FS_DYN 0  // bitmask of the per-env leaves in the packed dyn input
+#endif
+#ifndef FS_NCP
+#define FS_NCP 0  // candidate points of the model (per-env cpoint_* leaves index them)
+#endif
+#ifndef FS_NG
+#define FS_NG 0  // geoms of the model (the per-env geom_size leaf indexes them)
+#endif
 
 namespace {
 
 constexpr int NB = FS_NB, NQ = FS_NQ, NV = FS_NV, NC = FS_NC, EPB = FS_EPB;
 constexpr int NPP = FS_NPP, NATT = FS_NATT;
 constexpr bool QT = FS_QT != 0;
+constexpr int NT = FS_NT, NCP = FS_NCP, NG = FS_NG;
+constexpr unsigned DYN = FS_DYN;
 // contacts of the solve in row order: plane, pair, anchor; a contact has
 // three rows, stored comp-major [t1 | t2 | n] in blocks of NCT
 constexpr int NUNI = NC + NPP;     // unilateral contacts
@@ -144,8 +174,18 @@ constexpr int O_PPTYPE = O_PPB + NPP;
 constexpr int O_PPGPOS = O_PPTYPE + NPP;
 constexpr int O_PPGQUAT = O_PPGPOS + 3 * NPP;
 constexpr int O_PPGSIZE = O_PPGQUAT + 4 * NPP;
+// per pair row, for per-env leaves: the row's candidate point and geom in
+// the model's arrays, and the geom-side friction
+constexpr int O_PPPT = O_PPGSIZE + 3 * NPP;
+constexpr int O_PPGEOM = O_PPPT + NPP;
+constexpr int O_PPGFRIC = O_PPGEOM + NPP;
+// per tendon (NT): coefficients over the dofs, range, stiffness, damping
+constexpr int O_TCOEF = O_PPGFRIC + NPP;
+constexpr int O_TRANGE = O_TCOEF + NT * NV;
+constexpr int O_TSTIFF = O_TRANGE + 2 * NT;
+constexpr int O_TDAMP = O_TSTIFF + NT;
 // per anchor (NATT): world target
-constexpr int O_ATTTGT = O_PPGSIZE + 3 * NPP;
+constexpr int O_ATTTGT = O_TDAMP + NT;
 constexpr int SPEC_BASE = O_ATTTGT + 3 * NATT;  // followed by betas[iters]
 
 // ---- per-env shared-memory layout ----
@@ -179,7 +219,52 @@ constexpr int E_FR = E_FSB + 3 * NPP;    // (NPP, 9) pair-row frame t1, t2, n (w
 constexpr int E_BF = E_FR + 9 * NPP;     // (3, NB)
 constexpr int E_BT = E_BF + 3 * NB;      // (3, NB)
 constexpr int E_DF = E_BT + 3 * NB;      // (NV,)
-constexpr int ENV_FLOATS = ((E_DF + NV + 3) / 4) * 4;
+// ---- per-env leaves: bit order of FS_DYN, rows and offsets in the packed input
+enum Leaf {
+  L_DAMP = 0, L_STIFF, L_FRIC, L_ARM, L_LO, L_HI, L_MASS, L_CPFRIC, L_CPREST,
+  L_TSTIFF, L_TDAMP, L_IPOS, L_INERTIA, L_CPPOS, L_GSIZE, L_GRAV, L_COUNT
+};
+constexpr bool has_leaf(int l) { return ((DYN >> l) & 1u) != 0; }
+constexpr int leaf_rows(int l) {
+  return l <= L_HI ? NV
+         : l == L_MASS ? NB
+         : (l == L_CPFRIC || l == L_CPREST) ? NCP
+         : (l == L_TSTIFF || l == L_TDAMP) ? NT
+         : l == L_IPOS ? 3 * NB
+         : l == L_INERTIA ? 9 * NB
+         : l == L_CPPOS ? 3 * NCP
+         : l == L_GSIZE ? 3 * NG
+         : 3;
+}
+constexpr int dyn_off(int l) {
+  int o = 0;
+  for (int k = 0; k < l; ++k)
+    if (has_leaf(k)) o += leaf_rows(k);
+  return o;
+}
+constexpr bool H_DAMP = has_leaf(L_DAMP), H_STIFF = has_leaf(L_STIFF), H_FRIC = has_leaf(L_FRIC),
+               H_ARM = has_leaf(L_ARM), H_LO = has_leaf(L_LO), H_HI = has_leaf(L_HI),
+               H_MASS = has_leaf(L_MASS), H_CPFRIC = has_leaf(L_CPFRIC),
+               H_CPREST = has_leaf(L_CPREST), H_TSTIFF = has_leaf(L_TSTIFF),
+               H_TDAMP = has_leaf(L_TDAMP), H_IPOS = has_leaf(L_IPOS),
+               H_INERTIA = has_leaf(L_INERTIA), H_CPPOS = has_leaf(L_CPPOS),
+               H_GSIZE = has_leaf(L_GSIZE), H_GRAV = has_leaf(L_GRAV);
+constexpr int DO_DAMP = dyn_off(L_DAMP), DO_STIFF = dyn_off(L_STIFF), DO_FRIC = dyn_off(L_FRIC),
+              DO_ARM = dyn_off(L_ARM), DO_LO = dyn_off(L_LO), DO_HI = dyn_off(L_HI),
+              DO_MASS = dyn_off(L_MASS), DO_CPFRIC = dyn_off(L_CPFRIC),
+              DO_CPREST = dyn_off(L_CPREST), DO_TSTIFF = dyn_off(L_TSTIFF),
+              DO_TDAMP = dyn_off(L_TDAMP), DO_IPOS = dyn_off(L_IPOS),
+              DO_INERTIA = dyn_off(L_INERTIA), DO_CPPOS = dyn_off(L_CPPOS),
+              DO_GSIZE = dyn_off(L_GSIZE), DO_GRAV = dyn_off(L_GRAV);
+constexpr int DYN_ROWS = dyn_off(L_COUNT);
+static_assert(DYN < (1u << L_COUNT), "unknown per-env leaf bit");
+static_assert(!(H_CPFRIC || H_CPREST || H_CPPOS) || (NCP >= NC && NCP > 0),
+              "per-env cpoint leaves need -DFS_NCP=<model cpoints>");
+static_assert(!H_GSIZE || NG > 0, "the per-env geom_size leaf needs -DFS_NG=<model geoms>");
+static_assert(NT >= 0 && NCP >= 0 && NG >= 0, "negative count");
+
+constexpr int E_DYN = E_DF + NV;         // (DYN_ROWS,) the env's per-env leaves
+constexpr int ENV_FLOATS = ((E_DYN + DYN_ROWS + 3) / 4) * 4;
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -187,6 +272,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
   return v;
+}
+
+// Entry i of a randomizable model leaf: the env's own value when the leaf
+// is in the compiled set (H), else the model's constant in the spec buffer.
+template <bool H, int DOFF, int SOFF>
+__device__ __forceinline__ float leaf(const float* sp, const float* e, int i) {
+  if constexpr (H) return e[E_DYN + DOFF + i];
+  else return sp[SOFF + i];
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -357,7 +450,16 @@ __device__ void inertia_and_net(const float* __restrict__ sp, float* __restrict_
       {2.f * (xz - wy), 2.f * (yz + wx), 1.f - 2.f * (xx + yy)}};
   const float* ipos = sp + O_IPOS + 3 * b;
   const float* Ib = sp + O_INERTIA + 9 * b;
-  const float m = sp[O_MASS + b];
+  float ipos_e[3], Ib_e[9];  // the env's own, comp-major in the packed input
+  if constexpr (H_IPOS) {
+    for (int k = 0; k < 3; ++k) ipos_e[k] = e[E_DYN + DO_IPOS + k * NB + b];
+    ipos = ipos_e;
+  }
+  if constexpr (H_INERTIA) {
+    for (int k = 0; k < 9; ++k) Ib_e[k] = e[E_DYN + DO_INERTIA + k * NB + b];
+    Ib = Ib_e;
+  }
+  const float m = leaf<H_MASS, DO_MASS, O_MASS>(sp, e, b);
   float com[3];
   for (int k = 0; k < 3; ++k)
     com[k] = e[E_X + 3 * b + k] + (Rm[k][0] * ipos[0] + Rm[k][1] * ipos[1] + Rm[k][2] * ipos[2]);
@@ -388,7 +490,7 @@ __device__ void inertia_and_net(const float* __restrict__ sp, float* __restrict_
   float xin[6];
   for (int k = 0; k < 3; ++k) {
     xin[k] = zet[k];
-    xin[3 + k] = zet[3 + k] - sp[P_G + k];
+    xin[3 + k] = zet[3 + k] - leaf<H_GRAV, DO_GRAV, P_G>(sp, e, k);
   }
   float net[6], Iov[6];
   for (int r = 0; r < 6; ++r) {
@@ -437,6 +539,12 @@ __device__ void pair_row(const float* __restrict__ sp, const float* __restrict__
   for (int k = 0; k < 3; ++k) d[k] = xw[k] - Xg[k];
   qrot(Qc, d, dv);  // the point in the geom's frame
   const float* half = sp + O_PPGSIZE + 3 * j;
+  float half_e[3];
+  if constexpr (H_GSIZE) {
+    const int g = (int)sp[O_PPGEOM + j];
+    for (int k = 0; k < 3; ++k) half_e[k] = e[E_DYN + DO_GSIZE + k * NG + g];
+    half = half_e;
+  }
   const int gt = (int)sp[O_PPTYPE + j];
   float nl[3], surf[3];
   if (gt == GEOM_BOX) {
@@ -574,20 +682,41 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
       for (int k = 0; k < 6; ++k) C += S[k] * Fs[k];
       const int sq = (int)sp[O_SQADR + d];
       const float qs = sq >= 0 ? e[E_Q + sq] : 0.f;
-      const float kst = sp[O_STIFF + d], lim = sp[O_LIMITED + d];
+      const float kst = leaf<H_STIFF, DO_STIFF, O_STIFF>(sp, e, d), lim = sp[O_LIMITED + d];
       float setp;
       if constexpr (QT) setp = sq >= 0 ? e[E_QTGT + sq] : 0.f;
       else setp = sp[O_SETPT + d];
       float tau = -kst * (qs - setp);
-      const float over = fmaxf(qs - sp[O_HI + d], 0.f);
-      const float under = fmaxf(sp[O_LO + d] - qs, 0.f);
+      const float over = fmaxf(qs - leaf<H_HI, DO_HI, O_HI>(sp, e, d), 0.f);
+      const float under = fmaxf(leaf<H_LO, DO_LO, O_LO>(sp, e, d) - qs, 0.f);
       const float viol = (over > 0.f || under > 0.f) ? 1.f : 0.f;
       tau = tau + lim * (-limk * (over - under));
       const float qdv = e[E_QD + d];
-      float D = sp[O_DAMP + d] + lim * viol * limd;
-      D = D + sp[O_FRIC + d] / (fabsf(qdv) + 2e-3f);
+      float D = leaf<H_DAMP, DO_DAMP, O_DAMP>(sp, e, d) + lim * viol * limd;
+      D = D + leaf<H_FRIC, DO_FRIC, O_FRIC>(sp, e, d) / (fabsf(qdv) + 2e-3f);
       const float K = kst + lim * viol * limk;
-      e[E_AG + d * NV + d] += sp[O_ARM + d] + h * D + h2 * K;
+      if constexpr (NT > 0) {
+        // fixed tendons (fused.py:803-819): a spring outside the range and a
+        // damper on the tendon's length, a combination of the scalar dofs;
+        // each dof of a tendon forms the tendon's force itself
+        for (int t = 0; t < NT; ++t) {
+          const float* coef = sp + O_TCOEF + t * NV;
+          if (coef[d] != 0.f) {
+            float tval = 0.f, tvel = 0.f;
+            for (int j = 0; j < NV; ++j) {
+              const int sqj = (int)sp[O_SQADR + j];
+              tval += coef[j] * (sqj >= 0 ? e[E_Q + sqj] : 0.f);
+              tvel += coef[j] * e[E_QD + j];
+            }
+            const float tv = fmaxf(tval - sp[O_TRANGE + 2 * t + 1], 0.f) +
+                             fminf(tval - sp[O_TRANGE + 2 * t], 0.f);
+            const float ft = -leaf<H_TSTIFF, DO_TSTIFF, O_TSTIFF>(sp, e, t) * tv -
+                             leaf<H_TDAMP, DO_TDAMP, O_TDAMP>(sp, e, t) * tvel;
+            tau = tau + coef[d] * ft;
+          }
+        }
+      }
+      e[E_AG + d * NV + d] += leaf<H_ARM, DO_ARM, O_ARM>(sp, e, d) + h * D + h2 * K;
       e[E_RHS + d] = e[E_QFRC + d] + tau - D * qdv - C;
     }
     __syncwarp();
@@ -637,8 +766,19 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
         bv[c][0] = bv[c][1] = bv[c][2] = 0.f;
         if (i < NCT) {
           const int b = (int)sp[O_CPBODY + i];
+          // the row's candidate point in the model's arrays, where per-env
+          // cpoint leaves are read: a plane row is its own, a pair row picks
+          const int pt = is_pair(i) ? (int)sp[O_PPPT + i - NC] : i;
+          const float* cpos = sp + O_CPPOS + 3 * i;
+          float cpos_e[3];
+          if constexpr (H_CPPOS) {
+            if (!is_anchor(i)) {
+              for (int k = 0; k < 3; ++k) cpos_e[k] = e[E_DYN + DO_CPPOS + k * NCP + pt];
+              cpos = cpos_e;
+            }
+          }
           float rot[3];
-          qrot(e + E_QT + 4 * b, sp + O_CPPOS + 3 * i, rot);
+          qrot(e + E_QT + 4 * b, cpos, rot);
           for (int k = 0; k < 3; ++k) xc[c][k] = e[E_X + 3 * b + k] + rot[k];
           float phi;
           float fr[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
@@ -653,6 +793,11 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
           }
           act[c] = phi > -margin ? 1.f : 0.f;
           mu[c] = sp[O_CPMU + i];
+          if constexpr (H_CPFRIC) {
+            // a pair row averages its point's friction with the geom's static one
+            if (is_pair(i)) mu[c] = 0.5f * (e[E_DYN + DO_CPFRIC + pt] + sp[O_PPGFRIC + i - NC]);
+            else if (!is_anchor(i)) mu[c] = e[E_DYN + DO_CPFRIC + pt];
+          }
           for (int v = 0; v < NV; ++v) {
             const float pm = sp[O_PATH + i * NV + v];
             const float* S = e + E_S + 6 * v;
@@ -689,7 +834,7 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
             for (int k = 0; k < 3; ++k) bv[c][k] -= (tgt[k] - xc[c][k]) * ke_att;
           } else {
             // Newton restitution: bv[c][2] is the pre-solve normal velocity
-            const float rest = sp[O_REST + i];
+            const float rest = leaf<H_CPREST, DO_CPREST, O_REST>(sp, e, H_CPREST ? pt : i);
             const float vn_pre = bv[c][2];
             if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
             bv[c][2] = vn_pre - vnt;
@@ -903,7 +1048,8 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float*
 __global__ void __launch_bounds__(32 * EPB)
 fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
                   const float* __restrict__ qfrc_in, const float* __restrict__ xfrc_in,
-                  const float* __restrict__ qt_in, float* __restrict__ q_out, float* __restrict__ qd_out,
+                  const float* __restrict__ qt_in, const float* __restrict__ dyn_in,
+                  float* __restrict__ q_out, float* __restrict__ qd_out,
                   float* __restrict__ bf_out, float* __restrict__ bt_out,
                   float* __restrict__ df_out, const float* __restrict__ spec, int spec_len,
                   int n_env, int n_slices, int iters) {
@@ -918,6 +1064,7 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
   load_rows(qfrc_in, envs, E_QFRC, NV, env0, n_env);
   load_rows(xfrc_in, envs, E_XFRC, 6 * NB, env0, n_env);
   if constexpr (QT) load_rows(qt_in, envs, E_QTGT, NQ, env0, n_env);
+  if constexpr (DYN_ROWS > 0) load_rows(dyn_in, envs, E_DYN, DYN_ROWS, env0, n_env);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (env0 + warp < n_env) run_env(sp, envs + warp * ENV_FLOATS, lane, n_slices, iters);
@@ -933,26 +1080,31 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
 
 extern "C" {
 
-// out[0..9] = nbody, nq, nv, plane rows, pair rows, anchors, 1 with a
-// q_target input, spec floats before the betas, per-env shared floats, envs
-// per block.
+// out[0..14] = nbody, nq, nv, plane rows, pair rows, anchors, 1 with a
+// q_target input, tendons, the per-env leaf bitmask, model cpoints and geoms
+// (0 unless a per-env leaf indexes them), spec floats before the betas,
+// per-env shared floats, envs per block, rows of the packed per-env input.
 int fused_step_layout(int* out) {
   out[0] = NB; out[1] = NQ; out[2] = NV; out[3] = NC; out[4] = NPP; out[5] = NATT;
-  out[6] = QT ? 1 : 0; out[7] = SPEC_BASE; out[8] = ENV_FLOATS; out[9] = EPB;
+  out[6] = QT ? 1 : 0; out[7] = NT; out[8] = (int)DYN; out[9] = NCP; out[10] = NG;
+  out[11] = SPEC_BASE; out[12] = ENV_FLOATS; out[13] = EPB; out[14] = DYN_ROWS;
   return 0;
 }
 
 // Launches one fused step on `stream`. Arrays are float32, (rows, n_env)
 // row-major; xfrc may be null (no external wrenches); q_target (nq, n_env)
 // is read only by a library built with -DFS_QT=1, which refuses a null one
-// (cudaErrorInvalidValue). Returns the CUDA error code of the launch (0 on
-// success).
+// (cudaErrorInvalidValue); dyn (DYN_ROWS, n_env), the packed per-env leaves,
+// likewise by a library built with a non-zero -DFS_DYN. Returns the CUDA
+// error code of the launch (0 on success).
 int fused_step_launch(const void* q, const void* qd, const void* qfrc, const void* xfrc,
-                      const void* q_target, void* q_out, void* qd_out, void* bf_out, void* bt_out, void* df_out,
+                      const void* q_target, const void* dyn, void* q_out, void* qd_out, void* bf_out,
+                      void* bt_out, void* df_out,
                       const void* spec, int spec_len, int n_env, int n_slices, int iters,
                       void* stream) {
   if (n_env <= 0) return 0;
   if (QT && q_target == nullptr) return (int)cudaErrorInvalidValue;
+  if (DYN_ROWS > 0 && dyn == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes = sizeof(float) * (size_t)(((spec_len + 3) & ~3) + EPB * ENV_FLOATS);
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -960,7 +1112,8 @@ int fused_step_launch(const void* q, const void* qd, const void* qfrc, const voi
   const int grid = (n_env + EPB - 1) / EPB;
   fused_step_kernel<<<grid, 32 * EPB, bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)qd, (const float*)qfrc, (const float*)xfrc,
-      (const float*)q_target, (float*)q_out, (float*)qd_out, (float*)bf_out, (float*)bt_out, (float*)df_out,
+      (const float*)q_target, (const float*)dyn, (float*)q_out, (float*)qd_out, (float*)bf_out,
+      (float*)bt_out, (float*)df_out,
       (const float*)spec, spec_len, n_env, n_slices, iters);
   return (int)cudaGetLastError();
 }

@@ -20,9 +20,11 @@ Feature set (`fused_supported`): free/hinge/slide/fixed joints, plane
 contacts from candidate points, point-vs-geom pair rows (sphere, box and
 cylinder geoms; a mesh geom rides the cylinder branch), bilateral point
 anchors, external body wrenches, PD-drive setpoints (`q_target`), joint
-limits, implicit damping/stiffness, joint friction, Newton restitution.
-Geom-geom pairs, SDF pairs, top-K, tendons, per-env model leaves, terrain
-and merged decimation windows are later tiers and raise
+limits, implicit damping/stiffness, joint friction, fixed tendons, Newton
+restitution, and per-env model leaves (`dyn`: the domain-randomization
+surface `DYN_LEAVES` plus per-env gravity), which reach the step as one
+packed (rows, N) input (`pack_dyn`). Geom-geom pairs, SDF pairs, top-K,
+terrain and merged decimation windows are later tiers and raise
 NotImplementedError by name.
 """
 from __future__ import annotations
@@ -58,7 +60,6 @@ def unsupported_features(model: Model, params: SimParams, terrain=None) -> list:
     n_plane = model.ncp if model.plane_contacts else 0
     nct = n_plane + len(model.ppair_point) + len(model.spair_point) + len(model.att_body)
     cap = params.max_active_contacts
-    has_tendons = model.tendon_coef is not None and model.tendon_coef.shape[0] > 0
     asked = {
         "terrain": terrain is not None,
         f"solver={params.solver}": params.solver != "apgd",
@@ -67,7 +68,6 @@ def unsupported_features(model: Model, params: SimParams, terrain=None) -> list:
         "pair rows against capsule or plane geoms": any(
             model.geom_type[g] not in _PAIR_GEOM_TYPES for g in model.ppair_geom
         ),
-        "tendons": has_tendons,
         f"top-K active set (max_active_contacts={cap} < {nct} rows)": bool(cap and cap < nct),
     }
     return [k for k, v in asked.items() if v]
@@ -150,6 +150,13 @@ class _Spec(NamedTuple):
     pp_gquat: np.ndarray  # (npp, 4)
     pp_gsize: np.ndarray  # (npp, 3)
     pp_path: np.ndarray  # (nv, npp) SIGNED dof path mask (A - B)
+    # what a per-env leaf needs to find a pair row's entries: the row's
+    # candidate point and geom in the model's arrays, the geom-side friction
+    ncp_model: int  # candidate points of the model (plane rows are [0..nc))
+    ngeom: int
+    pp_pt: np.ndarray  # (npp,) index into the model's cpoint arrays
+    pp_geom: np.ndarray  # (npp,) index into the model's geom arrays
+    pp_geom_fric: np.ndarray  # (npp,)
     # bilateral point anchors
     att_n: int
     att_body: np.ndarray  # (natt,)
@@ -188,11 +195,20 @@ class _Spec(NamedTuple):
     body_of_contact: np.ndarray  # (nbody, nc) 0/1 accumulation matrix
     rest: np.ndarray  # (nc + npp,) per-row Newton restitution
     free_bodies: tuple
+    # fixed tendons (None without any, as in the JAX package)
+    tendon_coef: np.ndarray | None = None  # (nt, nv)
+    tendon_range: np.ndarray | None = None  # (nt, 2)
+    tendon_stiffness: np.ndarray | None = None  # (nt,)
+    tendon_damping: np.ndarray | None = None  # (nt,)
 
     @property
     def nct(self) -> int:
         """Contacts in the solve: plane, pair and anchor rows, in that order."""
         return self.nc + self.pp_nc + self.att_n
+
+    @property
+    def nt(self) -> int:
+        return 0 if self.tendon_coef is None else self.tendon_coef.shape[0]
 
 
 def _extract(model: Model) -> _Spec:
@@ -223,6 +239,7 @@ def _extract(model: Model) -> _Spec:
         else np.zeros(model.ncp, np.float32)
     )
     rest = np.concatenate([rst[:nc], rst[pts]])
+    has_t = model.tendon_coef is not None and model.tendon_coef.shape[0] > 0
     return _Spec(
         nbody=model.nbody,
         nq=model.nq,
@@ -239,6 +256,11 @@ def _extract(model: Model) -> _Spec:
         pp_gquat=f32(model.geom_quat).reshape(-1, 4)[geoms],
         pp_gsize=f32(model.geom_size).reshape(-1, 3)[geoms],
         pp_path=pp_path,
+        ncp_model=model.ncp,
+        ngeom=len(model.geom_type),
+        pp_pt=pts,
+        pp_geom=geoms,
+        pp_geom_fric=f32(model.geom_friction)[geoms],
         att_n=natt,
         att_body=att_b,
         att_offset=f32(model.att_offset).reshape(-1, 3)[:natt] if natt else np.zeros((0, 3), np.float32),
@@ -280,6 +302,10 @@ def _extract(model: Model) -> _Spec:
         body_of_contact=boc,
         rest=rest,
         free_bodies=meta.free_bodies,
+        tendon_coef=f32(model.tendon_coef) if has_t else None,
+        tendon_range=f32(model.tendon_range) if has_t else None,
+        tendon_stiffness=f32(model.tendon_stiffness) if has_t else None,
+        tendon_damping=f32(model.tendon_damping) if has_t else None,
     )
 
 
@@ -289,6 +315,96 @@ def apgd_betas(iters: int) -> list:
     for _ in range(iters):
         t_seq.append(0.5 * (1.0 + float(np.sqrt(1.0 + 4.0 * t_seq[-1] ** 2))))
     return [(t_seq[k] - 1.0) / t_seq[k + 1] for k in range(iters)]
+
+
+# ---------------------------------------------------------------------------
+# per-env model leaves (domain randomization)
+# ---------------------------------------------------------------------------
+
+# Model leaves the step accepts per env: what domain randomization batches
+# and the physics reads. Order matters: it is the bit order of the kernel's
+# leaf set and the row order of the packed input.
+DYN_LEAVES = (
+    "dof_damping", "dof_stiffness", "dof_friction", "armature",
+    "dof_limit_lower", "dof_limit_upper", "body_mass",
+    "cpoint_friction", "cpoint_restitution",
+    "tendon_stiffness", "tendon_damping",
+    # geometry and inertia leaves (actor scale, full-inertia DR), packed
+    # comp-major: row = component * entities + entity
+    "body_ipos", "body_inertia", "cpoint_pos", "geom_size",
+)
+_DYN_COMP = ("body_ipos", "body_inertia", "cpoint_pos", "geom_size")
+# leaves DR batches that the engine never reads: dropped
+DYN_INERT = ("dof_max_effort",)
+DYN_ORDER = DYN_LEAVES + ("gravity",)
+# reserved keys of the entry-sampled terrain and SDF planes, not ported
+_TERRAIN_PREFIX, _SDF_PREFIX = "_terr_", "_sp_"
+
+
+class PackedDyn(NamedTuple):
+    """Per-env leaves as the step takes them: `rows` is (sum of the leaves'
+    rows, N) float32, the leaves of `names` one after another."""
+
+    names: tuple  # in DYN_ORDER order
+    rows: torch.Tensor
+
+
+def dyn_rows(s: _Spec) -> dict:
+    """Rows of each per-env leaf in the packed input."""
+    return {
+        **{k: s.nv for k in DYN_LEAVES[:6]},
+        "body_mass": s.nbody,
+        "cpoint_friction": s.ncp_model,
+        "cpoint_restitution": s.ncp_model,
+        "tendon_stiffness": s.nt,
+        "tendon_damping": s.nt,
+        "body_ipos": 3 * s.nbody,
+        "body_inertia": 9 * s.nbody,
+        "cpoint_pos": 3 * s.ncp_model,
+        "geom_size": 3 * s.ngeom,
+        "gravity": 3,
+    }
+
+
+def dyn_mask(names) -> int:
+    """The leaf set as a bitmask, bit i = DYN_ORDER[i]."""
+    return sum(1 << DYN_ORDER.index(k) for k in names)
+
+
+def dyn_names(s: _Spec, keys) -> tuple:
+    """The leaves of `keys` that reach the step, in DYN_ORDER order: inert
+    leaves and leaves of zero rows (tendon leaves of a model without
+    tendons) are dropped; terrain and SDF plane keys raise by name, any
+    other unknown key is a ValueError."""
+    keys = set(keys)
+    beyond = sorted(k for k in keys if k.startswith((_TERRAIN_PREFIX, _SDF_PREFIX)))
+    if beyond:
+        raise NotImplementedError(
+            "beyond the ported kernel tiers: entry-sampled terrain / SDF planes (" + ", ".join(beyond) + ")")
+    unknown = sorted(keys - set(DYN_ORDER) - set(DYN_INERT))
+    if unknown:
+        raise ValueError(f"dyn keys {unknown} are not per-env leaves of the fused step ({DYN_ORDER})")
+    rows = dyn_rows(s)
+    return tuple(k for k in DYN_ORDER if k in keys and rows[k] > 0)
+
+
+def pack_dyn(s: _Spec, dyn: dict) -> PackedDyn | None:
+    """Env-leading per-env leaves {name: (N, *leaf.shape)} -> the packed
+    (rows, N) input. Component leaves go comp-major, as the step reads them."""
+    names = dyn_names(s, dyn)
+    if not names:
+        return None
+    rows, parts = dyn_rows(s), []
+    for k in names:
+        a = dyn[k].to(torch.float32)
+        n = a.shape[0]
+        if k in _DYN_COMP:
+            # (N, n, 3[, 3]) -> (N, 3[*3] * n): row = comp * n + entity
+            a = (a.permute(0, 2, 1) if a.dim() == 3 else a.permute(0, 2, 3, 1)).reshape(n, -1)
+        if tuple(a.shape) != (n, rows[k]):
+            raise ValueError(f"dyn[{k!r}] has shape {tuple(dyn[k].shape)}, expected {rows[k]} values per env")
+        parts.append(a)
+    return PackedDyn(names, torch.cat(parts, 1).T.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -376,8 +492,11 @@ def _stackb(lst_of_comp, k):
     return torch.cat([b[k] for b in lst_of_comp], 0)
 
 
-def _substep_fn(s: _Spec, p: SimParams, h: float, device):
-    """Build the single-slice function (the twin of the JAX `_substep_fn`)."""
+def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = ()):
+    """Build the single-slice function (the twin of the JAX `_substep_fn`).
+
+    `names` are the per-env leaves the slice will be given in its `dyn`
+    dict of (rows, N) tensors; each replaces the model's constant."""
     T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     rev_topo = list(range(s.nbody))[::-1]
     dof_of_body = [[d for d in range(s.nv) if s.dof_body[d] == b] for b in range(s.nbody)]
@@ -433,10 +552,19 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
     )
     idx = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     pp_a, pp_b, att_b = idx(s.pp_a), idx(s.pp_b), idx(s.att_body)
-    has_fric = bool(np.any(s.dof_friction))
-    has_rest = bool(np.any(s.rest))
+    # a per-env leaf turns its term on even where the model's leaf is all zero
+    has_fric = bool(np.any(s.dof_friction)) or "dof_friction" in names
+    has_rest = bool(np.any(s.rest)) or "cpoint_restitution" in names
+    if s.nt:
+        c.update(
+            t_coef=T(s.tendon_coef), t_lo=T(s.tendon_range[:, 0:1]), t_hi=T(s.tendon_range[:, 1:2]),
+            t_stiff=T(s.tendon_stiffness[:, None]), t_damp=T(s.tendon_damping[:, None]),
+        )
+    pp_pt, pp_geom = idx(s.pp_pt), idx(s.pp_geom)
+    geom_fric = T(s.pp_geom_fric[:, None])
+    blocks = lambda arr, n, k: [arr[i * n:(i + 1) * n] for i in range(k)]  # comp-major rows
 
-    def spatial_inertia(Xb, Qb):
+    def spatial_inertia(Xb, Qb, dyn):
         """World-origin 6x6 spatial inertia entries Io[r][k]: (nbody, N)."""
         x, y, z, w = (Qb[k] for k in range(4))
         xx, yy, zz = x * x, y * y, z * z
@@ -447,7 +575,12 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
             [2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)],
             [2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)],
         ]
-        ipos, Ib, m = c["ipos"], c["Ib"], c["mass"]
+        ipos = blocks(dyn["body_ipos"], s.nbody, 3) if "body_ipos" in dyn else c["ipos"]
+        Ib = c["Ib"]
+        if "body_inertia" in dyn:
+            ib = blocks(dyn["body_inertia"], s.nbody, 9)
+            Ib = [[ib[a * 3 + b] for b in range(3)] for a in range(3)]
+        m = dyn.get("body_mass", c["mass"])
         com = [Xb[k] + sum(R[k][j] * ipos[j] for j in range(3)) for k in range(3)]
         RI = [[sum(R[a][cc] * Ib[cc][b] for cc in range(3)) for b in range(3)] for a in range(3)]
         Iw = [[sum(RI[a][cc] * R[b][cc] for cc in range(3)) for b in range(3)] for a in range(3)]
@@ -540,13 +673,17 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
             [pick(surf_box[k], surf_cyl[k], surf_sph[k]) for k in range(3)],
         )
 
-    def substep(q, qd, qfrc, xfrc, q_target, warm):
+    def substep(q, qd, qfrc, xfrc, q_target, warm, dyn=None):
+        dyn = dyn or {}
         N = q.shape[-1]
         Xl, Ql, Vl, S, Sdot = _fk(s, q, qd)
         Xb = [_stackb(Xl, k) for k in range(3)]
         Qb = [_stackb(Ql, k) for k in range(4)]
         Vb = [_stackb(Vl, k) for k in range(6)]
-        Io = spatial_inertia(Xb, Qb)
+        Io = spatial_inertia(Xb, Qb, dyn)
+        # candidate-point positions per env: components over the model's
+        # whole cpoint array (plane rows take [0..nc), pair rows their point)
+        cpp = blocks(dyn["cpoint_pos"], s.ncp_model, 3) if "cpoint_pos" in dyn else None
 
         # composite inertia, reverse-topological accumulation
         ICb = [[[Io[r][k][b:b + 1] for k in range(6)] for r in range(6)] for b in range(s.nbody)]
@@ -574,8 +711,11 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
                 zet = [zet[k] + Sdot[k][d][None] * qd[d][None] for k in range(6)]
             zeta_b.append(zet)
         zeta = [torch.cat([z[k] for z in zeta_b], 0) for k in range(6)]
-        a_grav = [0.0, 0.0, 0.0] + gravity
-        x_in = [zeta[k] - a_grav[k] for k in range(6)]
+        if "gravity" in dyn:
+            x_in = zeta[:3] + [zeta[3 + k] - dyn["gravity"][k:k + 1] for k in range(3)]
+        else:
+            a_grav = [0.0, 0.0, 0.0] + gravity
+            x_in = [zeta[k] - a_grav[k] for k in range(6)]
         net = [sum(Io[r][k] * x_in[k] for k in range(6)) for r in range(6)]
         Iov = [sum(Io[r][k] * Vb[k] for k in range(6)) for r in range(6)]
         wv, vo = Vb[:3], Vb[3:]
@@ -593,19 +733,29 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
         # passive forces (implicit spring/damping, limits, joint friction)
         q_scalar = c["sel_q"] @ q
         setpoint = c["setpoint"] if q_target is None else c["sel_q"] @ q_target
-        tau_p = -c["kstiff"] * (q_scalar - setpoint)
-        over = torch.clamp(q_scalar - c["hi"], min=0.0)
-        under = torch.clamp(c["lo"] - q_scalar, min=0.0)
+        kstiff = dyn.get("dof_stiffness", c["kstiff"])
+        tau_p = -kstiff * (q_scalar - setpoint)
+        over = torch.clamp(q_scalar - dyn.get("dof_limit_upper", c["hi"]), min=0.0)
+        under = torch.clamp(dyn.get("dof_limit_lower", c["lo"]) - q_scalar, min=0.0)
         violating = ((over > 0) | (under > 0)).to(q.dtype)
         limited = c["limited"]
         tau_p = tau_p + limited * (-p.limit_stiffness * (over - under))
-        D = c["kdamp"] + limited * violating * p.limit_damping
+        D = dyn.get("dof_damping", c["kdamp"]) + limited * violating * p.limit_damping
         if has_fric:
-            D = D + c["kfric"] / (torch.abs(qd) + 2e-3)
-        K = c["kstiff"] + limited * violating * p.limit_stiffness
+            D = D + dyn.get("dof_friction", c["kfric"]) / (torch.abs(qd) + 2e-3)
+        K = kstiff + limited * violating * p.limit_stiffness
+        if s.nt:
+            # fixed tendons: a spring outside the range and a damper on the
+            # tendon's length, a linear combination of the scalar dofs
+            t_val = c["t_coef"] @ q_scalar
+            t_vel = c["t_coef"] @ qd
+            viol = torch.clamp(t_val - c["t_hi"], min=0.0) + torch.clamp(t_val - c["t_lo"], max=0.0)
+            f_t = (-dyn.get("tendon_stiffness", c["t_stiff"]) * viol
+                   - dyn.get("tendon_damping", c["t_damp"]) * t_vel)
+            tau_p = tau_p + c["t_coef"].T @ f_t
 
         # Mh = M + diag(armature + hD + h^2 K); Gauss-Jordan without pivoting
-        diag_add = c["armature"] + h * D + h * h * K
+        diag_add = dyn.get("armature", c["armature"]) + h * D + h * h * K
         A_gj = M + eye3 * diag_add[:, None, :]
         Minv = eye3 + torch.zeros_like(A_gj)
         for j in range(s.nv):
@@ -646,20 +796,24 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
             # plane rows: candidate points vs the ground (frame = world axes)
             bQ = [c["cp_pick"] @ Qb[k] for k in range(4)]
             bX = [c["cp_pick"] @ Xb[k] for k in range(3)]
-            rot = _qrot(bQ, c["cp_pos"])
+            rot = _qrot(bQ, [cpp[k][:nc] for k in range(3)] if cpp is not None else c["cp_pos"])
             xc = [bX[k] + rot[k] for k in range(3)]
             add_rows(point_jac_world(xc, c["Pm"]), c["cp_radius"] - xc[2])
         if npp:
             # pair rows: a candidate point of body A against a geom of body B
             aX = [Xb[k][pp_a] for k in range(3)]
-            xw = [aX[k] + r for k, r in enumerate(_qrot([Qb[k][pp_a] for k in range(4)], c["pp_pos"]))]
+            ppt = [cpp[k][pp_pt] for k in range(3)] if cpp is not None else c["pp_pos"]
+            xw = [aX[k] + r for k, r in enumerate(_qrot([Qb[k][pp_a] for k in range(4)], ppt))]
             bQg = [Qb[k][pp_b] for k in range(4)]
             bXg = [Xb[k][pp_b] for k in range(3)]
             Xg = [bXg[k] + o for k, o in enumerate(_qrot(bQg, c["pp_gpos"]))]
             Qg = _qmul(bQg, c["pp_gquat"])
             Qg_c = [-Qg[0], -Qg[1], -Qg[2], Qg[3]]
             dvec = _qrot(Qg_c, [xw[k] - Xg[k] for k in range(3)])
-            phi_pp, n_l, surf = pair_narrowphase(dvec, c["pp_half"], c["pp_radius"])
+            half = c["pp_half"]
+            if "geom_size" in dyn:
+                half = [g[pp_geom] for g in blocks(dyn["geom_size"], s.ngeom, 3)]
+            phi_pp, n_l, surf = pair_narrowphase(dvec, half, c["pp_radius"])
             n_w = _qrot(Qg, n_l)  # world normal, geom -> point
             xs_w = [Xg[k] + o for k, o in enumerate(_qrot(Qg, surf))]
             # branchless tangent basis
@@ -687,8 +841,19 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
             torch.clamp(erp * phi / h, max=p.max_depenetration_velocity),
             phi / h,
         )
+        # friction and restitution per row: plane rows are the model's
+        # candidate points in order, a pair row picks its point (its friction
+        # averaged with the geom's static one), anchors have neither
+        za = q.new_zeros(natt, N)
+        mu = c["mu"]
+        if "cpoint_friction" in dyn:
+            cpf = dyn["cpoint_friction"]
+            mu = torch.cat([cpf[:nc], 0.5 * (cpf[pp_pt] + geom_fric), za], 0)
         if has_rest:
             rest = c["rest"]
+            if "cpoint_restitution" in dyn:
+                cr = dyn["cpoint_restitution"]
+                rest = torch.cat([cr[:nc], cr[pp_pt], za], 0)
             vn_pre = torch.sum(J[:, 2 * nct:] * qd_free[:, None], dim=0)
             bounce = (
                 (rest > 0.0)
@@ -725,7 +890,7 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
         # Lipschitz bound incl. the scaled 1e-6 regularization of the matvec
         Lip = torch.amax(torch.sum(torch.abs(A), dim=1) + 1e-6 * s3sq, dim=0, keepdim=True)
         step = 1.0 / torch.clamp(Lip, min=1e-8)
-        mu, bil = c["mu"], c["bil"]
+        bil = c["bil"]
 
         def project(y):
             lnc = y[2 * nct:]
@@ -779,20 +944,27 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device):
     return substep
 
 
-def _step_math_torch(s: _Spec, p: SimParams, device):
+def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = ()):
     """Plain PyTorch version of the whole step on (rows, N) tensors.
 
-    Returns run(q, qd, qfrc, xfrc, q_target=None) -> (q, qd, body_force,
-    body_torque, dof_force), all (rows, N); xfrc is (6*nbody, N) comp-major
-    or None, q_target (nq, N) PD-drive setpoints or None (then qpos0).
+    Returns run(q, qd, qfrc, xfrc, q_target=None, dyn=None) -> (q, qd,
+    body_force, body_torque, dof_force), all (rows, N); xfrc is (6*nbody, N)
+    comp-major or None, q_target (nq, N) PD-drive setpoints or None (then
+    qpos0), dyn the packed (rows, N) per-env leaves of `names` (see
+    `pack_dyn`) or None when `names` is empty.
     """
     n_slices = p.substeps * p.solver_iterations
-    substep = _substep_fn(s, p, p.dt / n_slices, device)
+    substep = _substep_fn(s, p, p.dt / n_slices, device, names)
+    rows = dyn_rows(s)
+    offsets = np.concatenate([[0], np.cumsum([rows[k] for k in names])]).astype(int)
 
-    def run(q, qd, qfrc, xfrc, q_target=None):
+    def run(q, qd, qfrc, xfrc, q_target=None, dyn=None):
+        if (dyn is not None) != bool(names) or (names and dyn.shape[0] != offsets[-1]):
+            raise ValueError(f"this step was prepared for the per-env leaves {names}")
+        leaves = {k: dyn[offsets[i]:offsets[i + 1]] for i, k in enumerate(names)}
         warm = None  # zeros at each call, carried across its slices
         for _ in range(n_slices):
-            q, qd, warm, bf, bt, doff = substep(q, qd, qfrc, xfrc, q_target, warm)
+            q, qd, warm, bf, bt, doff = substep(q, qd, qfrc, xfrc, q_target, warm, leaves)
         return q, qd, bf, bt, doff
 
     return run
@@ -802,26 +974,37 @@ def _step_math_torch(s: _Spec, p: SimParams, device):
 # entry point
 # ---------------------------------------------------------------------------
 
-# (model, params, device, has q_target) -> prepared step; the model and
-# params objects are held so that their ids stay unique while the entry
-# lives. On the card a call with q_target is another kernel instantiation
-# than one without.
+# (model, params, device, has q_target, per-env leaf names) -> prepared step;
+# the model and params objects are held so that their ids stay unique while
+# the entry lives. On the card a call with q_target, or with another set of
+# per-env leaves, is another kernel instantiation.
 _CACHE: dict = {}
 
 
-def _prepared(model: Model, params: SimParams, device: torch.device, has_qt: bool = False):
-    key = (id(model), id(params), str(device), bool(has_qt))
+def spec_of(model: Model) -> _Spec:
+    """The extracted spec of `model`, cached with its prepared steps."""
+    key = (id(model), "spec")
+    hit = _CACHE.get(key)
+    if hit is None or hit[0] is not model:
+        hit = (model, _extract(model))
+        _CACHE[key] = hit
+    return hit[1]
+
+
+def _prepared(model: Model, params: SimParams, device: torch.device, has_qt: bool = False,
+              names: tuple = ()):
+    key = (id(model), id(params), str(device), bool(has_qt), names)
     hit = _CACHE.get(key)
     if hit is None or hit[0] is not model or hit[1] is not params:
-        s = _extract(model)
+        s = spec_of(model)
         if device.type == "cuda":
             from . import _cuda
 
             step = _cuda.FusedStepCall(
-                s, params, apgd_betas(params.solver_apgd_iterations), device, has_qt=has_qt
+                s, params, apgd_betas(params.solver_apgd_iterations), device, has_qt=has_qt, names=names
             )
         else:
-            step = _step_math_torch(s, params, device)
+            step = _step_math_torch(s, params, device, names)
         hit = (model, params, s, step)
         _CACHE[key] = hit
     return hit[2], hit[3]
@@ -835,17 +1018,18 @@ def physics_step_fused(
     qfrc: torch.Tensor,  # (N, nv)
     xfrc: torch.Tensor | None = None,  # (N, nbody, 6): torque, force
     q_target: torch.Tensor | None = None,  # (N, nq) PD-drive setpoints
-    dyn: dict | None = None,
+    dyn: dict | PackedDyn | None = None,
     warm_reset_every: int = 0,
 ) -> FusedOut:
     """Batched full physics step through the fused kernel.
 
     Env-leading inputs and outputs; internally (rows, N). A CUDA tensor
-    launches the CUDA kernel; a CPU tensor runs the plain version.
+    launches the CUDA kernel; a CPU tensor runs the plain version. `dyn`
+    carries per-env model leaves: {name: (N, *leaf.shape)} over `DYN_LEAVES`
+    and "gravity" (N, 3), or the same already packed by `pack_dyn` (a
+    caller that steps many times with one sample packs it once).
     """
     beyond = unsupported_features(model, params)
-    if dyn:
-        beyond.append("per-env model leaves (dyn)")
     if warm_reset_every:
         beyond.append("merged decimation windows (warm_reset_every)")
     if beyond:
@@ -853,14 +1037,17 @@ def physics_step_fused(
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
     N = q.shape[0]
-    s, step = _prepared(model, params, q.device, q_target is not None)
+    if isinstance(dyn, dict):
+        dyn = pack_dyn(spec_of(model), dyn)
+    names, dyn_in = (dyn.names, dyn.rows) if dyn is not None else ((), None)
+    s, step = _prepared(model, params, q.device, q_target is not None, names)
     f32 = lambda a: a.to(torch.float32).T.contiguous()
     xf = None
     if xfrc is not None:
         # (N, nbody, 6) -> comp-major rows (6*nbody, N)
         xf = xfrc.to(torch.float32).permute(2, 1, 0).reshape(6 * s.nbody, N).contiguous()
     qt = None if q_target is None else f32(q_target)
-    q2, qd2, bf, bt, doff = step(f32(q), f32(qd), f32(qfrc), xf, qt)
+    q2, qd2, bf, bt, doff = step(f32(q), f32(qd), f32(qfrc), xf, qt, dyn_in)
     return FusedOut(
         q=q2.T,
         qd=qd2.T,

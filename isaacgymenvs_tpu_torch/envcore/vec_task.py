@@ -3,11 +3,15 @@
 An environment is a `VecTask` subclass that supplies batched hooks; the
 env batch is the leading axis of every tensor. `reset` and `step` keep the
 JAX package's ordering contract:
-  1. clip actions, apply them, advance physics `control_freq_inv` times;
+  1. (action noise, then) clip actions, apply them, advance physics
+     `control_freq_inv` times;
   2. progress += 1;
   3. envs flagged done on the PREVIOUS step are reset (fresh init states
      for every env, selected with a where over the done mask);
-  4. observations on the post-reset state;
+  3b. with domain randomization: envs that reset and whose last
+     randomization is `frequency` steps old take a fresh sample
+     (`setup_only` leaves never), branch-free;
+  4. observations on the post-reset state (then observation noise);
   5. reward and new done flags;
   6. `time_outs` = progress >= max_episode_length - 1 AND done.
 
@@ -15,9 +19,13 @@ Physics always goes through `engine.fused.physics_step_fused`: on a CUDA
 tensor that is the hand-written kernel, on a CPU tensor its plain version.
 A model outside the kernel's feature set raises NotImplementedError; there
 is no eager fallback. A task with `use_pd_targets` also returns PD-drive
-setpoints, which every physics step of the control loop receives. Domain
-randomization, ADR, terrain and merged decimation windows are not ported
-yet and raise.
+setpoints, which every physics step of the control loop receives.
+
+With `task.randomize` the env carries a `dr.DomainRandomizer`: its sample
+lives on the state (`EnvState.dr`), and the per-env model leaves and
+gravity it gives are packed once where the sample changes (`EnvState.dyn`)
+and handed to every physics step as its `dyn` input. ADR, terrain and
+merged decimation windows are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -29,8 +37,8 @@ import torch
 
 from ..device import resolve_device
 from ..engine import dynamics as _dyn
+from ..engine import fused as _fused
 from ..engine.dynamics import SimParams, SimState
-from ..engine.fused import physics_step_fused
 from ..model.spec import Model
 
 
@@ -52,6 +60,11 @@ class EnvState:
     rng: torch.Generator  # draws the init states of partial resets
     actions: torch.Tensor  # (N, num_acts) last applied actions
     task: Any = None  # task-specific tensors (potentials, ...)
+    # domain randomization (None when task.randomize is off):
+    dr: Any = None  # dict name -> (N, ...) sampled factors/offsets
+    dyn: Any = None  # fused.PackedDyn of `dr`: the per-env leaves as the physics step takes them
+    randomize_buf: Any = None  # (N,) int32, steps since the last re-randomization
+    frames: Any = None  # () int32, env steps since reset (DR schedules)
 
 
 def _select(mask: torch.Tensor, a, b):
@@ -99,10 +112,30 @@ class VecTask:
         task_cfg = cfg.get("task", {}) or {}
         sim_cfg = cfg.get("sim", {}) or {}
         adr_cfg = env_cfg.get("adr") or cfg.get("adr")
-        if task_cfg.get("randomize") or (adr_cfg and adr_cfg.get("use_adr")):
-            raise NotImplementedError("domain randomization and ADR are not ported yet")
+        if adr_cfg and adr_cfg.get("use_adr"):
+            raise NotImplementedError("ADR (automatic domain randomization) is not ported yet")
         if sim_cfg.get("fused_merge_control_slices"):
             raise NotImplementedError("merged decimation windows are not ported yet")
+        self.randomizer = None
+        if task_cfg.get("randomize"):
+            from ..dr.randomize import DomainRandomizer
+
+            self.randomizer = DomainRandomizer(
+                self.model,
+                task_cfg.get("randomization_params", {}),
+                actor_ranges=self.dr_actor_ranges(),
+                obs_dim=lambda: self.num_obs,
+                act_dim=lambda: self.num_acts,
+                obs_slices=lambda: self.obs_spec() if hasattr(self, "obs_spec") else None,
+                device=self.device,
+            )
+            batched = self.randomizer.batched_leaf_names()
+            if "cpoint_pos" in batched and (self.terrain is not None or len(self.model.spair_point)):
+                # the JAX package steps these through its eager engine, which
+                # the port does not have
+                raise NotImplementedError("per-env cpoint_pos (actor scale) with terrain or SDF rows")
+            self._setup_only = {s.name for s in self.randomizer.model_specs if s.setup_only}
+        self.total_train_env_frames = 0
         self.dt = self.sim_params.dt * self.control_freq_inv
         # model constants the step reads, kept on the device: a copy from
         # host memory inside the step would wait for the card every step
@@ -125,6 +158,46 @@ class VecTask:
 
     def reward_done(self, obs, q, qd, kin, sensors, task, actions, progress):
         raise NotImplementedError
+
+    # ---- domain randomization ------------------------------------------
+    def dr_actor_ranges(self):
+        """Optional {actor_name: (body_lo, body_hi)} scoping the
+        actor_params specs of domain randomization to each actor's bodies,
+        dofs and contact points. None: every spec touches the whole leaf."""
+        return None
+
+    def set_param_generator(self, generator):
+        """Install an external physics-parameter generator: a callable
+        (torch.Generator, n) -> (n, P) tensor whose layout is
+        `get_actor_params_info()`. Needs task.randomize=True."""
+        if self.randomizer is None:
+            raise ValueError(
+                "set_param_generator needs task.randomize=True with actor_params randomization specs")
+        if generator is not None and not callable(generator):
+            raise TypeError("generator must be callable (generator, n) -> (n, P)")
+        self.randomizer.param_generator = generator
+
+    def get_actor_params_info(self):
+        """Flat layout the external generator must produce: a list of {name,
+        leaf, size, lo, hi, operation} in sample order, or None without DR."""
+        return None if self.randomizer is None else self.randomizer.param_info()
+
+    def set_train_info(self, env_frames, *args, **kwargs):
+        """The trainer's report of its global env-frame count, once per
+        epoch, kept for host-side consumers. The step's own counter
+        (`EnvState.frames`) is what DR schedules read."""
+        self.total_train_env_frames = int(env_frames)
+
+    def pack_dyn(self, sample):
+        """The per-env leaves and gravity of a DR sample, packed as the
+        physics step takes them (None when the sample randomizes no model
+        leaf). Called where the sample changes, not per physics step."""
+        rz = self.randomizer
+        leaves = {k: v for k, v in rz.batched_model(sample).items() if k in _fused.DYN_LEAVES}
+        grav = rz.gravity(self.sim_params.gravity, sample)
+        if grav is not None:
+            leaves["gravity"] = grav
+        return _fused.pack_dyn(_fused.spec_of(self.model), leaves)
 
     # ---- helpers shared by tasks --------------------------------------
     def sim_params_from_cfg(self) -> SimParams:
@@ -171,6 +244,12 @@ class VecTask:
         actions = torch.zeros(n, self.num_acts, device=self.device)
         progress = torch.zeros(n, dtype=torch.int32, device=self.device)
         obs = self.observe(q, qd, self._kin(q, qd), self._no_sensors(n), task, actions, progress)
+        dr = dyn = rbuf = frames = None
+        if self.randomizer is not None:
+            dr = self.randomizer.sample(gen, n, 0)
+            dyn = self.pack_dyn(dr)
+            rbuf = torch.zeros(n, dtype=torch.int32, device=self.device)
+            frames = torch.zeros((), dtype=torch.int32, device=self.device)
         state = EnvState(
             sim=SimState(q=q, qd=qd),
             progress=progress,
@@ -178,6 +257,10 @@ class VecTask:
             rng=gen,
             actions=actions,
             task=task,
+            dr=dr,
+            dyn=dyn,
+            randomize_buf=rbuf,
+            frames=frames,
         )
         return state, torch.clamp(obs, -self.clip_obs, self.clip_obs)
 
@@ -186,6 +269,9 @@ class VecTask:
     ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """One vectorized env step; see the module docstring for the order."""
         n = self.num_envs
+        rz, frames = self.randomizer, state.frames
+        if rz is not None:
+            actions = rz.action_noise(state.rng, actions, frames, dr_sample=state.dr)
         actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
 
         # 1. apply actions + physics
@@ -195,8 +281,8 @@ class VecTask:
         else:
             (qfrc, xfrc), q_target = self.compute_force(actions, q, qd, state.task), None
         for _ in range(self.control_freq_inv):
-            out = physics_step_fused(
-                self.model, self.sim_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target
+            out = _fused.physics_step_fused(
+                self.model, self.sim_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=state.dyn
             )
             q, qd = out.q, out.qd
         sensors = Sensors(out.body_force, out.body_torque, out.dof_force)
@@ -213,9 +299,23 @@ class VecTask:
         sensors = Sensors(*(_select(done_prev, torch.zeros_like(x), x) for x in sensors))
         progress = torch.where(done_prev, torch.zeros_like(progress), progress)
 
+        # 3b. re-randomize the envs that reset and are due, without asking
+        # the device which: a fresh sample for all, selected with a where
+        dr, dyn, rbuf = state.dr, state.dyn, state.randomize_buf
+        if rz is not None:
+            rbuf = rbuf + 1
+            due = done_prev & (rbuf >= rz.frequency)
+            fresh = rz.sample(state.rng, n, frames)
+            dr = {k: v if k in self._setup_only else _select(due, fresh[k], v) for k, v in dr.items()}
+            dyn = self.pack_dyn(dr)
+            rbuf = torch.where(due, torch.zeros_like(rbuf), rbuf)
+            frames = frames + 1
+
         # 4. observe on the post-reset state
         kin = self._kin(q, qd)
         obs = self.observe(q, qd, kin, sensors, task, actions, progress)
+        if rz is not None:
+            obs = rz.observation_noise(state.rng, obs, frames, dr_sample=dr)
         obs = torch.clamp(obs, -self.clip_obs, self.clip_obs)
 
         # 5. reward + new done flags
@@ -230,5 +330,9 @@ class VecTask:
             rng=state.rng,
             actions=actions,
             task=task,
+            dr=dr,
+            dyn=dyn,
+            randomize_buf=rbuf,
+            frames=frames,
         )
         return new_state, obs, reward, done, {"time_outs": timeout}

@@ -656,6 +656,7 @@ class PPO:
                     },
                     frames,
                 )
+            self.env.set_train_info(frames)
             stop_requested = bool(on_epoch(ts, last_metrics)) if on_epoch is not None else False
             if epoch % log_every == 0 or epoch == 1:
                 print(

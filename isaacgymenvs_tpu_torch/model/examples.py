@@ -1,5 +1,9 @@
-"""A small procedural model that runs the pair-row branches no task of the
-port reaches yet: a point against a BOX geom and against a SPHERE geom.
+"""Small procedural models that run what no task of the port reaches yet.
+
+`pair_row_example`: the pair-row branches of a point against a BOX geom and
+against a SPHERE geom. `tendon_chain_example`: a fixed tendon, restitution
+on plane rows and a pair row whose point, geom size and friction all matter,
+so that every per-env leaf of the fused step has something to act on.
 
 A free box lies on the ground; a free sphere A rests on its top face and a
 smaller free sphere B rests on the box beside A, touching it. Three pair
@@ -12,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import spec as _spec
 from .spec import FREE, GEOM_BOX, GEOM_SPHERE, Model, ModelBuilder, box_inertia, sphere_inertia
 
 BOX_HALF = (0.3, 0.3, 0.1)
@@ -57,3 +62,98 @@ def pair_row_example_state(model: Model, n: int, seed: int, depth: float = 0.002
         q[:, qa + 2] -= depth
     qd = rng.uniform(-0.05, 0.05, (n, model.nv)).astype(np.float32)
     return q, qd
+
+
+# ---- a two-hinge arm with a tendon, pressing its tip on a box ---------------
+
+ARM_LINK = 0.2  # length of each link
+ARM_BASE = (-0.25, 0.0, 0.45)  # the shoulder hinge, fixed in the world
+TIP_RADIUS = 0.05
+ARM_REST = (np.pi / 6, 0.0)  # shoulder, elbow: the tip then touches the box's top face
+
+
+def tendon_chain_example(spec=_spec) -> Model:
+    """A free box on the ground (its eight corners are plane candidates with
+    restitution 0.5) and a two-link arm hinged to the world about y, whose
+    tip sphere presses on the box's top face at `ARM_REST`: one pair row,
+    the tip's candidate point (offset `ARM_LINK` along its link) against the
+    box geom. The hinges have stiffness, damping, armature, joint friction
+    and limits; a fixed tendon couples them (length = shoulder + 0.5 elbow,
+    range +-0.3, so at rest it is stretched past its range) with stiffness 5
+    and damping 0.5. nbody 3, nq 9, nv 8, 10 plane candidates + 1 pair row.
+
+    `spec` is the module that gives `ModelBuilder`, the joint and geom type
+    constants and `box_inertia`: this package's, or (in a test) the module of
+    the same name of another package with the same `ModelBuilder`, whose
+    Model then comes out of the same calls.
+    """
+    b = spec.ModelBuilder()
+    mass, inertia = spec.box_inertia(400.0, BOX_HALF)
+    box = b.add_body(parent=-1, name="box", pos=(0, 0, 0), quat=(0, 0, 0, 1), jnt_type=spec.FREE,
+                     mass=mass, inertia=inertia)
+    b.qpos0_free[box] = (np.array([0, 0, BOX_HALF[2]], np.float32), np.array([0, 0, 0, 1], np.float32))
+    b.add_geom(box, spec.GEOM_BOX, (0, 0, 0), (0, 0, 0, 1), BOX_HALF, 1.0)
+    hinge = dict(jnt_type=spec.HINGE, jnt_axis=(0, 1, 0), quat=(0, 0, 0, 1), ipos=(ARM_LINK / 2, 0, 0),
+                 inertia=np.diag([2e-4, 4e-3, 4e-3]).astype(np.float32), armature=0.01, damping=0.5,
+                 stiffness=2.0, friction_loss=0.05, limit=(-1.5, 1.5))
+    upper = b.add_body(parent=-1, name="upper", pos=ARM_BASE, joint_name="shoulder", mass=1.0, **hinge)
+    b.add_geom(upper, spec.GEOM_SPHERE, (ARM_LINK, 0, 0), (0, 0, 0, 1), (0.04, 0, 0), 0.7)
+    lower = b.add_body(parent=upper, name="lower", pos=(ARM_LINK, 0, 0), joint_name="elbow", mass=0.8, **hinge)
+    b.add_geom(lower, spec.GEOM_SPHERE, (ARM_LINK, 0, 0), (0, 0, 0, 1), (TIP_RADIUS, 0, 0), 0.6)
+    b.qpos0_scalar[upper], b.qpos0_scalar[lower] = ARM_REST
+    b.add_tendon("coupler", [("shoulder", 1.0), ("elbow", 0.5)], (-0.3, 0.3))
+    m = b.finalize()
+    bodies = np.asarray(m.cpoint_body)
+    tip = int(np.flatnonzero(bodies == lower).max())
+    rest = np.where(bodies == box, 0.5, 0.0).astype(np.float32)
+    return m.replace(
+        ppair_point=(tip,), ppair_geom=(int(np.flatnonzero(np.asarray(m.geom_body) == box)[0]),),
+        cpoint_restitution=rest,
+        tendon_stiffness=np.array([5.0], np.float32), tendon_damping=np.array([0.5], np.float32),
+    )
+
+
+def tendon_chain_example_state(model: Model, n: int, seed: int, depth: float = 0.002):
+    """(q, qd) numpy arrays of `n` envs: the box shifted on the ground, the
+    arm straight with its tip `depth` inside the box's top face."""
+    rng = np.random.RandomState(seed)
+    q = np.tile(np.asarray(model.qpos0, np.float32), (n, 1))
+    q[:, :2] += rng.uniform(-0.05, 0.05, (n, 2)).astype(np.float32)
+    drop = ARM_BASE[2] - (2 * BOX_HALF[2] + TIP_RADIUS - depth)  # shoulder above the tip's centre
+    q[:, model.q_adr[1]] = np.arcsin(drop / (2 * ARM_LINK))
+    qd = rng.uniform(-0.05, 0.05, (n, model.nv)).astype(np.float32)
+    return q, qd
+
+
+# ---- per-env leaves for comparisons ------------------------------------------
+
+# leaves whose entries are lengths or places: scaled a little, so that what
+# touches keeps touching
+_GEOMETRY_LEAVES = ("body_ipos", "cpoint_pos", "geom_size")
+
+
+def random_leaves(model: Model, names, n: int, seed: int, gravity=(0.0, 0.0, -9.81)) -> dict:
+    """Per-env model leaves {name: (n, *leaf.shape) float32 array} for the
+    fused step's `dyn` input, drawn with numpy from `seed` the way a
+    domain-randomization yaml would: factors in [0.5, 1.5] on masses,
+    inertias, gains and frictions (the ranges of cfg/task/Ant.yaml),
+    gaussian offsets of 0.01 on the limits, factors in [0.97, 1.03] on the
+    geometry leaves, restitution in [0.2, 0.8], joint friction in [0, 0.05],
+    and for "gravity" the base vector scaled by [0.9, 1.1] plus [-0.3, 0.3]."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    out = {}
+    for k in names:
+        if k == "gravity":
+            out[k] = f32(gravity)[None] * rng.uniform(0.9, 1.1, (n, 3)) + rng.uniform(-0.3, 0.3, (n, 3))
+        elif k == "cpoint_restitution":
+            out[k] = rng.uniform(0.2, 0.8, (n, model.ncp))
+        elif k == "dof_friction":
+            out[k] = rng.uniform(0.0, 0.05, (n, model.nv))
+        elif k in ("dof_limit_lower", "dof_limit_upper"):
+            out[k] = f32(getattr(model, k))[None] + rng.normal(0.0, 0.01, (n, model.nv))
+        else:
+            base = f32(getattr(model, k))
+            lo, hi = (0.97, 1.03) if k in _GEOMETRY_LEAVES else (0.5, 1.5)
+            out[k] = base[None] * rng.uniform(lo, hi, (n,) + base.shape)
+    return {k: f32(v) for k, v in out.items()}

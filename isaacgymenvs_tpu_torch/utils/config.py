@@ -142,13 +142,20 @@ def resolve(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return cfg
 
 
+# short forms of override keys: the task yaml keeps its domain-randomization
+# switch under its own `task:` block, so the full path is task.task.randomize
+_OVERRIDE_ALIASES = {"task.randomize": "task.task.randomize"}
+
+
 def apply_overrides(cfg: Dict[str, Any], overrides: List[str]) -> Dict[str, Any]:
-    """`a.b.c=value` CLI overrides (Hydra syntax subset; `+a.b=v` adds)."""
+    """`a.b.c=value` CLI overrides (Hydra syntax subset; `+a.b=v` adds).
+    `task.randomize=True` is short for `task.task.randomize=True`."""
     for ov in overrides:
         if "=" not in ov:
             raise ValueError(f"override {ov!r} is not key=value")
         key, _, value = ov.partition("=")
         key = key.lstrip("+")
+        key = _OVERRIDE_ALIASES.get(key, key)
         _set(cfg, key.split("."), _parse_scalar(value))
     return cfg
 

@@ -365,3 +365,126 @@ def test_ingenuity_target_moves_every_500_steps():
     assert torch.equal(st.task[0][0], targets[0, 0])
     for e, w in ((1, 1), (2, 2), (3, 3)):
         assert torch.equal(st.task[0][e], targets[e, w])
+
+
+# ---- Ant with domain randomization ---------------------------------------------
+
+
+def _ant_dr_envs(frequency):
+    """The JAX Ant and the port's with Ant.yaml's randomization block (its
+    observation and action noise taken out: the two packages' noise streams
+    differ), `frequency` as given; the JAX env steps through its fused math."""
+    import copy
+
+    from isaacgymenvs_tpu.tasks import task_map as jtasks
+    from isaacgymenvs_tpu_torch.tasks import task_map as ttasks
+    from isaacgymenvs_tpu_torch.utils.config import load_config as tload
+
+    params = copy.deepcopy(tload(["task=Ant"])["task"]["task"]["randomization_params"])
+    assert params["frequency"] == 600 and params["actor_params"]["ant"]["rigid_body_properties"]["mass"]["setup_only"]
+    del params["observations"], params["actions"]
+    params["frequency"] = frequency
+    task = {"randomize": True, "randomization_params": params}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ISAACGYMENVS_TPU_ASSETS", package_asset_root())
+        jenv = jtasks["Ant"]({"env": dict(CFG["env"]), "sim": {**CFG["sim"], "use_fused": True},
+                              "task": copy.deepcopy(task)})
+        tenv = ttasks["Ant"]({"env": dict(CFG["env"]), "sim": dict(CFG["sim"]), "task": copy.deepcopy(task)},
+                             device="cpu")
+    return jenv, tenv
+
+
+def _port_dr_state(tenv, jstate):
+    """`port_state_from` plus the JAX state's DR sample and counters."""
+    from isaacgymenvs_tpu_torch.convert import dr_sample_from_jax
+
+    st = port_state_from(tenv, jstate)
+    st.dr = dr_sample_from_jax({k: np.asarray(v) for k, v in jstate.dr.items()})
+    st.dyn = tenv.pack_dyn(st.dr)
+    st.randomize_buf = torch.tensor(np.asarray(jstate.randomize_buf)).to(torch.int32)
+    st.frames = torch.tensor(np.asarray(jstate.frames)).to(torch.int32)
+    return st
+
+
+def test_ant_randomized_step_matches_jax():
+    """Ant with `task.randomize=True` (per-env mass, damping, stiffness and
+    both limits) against the JAX env run op by op, four steps from the same
+    state with the JAX package's DR sample on the port's state. Env 2 is
+    flagged done, so it resets on the first step (its fresh state is each
+    package's own draw: it is left out from there). obs and reward atol
+    1e-3, q 2e-4, qd 2e-3, done and the DR counters equal."""
+    jenv, tenv = _ant_dr_envs(600)
+    jstate, _ = jenv.reset(jax.random.PRNGKey(0))
+    assert jenv.randomizer.batched_leaf_names() == tenv.randomizer.batched_leaf_names()
+    jstate = jstate.replace(reset_buf=jnp.asarray(np.array([False, False, True, False])),
+                            progress=jnp.asarray(np.array([5, 6, 7, 8], np.int32)))
+    tstate = _port_dr_state(tenv, jstate)
+    assert tstate.dyn.names == ("dof_damping", "dof_stiffness", "dof_limit_lower", "dof_limit_upper", "body_mass")
+    bare, _ = tenv.reset(0)  # the same sim state stepped without the sample's leaves
+    bare.sim = SimState(q=tstate.sim.q.clone(), qd=tstate.sim.qd.clone())
+    bare.dr = tenv.randomizer.identity_sample(N)
+    bare.dyn = tenv.pack_dyn(bare.dr)
+    keep = [0, 1, 3]
+    for k in range(4):
+        a = actions(20 + k)
+        jstate, jobs, jrew, jdone, jex = jenv.step(jstate, jnp.asarray(a))
+        tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
+        if k == 0:
+            bare, _, _, _, _ = tenv.step(bare, torch.tensor(a))
+            assert float((bare.sim.qd[keep] - tstate.sim.qd[keep]).abs().max()) > 1e-2  # the leaves act
+        np.testing.assert_allclose(tobs.numpy()[keep], np.asarray(jobs)[keep], atol=1e-3)
+        np.testing.assert_allclose(trew.numpy()[keep], np.asarray(jrew)[keep], atol=1e-3)
+        np.testing.assert_allclose(tstate.sim.q.numpy()[keep], np.asarray(jstate.sim.q)[keep], atol=2e-4)
+        np.testing.assert_allclose(tstate.sim.qd.numpy()[keep], np.asarray(jstate.sim.qd)[keep], atol=2e-3)
+        np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
+        np.testing.assert_array_equal(tex["time_outs"].numpy(), np.asarray(jex["time_outs"]))
+        np.testing.assert_array_equal(tstate.progress.numpy(), np.asarray(jstate.progress))
+        np.testing.assert_array_equal(tstate.randomize_buf.numpy(), np.asarray(jstate.randomize_buf))
+        assert int(tstate.frames) == int(jstate.frames) == k + 1
+    assert tstate.progress.tolist() == [9, 10, 3, 12] and tstate.randomize_buf.tolist() == [4, 4, 4, 4]
+    for name, v in tstate.dr.items():  # nothing was due: the sample is the injected one
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jstate.dr[name]))
+
+
+def test_ant_rerandomization_bookkeeping_matches_jax():
+    """`frequency: 1`: an env that resets takes a fresh sample, except for the
+    `setup_only` mass. Both packages are handed the same fresh samples (their
+    randomizers' `sample` replaced by a queue of samples the JAX randomizer
+    drew beforehand), so `due`, `randomize_buf`, `frames`, the whole sample
+    and the port's packed rows can be held against the JAX state step by step."""
+    from isaacgymenvs_tpu_torch.convert import dr_sample_from_jax
+
+    jenv, tenv = _ant_dr_envs(1)
+    draw = jenv.randomizer.sample
+    queue = [{k: np.asarray(v) for k, v in draw(jax.random.PRNGKey(40 + i), N, jnp.zeros((), jnp.int32)).items()}
+             for i in range(5)]
+    jq, tq = iter(queue), iter([queue[0]] + queue)  # the port resets twice below
+    jenv.randomizer.sample = lambda *a, **kw: {k: jnp.asarray(v) for k, v in next(jq).items()}
+    tenv.randomizer.sample = lambda *a, **kw: dr_sample_from_jax(next(tq))
+    jstate, _ = jenv.reset(jax.random.PRNGKey(0))
+    tstate0, _ = tenv.reset(0)
+    mass = "ant.rigid_body_properties.mass"
+    damp = "ant.dof_properties.damping"
+    np.testing.assert_array_equal(tstate0.dr[mass].numpy(), queue[0][mass])  # reset drew the first sample
+    flags = [[True, False, True, False], None, [False, True, False, False], None]
+    tstate = _port_dr_state(tenv, jstate)
+    want_rbuf = [[0, 1, 0, 1], [1, 2, 1, 2], [2, 0, 2, 3], [3, 1, 3, 4]]
+    for k in range(4):
+        if flags[k] is not None:
+            jstate = jstate.replace(reset_buf=jnp.asarray(np.array(flags[k])))
+            tstate.reset_buf = torch.tensor(flags[k])
+        a = actions(30 + k)
+        jstate, _, _, jdone, _ = jenv.step(jstate, jnp.asarray(a))
+        tstate, _, _, tdone, _ = tenv.step(tstate, torch.tensor(a))
+        assert not bool(tdone.any()) and not bool(np.asarray(jdone).any())
+        assert tstate.randomize_buf.tolist() == want_rbuf[k] == np.asarray(jstate.randomize_buf).tolist()
+        assert int(tstate.frames) == int(jstate.frames) == k + 1
+        assert set(tstate.dr) == set(jstate.dr)
+        for name, v in tstate.dr.items():
+            np.testing.assert_array_equal(v.numpy(), np.asarray(jstate.dr[name]), err_msg=name)
+        np.testing.assert_array_equal(tstate.dr[mass].numpy(), queue[0][mass])  # setup_only: the first draw stays
+        repacked = tenv.pack_dyn(tstate.dr)
+        assert torch.equal(tstate.dyn.rows, repacked.rows) and tstate.dyn.names == repacked.names
+    # who holds which draw: envs 0 and 2 took step 1's sample, env 1 step 3's, env 3 still the first
+    for env_i, src in ((0, 1), (2, 1), (1, 3), (3, 0)):
+        np.testing.assert_array_equal(tstate.dr[damp].numpy()[env_i], queue[src][damp][env_i])

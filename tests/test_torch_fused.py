@@ -178,10 +178,12 @@ def test_twin_matches_jax_restitution_ball():
 
 def test_unsupported_models_raise(ant):
     """What is still beyond the ported tiers raises by name: SDF pair rows,
-    geom-geom pairs, a pair row against a capsule, tendons, a top-K cap
-    below the row count (pair and anchor rows counted), terrain, per-env
-    leaves, merged decimation windows. Pair rows against sphere, box,
-    cylinder and mesh geoms, anchors and q_target no longer do."""
+    geom-geom pairs, a pair row against a capsule, a top-K cap below the row
+    count (pair and anchor rows counted), terrain, the entry-sampled terrain
+    and SDF planes among the per-env leaves, merged decimation windows. Pair
+    rows against sphere, box, cylinder and mesh geoms, anchors, q_target,
+    tendons and per-env leaves (`dyn`) no longer do; an unknown `dyn` key is
+    a ValueError and an inert one is dropped."""
     _, tenv, q, qd = ant
     m, p = tenv.model, tenv.sim_params
     assert tfused.fused_supported(m, p)
@@ -194,9 +196,9 @@ def test_unsupported_models_raise(ant):
         (m.replace(spair_point=(0,), spair_sdf=(0,)), p, {}, "spair_point"),
         (m.replace(pair_geom_a=(0,), pair_geom_b=(1,)), p, {}, "pair_geom_a"),
         (m.replace(ppair_point=(0,), ppair_geom=(capsule,)), p, {}, "capsule"),
-        (tendon, p, {}, "tendons"),
         (m, topk, {}, "top-K"),
-        (m, p, {"dyn": {"body_mass": torch.ones(4, m.nbody)}}, "dyn"),
+        (m, p, {"dyn": {"_terr_h": torch.ones(4, m.ncp)}}, "_terr_h"),
+        (m, p, {"dyn": {"_sp_phi0": torch.ones(4, 1), "body_mass": torch.ones(4, m.nbody)}}, "_sp_phi0"),
         (m, p, {"warm_reset_every": 2}, "warm_reset_every"),
     ]
     for model, params, kw, word in cases:
@@ -218,6 +220,21 @@ def test_unsupported_models_raise(ant):
     # ported now: q_target on a CPU tensor runs the plain version
     out = tfused.physics_step_fused(m, p, *args, q_target=torch.tensor(q))
     assert bool(torch.isfinite(out.q).all())
+    # ported now: tendons, and per-env leaves; both change the step
+    assert tfused.fused_supported(tendon, p)
+    mass = torch.tensor(np.asarray(m.body_mass, np.float32)).repeat(4, 1)
+    for o in (tfused.physics_step_fused(tendon, p, *args),
+              tfused.physics_step_fused(m, p, *args, dyn={"body_mass": 2.0 * mass})):
+        assert bool(torch.isfinite(o.q).all()) and float((o.qd - out.qd).abs().max()) > 1e-3
+    # an inert leaf is dropped, as is a tendon leaf of a model without tendons
+    same = tfused.physics_step_fused(m, p, *args, dyn={"dof_max_effort": torch.ones(4, m.nv),
+                                                       "tendon_damping": torch.ones(4, 0)})
+    plain = tfused.physics_step_fused(m, p, *args)
+    assert torch.equal(same.qd, plain.qd)
+    with pytest.raises(ValueError, match="body_pos"):
+        tfused.physics_step_fused(m, p, *args, dyn={"body_pos": torch.ones(4, m.nbody, 3)})
+    with pytest.raises(ValueError, match="9 values per env"):
+        tfused.physics_step_fused(m, p, *args, dyn={"body_mass": torch.ones(4, m.nbody + 1)})
 
 
 def test_spec_buffer_layout(ant):
@@ -232,7 +249,7 @@ def test_spec_buffer_layout(ant):
     assert spec.shape == (base + p.solver_apgd_iterations,)
     assert spec.dtype == np.float32
     assert _cuda.kernel_flops(s, p) > 0 and _cuda.kernel_bytes(s, 4096, True) > 0
-    assert _cuda.sizes_of(s) == (9, 15, 14, 25, 0, 0, 0)
+    assert _cuda.sizes_of(s) == (9, 15, 14, 25, 0, 0, 0, 0, 0, 0, 0)
 
 
 # ---- q_target drives, pair rows and anchors ---------------------------------
@@ -368,9 +385,9 @@ def test_extract_matches_jax_ball_balance():
     _, jenv, tenv = _both_envs("BallBalance")
     js, ts = jfused._extract(jenv.model), tfused._extract(tenv.model)
     assert (ts.nc, ts.pp_nc, ts.att_n, ts.nct) == (21, 1, 3, 25) == (js.nc, js.pp_nc, js.att_n, 25)
-    assert _cuda.sizes_of(ts, True) == (8, 20, 18, 21, 1, 3, 1)
+    assert _cuda.sizes_of(ts, True) == (8, 20, 18, 21, 1, 3, 1, 0, 0, 0, 0)
     for f in ts._fields:
-        if f in ("pp_a", "pp_b", "att_body", "free_bodies"):
+        if f in ("pp_a", "pp_b", "att_body", "free_bodies", "ncp_model", "ngeom", "pp_pt", "pp_geom"):
             continue
         a, b = getattr(ts, f), getattr(js, f)
         if isinstance(a, np.ndarray):
@@ -381,13 +398,16 @@ def test_extract_matches_jax_ball_balance():
     np.testing.assert_array_equal(ts.pp_a, np.argmax(js.pp_pick_a, 1))
     np.testing.assert_array_equal(ts.pp_b, np.argmax(js.pp_pick_b, 1))
     np.testing.assert_array_equal(ts.att_body, np.argmax(js.att_pick, 1))
+    np.testing.assert_array_equal(ts.pp_pt, np.argmax(js.pp_pick_pt, 1))
+    np.testing.assert_array_equal(ts.pp_geom, np.argmax(js.pp_pick_geom, 1))
+    assert (ts.ncp_model, ts.ngeom) == (js.pp_pick_pt.shape[1], js.pp_pick_geom.shape[1])
     assert ts.pp_gtype.tolist() == [3] and ts.pp_path.shape == (18, 1) and ts.att_path.shape == (18, 3)
     # the spec buffer holds them at the kernel's offsets
     p = tenv.sim_params
     spec = _cuda.pack_spec(ts, p, tfused.apgd_betas(p.solver_apgd_iterations))
     nb, nv, nct = ts.nbody, ts.nv, ts.nct
     base = 16 + 5 * nb + 3 * nb + 4 * nb + 3 * nb + 9 * nb + nb + 6 * nb + 10 * nv + nv * nv \
-        + nb * nb + 7 * nct + nct * nv + 12 * ts.pp_nc + 3 * ts.att_n
+        + nb * nb + 7 * nct + nct * nv + 15 * ts.pp_nc + 3 * ts.att_n
     assert spec.shape == (base + p.solver_apgd_iterations,) and spec[14] == np.float32(0.7)
     np.testing.assert_allclose(spec[base - 9:base], ts.att_target.reshape(-1))
     assert _cuda.kernel_flops(ts, p) > _cuda.kernel_flops(ts._replace(pp_nc=0, att_n=0, pp_gtype=ts.pp_gtype[:0]), p)
@@ -404,3 +424,168 @@ def test_forward_kinematics_matches_jax(ant):
     tk = tdyn.forward_kinematics(tenv.model, torch.tensor(q), torch.tensor(qd))
     for f in ("x", "quat", "com", "inertia_w", "S", "Sdot", "v"):
         np.testing.assert_allclose(getattr(tk, f).numpy(), np.asarray(getattr(jk, f)), atol=1e-5, err_msg=f)
+
+
+# ---- per-env leaves (dyn) and tendons ----------------------------------------
+
+EX_PARAMS = dict(dt=1 / 60, substeps=2, solver_apgd_iterations=16, contact_margin=0.02)
+
+
+def _compare_dyn(jm, jp, tm, tp, q, qd, qfrc, xfrc, dyn, steps=3, q_target=None, tol=TOL):
+    """Both packages from the JAX trajectory with the same per-env leaves
+    (numpy arrays); every output within `tol`. Returns the largest gap
+    between the port's step with and without the leaves, per output."""
+    J = lambda a: None if a is None else jnp.asarray(a)
+    Tn = lambda a: None if a is None else torch.tensor(a)
+    gap = {}
+    for _ in range(steps):
+        jo = jfused.physics_step_fused(jm, jp, J(q), J(qd), J(qfrc), xfrc=J(xfrc), q_target=J(q_target),
+                                       use_pallas=False, dyn={k: J(v) for k, v in dyn.items()} if dyn else None)
+        to = tfused.physics_step_fused(tm, tp, Tn(q), Tn(qd), Tn(qfrc), xfrc=Tn(xfrc), q_target=Tn(q_target),
+                                       dyn={k: Tn(v) for k, v in dyn.items()} if dyn else None)
+        bare = tfused.physics_step_fused(tm, tp, Tn(q), Tn(qd), Tn(qfrc), xfrc=Tn(xfrc), q_target=Tn(q_target))
+        for k, t in tol.items():
+            err = float(np.max(np.abs(np.asarray(getattr(jo, k)) - getattr(to, k).numpy())))
+            assert err < t, (k, err)
+            gap[k] = max(gap.get(k, 0.0), float((getattr(to, k) - getattr(bare, k)).abs().max()))
+        q, qd = np.asarray(jo.q), np.asarray(jo.qd)
+    return gap
+
+
+def test_twin_with_dyn_matches_jax_ant(ant):
+    """The six leaves of tests/test_fused.py::test_fused_dyn_leaves_match_vmap
+    (damping, stiffness, armature, mass, contact friction, gravity) per env
+    on Ant, 3 steps against the JAX fused math given the same leaves."""
+    jenv, tenv, q, qd = ant
+    m, n = tenv.model, 4
+    rng = np.random.RandomState(0)
+    scaled = lambda leaf, lo, hi: (np.asarray(getattr(m, leaf), np.float32)[None]
+                                   * rng.uniform(lo, hi, (n,) + np.shape(getattr(m, leaf)))).astype(np.float32)
+    dyn = {
+        "dof_damping": scaled("dof_damping", 0.5, 2.0),
+        "dof_stiffness": scaled("dof_stiffness", 0.8, 1.2),
+        "armature": scaled("armature", 0.8, 1.2),
+        "body_mass": scaled("body_mass", 0.8, 1.2),
+        "cpoint_friction": scaled("cpoint_friction", 0.7, 1.3),
+        "gravity": (np.asarray(tenv.sim_params.gravity, np.float32)[None] * rng.uniform(0.9, 1.1, (n, 3))).astype(np.float32),
+    }
+    qfrc = (rng.uniform(-1, 1, (n, m.nv)) * 2.0).astype(np.float32)
+    gap = _compare_dyn(jenv.model, jenv.sim_params, m, tenv.sim_params, q, qd, qfrc, None, dyn)
+    assert gap["qd"] > 1e-2  # the leaves changed the step
+
+
+@pytest.mark.parametrize("leaves", ["tendons_only", "all_leaves"])
+def test_twin_matches_jax_tendon_example(leaves):
+    """The tendon example model (`model.examples.tendon_chain_example`, built
+    for the JAX package by the same calls on its ModelBuilder): a fixed
+    tendon stretched past its range, restitution on the box's plane rows
+    (half the envs come down faster than the bounce threshold), one
+    point-vs-box pair row. Without per-env leaves, and with all fifteen
+    leaves and gravity, 3 steps with xfrc."""
+    from isaacgymenvs_tpu.model import spec as jspec
+    from isaacgymenvs_tpu_torch.model import examples as ex
+
+    jm, tm = ex.tendon_chain_example(jspec), ex.tendon_chain_example()
+    carried = model_from_arrays(_jax_fields(jm))
+    for f in dataclasses.fields(tm):
+        a, b = getattr(tm, f.name), getattr(carried, f.name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_allclose(a, b, atol=1e-6, err_msg=f.name)
+        else:
+            assert a == b, f.name
+    jp, tp = JSimParams(**EX_PARAMS), SimParams(**EX_PARAMS)
+    s = tfused._extract(tm)
+    assert (s.nbody, s.nq, s.nv, s.nc, s.pp_nc, s.nt, s.ncp_model, s.ngeom) == (3, 9, 8, 10, 1, 1, 10, 3)
+    assert tfused.fused_supported(tm, tp) and float(tm.tendon_stiffness[0]) == 5.0 and np.any(s.rest > 0)
+    n = 4
+    q, qd = ex.tendon_chain_example_state(tm, n, 1)
+    qd[:2, 2] = -0.6
+    rng = np.random.RandomState(8)
+    qfrc = rng.uniform(-0.3, 0.3, (n, tm.nv)).astype(np.float32)
+    xfrc = rng.uniform(-0.2, 0.2, (n, tm.nbody, 6)).astype(np.float32)
+    if leaves == "tendons_only":
+        _compare_dyn(jm, jp, tm, tp, q, qd, qfrc, xfrc, None)
+        # the tendon acts: without it the arm's hinges move otherwise
+        bare = tm.replace(tendon_coef=None)
+        T = torch.tensor
+        a = tfused.physics_step_fused(tm, tp, T(q), T(qd), T(qfrc))
+        b = tfused.physics_step_fused(bare, tp, T(q), T(qd), T(qfrc))
+        assert float((a.qd[:, 6:] - b.qd[:, 6:]).abs().min()) > 1e-3
+        return
+    dyn = ex.random_leaves(tm, tfused.DYN_ORDER, n, 3, tp.gravity)
+    assert set(dyn) == set(tfused.DYN_LEAVES) | {"gravity"}
+    packed = tfused.pack_dyn(s, {k: torch.tensor(v) for k, v in dyn.items()})
+    assert packed.names == tfused.DYN_ORDER and packed.rows.shape == (151, n)
+    gap = _compare_dyn(jm, jp, tm, tp, q, qd, qfrc, xfrc, dyn)
+    assert gap["qd"] > 1e-2 and gap["body_force"] > 1.0
+
+
+def test_twin_with_pair_row_leaves_matches_jax_ball_balance():
+    """BallBalance with per-env cpoint_friction, cpoint_pos, geom_size and
+    body_mass (what a pair row reads), the ball on the tray, q_target drives;
+    q 5e-4, qd 5e-3, forces 5e-2 as the BallBalance step without leaves."""
+    _, jenv, tenv = _both_envs("BallBalance")
+    from isaacgymenvs_tpu_torch.model.examples import random_leaves
+
+    tm, n = tenv.model, 4
+    rng = np.random.RandomState(7)
+    q = np.tile(np.asarray(tm.qpos0), (n, 1)).astype(np.float32)
+    bq = tenv.ball_q
+    q[:, bq:bq + 2] = rng.uniform(-0.2, 0.2, (n, 2))
+    q[:, bq + 2] = tenv.tray_height + 0.01 + tenv.ball_radius - 0.002
+    qd = np.zeros((n, tm.nv), np.float32)
+    qfrc = rng.uniform(-0.5, 0.5, (n, tm.nv)).astype(np.float32)
+    qt = q + rng.uniform(-0.02, 0.02, q.shape).astype(np.float32)
+    dyn = random_leaves(tm, ("cpoint_friction", "cpoint_pos", "geom_size", "body_mass"), n, 5)
+    tol = {"q": 5e-4, "qd": 5e-3, "body_force": 5e-2, "body_torque": 5e-2, "dof_force": 5e-2}
+    gap = _compare_dyn(jenv.model, jenv.sim_params, tm, tenv.sim_params, q, qd, qfrc, None, dyn, q_target=qt, tol=tol)
+    assert gap["body_force"] > 0.1
+
+
+def test_dyn_layout_sizes_and_spec_regions(ant):
+    """The packed per-env input, the size tuple and the spec buffer's new
+    regions: leaf order and rows, comp-major component leaves, the bitmask,
+    tendon and pair-row index regions at the kernel's offsets, and the bytes
+    and operations the bounds count."""
+    from isaacgymenvs_tpu_torch.model.examples import random_leaves, tendon_chain_example
+
+    tm, tp = tendon_chain_example(), SimParams(**EX_PARAMS)
+    s = tfused._extract(tm)
+    rows = tfused.dyn_rows(s)
+    assert [rows[k] for k in tfused.DYN_ORDER] == [8, 8, 8, 8, 8, 8, 3, 10, 10, 1, 1, 9, 27, 30, 9, 3]
+    assert tfused.dyn_mask(()) == 0 and tfused.dyn_mask(tfused.DYN_ORDER) == 2 ** 16 - 1
+    assert tfused.dyn_mask(("body_mass", "gravity")) == (1 << 6) | (1 << 15)
+    # order is DYN_ORDER whatever the dict's order; inert and zero-row leaves go
+    n = 3
+    dyn = {k: torch.tensor(v) for k, v in random_leaves(tm, ("gravity", "geom_size", "body_inertia", "body_mass"), n, 1).items()}
+    packed = tfused.pack_dyn(s, {**dyn, "dof_max_effort": torch.ones(n, 8)})
+    assert packed.names == ("body_mass", "body_inertia", "geom_size", "gravity")
+    assert packed.rows.shape == (3 + 27 + 9 + 3, n) and packed.rows.is_contiguous()
+    # comp-major: row = component * entities + entity
+    np.testing.assert_array_equal(packed.rows[3 + (1 * 3 + 2) * 3 + 1].numpy(), dyn["body_inertia"][:, 1, 1, 2].numpy())
+    np.testing.assert_array_equal(packed.rows[30 + 0 * 3 + 2].numpy(), dyn["geom_size"][:, 2, 0].numpy())
+    np.testing.assert_array_equal(packed.rows[39:].numpy(), dyn["gravity"].T.numpy())
+    assert tfused.pack_dyn(s, {}) is None and tfused.pack_dyn(s, {"dof_max_effort": torch.ones(n, 8)}) is None
+    # size tuple: tendons, bitmask, and the cpoint / geom counts only where a leaf indexes them
+    assert _cuda.sizes_of(s) == (3, 9, 8, 10, 1, 0, 0, 1, 0, 0, 0)
+    assert _cuda.sizes_of(s, False, packed.names) == (3, 9, 8, 10, 1, 0, 0, 1, packed_mask := tfused.dyn_mask(packed.names), 0, 3)
+    assert packed_mask == (1 << 6) | (1 << 12) | (1 << 14) | (1 << 15)
+    assert _cuda.sizes_of(s, False, ("cpoint_pos",))[8:] == (1 << 13, 10, 0)
+    assert "-DFS_NT=1" in _cuda._defines(_cuda.sizes_of(s)) and "-DFS_DYN=0" in _cuda._defines(_cuda.sizes_of(s))
+    # spec buffer: pair-row indices and the tendon before the anchors' targets
+    spec = _cuda.pack_spec(s, tp, tfused.apgd_betas(tp.solver_apgd_iterations))
+    nb, nv, nct, nt = s.nbody, s.nv, s.nct, s.nt
+    base = 16 + 5 * nb + 3 * nb + 4 * nb + 3 * nb + 9 * nb + nb + 6 * nb + 10 * nv + nv * nv \
+        + nb * nb + 7 * nct + nct * nv + 15 * s.pp_nc + nt * (nv + 4) + 3 * s.att_n
+    assert spec.shape == (base + tp.solver_apgd_iterations,)
+    t0 = base - nt * (nv + 4)
+    np.testing.assert_array_equal(spec[t0:t0 + nv], [0, 0, 0, 0, 0, 0, 1.0, 0.5])
+    np.testing.assert_allclose(spec[t0 + nv:base], [-0.3, 0.3, 5.0, 0.5])
+    assert spec[t0 - 3:t0].tolist() == [float(s.pp_pt[0]), float(s.pp_geom[0]), 1.0]  # point 9, the box geom, its friction
+    # the bounds: tendons add operations, per-env rows add bytes (Ant's five leaves: 65 floats per env)
+    assert _cuda.kernel_flops(s, tp) > _cuda.kernel_flops(s._replace(tendon_coef=None), tp)
+    assert _cuda.kernel_bytes(s, 8, True, False, packed.names) - _cuda.kernel_bytes(s, 8, True) == 4 * 8 * 42
+    sa = tfused._extract(ant[1].model)
+    five = ("dof_damping", "dof_stiffness", "dof_limit_lower", "dof_limit_upper", "body_mass")
+    assert _cuda.kernel_bytes(sa, 1, True, False, five) - _cuda.kernel_bytes(sa, 1, True) == 4 * 65
+    assert _cuda.sizes_of(sa, False, five) == (9, 15, 14, 25, 0, 0, 0, 0, 115, 0, 0)

@@ -110,8 +110,8 @@ def test_contact_free_kernel_matches_plain_version():
 @pytest.mark.cuda
 def test_unsupported_model_raises_on_card():
     """Features of later tiers raise by name on CUDA tensors too: an SDF
-    pair row, a top-K cap below the row count, per-env leaves, a merged
-    decimation window."""
+    pair row, a top-K cap below the row count, entry-sampled terrain and SDF
+    planes among the per-env leaves, a merged decimation window."""
     _needs_card()
     env = _ant(4, "cuda")
     state, _ = env.reset(0)
@@ -121,26 +121,29 @@ def test_unsupported_model_raises_on_card():
     for model, params, kw, word in (
         (m.replace(spair_point=(0,), spair_sdf=(0,)), p, {}, "SDF"),
         (m, capped, {}, "top-K"),
-        (m, p, {"dyn": {"body_mass": torch.ones(4, m.nbody, device="cuda")}}, "dyn"),
+        (m, p, {"dyn": {"_terr_h": torch.ones(4, m.ncp, device="cuda")}}, "_terr_h"),
+        (m, p, {"dyn": {"_sp_phi0": torch.ones(4, 1, device="cuda")}}, "_sp_phi0"),
         (m, p, {"warm_reset_every": 2}, "warm_reset_every"),
     ):
         with pytest.raises(NotImplementedError, match=word):
             fused.physics_step_fused(model, params, *args, **kw)
 
 
-def _held_against_plain(model, params, q, qd, qfrc, xfrc, q_target, steps, tol):
+def _held_against_plain(model, params, q, qd, qfrc, xfrc, q_target, steps, tol, dyn=None):
     """Kernel and plain version from the same inputs each step, the plain
-    output carrying the trajectory; returns the largest |body_force|."""
+    output carrying the trajectory; returns the largest |body_force|. `dyn`
+    is a `fused.PackedDyn` of per-env leaves or None."""
     n, nb = q.shape[0], model.nbody
     rows = lambda a: None if a is None else a.T.contiguous()
-    plain = fused._step_math_torch(fused._extract(model), params, torch.device("cuda"))
+    names, dyn_rows = (dyn.names, dyn.rows) if dyn is not None else ((), None)
+    plain = fused._step_math_torch(fused._extract(model), params, torch.device("cuda"), names)
     xr = None if xfrc is None else xfrc.permute(2, 1, 0).reshape(6 * nb, n).contiguous()
     force = 0.0
     for _ in range(steps):
         before = _cuda.FusedStepCall.launches
-        ko = fused.physics_step_fused(model, params, q, qd, qfrc, xfrc=xfrc, q_target=q_target)
+        ko = fused.physics_step_fused(model, params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=dyn)
         assert _cuda.FusedStepCall.launches == before + 1
-        po = plain(rows(q), rows(qd), rows(qfrc), xr, rows(q_target))
+        po = plain(rows(q), rows(qd), rows(qfrc), xr, rows(q_target), dyn_rows)
         torch.cuda.synchronize()
         ref = {"q": po[0].T, "qd": po[1].T,
                "body_force": po[2].reshape(3, nb, n).permute(2, 1, 0),
@@ -232,3 +235,111 @@ def test_box_and_sphere_pair_rows_match_plain_version():
     xfrc = cuda(rng.uniform(-0.2, 0.2, (n, m.nbody, 6)))
     force = _held_against_plain(m, p, q, qd, qfrc, xfrc, None, 3, TOL)
     assert force > 1.0
+
+
+# ---- per-env leaves and tendons ---------------------------------------------
+
+
+def _packed(model, names, n, seed, gravity):
+    from isaacgymenvs_tpu_torch.model.examples import random_leaves
+
+    leaves = random_leaves(model, names, n, seed, gravity)
+    return fused.pack_dyn(fused._extract(model), {k: torch.tensor(v, device="cuda") for k, v in leaves.items()})
+
+
+def _differs_without_leaves(model, params, q, qd, qfrc, dyn, **kw):
+    """The step with per-env leaves must not equal the step without."""
+    a = fused.physics_step_fused(model, params, q, qd, qfrc, dyn=dyn, **kw)
+    b = fused.physics_step_fused(model, params, q, qd, qfrc, **kw)
+    assert float((a.qd - b.qd).abs().max()) > 1e-3
+
+
+ANT_YAML_LEAVES = ("body_mass", "dof_damping", "dof_stiffness", "dof_limit_lower", "dof_limit_upper")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaves", ["yaml", "all"])
+def test_ant_kernel_with_per_env_leaves_matches_plain_version(leaves):
+    """Ant with the five leaves its yaml randomizes, and with every leaf
+    that has rows on it plus gravity, at a ragged N = 37 with xfrc."""
+    _needs_card()
+    n = 37
+    env = _ant(n, "cuda")
+    m, p = env.model, env.sim_params
+    names = ANT_YAML_LEAVES if leaves == "yaml" else fused.dyn_names(fused._extract(m), fused.DYN_ORDER)
+    assert len(names) == (5 if leaves == "yaml" else 14)  # no tendon leaves on the Ant
+    dyn = _packed(m, names, n, 5, p.gravity)
+    state, _ = env.reset(1)
+    rng = np.random.RandomState(2)
+    qfrc = torch.tensor(rng.uniform(-3, 3, (n, m.nv)).astype(np.float32), device="cuda")
+    xfrc = torch.tensor(rng.uniform(-1, 1, (n, m.nbody, 6)).astype(np.float32), device="cuda")
+    _differs_without_leaves(m, p, state.sim.q, state.sim.qd, qfrc, dyn, xfrc=xfrc)
+    _held_against_plain(m, p, state.sim.q, state.sim.qd, qfrc, xfrc, None, 3, TOL, dyn=dyn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_leaves", [False, True], ids=["tendon_only", "all_leaves"])
+def test_tendon_example_kernel_matches_plain_version(with_leaves):
+    """The tendon example model (a fixed tendon, restitution on plane rows, a
+    point-vs-box pair row): tendons alone, and with all fifteen leaves and
+    gravity per env."""
+    _needs_card()
+    from isaacgymenvs_tpu_torch.engine.dynamics import SimParams
+    from isaacgymenvs_tpu_torch.model.examples import tendon_chain_example, tendon_chain_example_state
+
+    n = 37
+    m = tendon_chain_example()
+    p = SimParams(dt=1 / 60, substeps=2, solver_apgd_iterations=16, contact_margin=0.02)
+    q, qd = tendon_chain_example_state(m, n, 1)
+    qd[::2, 2] = -0.6  # the box comes down faster than the bounce threshold
+    cuda = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    q, qd = cuda(q), cuda(qd)
+    rng = np.random.RandomState(4)
+    qfrc = cuda(rng.uniform(-0.3, 0.3, (n, m.nv)))
+    xfrc = cuda(rng.uniform(-0.2, 0.2, (n, m.nbody, 6)))
+    dyn = _packed(m, fused.DYN_ORDER, n, 6, p.gravity) if with_leaves else None
+    if with_leaves:
+        assert dyn.names == fused.DYN_ORDER and dyn.rows.shape == (151, n)
+        _differs_without_leaves(m, p, q, qd, qfrc, dyn, xfrc=xfrc)
+    force = _held_against_plain(m, p, q, qd, qfrc, xfrc, None, 3, TOL, dyn=dyn)
+    assert force > 1.0
+
+
+@pytest.mark.cuda
+def test_ball_balance_kernel_with_pair_row_leaves_matches_plain_version():
+    """BallBalance with per-env cpoint_friction, cpoint_pos, geom_size and
+    body_mass: the sites a pair row reads."""
+    _needs_card()
+    n = 37
+    env = _task("BallBalance", n)
+    m = env.model
+    rng = np.random.RandomState(3)
+    cuda = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    q = env.qpos0.repeat(n, 1)
+    bq = env.ball_q
+    q[:, bq:bq + 2] = cuda(rng.uniform(-0.2, 0.2, (n, 2)))
+    q[:, bq + 2] = env.tray_height + 0.01 + env.ball_radius - 0.002
+    qd = torch.zeros(n, m.nv, device="cuda")
+    qfrc = cuda(rng.uniform(-0.5, 0.5, (n, m.nv)))
+    qt = q + cuda(rng.uniform(-0.02, 0.02, q.shape))
+    dyn = _packed(m, ("cpoint_friction", "cpoint_pos", "geom_size", "body_mass"), n, 7, env.sim_params.gravity)
+    _differs_without_leaves(m, env.sim_params, q, qd, qfrc, dyn, q_target=qt)
+    force = _held_against_plain(m, env.sim_params, q, qd, qfrc, None, qt, 3, {**TOL, "q": 5e-4}, dyn=dyn)
+    assert force > 1.0
+
+
+@pytest.mark.cuda
+def test_wrong_leaf_set_raises_on_card():
+    """A prepared instantiation refuses another set of per-env rows; nothing
+    falls back to the plain version."""
+    _needs_card()
+    env = _ant(4, "cuda")
+    m, p = env.model, env.sim_params
+    s = fused._extract(m)
+    step = _cuda.FusedStepCall(s, p, fused.apgd_betas(p.solver_apgd_iterations), torch.device("cuda"),
+                               names=("body_mass",))
+    rows = lambda r: torch.zeros(r, 4, device="cuda")
+    with pytest.raises(ValueError, match="per-env leaves"):
+        step(rows(m.nq), rows(m.nv), rows(m.nv), None)
+    with pytest.raises(ValueError, match="shape"):
+        step(rows(m.nq), rows(m.nv), rows(m.nv), None, None, rows(m.nbody + 1))
