@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of step 14 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14 and 17 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -84,7 +84,27 @@
    epochs, a restore that is bit-equal (the DR sample is drawn anew, as in
    the JAX package) and `play`; Cartpole, Ingenuity, Quadcopter and
    BallBalance step with `task.randomize=True` and DR_BLOCK passed in;
-17. prints one `kernels` JSON line with all instantiations and ends with
+17. Anymal (44 plane contacts, `q_target`), AnymalTerrain (top-K cap of 20,
+   terrain rows, the friction leaf, 4 decimation slices merged into one
+   launch) and AnymalTerrain on its plane (top-K alone), built in step 2
+   beside the others, each against its plain version for one env step's
+   physics call at N=1003 and 4096, robots standing and (one env in 16)
+   tumbled with more than 20 candidates active; the inputs are drawn twice
+   over and kept where float32 rounding is small (`conditioned`), the
+   terrain grid moved next to the world origin;
+18. one merged window against four separate launches: equal on the plane
+   (bar 1e-6), printed on terrain;
+19. physical checks: Anymal standing at its default pose (feet fz 0.9-1.3 x
+   weight, knees and base free, base height steady over 10 steps);
+   AnymalTerrain on every terrain type and level (finite, base above the
+   local ground after 100 steps); a 30-step episode whose levels move both
+   ways;
+20. 1 + 3 full-width epochs of Anymal and AnymalTerrain (batch 98,304, 24
+   launches each), device ops per AnymalTerrain env step,
+   `train.main task=AnymalTerrain` for 4 epochs with a bit-equal restore and
+   play, the plane variant driven for 16 env steps;
+21. the three kernels timed at full width;
+22. prints one `kernels` JSON line with all instantiations and ends with
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository around it; without either it
@@ -671,30 +691,34 @@ def kernel_device_ms(fn, reps: int = 20) -> float:
     raise AssertionError("the host could not queue the launches ahead of the device")
 
 
-def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn=None) -> dict:
+def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn=None, terr=None, wre=0) -> dict:
     """ms per launch of the kernel (CUDA events around the wrapper, and
     queued back to back behind other device work), of its plain version,
     and its bound, at (rows, N) inputs on the card. `env` gives the model and
     the parameters (anything with `.model` and `.sim_params`); `dyn` is a
-    `fused.PackedDyn` of per-env leaves, whose rows count in the bytes bound."""
+    `fused.PackedDyn` of per-env leaves and `terr` the packed terrain planes,
+    whose rows count in the bytes bound; `wre` the warm-start reset period."""
     from isaacgymenvs_tpu_torch.engine import _cuda, fused
 
     s, p, n = fused._extract(env.model), env.sim_params, q.shape[-1]
     names, dr = (dyn.names, dyn.rows) if dyn is not None else ((), None)
-    _, step = fused._prepared(env.model, p, torch.device("cuda"), qt is not None, names)
+    has_t = terr is not None
+    _, step = fused._prepared(env.model, p, torch.device("cuda"), qt is not None, names, has_t)
     plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
+    call = lambda f: f(q, qd, qfrc, xfrc, qt, dr, terr, wre)
     for _ in range(3):
-        step(q, qd, qfrc, xfrc, qt, dr)
-    ms = event_ms(lambda: step(q, qd, qfrc, xfrc, qt, dr), reps)
-    device_ms = kernel_device_ms(lambda: step(q, qd, qfrc, xfrc, qt, dr))
-    plain(q, qd, qfrc, xfrc, qt, dr)
-    plain_ms = event_ms(lambda: plain(q, qd, qfrc, xfrc, qt, dr), 5)
+        call(step)
+    ms = event_ms(lambda: call(step), reps)
+    device_ms = kernel_device_ms(lambda: call(step))
+    call(plain)
+    plain_ms = event_ms(lambda: call(plain), 5)
     flop_s, byte_s = peaks(name)
-    flops = _cuda.kernel_flops(s, p) * n
-    nbytes = _cuda.kernel_bytes(s, n, xfrc is not None, qt is not None, names)
+    flops = _cuda.kernel_flops(s, p, has_t) * n
+    nbytes = _cuda.kernel_bytes(s, n, xfrc is not None, qt is not None, names, has_t)
     t_ops, t_bytes = 1e3 * flops / flop_s, 1e3 * nbytes / byte_s
     bound = max(t_ops, t_bytes)
-    print(f"fused step {'_'.join(map(str, _cuda.sizes_of(s, qt is not None, names)))} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
+    sizes = _cuda.sizes_of(s, qt is not None, names, fused.topk_cap(s, p), has_t)
+    print(f"fused step {'_'.join(map(str, sizes))} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
           f"plain {plain_ms:.2f} ms, bound {bound:.6f} ms by operations ({flops / 1e9:.4f} GFLOP), {t_bytes:.6f} ms by bytes "
           f"({nbytes / 1e6:.4f} MB), {flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, {100 * bound / ms:.2f} % of the bound")
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -754,7 +778,7 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
         sec = time.perf_counter() - t0
         launches = _cuda.FusedStepCall.launches
         total += launches
-        if launches != horizon * env.control_freq_inv:
+        if launches != horizon * (1 if env.merge_slices else env.control_freq_inv):
             raise AssertionError(f"{launches} kernel launches in an epoch of {horizon} env steps")
         bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
         if bad or not c.min_lr <= metrics["lr"] <= c.max_lr or not metrics["kl"] >= 0.0:
@@ -871,6 +895,426 @@ def profile_env_step(env, steps: int = 8, label: str = "env.step") -> float:
     return profile_window(window, label, steps, "step")
 
 
+# ---- Anymal and AnymalTerrain: top-K (K5), terrain rows (K6), merged windows ----
+
+ANYMAL_ENVS = 4096  # numEnvs of both yamls
+# instantiation key -> (task, config overrides)
+ANYMAL_CASES = {
+    "Anymal": ("Anymal", ()),
+    "AnymalTerrain": ("AnymalTerrain", ()),
+    "AnymalTerrain-plane": ("AnymalTerrain", ("task.env.terrain.terrainType=plane",)),
+}
+KEY_GAP = 1e-4  # the keys either side of the top-K cap differ by more, in every env and slice
+MARGIN_GAP = 1e-5  # no candidate lies within this of the contact margin (its row would flip on rounding)
+LIMIT_GAP = 1e-3  # nor a limited joint within this (radians) of a limit at the step's start or end
+# A comparison env must be well conditioned: float32 rounding alone may move
+# its step by a quarter of the tolerance at most. Measured as the plain
+# version in float32, from the inputs and from the inputs with the base's
+# position one ulp up and one ulp down, against the same in float64: the
+# largest gap of the three stands for the rounding noise, as one float32
+# result is only one draw of it (the same env moves by 0.01 N between a
+# batch of 4096 envs and one of 8192, whose reductions sum otherwise).
+# Not all are: a robot pushed in with 21 candidates active on flat ground
+# carries 0.01-0.03 N of float32 noise in its forces, and far from the
+# world origin the step's origin-referenced spatial algebra loses more (on
+# the terrain grid, one ulp of a base's x at 150 m moves a step's qd by up
+# to 0.1 m/s).
+COND_TOL = {"q": 5e-5, "qd": 5e-4, "force": 5e-3}
+# For the comparisons the terrain grid is moved so that the corner where
+# four cells meet (rough slopes and stairs up, levels 4 and 5) lies at the
+# world origin; the robots stand within CORNER_REACH of it.
+TERRAIN_CORNER = (3, 4)  # (level, type) of the cell whose low corner it is
+CORNER_REACH = 3.5
+TUMBLED_SHARE = 16  # one comparison env in this many lies tumbled, more than 20 candidates active
+
+
+def anymal_env(key: str, n: int, overrides=()):
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    task, extra = ANYMAL_CASES[key]
+    return task_map[task](load_config([f"task={task}", f"num_envs={n}", *extra, *overrides])["task"], device="cuda")
+
+
+def physics_args(env):
+    """(params, warm_reset_every) of one env step's physics call."""
+    return (env._merged_params, env._warm_reset_every) if env.merge_slices else (env.sim_params, 0)
+
+
+def candidates_of(env, q):
+    """World positions (N, ncp, 3) of the model's candidate points at q."""
+    from isaacgymenvs_tpu_torch import maths
+    from isaacgymenvs_tpu_torch.engine import dynamics
+
+    m = env.model
+    cb = torch.tensor(m.cpoint_body, device="cuda")
+    kin = dynamics.forward_kinematics(m, q, torch.zeros(q.shape[0], m.nv, device="cuda"))
+    return kin.x[:, cb] + maths.quat_rotate(kin.quat[:, cb], torch.tensor(np.asarray(m.cpoint_pos), device="cuda"))
+
+
+def moved_terrain(env):
+    """The env's terrain grid with TERRAIN_CORNER at the world origin."""
+    from isaacgymenvs_tpu_torch.engine.dynamics import Terrain
+
+    g = env.grid
+    cells = round(g.env_length / g.hs)
+    corner = [(g.border + TERRAIN_CORNER[k] * cells) * g.hs for k in range(2)]
+    return Terrain(env.terrain.height, g.hs, origin=(-corner[0], -corner[1]))
+
+
+def anymal_pool(env, n: int, seed: int, terrain):
+    """2n comparison candidates (q, qd, q_target), env-leading on the card:
+    robots standing (the lowest candidate 1 mm in the ground, default joint
+    angles within 0.1 rad, random heading, gentle velocities), and one in
+    four (four times the share taken) lying in a random orientation with
+    random joints, pushed in until 21 candidates are within the margin (the
+    poses whose 21 lowest candidates lie closest, from a pool of random ones)
+    and moving up at a random share of the push-out speed of the deepest
+    points (so that some of them end up with moderate contact forces)."""
+    from isaacgymenvs_tpu_torch import maths
+
+    m, dev = env.model, "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *shape: torch.rand(*shape, generator=g, device=dev)
+    k = 2 * n
+    nt = k // 4
+    reach = CORNER_REACH
+    q = env.qpos0.repeat(k, 1)
+    q[:, :2] = (2 * u(k, 2) - 1) * reach
+    yaw = 2 * np.pi * u(k)
+    q[:, 3:7] = torch.stack([torch.zeros_like(yaw)] * 2 + [torch.sin(yaw / 2), torch.cos(yaw / 2)], -1)
+    q[:, env.dof_q_idx] = env.default_dof_pos + 0.2 * (u(k, 12) - 0.5)
+    # the tumbled ones: the best of 8 random poses per slot
+    wide = 8 * nt
+    qt_ = q[:nt].repeat(8, 1)
+    quat = torch.randn(wide, 4, generator=g, device=dev)
+    qt_[:, 3:7] = quat / torch.linalg.vector_norm(quat, dim=1, keepdim=True)
+    # random joints, the hips kept 0.09 rad inside their limits (+-0.49 on the inner side)
+    qt_[:, env.dof_q_idx] = (2 * u(wide, 12) - 1) * torch.tensor([0.4, 3.0, 3.0] * 4, device=dev)
+    x = candidates_of(env, qt_)
+    ground = terrain.sample(x[..., :2]) if terrain is not None else 0.0
+    gap = torch.sort(x[..., 2] - torch.tensor(np.asarray(m.cpoint_radius), device=dev) - ground, 1).values
+    best = torch.argsort((gap[:, 20] - gap[:, 0]).reshape(8, nt), 0)[0] * nt + torch.arange(nt, device=dev)
+    q[:nt] = qt_[best]
+    x = candidates_of(env, q)
+    ground = terrain.sample(x[..., :2]) if terrain is not None else 0.0
+    gap = torch.sort(x[..., 2] - torch.tensor(np.asarray(m.cpoint_radius), device=dev) - ground, 1).values
+    q[:nt, 2] -= gap[:nt, 20] - 0.015
+    q[nt:, 2] -= gap[nt:, 0] + 0.001
+    qd = 0.05 * (2 * u(k, m.nv) - 1)
+    qd[:nt] = 0.0
+    p, _ = physics_args(env)
+    h = p.dt / (p.substeps * p.solver_iterations)
+    deep = gap[:nt, 20] - gap[:nt, 0] - 0.015
+    qd[:nt, 2] = u(nt) * torch.clamp(p.baumgarte_erp * deep / h, max=p.max_depenetration_velocity)
+    qt = q + 0.1 * (u(k, m.nq) - 0.5)
+    return q, qd, qt, nt
+
+
+def conditioned(env, s, names, q, qd, qt, dyn_rows, terrain, p, wre):
+    """Per env: the cap-boundary keys of every slice differ by more than
+    KEY_GAP, no candidate lies within MARGIN_GAP of the margin, no joint
+    crosses a limit during the step or lies within LIMIT_GAP of one at its
+    start or end (a limit switches on a stiff spring, a jump the two
+    roundings could take at different slices), and the plain step in
+    float32, from q and from q's base position one ulp up and down, is
+    within COND_TOL of the same in float64, as is the kernel's step from q
+    of its step from q one ulp up (launches that count for no main path).
+    Also returns the active candidates per env in the first slice."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    keys = []
+    terr = None if terrain is None else fused.pack_terrain(fused.terrain_dyn(env.model, terrain, q, qd))
+    zero = torch.zeros(s.nv, q.shape[0], device="cuda")
+    ins = (rows(q), rows(qd), zero, None, rows(qt), dyn_rows, terr)
+    a = fused._step_math_torch(s, p, torch.device("cuda"), names, keys)(*ins, wre)
+    wide = fused._step_math_torch(s, p, torch.device("cuda"), names, dtype=torch.float64)
+    b = wide(*(None if x is None else x.double() for x in ins), wre)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
+    ok = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
+    for sign in (0.0, 1e9, -1e9):
+        if sign:
+            shifted = q.clone()
+            shifted[:, :3] = torch.nextafter(shifted[:, :3], torch.full_like(shifted[:, :3], sign))
+            out = plain(rows(shifted), *ins[1:], wre)
+        else:
+            out = a
+        gap = lambda i: (out[i] - b[i]).abs().amax(0)
+        ok &= (gap(0) < COND_TOL["q"]) & (gap(1) < COND_TOL["qd"])
+        ok &= (gap(2) < COND_TOL["force"]) & (gap(3) < COND_TOL["force"]) & (gap(4) < COND_TOL["force"])
+    # and the kernel's own noise: its step from q and from q one ulp up
+    dyn = None if dyn_rows is None else fused.PackedDyn(names, dyn_rows)
+    run = lambda x: fused.physics_step_fused(env.model, p, x, qd, zero.T, q_target=qt, dyn=dyn, terrain=terr,
+                                             warm_reset_every=wre)
+    shifted = q.clone()
+    shifted[:, :3] = torch.nextafter(shifted[:, :3], torch.full_like(shifted[:, :3], 1e9))
+    k0, k1 = run(q), run(shifted)
+    ok &= ((k0.q - k1.q).abs().amax(1) < COND_TOL["q"]) & ((k0.qd - k1.qd).abs().amax(1) < COND_TOL["qd"])
+    for f in ("body_force", "body_torque", "dof_force"):
+        d = (getattr(k0, f) - getattr(k1, f)).abs()
+        ok &= d.reshape(d.shape[0], -1).amax(1) < COND_TOL["force"]
+    m, dofs = env.model, env.dof_q_idx
+    lim = torch.tensor(np.asarray(m.dof_limited)[env.dof_idx.cpu().numpy()], device="cuda") > 0
+    lo = torch.tensor(np.asarray(m.dof_limit_lower)[env.dof_idx.cpu().numpy()], device="cuda")
+    hi = torch.tensor(np.asarray(m.dof_limit_upper)[env.dof_idx.cpu().numpy()], device="cuda")
+    start, end = q[:, dofs], a[0].T[:, dofs]
+    near = lambda x: torch.minimum((x - lo).abs(), (x - hi).abs())
+    crossed = ((start > hi) != (end > hi)) | ((start < lo) != (end < lo))
+    ok &= ~torch.any(lim & (crossed | (near(start) < LIMIT_GAP) | (near(end) < LIMIT_GAP)), dim=1)
+    cap = fused.topk_cap(s, p)
+    for phi, key in keys:
+        ok &= (phi + p.contact_margin).abs().amin(0) > MARGIN_GAP
+        if cap:
+            srt = torch.sort(key, 0, descending=True).values
+            ok &= (srt[cap - 1] - srt[cap] > KEY_GAP) | (srt[cap - 1] < -1e29)
+    active = (keys[0][0] > -p.contact_margin).sum(0)
+    return ok, active, terr
+
+
+def anymal_inputs(key: str, env, n: int, seed: int):
+    """Comparison inputs at n envs that pass `conditioned`: (q, qd, q_target,
+    packed per-env leaves or None, terrain planes or None, the moved terrain
+    or None), with the count of redrawn candidates and of envs past the cap."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    s = fused._extract(env.model)
+    p, wre = physics_args(env)
+    terrain = moved_terrain(env) if env.terrain is not None else None
+    q, qd, qt, nt = anymal_pool(env, n, seed, terrain)
+    k = q.shape[0]
+    names = env.randomizer.batched_leaf_names() if env.randomizer is not None else set()
+    dyn = None
+    if names:
+        # per-env contact friction, as the setup-only draw gives it (factor 0.5-1.25)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        fr = torch.tensor(np.asarray(env.model.cpoint_friction), device="cuda")
+        dyn = fused.pack_dyn(s, {"cpoint_friction": fr * (0.5 + 0.75 * torch.rand(k, s.ncp_model, generator=g, device="cuda"))})
+    ok, active, _ = conditioned(env, s, dyn.names if dyn is not None else (), q, qd, qt,
+                                None if dyn is None else dyn.rows, terrain, p, wre)
+    idx = torch.arange(k, device="cuda")
+    tumbled = idx[ok & (idx < nt)][: n // TUMBLED_SHARE]
+    standing = idx[ok & (idx >= nt)][: n - len(tumbled)]
+    pick = torch.cat([tumbled, standing])
+    if len(pick) != n or len(tumbled) == 0:
+        raise AssertionError(f"{key}: only {len(pick)} of {k} candidates are well conditioned ({len(tumbled)} tumbled)")
+    past_cap = int((active[pick] > 20).sum())
+    sel = lambda t: t[pick].contiguous()
+    dyn_n = None if dyn is None else fused.PackedDyn(dyn.names, dyn.rows[:, pick].contiguous())
+    terr = None if terrain is None else fused.pack_terrain(fused.terrain_dyn(env.model, terrain, sel(q), sel(qd)))
+    return (sel(q), sel(qd), sel(qt), dyn_n, terr, terrain), k - int(ok.sum()), past_cap
+
+
+def compare_anymal(key: str) -> float:
+    """The instantiation of `key` against its plain version for one env
+    step's physics call (merged where the task merges) at N=1003 and at
+    full width, in states where the rows act; returns the largest error."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    worst = 0.0
+    for n in (RAGGED_ENVS, ANYMAL_ENVS):
+        env = anymal_env(key, n)
+        (q, qd, qt, dyn, terr, _), redrawn, past_cap = anymal_inputs(key, env, n, seed=31)
+        p, wre = physics_args(env)
+        s = fused._extract(env.model)
+        names = dyn.names if dyn is not None else ()
+        zero = torch.zeros(n, s.nv, device="cuda")
+        ko = fused.physics_step_fused(env.model, p, q, qd, zero, q_target=qt, dyn=dyn, warm_reset_every=wre,
+                                      terrain=terr)
+        plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
+        po = plain(rows(q), rows(qd), rows(zero), None, rows(qt), None if dyn is None else dyn.rows, terr, wre)
+        nb = s.nbody
+        ref = {"q": po[0].T, "qd": po[1].T, "body_force": po[2].reshape(3, nb, n).permute(2, 1, 0),
+               "body_torque": po[3].reshape(3, nb, n).permute(2, 1, 0), "dof_force": po[4].T}
+        err = {}
+        for k_, ref_k in ref.items():
+            got = getattr(ko, k_)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{key}: kernel output {k_} is not finite")
+            err[k_] = float((got - ref_k).abs().max())
+        torch.cuda.synchronize()
+        pressed = float((torch.linalg.vector_norm(ko.body_force, dim=-1).amax(1) > 1.0).float().mean())
+        print(f"{key} kernel vs plain, N={n}, one env step ({p.substeps * p.solver_iterations} slices, "
+              f"warm reset every {wre}), {redrawn} candidates redrawn, {past_cap} envs with more than 20 "
+              f"candidates active, contact force in {100 * pressed:.1f} % of envs:", json.dumps(err))
+        bad = {k_: (e, TOL[k_]) for k_, e in err.items() if not e < TOL[k_]}
+        if bad or past_cap == 0 or pressed < 0.75:
+            raise AssertionError(f"{key} kernel disagrees with the plain version at N={n}: {bad}, "
+                                 f"{past_cap} envs past the cap, contact in {pressed:.3f}")
+        worst = max(worst, *err.values())
+    return worst
+
+
+def merged_vs_separate() -> dict:
+    """One merged call (4 slices, warm start reset at each slice) against four
+    separate launches, from the same state: equal on flat ground (bar
+    1e-6, expected 0); on terrain only printed (the planes are sampled once
+    for the merged window, at each launch for the separate ones)."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    out = {}
+    for key in ("AnymalTerrain-plane", "AnymalTerrain"):
+        env = anymal_env(key, ANYMAL_ENVS)
+        (q, qd, qt, dyn, terr, terrain), _, _ = anymal_inputs(key, env, ANYMAL_ENVS, seed=32)
+        zero = torch.zeros_like(qd)
+        merged = fused.physics_step_fused(env.model, env._merged_params, q, qd, zero, q_target=qt, dyn=dyn,
+                                          warm_reset_every=env._warm_reset_every, terrain=terr)
+        qq, qv = q, qd
+        for _ in range(env.control_freq_inv):
+            planes = None if terrain is None else fused.pack_terrain(fused.terrain_dyn(env.model, terrain, qq, qv))
+            sep = fused.physics_step_fused(env.model, env.sim_params, qq, qv, zero, q_target=qt, dyn=dyn,
+                                           terrain=planes)
+            qq, qv = sep.q, sep.qd
+        d = {k: float((getattr(merged, k) - getattr(sep, k)).abs().max()) for k in ("q", "qd", "body_force")}
+        print(f"{key}: merged window vs {env.control_freq_inv} separate launches, max |difference|:", json.dumps(d))
+        if terrain is None and not max(d.values()) < 1e-6:
+            raise AssertionError(f"the merged window differs from separate launches on flat ground: {d}")
+        out[key] = d
+    return out
+
+
+def settle_anymal(steps: int = 30) -> None:
+    """Anymal on flat ground from the default pose under zero actions (PD
+    targets at the default joint angles): over the last 10 of `steps` steps
+    the feet carry 0.9-1.3 x the weight on average, knees and base carry
+    nothing, and the base's height changes by less than 3 cm. The base sinks
+    slowly all the same: with the yaml's 16 APGD iterations the feet creep
+    (PERF.md, section 6)."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    env = anymal_env("Anymal", ANYMAL_ENVS)
+    m, n = env.model, ANYMAL_ENVS
+    state, _ = env.reset(11)
+    state.sim.q[:, env.dof_q_idx] = env.default_dof_pos
+    state.sim.qd.zero_()
+    zero = torch.zeros(n, env.num_acts, device="cuda")
+    shanks = [i for i, nm in enumerate(m.body_names) if "SHANK" in nm]
+    z, fz, knees, base = [], [], 0.0, 0.0
+    for i in range(steps):
+        if i >= steps - 10:
+            # the sensors of the step the env takes next, from the same state
+            _, _, qt = env.compute_force(zero, state.sim.q, state.sim.qd, state.task)
+            out = fused.physics_step_fused(m, env.sim_params, state.sim.q, state.sim.qd,
+                                           torch.zeros(n, m.nv, device="cuda"), q_target=qt)
+            fz.append(out.body_force[:, shanks, 2].sum(1).mean())
+            knees = max(knees, float(torch.linalg.vector_norm(out.body_force[:, env.knee_bodies], dim=-1).max()))
+            base = max(base, float(torch.linalg.vector_norm(out.body_force[:, 0], dim=-1).max()))
+        state, obs, _, done, _ = env.step(state, zero)
+        z.append(state.sim.q[:, 2].clone())
+    ratio = float(torch.stack(fz).mean()) / (float(np.sum(m.body_mass)) * 9.81)
+    zs = torch.stack(z[-10:])
+    drift = float((zs.amax(0) - zs.amin(0)).max())
+    print(f"settled Anymal ({steps} steps x {n} envs): feet fz / weight {ratio:.4f} (mean of the last 10 steps), "
+          f"max knee force {knees:.3f} N, max base force {base:.3f} N, base z {float(z[-1].mean()):.4f} m "
+          f"(from 0.62), largest change over the last 10 steps {drift:.4f} m, {int(done.sum())} envs done")
+    if not 0.9 < ratio < 1.3 or knees > 1.0 or base > 1.0 or not drift < 0.03 or bool(done.any()):
+        raise AssertionError("Anymal did not stand on flat ground")
+
+
+def terrain_types_and_curriculum(steps: int = 100) -> None:
+    """AnymalTerrain spawned on every terrain type at every level under random
+    actions: finite, the base above the local ground after `steps` steps;
+    then a run of 30-step episodes in which half the robots are moved a full
+    cell away from their spawn: levels go up and down."""
+    env = anymal_env("AnymalTerrain", ANYMAL_ENVS)
+    state, _ = env.reset(12)
+    n, dev = ANYMAL_ENVS, "cuda"
+    level = torch.arange(n, device=dev) % env.num_levels
+    ttype = (torch.arange(n, device=dev) // env.num_levels) % env.num_types
+    q, qd, task = env.sample_init(state.rng, n, level=level, ttype=ttype)
+    state.sim.q, state.sim.qd, state.task = q, qd, task
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for _ in range(steps):
+        state, obs, _, _, _ = env.step(state, torch.rand(n, env.num_acts, generator=gen, device=dev) * 2 - 1)
+    q = state.sim.q
+    above = q[:, 2] - env.terrain.sample(q[:, :2])
+    types = len(torch.unique(state.task["type"]))
+    print(f"AnymalTerrain on every terrain type ({types} types x {env.num_levels} levels, {steps} steps): finite "
+          f"{bool(torch.isfinite(q).all() and torch.isfinite(obs).all())}, base above the local ground by "
+          f"{float(above.min()):.4f} to {float(above.max()):.4f} m")
+    if not bool(torch.isfinite(q).all()) or not float(above.min()) > 0.0 or types != env.num_types:
+        raise AssertionError("AnymalTerrain left the terrain or went non-finite")
+    cfg_env = anymal_env("AnymalTerrain", n, overrides=("task.env.episodeLength=30",))
+    state, _ = cfg_env.reset(14)
+    start = state.task["level"].clone()
+    far = state.task["origin"][:, :2] + torch.tensor([cfg_env.grid.env_length, 0.0], device=dev)
+    half = torch.arange(n, device=dev) < n // 2
+    state.sim.q[:, :2] = torch.where(half[:, None], far, state.sim.q[:, :2])
+    first = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    zero = torch.zeros(n, cfg_env.num_acts, device=dev)
+    for _ in range(31):
+        state, _, _, done, _ = cfg_env.step(state, zero)
+        first = torch.where(done & (first < 0), state.task["level"], first)
+    up = int((first > start).sum())
+    down = int(((first >= 0) & (first < start)).sum())
+    print(f"curriculum after one 30-step episode: {up} envs up a level, {down} down, "
+          f"{int((first < 0).sum())} not finished")
+    if not up > 0 or not down > 0:
+        raise AssertionError("the terrain curriculum did not move both ways")
+
+
+def train_anymal_terrain(epochs: int = 4) -> int:
+    """`train.main task=AnymalTerrain` for `epochs` epochs at the yaml's width,
+    a bit-equal restore into a fresh agent, and play. Returns the launches of
+    the training run (one per env step: the merged window)."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    with tempfile.TemporaryDirectory() as runs:
+        args = ["task=AnymalTerrain", f"max_iterations={epochs}", f"+train_dir={runs}"]
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, metrics = train.main(args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        steps = epochs * 24
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v) and k != "mean_episode_return"}
+        if launches != steps or metrics["frames"] != steps * ANYMAL_ENVS or bad:
+            raise AssertionError(f"{launches} launches, {metrics['frames']} frames for {steps} env steps; {bad}")
+        print(f"AnymalTerrain train: {epochs} epochs x {ANYMAL_ENVS} envs in {sec:.2f} s "
+              f"({metrics['frames'] / sec:.1f} env-steps/s with set-up), {launches} launches, "
+              f"mean terrain level {metrics['env/terrain_level']:.3f}")
+        ckpt = os.path.join(runs, "AnymalTerrain", "nn", "last_AnymalTerrain.pth")
+        epoch = restored_bit_equal("AnymalTerrain", args, ckpt, ts, epochs).pop()
+        played = train.main(["task=AnymalTerrain", "test=True", f"checkpoint={ckpt}"])
+        print(f"AnymalTerrain restore: bit-equal (epoch {epoch}); play: mean return {played:.2f}")
+        if not np.isfinite(played):
+            raise AssertionError("AnymalTerrain play returned a non-finite mean return")
+    return launches
+
+
+def drive_plane(steps: int = 16) -> int:
+    """The top-K instantiation without terrain on its own path: AnymalTerrain
+    with `terrainType: plane` stepped at full width under random actions."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    env = anymal_env("AnymalTerrain-plane", ANYMAL_ENVS)
+    state, _ = env.reset(15)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    torch.cuda.synchronize()
+    _cuda.FusedStepCall.launches = 0
+    for _ in range(steps):
+        state, obs, _, _, _ = env.step(state, torch.rand(ANYMAL_ENVS, 12, generator=gen, device="cuda") * 2 - 1)
+    torch.cuda.synchronize()
+    launches = _cuda.FusedStepCall.launches
+    print(f"AnymalTerrain terrainType=plane: {steps} env steps x {ANYMAL_ENVS} envs, {launches} launches")
+    if launches != steps or not bool(torch.isfinite(obs).all()):
+        raise AssertionError(f"plane variant: {launches} launches for {steps} steps, or observations not finite")
+    return launches
+
+
+def time_anymal(key: str, card: str) -> dict:
+    """`kernel_times` of the instantiation of `key` at full width for one env
+    step's physics call, in comparison states."""
+    env = anymal_env(key, ANYMAL_ENVS)
+    (q, qd, qt, dyn, terr, _), _, _ = anymal_inputs(key, env, ANYMAL_ENVS, seed=33)
+    p, wre = physics_args(env)
+    holder = type("Holder", (), {"model": env.model, "sim_params": p})()
+    return kernel_times(holder, rows(q), rows(qd), rows(torch.zeros_like(qd)), None, card, reps=30,
+                        qt=rows(qt), dyn=dyn, terr=terr, wre=wre)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -898,8 +1342,17 @@ def main() -> int:
     built = {"Ant": (env, ()), "Cartpole": (cart, ()),
              **{k: case(k, 8) for k in CASES}}
     sizes = {t: _cuda.sizes_of(fused._extract(e.model), e.use_pd_targets, names) for t, (e, names) in built.items()}
+    for k in ANYMAL_CASES:  # the per-env leaves of their own DR, the cap and terrain of their yaml
+        e = anymal_env(k, 8)
+        se = fused._extract(e.model)
+        names = fused.dyn_names(se, e.randomizer.batched_leaf_names()) if e.randomizer is not None else ()
+        built[k] = (e, names)
+        sizes[k] = _cuda.sizes_of(se, True, names, fused.topk_cap(se, physics_args(e)[0]), e.terrain is not None)
     if sizes["Quadcopter"][3] <= 32 or sizes["BallBalance"][4:7] != (1, 3, 1) or sizes["Example"][4] != 3 \
-            or sizes["Ant+yaml"][7:] != (0, 115, 0, 0) or sizes["Tendon+all"][7:] != (1, 65535, 10, 3) \
+            or sizes["Ant+yaml"][7:] != (0, 115, 0, 0, 0, 0) or sizes["Tendon+all"][7:] != (1, 65535, 10, 3, 0, 0) \
+            or sizes["Anymal"] != (13, 19, 18, 44, 0, 0, 1, 0, 0, 0, 0, 0, 0) \
+            or sizes["AnymalTerrain"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 1) \
+            or sizes["AnymalTerrain-plane"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 0) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -914,7 +1367,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s in all; " + ", ".join(
         f"{t} {'_'.join(map(str, sz))} {sec:.1f} s" for (t, sz), sec in zip(sizes.items(), secs)))
     for t, (e, names) in built.items():
-        _, step = fused._prepared(e.model, e.sim_params, torch.device("cuda"), e.use_pd_targets, names)
+        p_t = physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
+        has_t = getattr(e, "terrain", None) is not None
+        _, step = fused._prepared(e.model, p_t, torch.device("cuda"), e.use_pd_targets, names, has_t)
         print(f"shared memory per block, {t}: {step.smem_bytes} bytes ({_cuda.ENVS_PER_BLOCK} envs), "
               f"{step.dyn_rows} per-env rows")
 
@@ -1031,13 +1486,35 @@ def main() -> int:
     dyn_launches["Ant+yaml"] = train_epochs("Ant", overrides=("task.randomize=True",)) + train_ant_randomized()
     dyn_launches.update({f"{t}+dr": n for t, n in step_randomized_tasks().items()})
 
-    if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values())) \
-            or set(dyn_launches) != set(DYN_CASES):
+    # 17. Anymal and AnymalTerrain: the three instantiations against their plain versions
+    anymal_err = {k: compare_anymal(k) for k in ANYMAL_CASES}
+    # 18. one merged window against four separate launches
+    merged_vs_separate()
+    # 19. physical checks: standing on flat ground, every terrain type, the curriculum
+    settle_anymal()
+    terrain_types_and_curriculum()
+    # 20. the training path at full width: 1 + 3 epochs each, AnymalTerrain through train.main, the plane variant
+    anymal_launches = {
+        "Anymal": train_epochs("Anymal", (ANYMAL_ENVS, 24, 98304, 32768, 5), profile=False),
+        "AnymalTerrain": train_epochs("AnymalTerrain", (ANYMAL_ENVS, 24, 98304, 16384, 5)),
+    }
+    ops_terrain = profile_env_step(anymal_env("AnymalTerrain", ANYMAL_ENVS), label="AnymalTerrain env.step")
+    print(f"device ops per AnymalTerrain env step: {ops_terrain:.1f}")
+    anymal_launches["AnymalTerrain"] += train_anymal_terrain()
+    anymal_launches["AnymalTerrain-plane"] = drive_plane()
+    # 21. kernel times at full width
+    anymal_t = {k: time_anymal(k, name) for k in ANYMAL_CASES}
+
+    if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
+                            *anymal_launches.values())) \
+            or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
     replaces = "isaacgymenvs_tpu/engine/fused.py:1834"
     names = {"Ingenuity": "fused_step_ingenuity", "Quadcopter": "fused_step_quadcopter_qt",
              "BallBalance": "fused_step_ballbalance_k4_qt", "Example": "fused_step_example_k4"}
+    anymal_names = {"Anymal": "fused_step_anymal_qt", "AnymalTerrain": "fused_step_anymal_terrain_k5_k6_qt_dyn",
+                    "AnymalTerrain-plane": "fused_step_anymal_plane_k5_qt_dyn"}
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "max_abs_err": max_err,
@@ -1053,6 +1530,10 @@ def main() -> int:
            "replaces": replaces, "launches": dyn_launches[k], "max_abs_err": dyn_err[k], **dyn_t[k],
            "library_ms": None, "num_envs": DYN_CASES[k][2], "sizes": list(sizes[k]),
            "per_env_leaves": list(built[k][1])} for k in DYN_CASES),
+        *({"name": anymal_names[k], "route": "cuda", "source": source, "replaces": replaces,
+           "launches": anymal_launches[k], "max_abs_err": anymal_err[k], **anymal_t[k], "library_ms": None,
+           "num_envs": ANYMAL_ENVS, "sizes": list(sizes[k]), "per_env_leaves": list(built[k][1])}
+          for k in ANYMAL_CASES),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

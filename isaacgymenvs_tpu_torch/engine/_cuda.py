@@ -3,8 +3,9 @@
 `csrc/fused_step.cu` is compiled with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, one library per model size tuple
 (nbody, nq, nv, plane rows, pair rows, anchors, q_target input or not,
-tendons, the set of per-env leaves as a bitmask, and the model's candidate
-point and geom counts where a per-env leaf indexes them), at first use,
+tendons, the set of per-env leaves as a bitmask, the model's candidate
+point and geom counts where a per-env leaf indexes them, the top-K cap, and
+terrain planes or not), at first use,
 into `isaacgymenvs_tpu_torch/_build/` (listed in .gitignore).
 Without any row it is the contact-free instantiation (`-DFS_NC=0`): the
 same source with every contact stage compiled out. The library name carries
@@ -51,25 +52,27 @@ def nvcc() -> str:
     return path
 
 
-def sizes_of(s, has_qt: bool = False, names: tuple = ()) -> tuple:
+def sizes_of(s, has_qt: bool = False, names: tuple = (), cap: int = 0, has_terr: bool = False) -> tuple:
     """The size tuple of a model's kernel instantiation: (nbody, nq, nv,
     plane rows, pair rows, anchors, 1 with a q_target input, tendons, the
-    per-env leaves `names` as a bitmask (`fused.dyn_mask`), and the model's
+    per-env leaves `names` as a bitmask (`fused.dyn_mask`), the model's
     candidate-point and geom counts, 0 unless a per-env leaf of `names` is
-    laid out over them)."""
+    laid out over them, the top-K cap (`fused.topk_cap`, 0 without), and 1
+    with terrain planes)."""
     from .fused import dyn_mask
 
     ncp = s.ncp_model if any(k.startswith("cpoint_") for k in names) else 0
     ngeom = s.ngeom if "geom_size" in names else 0
     return (s.nbody, s.nq, s.nv, s.nc, s.pp_nc, s.att_n, int(bool(has_qt)), s.nt,
-            dyn_mask(names), ncp, ngeom)
+            dyn_mask(names), ncp, ngeom, int(cap), int(bool(has_terr)))
 
 
 def _defines(sizes) -> list:
-    nb, nq, nv, nc, npp, natt, qt, nt, dyn, ncp, ngeom = sizes
+    nb, nq, nv, nc, npp, natt, qt, nt, dyn, ncp, ngeom, cap, terr = sizes
     return [f"-DFS_NB={nb}", f"-DFS_NQ={nq}", f"-DFS_NV={nv}", f"-DFS_NC={nc}",
             f"-DFS_NPP={npp}", f"-DFS_NATT={natt}", f"-DFS_QT={qt}", f"-DFS_NT={nt}",
-            f"-DFS_DYN={dyn}", f"-DFS_NCP={ncp}", f"-DFS_NG={ngeom}", f"-DFS_EPB={ENVS_PER_BLOCK}"]
+            f"-DFS_DYN={dyn}", f"-DFS_NCP={ncp}", f"-DFS_NG={ngeom}", f"-DFS_CAP={cap}",
+            f"-DFS_TERR={terr}", f"-DFS_EPB={ENVS_PER_BLOCK}"]
 
 
 def library_path(sizes) -> str:
@@ -111,7 +114,7 @@ def load(sizes):
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.fused_step_layout.restype = ci
-            lib.fused_step_launch.argtypes = [vp] * 12 + [ci, ci, ci, ci, vp]
+            lib.fused_step_launch.argtypes = [vp] * 13 + [ci] * 5 + [vp]
             lib.fused_step_launch.restype = ci
             _libs[tuple(sizes)] = lib
     return lib
@@ -120,7 +123,7 @@ def load(sizes):
 def layout(lib) -> tuple:
     """The compiled-in size tuple (see `sizes_of`) followed by spec_base,
     env_floats, envs_per_block and the rows of the packed per-env input."""
-    out = (ctypes.c_int * 15)()
+    out = (ctypes.c_int * 17)()
     lib.fused_step_layout(out)
     return tuple(out)
 
@@ -177,7 +180,7 @@ def pack_spec(s, p: SimParams, betas) -> np.ndarray:
 _CROSS, _QMUL, _QROT, _QNORM, _QEXP = 9, 28, 30, 14, 14
 
 
-def kernel_flops(s, p: SimParams) -> int:
+def kernel_flops(s, p: SimParams, has_terr: bool = False) -> int:
     """Floating-point operations one env-step needs, counted from the
     step's algorithm at what the function requires (multiply-add = 2).
 
@@ -192,13 +195,22 @@ def kernel_flops(s, p: SimParams) -> int:
     Jacobian and force, an anchor its point and error drive. A tendon adds
     its length and rate (two dot products over the dofs), its force, and that
     force times its coefficients. Per-env leaves change where a constant is
-    read, not the count. Without any
+    read, not the count. A terrain plane row adds its depth along the
+    plane's normal and the rotation of its Jacobian into the plane's frame.
+    With a top-K cap every row is formed with its J qd_free, each contact's
+    key is compared with every other one, and only the cap contacts in the
+    solve take W = M^-1 J, their scale, the Lipschitz sums, the APGD and the
+    impulse. Without any
     contact the step ends after qd_free with the velocity clip and the
     integration: no rows, solve, impulse or sensors.
     """
+    from .fused import topk_cap
+
     nb, nv, nc, npp, natt = s.nbody, s.nv, s.nc, s.pp_nc, s.att_n
     nct = nc + npp + natt
-    r = 3 * nct
+    cap = topk_cap(s, p)
+    nce = cap or nct  # contacts in the solve
+    r, rs = 3 * nct, 3 * nce
     it = p.solver_apgd_iterations
     jt = np.asarray(s.jnt_type)
     n_free, n_hinge = int(np.sum(jt == 0)), int(np.sum((jt == 1) | (jt == 2)))
@@ -213,7 +225,11 @@ def kernel_flops(s, p: SimParams) -> int:
     per_dof = int(np.sum(6 * subtree[np.asarray(s.dof_body)])) + nv * 42 + s.nt * (6 * nv + 6)
     inverse = 2 * nv ** 3 + nv * nv + nv
     qd_free = 2 * nv * nv + 2 * nv
-    rows = nc * (_QROT + 4 + 3 * nv * 5 + 3 + 10) + r * (2 * nv * nv + 4 * nv)
+    # every row: its Jacobian and J qd_free; the rows in the solve: W and the diagonal
+    rows = nc * (_QROT + 4 + 3 * nv * 5 + 3 + 10) + r * 2 * nv + rs * (2 * nv * nv + 2 * nv)
+    if has_terr:
+        rows += nc * (2 + 3 * nv * 5)
+    select = nct * 4 + 2 * nct * nct if cap else 0
     # pair row: point and geom pose in the world, the point in the geom's
     # frame, narrowphase, normal and surface point back to the world, tangent
     # basis, world Jacobian rotated into the frame, velocity target
@@ -223,12 +239,12 @@ def kernel_flops(s, p: SimParams) -> int:
                    + 3 * nv * 5 + 3 * nv * 5 + 13) + narrow
     # anchor: its point, the error drive on three axes, world Jacobian
     rows += natt * (_QROT + 3 + 9 + 3 * nv * 5)
-    lipschitz = (r * (r + 1) // 2) * (2 * nv + 2) + r * r + 4 * r
-    apgd = nct * (3 + 13) + it * (4 * r * nv + 10 * r + 15 * nct)
+    lipschitz = (rs * (rs + 1) // 2) * (2 * nv + 2) + rs * rs + 4 * rs
+    apgd = nce * (3 + 13) + it * (4 * rs * nv + 10 * rs + 15 * nce)
     # with contacts: J^T lambda, M^-1 of it, the add and the clip; without: the clip
-    impulse = r + 2 * r * nv + 2 * nv * nv + 3 * nv if nct else 2 * nv
+    impulse = rs + 2 * rs * nv + 2 * nv * nv + 3 * nv if nct else 2 * nv
     integrate = n_free * (6 + 3 + _QEXP + 2 * _QNORM + _QMUL) + n_hinge * 2
-    per_slice = (fk + inertia_net + composite + crba + per_dof + inverse + qd_free + rows
+    per_slice = (fk + inertia_net + composite + crba + per_dof + inverse + qd_free + rows + select
                  + lipschitz + apgd + impulse + integrate)
     # per contact force, arm and torque, summed per body; a pair row also
     # turns its force to world axes and takes a second arm for the geom's body
@@ -236,13 +252,14 @@ def kernel_flops(s, p: SimParams) -> int:
     return int(p.substeps * p.solver_iterations * per_slice + sensors)
 
 
-def kernel_bytes(s, n_env: int, has_xfrc: bool, has_qt: bool = False, names: tuple = ()) -> int:
+def kernel_bytes(s, n_env: int, has_xfrc: bool, has_qt: bool = False, names: tuple = (),
+                 has_terr: bool = False) -> int:
     """Boundary traffic of one launch: inputs read once (the per-env leaves
-    `names` among them), outputs written once."""
+    `names` and the terrain planes among them), outputs written once."""
     from .fused import dyn_rows
 
     rows_in = s.nq + 2 * s.nv + (6 * s.nbody if has_xfrc else 0) + (s.nq if has_qt else 0)
-    rows_in += sum(dyn_rows(s)[k] for k in names)
+    rows_in += sum(dyn_rows(s)[k] for k in names) + (10 * s.nc if has_terr else 0)
     rows_out = s.nq + s.nv + 6 * s.nbody + s.nv
     return 4 * n_env * (rows_in + rows_out)
 
@@ -257,15 +274,16 @@ class FusedStepCall:
     launches = 0
 
     def __init__(self, s, params: SimParams, betas, device: torch.device, has_qt: bool = False,
-                 names: tuple = ()):
-        from .fused import dyn_rows
+                 names: tuple = (), has_terr: bool = False):
+        from .fused import dyn_rows, topk_cap
 
         if device.type != "cuda":
             raise ValueError(f"FusedStepCall needs a CUDA device, got {device}")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        self.sizes = sizes_of(s, has_qt, names)
+        self.sizes = sizes_of(s, has_qt, names, topk_cap(s, params), has_terr)
         self.has_qt = bool(has_qt)
+        self.has_terr = bool(has_terr)
         self.names = tuple(names)
         self.dyn_rows = sum(dyn_rows(s)[k] for k in names)
         self.lib = load(self.sizes)
@@ -284,13 +302,16 @@ class FusedStepCall:
         self.device = device
         self.s = s
 
-    def __call__(self, q, qd, qfrc, xfrc, q_target=None, dyn=None):
+    def __call__(self, q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None, warm_reset_every=0):
         s, n = self.s, q.shape[-1]
         if (q_target is not None) != self.has_qt:
             raise ValueError("this kernel instantiation was built {} a q_target input".format(
                 "with" if self.has_qt else "without"))
         if (dyn is not None) != bool(self.names):
             raise ValueError(f"this kernel instantiation was built for the per-env leaves {self.names}")
+        if (terr is not None) != self.has_terr:
+            raise ValueError("this kernel instantiation was built {} terrain planes".format(
+                "with" if self.has_terr else "without"))
         ins = [(q, s.nq), (qd, s.nv), (qfrc, s.nv)]
         if xfrc is not None:
             ins.append((xfrc, 6 * s.nbody))
@@ -298,6 +319,8 @@ class FusedStepCall:
             ins.append((q_target, s.nq))
         if dyn is not None:
             ins.append((dyn, self.dyn_rows))
+        if terr is not None:
+            ins.append((terr, 10 * s.nc))
         for t, rows in ins:
             if t.device != self.device or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError("fused step inputs must be contiguous float32 on the kernel's device")
@@ -309,10 +332,10 @@ class FusedStepCall:
         ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         rc = self.lib.fused_step_launch(
-            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc), ptr(q_target), ptr(dyn),
+            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc), ptr(q_target), ptr(dyn), ptr(terr),
             ptr(q2), ptr(qd2), ptr(bf), ptr(bt), ptr(df),
             ptr(self.spec), int(self.spec.numel()), int(n), int(self.n_slices),
-            int(self.iters), ctypes.c_void_p(stream),
+            int(self.iters), int(warm_reset_every), ctypes.c_void_p(stream),
         )
         if rc != 0:
             raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")

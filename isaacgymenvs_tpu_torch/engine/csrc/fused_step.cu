@@ -9,7 +9,12 @@
 // solve as the plane rows), fixed tendons (-DFS_NT, fused.py:803-819) and K3
 // (per-env model leaves and per-env gravity, -DFS_DYN=<bitmask>,
 // fused.py:1693-1707: one packed (rows, N) input, see "Per-env leaves"
-// below). Built with no rows at all it is the
+// below), K5 (the top-K active set, -DFS_CAP=<cap>, fused.py:1252-1350 and
+// :1422-1435, see "Top-K" below), K6 terrain rows (-DFS_TERR=1,
+// fused.py:889-907: plane rows against per-env entry-sampled planes, see
+// "Terrain rows" below) and merged decimation windows (the runtime argument
+// `warm_reset_every`, fused.py:1547-1561: the warm start resets at slice i
+// when i is a non-zero multiple of it). Built with no rows at all it is the
 // contact-free instantiation of K1
 // (the `nct == 0` finish of `substep`, fused.py:846-855): qd_free, the
 // velocity clip, integration, and zero force outputs; every contact stage
@@ -37,7 +42,8 @@
 // companion matrix (twice the needed Gauss-Jordan work).
 //
 // Design. Sizes (nbody, nq, nv, plane rows, pair rows, anchors, q_target or
-// not, tendons, the per-env leaf set) are compile-time constants (-DFS_NB ..), one library per size tuple; the body tree, the model constants and the
+// not, tendons, the per-env leaf set, the top-K cap, terrain or not) are
+// compile-time constants (-DFS_NB ..), one library per size tuple; the body tree, the model constants and the
 // solver parameters come in a small float buffer that each block copies to
 // shared memory. A warp owns one env: its state, J, W = M^-1 J and M^-1 stay
 // in shared memory (~16 KB for Ant) across all slices and APGD iterations.
@@ -63,6 +69,30 @@
 // row's point body and -F to its geom body, each with its own torque arm;
 // every (component, body) output is summed by one lane, without atomics.
 //
+// Terrain rows. With -DFS_TERR=1 a plane row stands against its own plane:
+// a (10 NC, N) input holds, per candidate point, the ground height h under
+// it and the plane's normal n and tangents t1, t2 (world), sampled outside
+// at the call's entry pose (fused.terrain_dyn) and held for all of the
+// call's slices, as the TPU kernel holds them. phi = radius - (z - h) n_z,
+// and the row's world Jacobian is rotated into [t1, t2, n] the way a pair
+// row's is. The sensors keep the TPU kernel's convention for plane rows:
+// the impulses are summed as world components, unrotated.
+//
+// Top-K. With -DFS_CAP=<cap> below the contact count only `cap` contacts
+// enter the solve: those of the largest predicted depth phi - min(v_n, 0) h
+// (v_n the unscaled normal row times qd_free; anchors first, inactive rows
+// last), ties to the lower index, lax.top_k's order. The contact pass is
+// split in two: the first forms every row's Jacobian, phi and J qd_free and
+// parks the keys in shared memory; each lane then counts, for its contacts,
+// the keys that beat them (rank < cap: selected); the second pass forms
+// W = M^-1 J and the Jacobi scale of the selected contacts only. The
+// Delassus system is never stored, so nothing is gathered: an unselected
+// contact is inactive (its impulse and warm start are zero, as the TPU
+// kernel's scatter of zeros off the set), its rows enter no matvec, and the
+// Lipschitz row sums run over selected rows and columns. When fewer than
+// cap rows are active, inactive fillers take the remaining slots by index
+// and count in the Lipschitz bound, as they do on the TPU.
+//
 // Per-env leaves. Where the TPU kernel takes one operand per randomized
 // model leaf and swaps a constant for it at trace time, this kernel takes
 // one packed (DYN_ROWS, N) input: the leaves of the compile-time set FS_DYN
@@ -84,7 +114,7 @@
 #include <cuda_runtime.h>
 
 #ifndef FS_NB
-#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts> [-DFS_NPP=<pair rows> -DFS_NATT=<anchors> -DFS_QT=1 -DFS_NT=<tendons> -DFS_DYN=<leaf bitmask> -DFS_NCP=<model cpoints> -DFS_NG=<model geoms>]"
+#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts> [-DFS_NPP=<pair rows> -DFS_NATT=<anchors> -DFS_QT=1 -DFS_NT=<tendons> -DFS_DYN=<leaf bitmask> -DFS_NCP=<model cpoints> -DFS_NG=<model geoms> -DFS_CAP=<top-K cap> -DFS_TERR=1]"
 #endif
 #ifndef FS_EPB
 #define FS_EPB 4
@@ -110,6 +140,12 @@
 #ifndef FS_NG
 #define FS_NG 0  // geoms of the model (the per-env geom_size leaf indexes them)
 #endif
+#ifndef FS_CAP
+#define FS_CAP 0  // top-K: contacts in the solve (0: all of them)
+#endif
+#ifndef FS_TERR
+#define FS_TERR 0  // 1: plane rows read per-env terrain planes from a (10 NC, N) input
+#endif
 
 namespace {
 
@@ -125,7 +161,12 @@ constexpr int NCT = NUNI + NATT;
 constexpr int R = 3 * NCT;
 constexpr int CPL = (NCT + 31) / 32;  // contacts per lane
 constexpr int CPLA = CPL > 0 ? CPL : 1;  // size of the per-lane contact arrays (none of length 0)
+constexpr int CAP = FS_CAP;
+constexpr bool TOPK = CAP > 0;
+constexpr bool TERR = FS_TERR != 0;
 static_assert(NC >= 0 && NPP >= 0 && NATT >= 0, "negative contact count");
+static_assert(!TOPK || (CAP < NCT && CAP > NATT), "the cap must lie below the contacts and above the anchors");
+static_assert(!TERR || NC > 0, "terrain planes need plane rows");
 static_assert(NV > 0 && NB > 0, "empty model");
 
 constexpr int FREE = 0, HINGE = 1, SLIDE = 2;
@@ -264,7 +305,10 @@ static_assert(!H_GSIZE || NG > 0, "the per-env geom_size leaf needs -DFS_NG=<mod
 static_assert(NT >= 0 && NCP >= 0 && NG >= 0, "negative count");
 
 constexpr int E_DYN = E_DF + NV;         // (DYN_ROWS,) the env's per-env leaves
-constexpr int ENV_FLOATS = ((E_DYN + DYN_ROWS + 3) / 4) * 4;
+constexpr int E_TERR = E_DYN + DYN_ROWS;  // (10, NC) h, n, t1, t2 per plane row, with TERR
+constexpr int E_KEY = E_TERR + (TERR ? 10 * NC : 0);  // (NCT,) top-K keys, with TOPK
+constexpr int E_SEL = E_KEY + (TOPK ? NCT : 0);       // (NCT,) 1 where a contact is in the solve
+constexpr int ENV_FLOATS = ((E_SEL + (TOPK ? NCT : 0) + 3) / 4) * 4;
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -618,7 +662,7 @@ __device__ void pair_row(const float* __restrict__ sp, const float* __restrict__
 // One env, all slices. `e` is the env's shared-memory block; every lane of
 // the warp calls this.
 __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int lane,
-                        int n_slices, int iters) {
+                        int n_slices, int iters, int warm_reset_every) {
   const float h = sp[P_H], h2 = sp[P_H2], inv_h = sp[P_INVH];
   const float erp = sp[P_ERP], maxdep = sp[P_MAXDEP], margin = sp[P_MARGIN];
   const float bounce_thr = sp[P_BOUNCE], limk = sp[P_LIMK], limd = sp[P_LIMD];
@@ -632,6 +676,11 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
   for (int c = 0; c < CPLA; ++c) warm[c][0] = warm[c][1] = warm[c][2] = 0.f;
 
   for (int sl = 0; sl < n_slices; ++sl) {
+    if (warm_reset_every > 0 && sl > 0 && sl % warm_reset_every == 0) {
+      // a merged window: the warm start resets where a separate call would begin
+#pragma unroll
+      for (int c = 0; c < CPLA; ++c) warm[c][0] = warm[c][1] = warm[c][2] = 0.f;
+    }
     // ---- FK + zeta, level by level over the tree
     for (int lev = 0; lev < nlev; ++lev) {
       for (int b = lane; b < NB; b += 32)
@@ -754,14 +803,16 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
     float xc[CPLA][3], lam[CPLA][3], qcon[NV];
     if constexpr (NCT > 0) {
       // ---- contact rows, a contact per lane: plane rows (frame = world
-      // axes, phi = radius - z), pair rows (narrowphase against the geom,
-      // frame from its normal, Jacobian at the surface point with the
-      // signed path) and anchors (world axes, phi = 0, bilateral)
-      float act[CPLA], mu[CPLA], s_c[CPLA], bv[CPLA][3];
+      // axes, phi = radius - z, or their terrain plane's frame), pair rows
+      // (narrowphase against the geom, frame from its normal, Jacobian at
+      // the surface point with the signed path) and anchors (world axes,
+      // phi = 0, bilateral). First pass: J, phi, J qd_free for every row.
+      float act[CPLA], mu[CPLA], s_c[CPLA], bv[CPLA][3], phic[CPLA];
+      bool sel[CPLA];
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         const int i = lane + 32 * c;
-        act[c] = 0.f; mu[c] = 0.f; s_c[c] = 0.f;
+        act[c] = 0.f; mu[c] = 0.f; s_c[c] = 1.f; phic[c] = 0.f; sel[c] = i < NCT;
         xc[c][0] = xc[c][1] = xc[c][2] = 0.f;
         bv[c][0] = bv[c][1] = bv[c][2] = 0.f;
         if (i < NCT) {
@@ -782,15 +833,28 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
           for (int k = 0; k < 3; ++k) xc[c][k] = e[E_X + 3 * b + k] + rot[k];
           float phi;
           float fr[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
+          bool framed = false;  // rows rotated into fr (else the world axes)
           if (is_pair(i)) {
             const float xw[3] = {xc[c][0], xc[c][1], xc[c][2]};
             pair_row(sp, e, i - NC, xw, sp[O_CPRAD + i], &phi, xc[c], fr, fr + 3, fr + 6);
             for (int k = 0; k < 9; ++k) e[E_FR + 9 * (i - NC) + k] = fr[k];
+            framed = true;
           } else if (is_anchor(i)) {
             phi = 0.f;
+          } else if constexpr (TERR) {
+            // the point's terrain plane: height, then t1, t2, n into fr
+            const float* tr = e + E_TERR;
+            for (int k = 0; k < 3; ++k) {
+              fr[k] = tr[(4 + k) * NC + i];
+              fr[3 + k] = tr[(7 + k) * NC + i];
+              fr[6 + k] = tr[(1 + k) * NC + i];
+            }
+            phi = sp[O_CPRAD + i] - (xc[c][2] - tr[i]) * fr[8];
+            framed = true;
           } else {
             phi = sp[O_CPRAD + i] - xc[c][2];
           }
+          phic[c] = phi;
           act[c] = phi > -margin ? 1.f : 0.f;
           mu[c] = sp[O_CPMU + i];
           if constexpr (H_CPFRIC) {
@@ -807,25 +871,60 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
               const float crossk = S[a] * xc[c][bb] - S[bb] * xc[c][a];
               jw[k] = (S[3 + k] + crossk) * pm;
             }
-            for (int k = 0; k < 3; ++k)
-              e[E_J + v * R + k * NCT + i] =
-                  is_pair(i) ? fr[3 * k] * jw[0] + fr[3 * k + 1] * jw[1] + fr[3 * k + 2] * jw[2]
-                             : jw[k];
+            const float qdf = e[E_QDF + v];
+            for (int k = 0; k < 3; ++k) {
+              const float jr = framed ? fr[3 * k] * jw[0] + fr[3 * k + 1] * jw[1] + fr[3 * k + 2] * jw[2] : jw[k];
+              e[E_J + v * R + k * NCT + i] = jr;
+              bv[c][k] += jr * qdf;  // J qd_free, unscaled
+            }
           }
-          float vnt = phi > 0.f ? fminf(erp * phi / h, maxdep) : phi / h;
+          if constexpr (TOPK) {
+            // predicted depth; anchors always win a slot, inactive rows fill by index
+            const bool bil = is_anchor(i);
+            float key = phi - fminf(bv[c][2], 0.f) * h;
+            key = bil ? 1e30f : key;
+            e[E_KEY + i] = (act[c] > 0.f || bil) ? key : -1e30f;
+          }
+        }
+      }
+      if constexpr (TOPK) {
+        // ---- selection: a contact's rank is the number of keys that beat
+        // it, ties to the lower index; rank < cap is in the solve
+        __syncwarp();
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int i = lane + 32 * c;
+          if (i < NCT) {
+            const float ki = e[E_KEY + i];
+            int rank = 0;
+            for (int j = 0; j < NCT; ++j) {
+              const float kj = e[E_KEY + j];
+              rank += (kj > ki || (kj == ki && j < i)) ? 1 : 0;
+            }
+            sel[c] = rank < CAP;
+            e[E_SEL + i] = sel[c] ? 1.f : 0.f;
+            if (!sel[c]) act[c] = 0.f;  // no impulse, no warm start
+          }
+        }
+      }
+      __syncwarp();
+      // ---- second pass, contacts in the solve: W = M^-1 J, the velocity
+      // targets (restitution, anchor drive), the Jacobi scale
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int i = lane + 32 * c;
+        if (i < NCT && sel[c]) {
+          const float phi = phic[c];
           float dg[3];
           for (int k = 0; k < 3; ++k) {
             const int r = k * NCT + i;
-            float bb = 0.f, dd = 0.f;
+            float dd = 0.f;
             for (int v = 0; v < NV; ++v) {
               float wv = 0.f;
               for (int jj = 0; jj < NV; ++jj) wv += e[E_MINV + v * NV + jj] * e[E_J + jj * R + r];
               e[E_W + v * R + r] = wv;
-              const float jv = e[E_J + v * R + r];
-              bb += jv * e[E_QDF + v];
-              dd += jv * wv;
+              dd += e[E_J + v * R + r] * wv;
             }
-            bv[c][k] = bb;
             dg[k] = dd;
           }
           if (is_anchor(i)) {
@@ -833,7 +932,10 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
             const float* tgt = sp + O_ATTTGT + 3 * (i - NUNI);
             for (int k = 0; k < 3; ++k) bv[c][k] -= (tgt[k] - xc[c][k]) * ke_att;
           } else {
-            // Newton restitution: bv[c][2] is the pre-solve normal velocity
+            // Baumgarte / approach target, Newton restitution: bv[c][2] is
+            // the pre-solve normal velocity
+            float vnt = phi > 0.f ? fminf(erp * phi / h, maxdep) : phi / h;
+            const int pt = is_pair(i) ? (int)sp[O_PPPT + i - NC] : i;
             const float rest = leaf<H_CPREST, DO_CPREST, O_REST>(sp, e, H_CPREST ? pt : i);
             const float vn_pre = bv[c][2];
             if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
@@ -846,17 +948,21 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
         }
       }
       __syncwarp();
-      // ---- Lipschitz bound of the scaled system: max row sum of |A|
+      // ---- Lipschitz bound of the scaled system: max row sum of |A| over
+      // the rows and columns in the solve
       float lip = 0.f;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         const int i = lane + 32 * c;
-        if (i < NCT) {
+        if (i < NCT && sel[c]) {
           float Jr[3][NV], acc[3] = {0.f, 0.f, 0.f};
           for (int k = 0; k < 3; ++k)
             for (int v = 0; v < NV; ++v) Jr[k][v] = e[E_J + v * R + k * NCT + i];
           for (int kc = 0; kc < 3; ++kc)
             for (int j = 0; j < NCT; ++j) {
+              if constexpr (TOPK) {
+                if (e[E_SEL + j] == 0.f) continue;
+              }
               const int col = kc * NCT + j;
               float Wc[NV];
               for (int v = 0; v < NV; ++v) Wc[v] = e[E_W + v * R + col];
@@ -879,8 +985,7 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         const int i = lane + 32 * c;
-        const float sw = (i < NCT) ? s_c[c] : 1.f;
-        project(warm[c][0] / sw, warm[c][1] / sw, warm[c][2] / sw, mu[c], act[c], is_anchor(i),
+        project(warm[c][0] / s_c[c], warm[c][1] / s_c[c], warm[c][2] / s_c[c], mu[c], act[c], is_anchor(i),
                 lam[c]);
         for (int k = 0; k < 3; ++k) yv[c][k] = lam[c][k];
       }
@@ -890,7 +995,7 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
           const int i = lane + 32 * c;
-          if (i < NCT)
+          if (i < NCT && sel[c])
             for (int k = 0; k < 3; ++k) {
               const float ys = s_c[c] * yv[c][k];
               for (int v = 0; v < NV; ++v) u[v] += e[E_W + v * R + k * NCT + i] * ys;
@@ -902,7 +1007,7 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
         for (int c = 0; c < CPL; ++c) {
           const int i = lane + 32 * c;
           float z[3] = {0.f, 0.f, 0.f};
-          if (i < NCT) {
+          if (i < NCT && sel[c]) {
             const float reg = 1e-6f * (s_c[c] * s_c[c]);
             for (int k = 0; k < 3; ++k) {
               float a = 0.f;
@@ -928,7 +1033,7 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
           lam[c][k] *= s_c[c];
           warm[c][k] = lam[c][k];
         }
-        if (i < NCT)
+        if (i < NCT && sel[c])
           for (int k = 0; k < 3; ++k)
             for (int v = 0; v < NV; ++v) qcon[v] += e[E_J + v * R + k * NCT + i] * lam[c][k];
       }
@@ -1049,10 +1154,10 @@ __global__ void __launch_bounds__(32 * EPB)
 fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
                   const float* __restrict__ qfrc_in, const float* __restrict__ xfrc_in,
                   const float* __restrict__ qt_in, const float* __restrict__ dyn_in,
-                  float* __restrict__ q_out, float* __restrict__ qd_out,
+                  const float* __restrict__ terr_in, float* __restrict__ q_out, float* __restrict__ qd_out,
                   float* __restrict__ bf_out, float* __restrict__ bt_out,
                   float* __restrict__ df_out, const float* __restrict__ spec, int spec_len,
-                  int n_env, int n_slices, int iters) {
+                  int n_env, int n_slices, int iters, int warm_reset_every) {
   extern __shared__ float smem[];
   const int spec_pad = (spec_len + 3) & ~3;
   float* sp = smem;
@@ -1065,9 +1170,10 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
   load_rows(xfrc_in, envs, E_XFRC, 6 * NB, env0, n_env);
   if constexpr (QT) load_rows(qt_in, envs, E_QTGT, NQ, env0, n_env);
   if constexpr (DYN_ROWS > 0) load_rows(dyn_in, envs, E_DYN, DYN_ROWS, env0, n_env);
+  if constexpr (TERR) load_rows(terr_in, envs, E_TERR, 10 * NC, env0, n_env);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (env0 + warp < n_env) run_env(sp, envs + warp * ENV_FLOATS, lane, n_slices, iters);
+  if (env0 + warp < n_env) run_env(sp, envs + warp * ENV_FLOATS, lane, n_slices, iters, warm_reset_every);
   __syncthreads();
   store_rows(q_out, envs, E_Q, NQ, env0, n_env);
   store_rows(qd_out, envs, E_QD, NV, env0, n_env);
@@ -1080,14 +1186,16 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
 
 extern "C" {
 
-// out[0..14] = nbody, nq, nv, plane rows, pair rows, anchors, 1 with a
+// out[0..16] = nbody, nq, nv, plane rows, pair rows, anchors, 1 with a
 // q_target input, tendons, the per-env leaf bitmask, model cpoints and geoms
-// (0 unless a per-env leaf indexes them), spec floats before the betas,
-// per-env shared floats, envs per block, rows of the packed per-env input.
+// (0 unless a per-env leaf indexes them), the top-K cap (0: none), 1 with
+// terrain planes, spec floats before the betas, per-env shared floats, envs
+// per block, rows of the packed per-env input.
 int fused_step_layout(int* out) {
   out[0] = NB; out[1] = NQ; out[2] = NV; out[3] = NC; out[4] = NPP; out[5] = NATT;
   out[6] = QT ? 1 : 0; out[7] = NT; out[8] = (int)DYN; out[9] = NCP; out[10] = NG;
-  out[11] = SPEC_BASE; out[12] = ENV_FLOATS; out[13] = EPB; out[14] = DYN_ROWS;
+  out[11] = CAP; out[12] = TERR ? 1 : 0;
+  out[13] = SPEC_BASE; out[14] = ENV_FLOATS; out[15] = EPB; out[16] = DYN_ROWS;
   return 0;
 }
 
@@ -1095,16 +1203,19 @@ int fused_step_layout(int* out) {
 // row-major; xfrc may be null (no external wrenches); q_target (nq, n_env)
 // is read only by a library built with -DFS_QT=1, which refuses a null one
 // (cudaErrorInvalidValue); dyn (DYN_ROWS, n_env), the packed per-env leaves,
-// likewise by a library built with a non-zero -DFS_DYN. Returns the CUDA
-// error code of the launch (0 on success).
+// likewise by a library built with a non-zero -DFS_DYN, and terr (10 NC,
+// n_env), the terrain planes, by one built with -DFS_TERR=1. With
+// warm_reset_every = k > 0 the contact warm start resets every k slices.
+// Returns the CUDA error code of the launch (0 on success).
 int fused_step_launch(const void* q, const void* qd, const void* qfrc, const void* xfrc,
-                      const void* q_target, const void* dyn, void* q_out, void* qd_out, void* bf_out,
-                      void* bt_out, void* df_out,
+                      const void* q_target, const void* dyn, const void* terr, void* q_out, void* qd_out,
+                      void* bf_out, void* bt_out, void* df_out,
                       const void* spec, int spec_len, int n_env, int n_slices, int iters,
-                      void* stream) {
+                      int warm_reset_every, void* stream) {
   if (n_env <= 0) return 0;
   if (QT && q_target == nullptr) return (int)cudaErrorInvalidValue;
   if (DYN_ROWS > 0 && dyn == nullptr) return (int)cudaErrorInvalidValue;
+  if (TERR && terr == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes = sizeof(float) * (size_t)(((spec_len + 3) & ~3) + EPB * ENV_FLOATS);
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1112,9 +1223,9 @@ int fused_step_launch(const void* q, const void* qd, const void* qfrc, const voi
   const int grid = (n_env + EPB - 1) / EPB;
   fused_step_kernel<<<grid, 32 * EPB, bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)qd, (const float*)qfrc, (const float*)xfrc,
-      (const float*)q_target, (const float*)dyn, (float*)q_out, (float*)qd_out, (float*)bf_out,
-      (float*)bt_out, (float*)df_out,
-      (const float*)spec, spec_len, n_env, n_slices, iters);
+      (const float*)q_target, (const float*)dyn, (const float*)terr, (float*)q_out, (float*)qd_out,
+      (float*)bf_out, (float*)bt_out, (float*)df_out,
+      (const float*)spec, spec_len, n_env, n_slices, iters, warm_reset_every);
   return (int)cudaGetLastError();
 }
 

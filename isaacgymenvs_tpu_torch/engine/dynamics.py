@@ -42,6 +42,89 @@ class SimParams:
     max_dof_velocity: float = 1000.0
 
 
+class Terrain:
+    """Static heightfield the ground plane generalizes to: a dense (rows,
+    cols) float32 height grid on the device and bilinear lookups of it.
+    Grid index (i, j) sits at world xy = origin + horizontal_scale * (i, j);
+    a point off the grid takes the value at its border.
+
+    `sample` / `sample_grad` read the whole grid. `sample_patch` /
+    `sample_grad_patch` give the JAX package's patch lookups the same
+    values: each env's points are read from a (P, P) window around its
+    centre, and a point more than about P/2 cells away is clamped to the
+    window's edge. The JAX package contracts the window with dense tent
+    weights (no gathers on the TPU); here four corner gathers per point
+    compute the same function of the same inputs.
+    """
+
+    def __init__(self, height, horizontal_scale: float = 0.1, origin=(0.0, 0.0)):
+        self.height = torch.as_tensor(height, dtype=torch.float32)
+        self.horizontal_scale = float(horizontal_scale)
+        self.origin = torch.as_tensor(origin, dtype=torch.float32, device=self.height.device)
+
+    def to(self, device) -> "Terrain":
+        return Terrain(self.height.to(device), self.horizontal_scale, self.origin.to(device))
+
+    def _grid(self, xy):
+        """Grid coordinates of world xy (..., 2), clamped onto the grid."""
+        rows, cols = self.height.shape
+        g = (xy - self.origin) / self.horizontal_scale
+        return torch.clamp(g[..., 0], 0.0, rows - 1.001), torch.clamp(g[..., 1], 0.0, cols - 1.001)
+
+    def _corners(self, x0, y0):
+        """Heights at the four corners of the cells whose low corner is (x0, y0)."""
+        cols = self.height.shape[1]
+        flat = self.height.reshape(-1)
+        base = x0 * cols + y0
+        return flat[base], flat[base + cols], flat[base + 1], flat[base + cols + 1]
+
+    def _bilinear(self, x0, y0, fx, fy, grad: bool):
+        h00, h10, h01, h11 = self._corners(x0, y0)
+        h = h00 * (1 - fx) * (1 - fy) + h10 * fx * (1 - fy) + h01 * (1 - fx) * fy + h11 * fx * fy
+        if not grad:
+            return h
+        # the normal is the exact gradient of the bilinear interpolant
+        inv = 1.0 / self.horizontal_scale
+        dhdx = ((h10 - h00) * (1 - fy) + (h11 - h01) * fy) * inv
+        dhdy = ((h01 - h00) * (1 - fx) + (h11 - h10) * fx) * inv
+        n = torch.stack([-dhdx, -dhdy, torch.ones_like(dhdx)], dim=-1)
+        return h, n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+
+    def _full(self, xy, grad: bool):
+        gx, gy = self._grid(xy)
+        x0, y0 = torch.floor(gx), torch.floor(gy)
+        return self._bilinear(x0.long(), y0.long(), gx - x0, gy - y0, grad)
+
+    def _patch(self, center_xy, pts_xy, P: int, grad: bool):
+        rows, cols = self.height.shape
+        g = (center_xy - self.origin) / self.horizontal_scale  # (N, 2)
+        sx = torch.clamp(torch.round(g[..., 0]).long() - P // 2, 0, max(rows - P, 0))[..., None]
+        sy = torch.clamp(torch.round(g[..., 1]).long() - P // 2, 0, max(cols - P, 0))[..., None]
+        gx, gy = self._grid(pts_xy)  # (N, K)
+        # window coordinates; a point outside the window takes its edge value
+        lx = torch.clamp(gx - sx, 0.0, P - 1.001)
+        ly = torch.clamp(gy - sy, 0.0, P - 1.001)
+        x0, y0 = torch.floor(lx), torch.floor(ly)
+        return self._bilinear(x0.long() + sx, y0.long() + sy, lx - x0, ly - y0, grad)
+
+    def sample(self, xy):
+        """Bilinear height at world xy (..., 2)."""
+        return self._full(xy, False)
+
+    def sample_grad(self, xy):
+        """Height and unit surface normal (..., 3) at world xy (..., 2)."""
+        return self._full(xy, True)
+
+    def sample_patch(self, center_xy, pts_xy, P: int = 32):
+        """Heights of points (N, K, 2) read from a (P, P) window around each
+        env's centre (N, 2)."""
+        return self._patch(center_xy, pts_xy, P, False)
+
+    def sample_grad_patch(self, center_xy, pts_xy, P: int = 32):
+        """Heights and normals, patch variant of `sample_grad`."""
+        return self._patch(center_xy, pts_xy, P, True)
+
+
 @dataclasses.dataclass
 class SimState:
     """Generalized state, env-leading: q (N, nq), qd (N, nv)."""

@@ -5,9 +5,9 @@ one physics step (all `substeps x solver_iterations` slices):
 
   FK -> spatial inertia -> CRBA mass matrix -> bias force (+ xfrc) ->
   implicit passive forces -> Gauss-Jordan inverse -> plane contact rows
-  (Baumgarte, restitution) -> Delassus J^T M^-1 J -> Jacobi scaling ->
-  APGD cone solve (warm start carried across the call's slices) ->
-  impulse to qd, velocity clip, semi-implicit Euler -> sensors.
+  (Baumgarte, restitution) -> top-K active set -> Delassus J^T M^-1 J ->
+  Jacobi scaling -> APGD cone solve (warm start carried across the call's
+  slices) -> impulse to qd, velocity clip, semi-implicit Euler -> sensors.
 
 At the boundary arrays are laid out (rows, N), envs last, as the TPU
 kernel has them. On a CUDA tensor `physics_step_fused` launches the
@@ -21,10 +21,14 @@ contacts from candidate points, point-vs-geom pair rows (sphere, box and
 cylinder geoms; a mesh geom rides the cylinder branch), bilateral point
 anchors, external body wrenches, PD-drive setpoints (`q_target`), joint
 limits, implicit damping/stiffness, joint friction, fixed tendons, Newton
-restitution, and per-env model leaves (`dyn`: the domain-randomization
+restitution, per-env model leaves (`dyn`: the domain-randomization
 surface `DYN_LEAVES` plus per-env gravity), which reach the step as one
-packed (rows, N) input (`pack_dyn`). Geom-geom pairs, SDF pairs, top-K,
-terrain and merged decimation windows are later tiers and raise
+packed (rows, N) input (`pack_dyn`), heightfield terrain through planes
+sampled per candidate point at the call's entry pose (`terrain_dyn`, ten
+(nc, N) rows), the top-K active set (`max_active_contacts`: only the cap
+most-penetrating candidates enter the solve) and merged decimation windows
+(`warm_reset_every`: the warm start resets where separate calls would
+start). Geom-geom pairs and SDF pairs are later tiers and raise
 NotImplementedError by name.
 """
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import maths as _maths
 from ..model.spec import FREE, HINGE, SLIDE, Model
 from . import dynamics as _dyn
 from .dynamics import SimParams
@@ -58,17 +63,19 @@ def unsupported_features(model: Model, params: SimParams, terrain=None) -> list:
     """Names of what this model or operating point asks for beyond the
     ported kernel tiers (empty when the kernel and its twin cover it)."""
     n_plane = model.ncp if model.plane_contacts else 0
-    nct = n_plane + len(model.ppair_point) + len(model.spair_point) + len(model.att_body)
+    natt = len(model.att_body)
+    nct = n_plane + len(model.ppair_point) + len(model.spair_point) + natt
     cap = params.max_active_contacts
     asked = {
-        "terrain": terrain is not None,
+        "terrain without plane candidates": terrain is not None and not n_plane,
         f"solver={params.solver}": params.solver != "apgd",
         "geom-geom pairs (pair_geom_a)": bool(len(model.pair_geom_a)),
         "SDF pair rows (spair_point)": bool(len(model.spair_point)),
         "pair rows against capsule or plane geoms": any(
             model.geom_type[g] not in _PAIR_GEOM_TYPES for g in model.ppair_geom
         ),
-        f"top-K active set (max_active_contacts={cap} < {nct} rows)": bool(cap and cap < nct),
+        # bilateral rows always take a slot: the cap must leave room for others
+        f"top-K active set with max_active_contacts={cap} <= {natt} anchors": bool(cap and cap < nct and cap <= natt),
     }
     return [k for k, v in asked.items() if v]
 
@@ -309,6 +316,13 @@ def _extract(model: Model) -> _Spec:
     )
 
 
+def topk_cap(s: _Spec, p: SimParams) -> int:
+    """The top-K cap of this model at this operating point: 0 when every
+    candidate enters the solve."""
+    cap = p.max_active_contacts
+    return cap if cap and cap < s.nct else 0
+
+
 def apgd_betas(iters: int) -> list:
     """Nesterov momentum schedule of the APGD solve (Python floats)."""
     t_seq = [1.0]
@@ -337,8 +351,15 @@ _DYN_COMP = ("body_ipos", "body_inertia", "cpoint_pos", "geom_size")
 # leaves DR batches that the engine never reads: dropped
 DYN_INERT = ("dof_max_effort",)
 DYN_ORDER = DYN_LEAVES + ("gravity",)
-# reserved keys of the entry-sampled terrain and SDF planes, not ported
+# reserved keys of the entry-sampled terrain planes (`terrain_dyn`), nc rows
+# each, and of the SDF planes, which are not ported
 _TERRAIN_PREFIX, _SDF_PREFIX = "_terr_", "_sp_"
+TERRAIN_KEYS = (
+    ("_terr_h",)
+    + tuple(f"_terr_n{k}" for k in range(3))
+    + tuple(f"_terr_t1{k}" for k in range(3))
+    + tuple(f"_terr_t2{k}" for k in range(3))
+)
 
 
 class PackedDyn(NamedTuple):
@@ -373,14 +394,15 @@ def dyn_mask(names) -> int:
 
 def dyn_names(s: _Spec, keys) -> tuple:
     """The leaves of `keys` that reach the step, in DYN_ORDER order: inert
-    leaves and leaves of zero rows (tendon leaves of a model without
-    tendons) are dropped; terrain and SDF plane keys raise by name, any
-    other unknown key is a ValueError."""
-    keys = set(keys)
+    leaves, leaves of zero rows (tendon leaves of a model without tendons)
+    and the terrain plane keys (`TERRAIN_KEYS`, a separate input) are
+    dropped; SDF plane keys raise by name, any other unknown key is a
+    ValueError."""
+    keys = {k for k in keys if k not in TERRAIN_KEYS}
     beyond = sorted(k for k in keys if k.startswith((_TERRAIN_PREFIX, _SDF_PREFIX)))
     if beyond:
         raise NotImplementedError(
-            "beyond the ported kernel tiers: entry-sampled terrain / SDF planes (" + ", ".join(beyond) + ")")
+            "beyond the ported kernel tiers: entry-sampled SDF planes (" + ", ".join(beyond) + ")")
     unknown = sorted(keys - set(DYN_ORDER) - set(DYN_INERT))
     if unknown:
         raise ValueError(f"dyn keys {unknown} are not per-env leaves of the fused step ({DYN_ORDER})")
@@ -405,6 +427,51 @@ def pack_dyn(s: _Spec, dyn: dict) -> PackedDyn | None:
             raise ValueError(f"dyn[{k!r}] has shape {tuple(dyn[k].shape)}, expected {rows[k]} values per env")
         parts.append(a)
     return PackedDyn(names, torch.cat(parts, 1).T.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# heightfield terrain: planes sampled at the call's entry pose
+# ---------------------------------------------------------------------------
+
+
+def _tangent_basis(n: torch.Tensor):
+    """Branchless orthonormal tangents (t1, t2) of unit normals n (..., 3):
+    t1 = ref x n normalized, ref = z unless n is within 0.9 of z, then x."""
+    use_z = (torch.abs(n[..., 2:3]) < 0.9).to(n.dtype)
+    ref = torch.cat([1.0 - use_z, torch.zeros_like(use_z), use_z], dim=-1)
+    t1 = torch.linalg.cross(ref, n, dim=-1)
+    t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1, keepdim=True), min=1e-9)
+    return t1, torch.linalg.cross(n, t1, dim=-1)
+
+
+def terrain_dyn(model: Model, terrain, q: torch.Tensor, qd: torch.Tensor) -> dict:
+    """The ground plane under each candidate point at the pose (q, qd):
+    height h, normal n and tangents t1, t2 of the terrain, sampled in a
+    32 x 32-cell window around the env's points (`Terrain.sample_grad_patch`).
+    The step holds these planes for all its slices (the JAX package's
+    documented freeze: the eager engine resamples per slice).
+
+    q (N, nq), qd (N, nv) -> {TERRAIN_KEYS: (N, ncp)}.
+    """
+    kin = _dyn.forward_kinematics(model, q, qd)
+    bodies = torch.as_tensor(np.asarray(model.cpoint_body, np.int64), device=q.device)
+    cpos = torch.as_tensor(np.asarray(model.cpoint_pos, np.float32), device=q.device)
+    x = kin.x[:, bodies] + _maths.quat_rotate(kin.quat[:, bodies], cpos)  # (N, ncp, 3)
+    center = torch.mean(x[..., :2], dim=1)
+    h, n = terrain.sample_grad_patch(center, x[..., :2], P=32)
+    t1, t2 = _tangent_basis(n)
+    out = {"_terr_h": h}
+    for k in range(3):
+        out[f"_terr_n{k}"] = n[..., k]
+        out[f"_terr_t1{k}"] = t1[..., k]
+        out[f"_terr_t2{k}"] = t2[..., k]
+    return out
+
+
+def pack_terrain(planes: dict) -> torch.Tensor:
+    """`terrain_dyn`'s planes {TERRAIN_KEYS: (N, nc)} as the step takes them:
+    one (10 nc, N) float32 tensor, the keys' rows one after another."""
+    return torch.cat([planes[k].to(torch.float32).T for k in TERRAIN_KEYS], 0).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -492,16 +559,25 @@ def _stackb(lst_of_comp, k):
     return torch.cat([b[k] for b in lst_of_comp], 0)
 
 
-def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = ()):
+def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), keys=None,
+                dtype=torch.float32):
     """Build the single-slice function (the twin of the JAX `_substep_fn`).
 
     `names` are the per-env leaves the slice will be given in its `dyn`
-    dict of (rows, N) tensors; each replaces the model's constant."""
-    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    dict of (rows, N) tensors; each replaces the model's constant. With a
+    list `keys`, each slice with contact rows appends its (phi, selection
+    key) rows, (nct, N) each, the key None without a top-K cap: a caller
+    that holds the kernel against this version checks from them that no row
+    sits at the margin and no two keys tie at the cap. `dtype`: the
+    floating type of the model constants, which the inputs must share
+    (float64 gives a reference for how far float32 rounding alone moves a
+    step)."""
+    T = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     rev_topo = list(range(s.nbody))[::-1]
     dof_of_body = [[d for d in range(s.nv) if s.dof_body[d] == b] for b in range(s.nbody)]
     nc, npp, natt, nct = s.nc, s.pp_nc, s.att_n, s.nct
     nuni = nc + npp  # unilateral rows come first, anchors last
+    cap = topk_cap(s, p)
     erp, erp_att = p.baumgarte_erp, p.baumgarte_erp_attractor
     gravity = [float(g) for g in p.gravity]
     sel_q = np.zeros((s.nv, s.nq), np.float32)
@@ -673,7 +749,9 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = ()):
             [pick(surf_box[k], surf_cyl[k], surf_sph[k]) for k in range(3)],
         )
 
-    def substep(q, qd, qfrc, xfrc, q_target, warm, dyn=None):
+    def substep(q, qd, qfrc, xfrc, q_target, warm, dyn=None, terr=None):
+        """One slice. `terr`: the (10 nc, N) entry-sampled terrain planes
+        (`pack_terrain`) or None for the flat ground z = 0."""
         dyn = dyn or {}
         N = q.shape[-1]
         Xl, Ql, Vl, S, Sdot = _fk(s, q, qd)
@@ -798,7 +876,16 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = ()):
             bX = [c["cp_pick"] @ Xb[k] for k in range(3)]
             rot = _qrot(bQ, [cpp[k][:nc] for k in range(3)] if cpp is not None else c["cp_pos"])
             xc = [bX[k] + rot[k] for k in range(3)]
-            add_rows(point_jac_world(xc, c["Pm"]), c["cp_radius"] - xc[2])
+            Jp = point_jac_world(xc, c["Pm"])
+            if terr is None:
+                add_rows(Jp, c["cp_radius"] - xc[2])
+            else:
+                # heightfield: each point's own plane (height th, frame [t1, t2, n]);
+                # phi = radius - (x_z - h) n_z, rows rotated into the frame
+                th, tn, tt1, tt2 = terr[:nc], blocks(terr[nc:4 * nc], nc, 3), \
+                    blocks(terr[4 * nc:7 * nc], nc, 3), blocks(terr[7 * nc:], nc, 3)
+                add_rows([sum(f[k][None] * Jp[k] for k in range(3)) for f in (tt1, tt2, tn)],
+                         c["cp_radius"] - (xc[2] - th) * tn[2])
         if npp:
             # pair rows: a candidate point of body A against a geom of body B
             aX = [Xb[k][pp_a] for k in range(3)]
@@ -861,27 +948,51 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = ()):
                 & (vn_pre < -p.bounce_threshold_velocity)
             )
             vn_t = torch.where(bounce, torch.maximum(vn_t, -rest * vn_pre), vn_t)
+        # velocity-target adjustments of each row, subtracted from J qd_free:
+        # the unilateral normal rows' target, the anchors' error drive
+        if natt:
+            ke = erp_att / h
+            zu = q.new_zeros(nuni, N)
+            adj = [torch.cat([zu, err_att[0] * ke], 0), torch.cat([zu, err_att[1] * ke], 0),
+                   torch.cat([vn_t[:nuni], err_att[2] * ke], 0)]
+        else:
+            adj = [None, None, vn_t]
+        bil = c["bil"]
         warm = q.new_zeros(3 * nct, N) if warm is None else warm
+        nce = nct
+        key = None
+        if cap:
+            # top-K active set: only the cap most-penetrating candidates by
+            # predicted depth phi - min(v_n, 0) h enter the solve, ties to the
+            # lower index (lax.top_k's order); anchors always, inactive rows
+            # fill what is left by index. Slot k holds the row of rank k.
+            vn_free = torch.sum(J[:, 2 * nct:] * qd_free[:, None], dim=0)
+            key = phi - torch.clamp(vn_free, max=0.0) * h
+            key = torch.where(bil, 1e30, key)
+            key = torch.where((active > 0) | bil, key, -1e30)
+            ii = torch.arange(nct, device=q.device)
+            beats = (key[None] > key[:, None]) | ((key[None] == key[:, None]) & (ii[None, :, None] < ii[:, None, None]))
+            rank = torch.sum(beats, dim=1)  # (nct, N), a permutation of 0..nct-1 per env
+            sel = torch.argsort(rank, dim=0)[:cap]  # (cap, N)
+            gat = lambda x: torch.gather(x.expand(nct, N), 0, sel)
+            J = torch.cat([torch.gather(J[:, k * nct:(k + 1) * nct], 1, sel[None].expand(s.nv, cap, N))
+                           for k in range(3)], 1)
+            active, mu, bil = gat(active), gat(mu), gat(bil)
+            adj = [None if a is None else gat(a) for a in adj]
+            warm = torch.cat([gat(warm[k * nct:(k + 1) * nct]) for k in range(3)], 0)
+            nce = cap
+        if keys is not None:
+            keys.append((phi, key))
 
-        # Delassus A = J^T Minv J
+        # Delassus A = J^T Minv J over the rows in the solve
         W = sum(Minv[:, j:j + 1, :] * J[j][None] for j in range(s.nv))
         A = sum(J[v][:, None, :] * W[v][None] for v in range(s.nv))
         b_vec = torch.sum(J * qd_free[:, None], dim=0)
-        if natt:
-            # anchors drive their 3-D point error to zero at erp_att / h
-            ke = erp_att / h
-            zu = q.new_zeros(nuni, N)
-            b_vec = torch.cat([
-                b_vec[:nct] - torch.cat([zu, err_att[0] * ke], 0),
-                b_vec[nct:2 * nct] - torch.cat([zu, err_att[1] * ke], 0),
-                b_vec[2 * nct:] - torch.cat([vn_t[:nuni], err_att[2] * ke], 0),
-            ], 0)
-        else:
-            b_vec = torch.cat([b_vec[:2 * nct], b_vec[2 * nct:] - vn_t], 0)
+        b_vec = torch.cat([b_vec[k * nce:(k + 1) * nce] - (0.0 if a is None else a) for k, a in enumerate(adj)], 0)
 
         # per-contact Jacobi scaling by the mean block diagonal
         diagA = torch.sum(J * W, dim=0)
-        d_c = (diagA[:nct] + diagA[nct:2 * nct] + diagA[2 * nct:]) / 3.0 + 1e-6
+        d_c = (diagA[:nce] + diagA[nce:2 * nce] + diagA[2 * nce:]) / 3.0 + 1e-6
         s_c = torch.rsqrt(torch.clamp(d_c, min=1e-12))
         s3 = torch.cat([s_c, s_c, s_c], 0)
         s3sq = s3 * s3
@@ -890,12 +1001,11 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = ()):
         # Lipschitz bound incl. the scaled 1e-6 regularization of the matvec
         Lip = torch.amax(torch.sum(torch.abs(A), dim=1) + 1e-6 * s3sq, dim=0, keepdim=True)
         step = 1.0 / torch.clamp(Lip, min=1e-8)
-        bil = c["bil"]
 
         def project(y):
-            lnc = y[2 * nct:]
+            lnc = y[2 * nce:]
             ln = torch.where(bil, lnc, torch.clamp(lnc, min=0.0))  # bilateral rows: unprojected
-            t1_, t2_ = y[:nct], y[nct:2 * nct]
+            t1_, t2_ = y[:nce], y[nce:2 * nce]
             tn = torch.sqrt(t1_ * t1_ + t2_ * t2_ + 1e-12)
             sc = torch.where(bil, torch.ones_like(ln), torch.clamp(mu * ln / tn, max=1.0)) * active
             return torch.cat([t1_ * sc, t2_ * sc, ln * active], 0)
@@ -910,6 +1020,10 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = ()):
         lam = lam * s3  # back to physical impulses
 
         qfrc_con = torch.sum(J * lam[None], dim=1)
+        if cap:
+            # impulses back to full rows, zero off the set: the warm start and
+            # the sensors live in full row space
+            lam = torch.cat([q.new_zeros(nct, N).scatter(0, sel, lam[k * cap:(k + 1) * cap]) for k in range(3)], 0)
         dqd = torch.sum(Minv * qfrc_con[None], dim=1)
         qd_new = torch.clamp(qd_free + dqd, -p.max_dof_velocity, p.max_dof_velocity)
         q_new = integrate(q, qd_new)
@@ -944,27 +1058,36 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = ()):
     return substep
 
 
-def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = ()):
+def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = (), keys=None, dtype=torch.float32):
     """Plain PyTorch version of the whole step on (rows, N) tensors.
 
-    Returns run(q, qd, qfrc, xfrc, q_target=None, dyn=None) -> (q, qd,
-    body_force, body_torque, dof_force), all (rows, N); xfrc is (6*nbody, N)
-    comp-major or None, q_target (nq, N) PD-drive setpoints or None (then
-    qpos0), dyn the packed (rows, N) per-env leaves of `names` (see
-    `pack_dyn`) or None when `names` is empty.
+    Returns run(q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None,
+    warm_reset_every=0) -> (q, qd, body_force, body_torque, dof_force), all
+    (rows, N); xfrc is (6*nbody, N) comp-major or None, q_target (nq, N)
+    PD-drive setpoints or None (then qpos0), dyn the packed (rows, N)
+    per-env leaves of `names` (see `pack_dyn`) or None when `names` is
+    empty, terr the (10 nc, N) terrain planes (`pack_terrain`) or None for
+    flat ground; with `warm_reset_every` = k the contact warm start resets
+    every k slices (a merged decimation window solves like separate calls).
+    `keys`, `dtype`: see `_substep_fn`.
     """
     n_slices = p.substeps * p.solver_iterations
-    substep = _substep_fn(s, p, p.dt / n_slices, device, names)
+    substep = _substep_fn(s, p, p.dt / n_slices, device, names, keys, dtype)
     rows = dyn_rows(s)
     offsets = np.concatenate([[0], np.cumsum([rows[k] for k in names])]).astype(int)
 
-    def run(q, qd, qfrc, xfrc, q_target=None, dyn=None):
+    def run(q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None, warm_reset_every=0):
         if (dyn is not None) != bool(names) or (names and dyn.shape[0] != offsets[-1]):
             raise ValueError(f"this step was prepared for the per-env leaves {names}")
+        if terr is not None and (not s.nc or terr.shape[0] != 10 * s.nc):
+            raise ValueError(f"terrain planes need {10 * s.nc} rows (10 per plane candidate), got {terr.shape[0]}")
         leaves = {k: dyn[offsets[i]:offsets[i + 1]] for i, k in enumerate(names)}
         warm = None  # zeros at each call, carried across its slices
-        for _ in range(n_slices):
-            q, qd, warm, bf, bt, doff = substep(q, qd, qfrc, xfrc, q_target, warm, leaves)
+        for i in range(n_slices):
+            if warm_reset_every and i and i % warm_reset_every == 0:
+                # a merged window resets the warm start where a separate call would begin
+                warm = None
+            q, qd, warm, bf, bt, doff = substep(q, qd, qfrc, xfrc, q_target, warm, leaves, terr)
         return q, qd, bf, bt, doff
 
     return run
@@ -974,10 +1097,11 @@ def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = ()):
 # entry point
 # ---------------------------------------------------------------------------
 
-# (model, params, device, has q_target, per-env leaf names) -> prepared step;
-# the model and params objects are held so that their ids stay unique while
-# the entry lives. On the card a call with q_target, or with another set of
-# per-env leaves, is another kernel instantiation.
+# (model, params, device, has q_target, per-env leaf names, has terrain) ->
+# prepared step; the model and params objects are held so that their ids
+# stay unique while the entry lives. On the card a call with q_target, with
+# another set of per-env leaves, or with terrain planes, is another kernel
+# instantiation.
 _CACHE: dict = {}
 
 
@@ -992,8 +1116,8 @@ def spec_of(model: Model) -> _Spec:
 
 
 def _prepared(model: Model, params: SimParams, device: torch.device, has_qt: bool = False,
-              names: tuple = ()):
-    key = (id(model), id(params), str(device), bool(has_qt), names)
+              names: tuple = (), has_terr: bool = False):
+    key = (id(model), id(params), str(device), bool(has_qt), names, bool(has_terr))
     hit = _CACHE.get(key)
     if hit is None or hit[0] is not model or hit[1] is not params:
         s = spec_of(model)
@@ -1001,7 +1125,8 @@ def _prepared(model: Model, params: SimParams, device: torch.device, has_qt: boo
             from . import _cuda
 
             step = _cuda.FusedStepCall(
-                s, params, apgd_betas(params.solver_apgd_iterations), device, has_qt=has_qt, names=names
+                s, params, apgd_betas(params.solver_apgd_iterations), device, has_qt=has_qt, names=names,
+                has_terr=has_terr,
             )
         else:
             step = _step_math_torch(s, params, device, names)
@@ -1020,6 +1145,7 @@ def physics_step_fused(
     q_target: torch.Tensor | None = None,  # (N, nq) PD-drive setpoints
     dyn: dict | PackedDyn | None = None,
     warm_reset_every: int = 0,
+    terrain: torch.Tensor | None = None,  # (10 nc, N) planes of `pack_terrain`
 ) -> FusedOut:
     """Batched full physics step through the fused kernel.
 
@@ -1027,27 +1153,33 @@ def physics_step_fused(
     launches the CUDA kernel; a CPU tensor runs the plain version. `dyn`
     carries per-env model leaves: {name: (N, *leaf.shape)} over `DYN_LEAVES`
     and "gravity" (N, 3), or the same already packed by `pack_dyn` (a
-    caller that steps many times with one sample packs it once).
+    caller that steps many times with one sample packs it once). Terrain
+    planes come as `terrain` (packed) or as the `TERRAIN_KEYS` of a `dyn`
+    dict, the way `terrain_dyn` returns them. `warm_reset_every` = k resets
+    the contact warm start every k slices: a call that merges the k-slice
+    steps of a decimation window solves like those separate calls.
     """
     beyond = unsupported_features(model, params)
-    if warm_reset_every:
-        beyond.append("merged decimation windows (warm_reset_every)")
     if beyond:
         raise NotImplementedError("beyond the ported kernel tiers: " + ", ".join(beyond))
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
     N = q.shape[0]
     if isinstance(dyn, dict):
+        if any(k in dyn for k in TERRAIN_KEYS):
+            if terrain is not None:
+                raise ValueError("terrain planes given twice: as `terrain` and in `dyn`")
+            terrain = pack_terrain(dyn)
         dyn = pack_dyn(spec_of(model), dyn)
     names, dyn_in = (dyn.names, dyn.rows) if dyn is not None else ((), None)
-    s, step = _prepared(model, params, q.device, q_target is not None, names)
+    s, step = _prepared(model, params, q.device, q_target is not None, names, terrain is not None)
     f32 = lambda a: a.to(torch.float32).T.contiguous()
     xf = None
     if xfrc is not None:
         # (N, nbody, 6) -> comp-major rows (6*nbody, N)
         xf = xfrc.to(torch.float32).permute(2, 1, 0).reshape(6 * s.nbody, N).contiguous()
     qt = None if q_target is None else f32(q_target)
-    q2, qd2, bf, bt, doff = step(f32(q), f32(qd), f32(qfrc), xf, qt, dyn_in)
+    q2, qd2, bf, bt, doff = step(f32(q), f32(qd), f32(qfrc), xf, qt, dyn_in, terrain, int(warm_reset_every))
     return FusedOut(
         q=q2.T,
         qd=qd2.T,

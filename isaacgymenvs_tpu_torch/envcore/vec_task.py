@@ -4,28 +4,38 @@ An environment is a `VecTask` subclass that supplies batched hooks; the
 env batch is the leading axis of every tensor. `reset` and `step` keep the
 JAX package's ordering contract:
   1. (action noise, then) clip actions, apply them, advance physics
-     `control_freq_inv` times;
+     `control_freq_inv` times; a task's `perturb_state` (robot pushes) then
+     acts on the new state;
   2. progress += 1;
   3. envs flagged done on the PREVIOUS step are reset (fresh init states
-     for every env, selected with a where over the done mask);
+     for every env from `resample_init`, selected with a where over the
+     done mask);
   3b. with domain randomization: envs that reset and whose last
      randomization is `frequency` steps old take a fresh sample
      (`setup_only` leaves never), branch-free;
   4. observations on the post-reset state (then observation noise);
-  5. reward and new done flags;
+  5. reward and new done flags, then the task's `extra_outputs`;
   6. `time_outs` = progress >= max_episode_length - 1 AND done.
 
 Physics always goes through `engine.fused.physics_step_fused`: on a CUDA
 tensor that is the hand-written kernel, on a CPU tensor its plain version.
 A model outside the kernel's feature set raises NotImplementedError; there
 is no eager fallback. A task with `use_pd_targets` also returns PD-drive
-setpoints, which every physics step of the control loop receives.
+setpoints, which every physics step of the control loop receives. A task
+with a heightfield (`self.terrain`, an `engine.dynamics.Terrain`) has each
+step's ground planes sampled under its candidate points at the step's entry
+pose (`fused.terrain_dyn`). With `sim.fused_merge_control_slices` the
+`control_freq_inv` physics steps of an env step are one call of
+`control_freq_inv` times the slices (dt and substeps scaled together, so
+the slice length stays), whose warm start resets where each separate call
+would begin; the terrain planes are then sampled once, at the env step's
+entry pose.
 
 With `task.randomize` the env carries a `dr.DomainRandomizer`: its sample
 lives on the state (`EnvState.dr`), and the per-env model leaves and
 gravity it gives are packed once where the sample changes (`EnvState.dyn`)
-and handed to every physics step as its `dyn` input. ADR, terrain and
-merged decimation windows are not ported yet and raise.
+and handed to every physics step as its `dyn` input. ADR is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -64,7 +74,7 @@ class EnvState:
     dr: Any = None  # dict name -> (N, ...) sampled factors/offsets
     dyn: Any = None  # fused.PackedDyn of `dr`: the per-env leaves as the physics step takes them
     randomize_buf: Any = None  # (N,) int32, steps since the last re-randomization
-    frames: Any = None  # () int32, env steps since reset (DR schedules)
+    frames: Any = None  # () int32, env steps since reset (DR schedules, pushes)
 
 
 def _select(mask: torch.Tensor, a, b):
@@ -87,6 +97,10 @@ class VecTask:
       observe(q, qd, kin, sensors, task, actions, progress) -> obs
       reward_done(obs, q, qd, kin, sensors, task, actions, progress)
           -> (reward, done, new_task)
+    Optional hooks (the defaults change nothing):
+      perturb_state(generator, q, qd, frames, task) -> (q, qd)
+      resample_init(generator, old_task) -> (q, qd, task) of the resets
+      extra_outputs(q, qd, kin, sensors, task, actions, progress) -> dict
     """
 
     num_obs: int = 0
@@ -114,8 +128,12 @@ class VecTask:
         adr_cfg = env_cfg.get("adr") or cfg.get("adr")
         if adr_cfg and adr_cfg.get("use_adr"):
             raise NotImplementedError("ADR (automatic domain randomization) is not ported yet")
-        if sim_cfg.get("fused_merge_control_slices"):
-            raise NotImplementedError("merged decimation windows are not ported yet")
+        p = self.sim_params
+        self.merge_slices = bool(sim_cfg.get("fused_merge_control_slices")) and self.control_freq_inv > 1
+        # the merged window: one call of control_freq_inv x the slices, each as long as before
+        self._merged_params = dataclasses.replace(
+            p, dt=p.dt * self.control_freq_inv, substeps=p.substeps * self.control_freq_inv)
+        self._warm_reset_every = p.substeps * p.solver_iterations if self.merge_slices else 0
         self.randomizer = None
         if task_cfg.get("randomize"):
             from ..dr.randomize import DomainRandomizer
@@ -135,6 +153,9 @@ class VecTask:
                 # the port does not have
                 raise NotImplementedError("per-env cpoint_pos (actor scale) with terrain or SDF rows")
             self._setup_only = {s.name for s in self.randomizer.model_specs if s.setup_only}
+        # the env-step counter on the state: DR schedules and perturb_state read it
+        self._counts_frames = (self.randomizer is not None
+                               or type(self).perturb_state is not VecTask.perturb_state)
         self.total_train_env_frames = 0
         self.dt = self.sim_params.dt * self.control_freq_inv
         # model constants the step reads, kept on the device: a copy from
@@ -158,6 +179,20 @@ class VecTask:
 
     def reward_done(self, obs, q, qd, kin, sensors, task, actions, progress):
         raise NotImplementedError
+
+    def perturb_state(self, generator, q, qd, frames, task):
+        """Changes to the state after physics (e.g. robot pushes); `frames`
+        is the env-step count before this step."""
+        return q, qd
+
+    def resample_init(self, generator, old_task):
+        """Init states for the envs that reset, which may read the task
+        state they leave (a curriculum level)."""
+        return self.sample_init(generator, self.num_envs)
+
+    def extra_outputs(self, q, qd, kin, sensors, task, actions, progress) -> dict:
+        """Per-env values for `extras`, from the state after the reward."""
+        return {}
 
     # ---- domain randomization ------------------------------------------
     def dr_actor_ranges(self):
@@ -231,6 +266,13 @@ class VecTask:
         z = lambda *s: torch.zeros(s, device=self.device)
         return Sensors(z(n, self.model.nbody, 3), z(n, self.model.nbody, 3), z(n, self.model.nv))
 
+    def _terrain_planes(self, q, qd):
+        """The ground planes under the candidate points at (q, qd), packed
+        for the physics step; None on flat ground."""
+        if self.terrain is None:
+            return None
+        return _fused.pack_terrain(_fused.terrain_dyn(self.model, self.terrain, q, qd))
+
     def _kin(self, q, qd):
         return _dyn.forward_kinematics(self.model, q, qd) if self.uses_kin else None
 
@@ -249,6 +291,7 @@ class VecTask:
             dr = self.randomizer.sample(gen, n, 0)
             dyn = self.pack_dyn(dr)
             rbuf = torch.zeros(n, dtype=torch.int32, device=self.device)
+        if self._counts_frames:
             frames = torch.zeros((), dtype=torch.int32, device=self.device)
         state = EnvState(
             sim=SimState(q=q, qd=qd),
@@ -280,18 +323,28 @@ class VecTask:
             qfrc, xfrc, q_target = self.compute_force(actions, q, qd, state.task)
         else:
             (qfrc, xfrc), q_target = self.compute_force(actions, q, qd, state.task), None
-        for _ in range(self.control_freq_inv):
+        if self.merge_slices:
             out = _fused.physics_step_fused(
-                self.model, self.sim_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=state.dyn
+                self.model, self._merged_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=state.dyn,
+                warm_reset_every=self._warm_reset_every, terrain=self._terrain_planes(q, qd),
             )
             q, qd = out.q, out.qd
+        else:
+            for _ in range(self.control_freq_inv):
+                out = _fused.physics_step_fused(
+                    self.model, self.sim_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=state.dyn,
+                    terrain=self._terrain_planes(q, qd),
+                )
+                q, qd = out.q, out.qd
         sensors = Sensors(out.body_force, out.body_torque, out.dof_force)
+        if type(self).perturb_state is not VecTask.perturb_state:
+            q, qd = self.perturb_state(state.rng, q, qd, frames, state.task)
 
         # 2. bookkeeping
         progress = state.progress + 1
 
         # 3. partial resets of envs flagged done last step
-        init_q, init_qd, init_task = self.sample_init(state.rng, n)
+        init_q, init_qd, init_task = self.resample_init(state.rng, state.task)
         done_prev = state.reset_buf
         q = _select(done_prev, init_q, q)
         qd = _select(done_prev, init_qd, qd)
@@ -309,6 +362,7 @@ class VecTask:
             dr = {k: v if k in self._setup_only else _select(due, fresh[k], v) for k, v in dr.items()}
             dyn = self.pack_dyn(dr)
             rbuf = torch.where(due, torch.zeros_like(rbuf), rbuf)
+        if frames is not None:
             frames = frames + 1
 
         # 4. observe on the post-reset state
@@ -320,6 +374,7 @@ class VecTask:
 
         # 5. reward + new done flags
         reward, done, task = self.reward_done(obs, q, qd, kin, sensors, task, actions, progress)
+        extras = dict(self.extra_outputs(q, qd, kin, sensors, task, actions, progress))
 
         # 6. timeout flag
         timeout = (progress >= self.max_episode_length - 1) & done
@@ -335,4 +390,5 @@ class VecTask:
             randomize_buf=rbuf,
             frames=frames,
         )
-        return new_state, obs, reward, done, {"time_outs": timeout}
+        extras["time_outs"] = timeout
+        return new_state, obs, reward, done, extras

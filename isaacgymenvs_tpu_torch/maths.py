@@ -92,3 +92,25 @@ def normalize_angle(x: torch.Tensor) -> torch.Tensor:
 
 def unscale(x, lower, upper):
     return (2.0 * x - upper - lower) / (upper - lower)
+
+
+def quat_from_angle_axis(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """Rotation of `angle` about `axis` (normalized here) as a unit quaternion."""
+    theta = (angle / 2)[..., None]
+    xyz = normalize(axis) * torch.sin(theta)
+    return quat_unit(torch.cat([xyz, torch.cos(theta)], dim=-1))
+
+
+def calc_heading(q: torch.Tensor) -> torch.Tensor:
+    """Heading about z of q's x-axis: atan2 of its rotated y over x."""
+    ref = q.new_zeros(q.shape[:-1] + (3,))
+    ref[..., 0] = 1.0
+    rot = quat_rotate(q, ref)
+    return torch.atan2(rot[..., 1], rot[..., 0])
+
+
+def calc_heading_quat(q: torch.Tensor) -> torch.Tensor:
+    """The yaw-only part of q: a rotation about z by its heading."""
+    axis = q.new_zeros(q.shape[:-1] + (3,))
+    axis[..., 2] = 1.0
+    return quat_from_angle_axis(calc_heading(q), axis)

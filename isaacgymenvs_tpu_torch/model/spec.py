@@ -274,6 +274,27 @@ class ModelBuilder:
             self.dof_max_velocity.append(float(max_velocity))
         return i
 
+    def merge_body(self, idx: int, mass: float, ipos, inertia) -> None:
+        """Fold another rigid mass (com and inertia about it, in body idx's
+        frame) into body idx: masses add, the com is their weighted mean,
+        and both inertias move to it by the parallel-axis shift. This is how
+        a link on a fixed joint is collapsed into its parent."""
+        m0 = self.body_mass[idx]
+        c0 = np.asarray(self.body_ipos[idx], np.float64)
+        I0 = np.asarray(self.body_inertia[idx], np.float64)
+        m1 = float(mass)
+        c1 = np.asarray(ipos, np.float64)
+        I1 = np.asarray(inertia, np.float64)
+        m = m0 + m1
+        c = (m0 * c0 + m1 * c1) / m if m > 0 else c0
+
+        def shift(I, mm, d):
+            return I + mm * (np.dot(d, d) * np.eye(3) - np.outer(d, d))
+
+        self.body_mass[idx] = m
+        self.body_ipos[idx] = _np(c)
+        self.body_inertia[idx] = _np(shift(I0, m0, c0 - c) + shift(I1, m1, c1 - c))
+
     def add_geom(self, body: int, gtype: int, pos, quat, size, friction: float):
         if gtype == GEOM_MESH:
             raise NotImplementedError("mesh geoms are not ported yet")

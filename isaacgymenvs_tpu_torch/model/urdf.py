@@ -9,14 +9,18 @@ what comes with it at no cost:
   * fixed / prismatic / revolute / continuous / floating joints with
     origin, axis, <limit> and <dynamics damping= friction=>;
   * `fix_base`: the root link is welded to the world;
+  * `collapse_fixed`: a link on a fixed joint is folded into its parent
+    (the collapse_fixed_joints asset option): its mass, com and inertia
+    merge into the parent's (`ModelBuilder.merge_body`), its collision
+    geoms move to the parent under the joint's transform, and its children
+    attach to the parent with the accumulated transform;
   * a link with a mass but no (or a zero) <inertia> tensor gets its
     rotational inertia from its collision shapes scaled to that mass; a
     link with no <inertial> gets mass and inertia from its collision
     shapes at `default_density`; <density value=> inside <inertial> gives
     the mass from the collision volume.
 
-Mesh geometry (OBJ, STL) and `collapse_fixed` are not ported yet and raise
-NotImplementedError.
+Mesh geometry (OBJ, STL) is not ported yet and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -102,6 +106,23 @@ def _parse_geometry(geo_elem):
     return None
 
 
+def _quat_mul(a, b):
+    x1, y1, z1, w1 = a
+    x2, y2, z2, w2 = b
+    return np.array([
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+    ])
+
+
+def _quat_rot(q, v):
+    xyz, w = q[:3], q[3]
+    t = 2.0 * np.cross(xyz, v)
+    return v + w * t + np.cross(xyz, t)
+
+
 def _shape_inertia(geoms, com, scale):
     """Inertia about `com` of the collision shapes at `scale` x unit density."""
     total = np.zeros((3, 3))
@@ -169,8 +190,6 @@ def parse_urdf(
     collapse_fixed: bool = False,
     default_density: float = 1000.0,
 ) -> Model:
-    if collapse_fixed:
-        raise NotImplementedError("collapse_fixed is not ported yet")
     links = {l.get("name"): l for l in root.findall("link")}
     children_of, child_links = {}, set()
     for j in root.findall("joint"):
@@ -182,8 +201,24 @@ def parse_urdf(
 
     b = ModelBuilder()
 
-    def add_link(link_name, parent_idx, jnt_elem):
+    def add_link(link_name, parent_idx, jnt_elem, t_pos=(0.0, 0.0, 0.0), t_quat=(0.0, 0.0, 0.0, 1.0)):
+        # (t_pos, t_quat): the transform of collapsed fixed-joint ancestors,
+        # in the frame of body `parent_idx`
+        t_pos, t_quat = np.asarray(t_pos, np.float64), np.asarray(t_quat, np.float64)
         mass, com, inertia, geoms = _link_props(links[link_name], default_density)
+        if collapse_fixed and jnt_elem is not None and jnt_elem.get("type") == "fixed" and parent_idx >= 0:
+            jpos, jquat = _origin(jnt_elem.find("origin"))
+            pos = t_pos + _quat_rot(t_quat, jpos)
+            quat = _quat_mul(t_quat, jquat)
+            if mass > 0:
+                R = _quat_to_mat_xyzw(quat)
+                b.merge_body(parent_idx, mass, pos + _quat_rot(quat, com), R @ inertia @ R.T)
+            for gtype, gpos, gquat, gsize in geoms:
+                b.add_geom(parent_idx, gtype, pos + _quat_rot(quat, gpos), _quat_mul(quat, gquat), gsize,
+                           default_friction)
+            for child_joint in children_of.get(link_name, []):
+                add_link(child_joint.find("child").get("link"), parent_idx, child_joint, pos, quat)
+            return
         rng, damping, fric, max_eff, max_vel = (None, None), 0.0, 0.0, np.inf, np.inf
         if jnt_elem is None:  # root link
             jtype = FIXED if fix_base else FREE
@@ -193,6 +228,7 @@ def parse_urdf(
         else:
             jtype = _JOINT_MAP[jnt_elem.get("type")]
             pos, quat = _origin(jnt_elem.find("origin"))
+            pos, quat = t_pos + _quat_rot(t_quat, pos), _quat_mul(t_quat, quat)
             ax = jnt_elem.find("axis")
             axis = _fv(ax.get("xyz"), 3) if ax is not None else np.array([1.0, 0, 0])
             n = np.linalg.norm(axis)

@@ -5,6 +5,8 @@ from typing import Dict, Type
 
 from ..envcore.vec_task import VecTask
 from .ant import Ant
+from .anymal import Anymal
+from .anymal_terrain import AnymalTerrain
 from .ball_balance import BallBalance
 from .cartpole import Cartpole
 from .ingenuity import Ingenuity
@@ -12,6 +14,8 @@ from .quadcopter import Quadcopter
 
 task_map: Dict[str, Type[VecTask]] = {
     "Ant": Ant,
+    "Anymal": Anymal,
+    "AnymalTerrain": AnymalTerrain,
     "BallBalance": BallBalance,
     "Cartpole": Cartpole,
     "Ingenuity": Ingenuity,

@@ -178,12 +178,14 @@ def test_twin_matches_jax_restitution_ball():
 
 def test_unsupported_models_raise(ant):
     """What is still beyond the ported tiers raises by name: SDF pair rows,
-    geom-geom pairs, a pair row against a capsule, a top-K cap below the row
-    count (pair and anchor rows counted), terrain, the entry-sampled terrain
-    and SDF planes among the per-env leaves, merged decimation windows. Pair
-    rows against sphere, box, cylinder and mesh geoms, anchors, q_target,
-    tendons and per-env leaves (`dyn`) no longer do; an unknown `dyn` key is
-    a ValueError and an inert one is dropped."""
+    geom-geom pairs, a pair row against a capsule, a top-K cap that leaves no
+    room beside the anchors, the entry-sampled SDF planes among the per-env
+    leaves, terrain planes for a model without plane candidates. Pair rows
+    against sphere, box, cylinder and mesh geoms, anchors, q_target, tendons,
+    per-env leaves (`dyn`), a top-K cap below the row count (pair and anchor
+    rows counted), terrain planes and merged decimation windows
+    (`warm_reset_every`) no longer do; an unknown `dyn` key is a ValueError
+    and an inert one is dropped."""
     _, tenv, q, qd = ant
     m, p = tenv.model, tenv.sim_params
     assert tfused.fused_supported(m, p)
@@ -192,14 +194,15 @@ def test_unsupported_models_raise(ant):
     capsule = m.geom_type.index(1)
     tendon = m.replace(tendon_coef=np.ones((1, m.nv), np.float32), tendon_range=np.zeros((1, 2), np.float32),
                        tendon_stiffness=np.ones(1, np.float32), tendon_damping=np.ones(1, np.float32))
+    anchors = m.replace(att_body=(0, 0), att_offset=np.zeros((2, 3), np.float32),
+                        att_target=np.zeros((2, 3), np.float32))
+    cap2 = SimParams(**{**p.__dict__, "max_active_contacts": 2})
     cases = [
         (m.replace(spair_point=(0,), spair_sdf=(0,)), p, {}, "spair_point"),
         (m.replace(pair_geom_a=(0,), pair_geom_b=(1,)), p, {}, "pair_geom_a"),
         (m.replace(ppair_point=(0,), ppair_geom=(capsule,)), p, {}, "capsule"),
-        (m, topk, {}, "top-K"),
-        (m, p, {"dyn": {"_terr_h": torch.ones(4, m.ncp)}}, "_terr_h"),
+        (anchors, cap2, {}, "top-K active set with max_active_contacts=2 <= 2 anchors"),
         (m, p, {"dyn": {"_sp_phi0": torch.ones(4, 1), "body_mass": torch.ones(4, m.nbody)}}, "_sp_phi0"),
-        (m, p, {"warm_reset_every": 2}, "warm_reset_every"),
     ]
     for model, params, kw, word in cases:
         # the feature check precedes any device dispatch, so the CUDA path
@@ -208,33 +211,50 @@ def test_unsupported_models_raise(ant):
             tfused.physics_step_fused(model, params, *args, **kw)
         if not kw:
             assert not tfused.fused_supported(model, params)
-    assert not tfused.fused_supported(m, p, terrain=object())
+    # terrain needs plane candidates
+    assert tfused.fused_supported(m, p, terrain=object())
+    assert not tfused.fused_supported(m.replace(plane_contacts=False), p, terrain=object())
     # the cap counts pair and anchor rows: 25 plane rows + 1 pair row > 25
     pair = m.replace(ppair_point=(0,), ppair_geom=(m.geom_type.index(0),))
     cap25 = SimParams(**{**p.__dict__, "max_active_contacts": 25})
-    assert tfused.fused_supported(m, cap25) and tfused.fused_supported(pair, p)
-    assert not tfused.fused_supported(pair, cap25)
+    assert tfused.topk_cap(tfused._extract(m), cap25) == 0 and tfused.topk_cap(tfused._extract(pair), cap25) == 25
+    assert tfused.fused_supported(pair, cap25) and tfused.fused_supported(anchors, SimParams(**{**p.__dict__, "max_active_contacts": 3}))
     # MESH (5) pair geoms ride the cylinder branch
     mesh = pair.replace(geom_type=tuple(5 if i == pair.ppair_geom[0] else t for i, t in enumerate(pair.geom_type)))
     assert tfused.fused_supported(mesh, p) and tfused._extract(mesh).pp_gtype.tolist() == [3]
     # ported now: q_target on a CPU tensor runs the plain version
     out = tfused.physics_step_fused(m, p, *args, q_target=torch.tensor(q))
     assert bool(torch.isfinite(out.q).all())
-    # ported now: tendons, and per-env leaves; both change the step
-    assert tfused.fused_supported(tendon, p)
+    # ported now: tendons, per-env leaves, a top-K cap, terrain planes and
+    # warm resets; each changes the step
+    assert tfused.fused_supported(tendon, p) and tfused.fused_supported(m, topk)
     mass = torch.tensor(np.asarray(m.body_mass, np.float32)).repeat(4, 1)
-    for o in (tfused.physics_step_fused(tendon, p, *args),
-              tfused.physics_step_fused(m, p, *args, dyn={"body_mass": 2.0 * mass})):
-        assert bool(torch.isfinite(o.q).all()) and float((o.qd - out.qd).abs().max()) > 1e-3
+    plain = tfused.physics_step_fused(m, p, *args)
+    ramp = {k: torch.zeros(4, m.ncp) for k in tfused.TERRAIN_KEYS}
+    ramp["_terr_h"] = torch.full((4, m.ncp), 0.3)  # the ground 30 cm higher under every point: the legs in it
+    ramp["_terr_n2"] = torch.ones(4, m.ncp)
+    ramp["_terr_t10"] = torch.ones(4, m.ncp)
+    ramp["_terr_t21"] = torch.ones(4, m.ncp)
+    two = SimParams(**{**p.__dict__, "substeps": 4, "dt": 2 * p.dt})
+    raised = tfused.physics_step_fused(m, p, *args, dyn=ramp)
+    for o, ref in ((tfused.physics_step_fused(tendon, p, *args), plain),
+                   (tfused.physics_step_fused(m, p, *args, dyn={"body_mass": 2.0 * mass}), plain),
+                   (raised, plain),
+                   (tfused.physics_step_fused(m, topk, *args, dyn=ramp), raised)):
+        assert bool(torch.isfinite(o.q).all()) and float((o.qd - ref.qd).abs().max()) > 1e-3
+    a = tfused.physics_step_fused(m, two, *args, dyn=ramp, warm_reset_every=2)
+    b = tfused.physics_step_fused(m, two, *args, dyn=ramp)
+    assert bool(torch.isfinite(a.q).all()) and float((a.qd - b.qd).abs().max()) > 0.0
     # an inert leaf is dropped, as is a tendon leaf of a model without tendons
     same = tfused.physics_step_fused(m, p, *args, dyn={"dof_max_effort": torch.ones(4, m.nv),
                                                        "tendon_damping": torch.ones(4, 0)})
-    plain = tfused.physics_step_fused(m, p, *args)
     assert torch.equal(same.qd, plain.qd)
     with pytest.raises(ValueError, match="body_pos"):
         tfused.physics_step_fused(m, p, *args, dyn={"body_pos": torch.ones(4, m.nbody, 3)})
     with pytest.raises(ValueError, match="9 values per env"):
         tfused.physics_step_fused(m, p, *args, dyn={"body_mass": torch.ones(4, m.nbody + 1)})
+    with pytest.raises(ValueError, match="given twice"):
+        tfused.physics_step_fused(m, p, *args, dyn=ramp, terrain=tfused.pack_terrain(ramp))
 
 
 def test_spec_buffer_layout(ant):
@@ -249,7 +269,7 @@ def test_spec_buffer_layout(ant):
     assert spec.shape == (base + p.solver_apgd_iterations,)
     assert spec.dtype == np.float32
     assert _cuda.kernel_flops(s, p) > 0 and _cuda.kernel_bytes(s, 4096, True) > 0
-    assert _cuda.sizes_of(s) == (9, 15, 14, 25, 0, 0, 0, 0, 0, 0, 0)
+    assert _cuda.sizes_of(s) == (9, 15, 14, 25, 0, 0, 0, 0, 0, 0, 0, 0, 0)
 
 
 # ---- q_target drives, pair rows and anchors ---------------------------------
@@ -385,7 +405,7 @@ def test_extract_matches_jax_ball_balance():
     _, jenv, tenv = _both_envs("BallBalance")
     js, ts = jfused._extract(jenv.model), tfused._extract(tenv.model)
     assert (ts.nc, ts.pp_nc, ts.att_n, ts.nct) == (21, 1, 3, 25) == (js.nc, js.pp_nc, js.att_n, 25)
-    assert _cuda.sizes_of(ts, True) == (8, 20, 18, 21, 1, 3, 1, 0, 0, 0, 0)
+    assert _cuda.sizes_of(ts, True) == (8, 20, 18, 21, 1, 3, 1, 0, 0, 0, 0, 0, 0)
     for f in ts._fields:
         if f in ("pp_a", "pp_b", "att_body", "free_bodies", "ncp_model", "ngeom", "pp_pt", "pp_geom"):
             continue
@@ -567,10 +587,10 @@ def test_dyn_layout_sizes_and_spec_regions(ant):
     np.testing.assert_array_equal(packed.rows[39:].numpy(), dyn["gravity"].T.numpy())
     assert tfused.pack_dyn(s, {}) is None and tfused.pack_dyn(s, {"dof_max_effort": torch.ones(n, 8)}) is None
     # size tuple: tendons, bitmask, and the cpoint / geom counts only where a leaf indexes them
-    assert _cuda.sizes_of(s) == (3, 9, 8, 10, 1, 0, 0, 1, 0, 0, 0)
-    assert _cuda.sizes_of(s, False, packed.names) == (3, 9, 8, 10, 1, 0, 0, 1, packed_mask := tfused.dyn_mask(packed.names), 0, 3)
+    assert _cuda.sizes_of(s) == (3, 9, 8, 10, 1, 0, 0, 1, 0, 0, 0, 0, 0)
+    assert _cuda.sizes_of(s, False, packed.names) == (3, 9, 8, 10, 1, 0, 0, 1, packed_mask := tfused.dyn_mask(packed.names), 0, 3, 0, 0)
     assert packed_mask == (1 << 6) | (1 << 12) | (1 << 14) | (1 << 15)
-    assert _cuda.sizes_of(s, False, ("cpoint_pos",))[8:] == (1 << 13, 10, 0)
+    assert _cuda.sizes_of(s, False, ("cpoint_pos",))[8:] == (1 << 13, 10, 0, 0, 0)
     assert "-DFS_NT=1" in _cuda._defines(_cuda.sizes_of(s)) and "-DFS_DYN=0" in _cuda._defines(_cuda.sizes_of(s))
     # spec buffer: pair-row indices and the tendon before the anchors' targets
     spec = _cuda.pack_spec(s, tp, tfused.apgd_betas(tp.solver_apgd_iterations))
@@ -588,4 +608,22 @@ def test_dyn_layout_sizes_and_spec_regions(ant):
     sa = tfused._extract(ant[1].model)
     five = ("dof_damping", "dof_stiffness", "dof_limit_lower", "dof_limit_upper", "body_mass")
     assert _cuda.kernel_bytes(sa, 1, True, False, five) - _cuda.kernel_bytes(sa, 1, True) == 4 * 65
-    assert _cuda.sizes_of(sa, False, five) == (9, 15, 14, 25, 0, 0, 0, 0, 115, 0, 0)
+    assert _cuda.sizes_of(sa, False, five) == (9, 15, 14, 25, 0, 0, 0, 0, 115, 0, 0, 0, 0)
+
+
+def test_plain_step_in_float64(ant):
+    """`_step_math_torch(dtype=torch.float64)` takes float64 inputs and
+    agrees with the float32 step within the tolerances (it measures how
+    far float32 rounding moves a step; chip_smoke.py picks its comparison
+    inputs with it)."""
+    _, tenv, q, qd = ant
+    m, p = tenv.model, tenv.sim_params
+    s = tfused._extract(m)
+    rng = np.random.RandomState(5)
+    qfrc = rng.uniform(-3, 3, (4, m.nv)).astype(np.float32)
+    ins = [torch.tensor(a).T.contiguous() for a in (q, qd, qfrc)]
+    a = tfused._step_math_torch(s, p, torch.device("cpu"))(*ins, None)
+    b = tfused._step_math_torch(s, p, torch.device("cpu"), dtype=torch.float64)(*(x.double() for x in ins), None)
+    assert b[0].dtype == torch.float64
+    for k, (x, y) in zip(TOL, zip(a, b)):
+        assert float((x.double() - y).abs().max()) < TOL[k] / 4, k

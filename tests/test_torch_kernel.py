@@ -110,23 +110,30 @@ def test_contact_free_kernel_matches_plain_version():
 @pytest.mark.cuda
 def test_unsupported_model_raises_on_card():
     """Features of later tiers raise by name on CUDA tensors too: an SDF
-    pair row, a top-K cap below the row count, entry-sampled terrain and SDF
-    planes among the per-env leaves, a merged decimation window."""
+    pair row, the entry-sampled SDF planes among the per-env leaves, a top-K
+    cap that leaves no room beside the anchors. A cap below the row count,
+    terrain planes and a merged window's warm resets launch."""
     _needs_card()
     env = _ant(4, "cuda")
     state, _ = env.reset(0)
     m, p = env.model, env.sim_params
     args = (state.sim.q, state.sim.qd, torch.zeros(4, m.nv, device="cuda"))
-    capped = dataclasses.replace(p, max_active_contacts=8)
+    anchors = m.replace(att_body=(0, 0), att_offset=np.zeros((2, 3), np.float32),
+                        att_target=np.zeros((2, 3), np.float32))
     for model, params, kw, word in (
         (m.replace(spair_point=(0,), spair_sdf=(0,)), p, {}, "SDF"),
-        (m, capped, {}, "top-K"),
-        (m, p, {"dyn": {"_terr_h": torch.ones(4, m.ncp, device="cuda")}}, "_terr_h"),
         (m, p, {"dyn": {"_sp_phi0": torch.ones(4, 1, device="cuda")}}, "_sp_phi0"),
-        (m, p, {"warm_reset_every": 2}, "warm_reset_every"),
+        (anchors, dataclasses.replace(p, max_active_contacts=2), {}, "top-K"),
     ):
         with pytest.raises(NotImplementedError, match=word):
             fused.physics_step_fused(model, params, *args, **kw)
+    before = _cuda.FusedStepCall.launches
+    planes = {k: torch.zeros(4, m.ncp, device="cuda") for k in fused.TERRAIN_KEYS}
+    planes["_terr_n2"] = planes["_terr_t10"] = planes["_terr_t21"] = torch.ones(4, m.ncp, device="cuda")
+    out = fused.physics_step_fused(m, dataclasses.replace(p, max_active_contacts=8), *args, dyn=planes,
+                                   warm_reset_every=1)
+    torch.cuda.synchronize()
+    assert _cuda.FusedStepCall.launches == before + 1 and bool(torch.isfinite(out.q).all())
 
 
 def _held_against_plain(model, params, q, qd, qfrc, xfrc, q_target, steps, tol, dyn=None):
@@ -343,3 +350,63 @@ def test_wrong_leaf_set_raises_on_card():
         step(rows(m.nq), rows(m.nv), rows(m.nv), None)
     with pytest.raises(ValueError, match="shape"):
         step(rows(m.nq), rows(m.nv), rows(m.nv), None, None, rows(m.nbody + 1))
+
+
+def _anymal(key, n):
+    """Anymal, AnymalTerrain, or AnymalTerrain on its plane, at n envs on the card."""
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    args = {"Anymal": ["task=Anymal"], "AnymalTerrain": ["task=AnymalTerrain"],
+            "AnymalTerrain-plane": ["task=AnymalTerrain", "task.env.terrain.terrainType=plane"]}[key]
+    task = args[0].split("=")[1]
+    return task_map[task](load_config([*args, f"num_envs={n}"])["task"], device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["Anymal", "AnymalTerrain", "AnymalTerrain-plane"])
+def test_anymal_kernels_match_plain_version(key):
+    """One env step's physics call of each Anymal instantiation (the merged
+    window of 4 slices with warm resets for AnymalTerrain, its top-K cap of
+    20, terrain rows and the friction leaf) against `_step_math_torch`, the
+    robots standing within 2 m of the world origin (on AnymalTerrain the grid
+    is moved so that the corner of its cell (1, 1) lies there), the lowest
+    candidate 1 mm in the ground; TOL as above."""
+    from isaacgymenvs_tpu_torch import maths
+    from isaacgymenvs_tpu_torch.engine.dynamics import Terrain, forward_kinematics
+
+    _needs_card()
+    n = 37
+    env = _anymal(key, n)
+    m = env.model
+    state, _ = env.reset(2)
+    q, qd = state.sim.q.clone(), torch.zeros(n, m.nv, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q[:, :2] = 4.0 * torch.rand(n, 2, generator=g, device="cuda") - 2.0
+    terrain = None
+    if env.terrain is not None:
+        corner = (env.grid.border + round(env.grid.env_length / env.grid.hs)) * env.grid.hs
+        terrain = Terrain(env.terrain.height, env.grid.hs, origin=(-corner, -corner))
+    cb = torch.tensor(m.cpoint_body, device="cuda")
+    kin = forward_kinematics(m, q, qd)
+    x = kin.x[:, cb] + maths.quat_rotate(kin.quat[:, cb], torch.tensor(np.asarray(m.cpoint_pos), device="cuda"))
+    ground = terrain.sample(x[..., :2]) if terrain is not None else 0.0
+    q[:, 2] -= (x[..., 2] - torch.tensor(np.asarray(m.cpoint_radius), device="cuda") - ground).amin(1) + 0.001
+    qt = q + 0.05 * (torch.rand(q.shape, generator=g, device="cuda") - 0.5)
+    p, wre = (env._merged_params, env._warm_reset_every) if env.merge_slices else (env.sim_params, 0)
+    terr = None if terrain is None else fused.pack_terrain(fused.terrain_dyn(m, terrain, q, qd))
+    dyn = state.dyn
+    before = _cuda.FusedStepCall.launches
+    ko = fused.physics_step_fused(m, p, q, qd, torch.zeros_like(qd), q_target=qt, dyn=dyn, terrain=terr,
+                                  warm_reset_every=wre)
+    assert _cuda.FusedStepCall.launches == before + 1
+    plain = fused._step_math_torch(fused._extract(m), p, torch.device("cuda"), dyn.names if dyn is not None else ())
+    rows = lambda a: a.T.contiguous()
+    po = plain(rows(q), rows(qd), rows(torch.zeros_like(qd)), None, rows(qt),
+               None if dyn is None else dyn.rows, terr, wre)
+    torch.cuda.synchronize()
+    nb = m.nbody
+    ref = {"q": po[0].T, "qd": po[1].T, "body_force": po[2].reshape(3, nb, n).permute(2, 1, 0),
+           "body_torque": po[3].reshape(3, nb, n).permute(2, 1, 0), "dof_force": po[4].T}
+    for k, tol in TOL.items():
+        assert float((getattr(ko, k) - ref[k]).abs().max()) < tol, k
+    assert float(ko.body_force[:, :, 2].sum(1).min()) > 1.0  # every robot stands on the ground

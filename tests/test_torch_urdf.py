@@ -49,9 +49,12 @@ def test_bundled_cartpole_facts():
 
 
 def test_unported_urdf_features_raise():
+    """Mesh geometry raises by name; collapse_fixed is ported (a model
+    without fixed joints comes out the same with it)."""
     root = ET.parse(CARTPOLE).getroot()
-    with pytest.raises(NotImplementedError, match="collapse_fixed"):
-        parse_urdf(root, collapse_fixed=True)
+    loose = parse_urdf(root)
+    collapsed = parse_urdf(root, collapse_fixed=True)
+    assert collapsed.body_names == loose.body_names and np.array_equal(collapsed.body_mass, loose.body_mass)
     geo = root.find("link").find("collision").find("geometry")
     geo.remove(geo.find("box"))
     ET.SubElement(geo, "mesh", filename="rail.obj")
