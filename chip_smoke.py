@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of steps 14 and 17 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14, 17 and 22 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -104,7 +104,22 @@
    `train.main task=AnymalTerrain` for 4 epochs with a bit-equal restore and
    play, the plane variant driven for 16 env steps;
 21. the three kernels timed at full width;
-22. prints one `kernels` JSON line with all instantiations and ends with
+22. FactoryTaskInsertion (64 plane rows and 64 SDF rows against the
+   socket's voxel grid, the cap of 32, `q_target`, gravity compensation
+   through `xfrc`; two envs per block, from its shared memory) against its
+   plain version for one env step at N=1003, 128 (its yaml) and 4096, in
+   contact states with SDF rows active in most envs and the cap binding in
+   some (kept where the keys at the cap differ by more than KEY_GAP); the
+   ball on an SDF box (one SDF row, no cap) at N=1003 for 3 steps;
+23. the ball dropped onto the SDF box rests at 0.45 +- 0.015 m with
+   |qd_z| < 0.05 after 150 steps through `physics_step_fused`;
+24. 1 + 3 Insertion epochs at the yaml's width (128 envs, batch 4,096, 32
+   launches each), device ops per Insertion env step, `train.main
+   task=FactoryTaskInsertion` for 4 epochs with a bit-equal restore and
+   play;
+25. both timed (Insertion at 128 and 4096 envs, the ball at 4096) with
+   envs per block and shared memory per block;
+26. prints one `kernels` JSON line with all instantiations and ends with
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository around it; without either it
@@ -691,13 +706,15 @@ def kernel_device_ms(fn, reps: int = 20) -> float:
     raise AssertionError("the host could not queue the launches ahead of the device")
 
 
-def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn=None, terr=None, wre=0) -> dict:
+def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn=None, terr=None, wre=0,
+                 sdf=None) -> dict:
     """ms per launch of the kernel (CUDA events around the wrapper, and
     queued back to back behind other device work), of its plain version,
     and its bound, at (rows, N) inputs on the card. `env` gives the model and
     the parameters (anything with `.model` and `.sim_params`); `dyn` is a
-    `fused.PackedDyn` of per-env leaves and `terr` the packed terrain planes,
-    whose rows count in the bytes bound; `wre` the warm-start reset period."""
+    `fused.PackedDyn` of per-env leaves, `terr` the packed terrain planes and
+    `sdf` the packed SDF planes, whose rows count in the bytes bound; `wre`
+    the warm-start reset period."""
     from isaacgymenvs_tpu_torch.engine import _cuda, fused
 
     s, p, n = fused._extract(env.model), env.sim_params, q.shape[-1]
@@ -705,7 +722,7 @@ def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn
     has_t = terr is not None
     _, step = fused._prepared(env.model, p, torch.device("cuda"), qt is not None, names, has_t)
     plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
-    call = lambda f: f(q, qd, qfrc, xfrc, qt, dr, terr, wre)
+    call = lambda f: f(q, qd, qfrc, xfrc, qt, dr, terr, wre, sdf)
     for _ in range(3):
         call(step)
     ms = event_ms(lambda: call(step), reps)
@@ -717,12 +734,13 @@ def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn
     nbytes = _cuda.kernel_bytes(s, n, xfrc is not None, qt is not None, names, has_t)
     t_ops, t_bytes = 1e3 * flops / flop_s, 1e3 * nbytes / byte_s
     bound = max(t_ops, t_bytes)
-    sizes = _cuda.sizes_of(s, qt is not None, names, fused.topk_cap(s, p), has_t)
+    sizes = step.sizes
     print(f"fused step {'_'.join(map(str, sizes))} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
           f"plain {plain_ms:.2f} ms, bound {bound:.6f} ms by operations ({flops / 1e9:.4f} GFLOP), {t_bytes:.6f} ms by bytes "
           f"({nbytes / 1e6:.4f} MB), {flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, {100 * bound / ms:.2f} % of the bound")
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "envs_per_block": step.epb,
+            "smem_bytes": step.smem_bytes}
 
 
 def time_case(key: str, card: str) -> dict:
@@ -1315,6 +1333,252 @@ def time_anymal(key: str, card: str) -> dict:
                         qt=rows(qt), dyn=dyn, terr=terr, wre=wre)
 
 
+# ---- FactoryTaskInsertion: K6 SDF rows, envs per block from shared memory ----
+
+INSERTION_ENVS = 128  # numEnvs of FactoryTaskInsertion.yaml
+INSERTION_WIDE = 4096
+INSERTION_EPOCHS = 4
+INSERTION_WIDTH = (INSERTION_ENVS, 32, 4096, 512, 8)  # envs, horizon, batch, minibatch, mini-epochs of its yaml
+BALL_ENVS = 64  # balls settled on the SDF box side by side, each in its own env
+BALL_REST = (0.45, 0.015)  # height of the ball's centre on the box top and the band it must rest in
+
+
+def insertion_env(n: int):
+    return task_env("FactoryTaskInsertion", n)
+
+
+def ball_holder():
+    """The ball on an SDF box (`model.examples.ball_on_sdf_box`) with the
+    parameters of tests/test_sdf.py, as an object with `.model` and `.sim_params`."""
+    from types import SimpleNamespace
+
+    from isaacgymenvs_tpu_torch.engine.dynamics import SimParams
+    from isaacgymenvs_tpu_torch.model.examples import ball_on_sdf_box
+
+    return SimpleNamespace(model=ball_on_sdf_box(), use_pd_targets=False, sim_params=SimParams(dt=1 / 60, substeps=2))
+
+
+def sdf_planes(m, q, qd):
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    return fused.pack_sdf(fused.sdf_dyn(m, q, qd))
+
+
+def insertion_inputs(env, n: int, seed: int):
+    """n comparison inputs of Insertion's physics step on the card: contact
+    states (`FactoryTaskInsertion.contact_states`: the plug in the bore, on
+    the socket's top face, lying against its side), 2n drawn and the first n
+    kept whose rows are well placed for the comparison: no candidate within
+    MARGIN_GAP of the contact margin and, in every slice, the keys either
+    side of the top-K cap more than KEY_GAP apart (or no active row past the
+    cap). Returns ((q, qd, qfrc, xfrc, q_target, SDF planes), redrawn, envs
+    past the cap, share of envs with an SDF row active)."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    m, p = env.model, env.sim_params
+    s = fused._extract(m)
+    cap = fused.topk_cap(s, p)
+    q, qd = env.contact_states(2 * n, seed)
+    qfrc, xfrc, qt = env.compute_force(None, q, qd, {"q_ref": q[:, env.q_idx]})
+    sdf = sdf_planes(m, q, qd)
+    keys = []
+    fused._step_math_torch(s, p, torch.device("cuda"), (), keys)(
+        rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), rows(qt), None, None, 0, sdf)
+    ok = torch.ones(2 * n, dtype=torch.bool, device="cuda")
+    for phi, key in keys:
+        ok &= (phi + p.contact_margin).abs().amin(0) > MARGIN_GAP
+        srt = torch.sort(key, 0, descending=True).values
+        ok &= (srt[cap - 1] - srt[cap] > KEY_GAP) | (srt[cap] < -1e29)
+    active = keys[0][0] > -p.contact_margin
+    pick = torch.arange(2 * n, device="cuda")[ok][:n]
+    if len(pick) != n:
+        raise AssertionError(f"Insertion: only {len(pick)} of {2 * n} contact states are well placed")
+    past_cap = int((active.sum(0)[pick] > cap).sum())
+    sdf_share = float(active[s.nc + s.pp_nc:s.nc + s.pp_nc + s.sp_n].any(0)[pick].float().mean())
+    sel = lambda t: t[pick].contiguous()
+    return ((sel(q), sel(qd), sel(qfrc), sel(xfrc), sel(qt), sdf[:, pick].contiguous()),
+            2 * n - int(ok.sum()), past_cap, sdf_share)
+
+
+def compare_outputs(label: str, ko, po, nb: int, n: int) -> dict:
+    """Max abs error per output of the kernel's FusedOut against the plain
+    version's (rows, N) outputs; raises past TOL."""
+    ref = {"q": po[0].T, "qd": po[1].T, "body_force": po[2].reshape(3, nb, n).permute(2, 1, 0),
+           "body_torque": po[3].reshape(3, nb, n).permute(2, 1, 0), "dof_force": po[4].T}
+    err = {}
+    for k, r in ref.items():
+        got = getattr(ko, k)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: kernel output {k} is not finite")
+        err[k] = float((got - r).abs().max())
+    bad = {k: (e, TOL[k]) for k, e in err.items() if not e < TOL[k]}
+    if bad:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version: {bad}")
+    return err
+
+
+def compare_insertion() -> float:
+    """Insertion's instantiation (64 plane rows, 64 SDF rows, cap 32,
+    q_target, xfrc; envs per block from shared memory) against its plain
+    version for one env step at N=RAGGED_ENVS, at the yaml's 128 and at
+    4096, in contact states with SDF rows active in most envs and the cap
+    binding in some; returns the largest error."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    worst = 0.0
+    for n in (RAGGED_ENVS, INSERTION_ENVS, INSERTION_WIDE):
+        env = insertion_env(n)
+        (q, qd, qfrc, xfrc, qt, sdf), redrawn, past_cap, sdf_share = insertion_inputs(env, n, seed=41)
+        m, p = env.model, env.sim_params
+        s = fused._extract(m)
+        ko = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=qt, sdf=sdf)
+        po = fused._step_math_torch(s, p, torch.device("cuda"))(
+            rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), rows(qt), None, None, 0, sdf)
+        err = compare_outputs(f"Insertion N={n}", ko, po, s.nbody, n)
+        torch.cuda.synchronize()
+        plug = env.plug_ref.body0
+        pressed = float((torch.linalg.vector_norm(ko.body_force[:, plug], dim=-1) > 0.1).float().mean())
+        _, step = fused._prepared(m, p, q.device, True)
+        print(f"Insertion kernel vs plain, N={n}, one env step ({p.substeps} slices), {step.epb} envs per block "
+              f"({step.smem_bytes} bytes of shared memory, limit {step.smem_limit}), {redrawn} states redrawn, "
+              f"SDF rows active in {100 * sdf_share:.1f} % of envs, {past_cap} envs past the cap of "
+              f"{fused.topk_cap(s, p)}, plug force in {100 * pressed:.1f} % of envs:", json.dumps(err))
+        if not sdf_share > 0.5 or past_cap == 0 or not pressed > 0.5:
+            raise AssertionError(f"Insertion N={n}: SDF rows active in {sdf_share:.3f} of envs, {past_cap} past "
+                                 f"the cap, plug force in {pressed:.3f}")
+        worst = max(worst, *err.values())
+    return worst
+
+
+def ball_states(n: int, seed: int):
+    """Balls over the SDF box: resting on its top (0-1 mm in), pressed in
+    1 mm, or 10 cm above it, x and y within the top face, gentle spin."""
+    m = ball_holder().model
+    rng = np.random.RandomState(seed)
+    q = np.tile(np.asarray(m.qpos0, np.float32), (n, 1))
+    q[:, 0:2] = rng.uniform(-0.15, 0.15, (n, 2))
+    q[:, 2] = np.where(np.arange(n) % 4 == 3, 0.55, 0.449 + rng.uniform(0.0, 1e-3, n))
+    qd = np.zeros((n, m.nv), np.float32)
+    qd[:, 3:] = rng.uniform(-0.2, 0.2, (n, 3))
+    cuda = lambda a: torch.tensor(a, device="cuda")
+    return cuda(q), cuda(qd)
+
+
+def compare_ball() -> float:
+    """The ball-on-box instantiation (one plane row, one SDF row, no cap)
+    against its plain version at N=RAGGED_ENVS for 3 steps, the planes
+    sampled at each step's entry pose; the box takes force in the envs whose
+    ball rests on it. Returns the largest error."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    h = ball_holder()
+    m, p, n = h.model, h.sim_params, RAGGED_ENVS
+    s = fused._extract(m)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    q, qd = ball_states(n, seed=42)
+    zero = torch.zeros(n, m.nv, device="cuda")
+    worst, pressed = 0.0, None
+    for _ in range(3):
+        sdf = sdf_planes(m, q, qd)
+        ko = fused.physics_step_fused(m, p, q, qd, zero, sdf=sdf)
+        po = plain(rows(q), rows(qd), rows(zero), None, None, None, None, 0, sdf)
+        err = compare_outputs(f"ball on SDF box N={n}", ko, po, s.nbody, n)
+        worst = max(worst, *err.values())
+        if pressed is None:
+            pressed = float((ko.body_force[:, 1, 2].abs() > 1.0).float().mean())
+        q, qd = po[0].T.contiguous(), po[1].T.contiguous()
+    print(f"ball on SDF box kernel vs plain, N={n}, 3 steps: max error {worst:.3e}, box force in "
+          f"{100 * pressed:.1f} % of envs")
+    if not pressed > 0.5:
+        raise AssertionError(f"the SDF row acted in {pressed:.3f} of the ball envs")
+    return worst
+
+
+def settle_ball(steps: int = 150) -> int:
+    """BALL_ENVS balls dropped from 0.5 m at x, y within the box top, through
+    `physics_step_fused` with the planes sampled at each step's entry pose:
+    each rests at BALL_REST (tests/test_sdf.py test_ball_rests_on_sdf_box)
+    with |qd_z| < 0.05. Returns the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda, fused
+
+    h = ball_holder()
+    m, p, n = h.model, h.sim_params, BALL_ENVS
+    q = torch.tensor(np.asarray(m.qpos0, np.float32), device="cuda").repeat(n, 1)
+    q[:, 0:2] = torch.tensor(np.random.RandomState(43).uniform(-0.15, 0.15, (n, 2)).astype(np.float32), device="cuda")
+    qd = torch.zeros(n, m.nv, device="cuda")
+    zero = torch.zeros_like(qd)
+    torch.cuda.synchronize()
+    _cuda.FusedStepCall.launches = 0
+    for _ in range(steps):
+        out = fused.physics_step_fused(m, p, q, qd, zero, sdf=sdf_planes(m, q, qd))
+        q, qd = out.q, out.qd
+    torch.cuda.synchronize()
+    launches = _cuda.FusedStepCall.launches
+    z, vz = q[:, 2], qd[:, 2]
+    print(f"ball on SDF box: {steps} steps x {n} balls, {launches} launches, rest height "
+          f"{float(z.min()):.5f}-{float(z.max()):.5f} m (bar {BALL_REST[0]} +- {BALL_REST[1]}), "
+          f"max |qd_z| {float(vz.abs().max()):.5f}")
+    if launches != steps or not bool(torch.isfinite(q).all()) or not float((z - BALL_REST[0]).abs().max()) < BALL_REST[1] \
+            or not float(vz.abs().max()) < 0.05:
+        raise AssertionError("the ball did not come to rest on the SDF box")
+    return launches
+
+
+def train_insertion(epochs: int = INSERTION_EPOCHS) -> int:
+    """`train.main task=FactoryTaskInsertion` at the yaml's 128 envs for
+    `epochs` epochs, a bit-equal restore into a fresh agent, and play (32
+    episodes, cut to 64 steps: the yaml's 1024 take some 40 s at 30-40 ms per
+    host-bound env step). Returns the training run's launches."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    with tempfile.TemporaryDirectory() as runs:
+        args = ["task=FactoryTaskInsertion", f"max_iterations={epochs}", f"+train_dir={runs}"]
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, metrics = train.main(args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        steps = epochs * INSERTION_WIDTH[1]
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v) and k != "mean_episode_return"}
+        if launches != steps or metrics["frames"] != steps * INSERTION_ENVS or bad:
+            raise AssertionError(f"{launches} launches, {metrics['frames']} frames for {steps} env steps; {bad}")
+        print(f"FactoryTaskInsertion train: {epochs} epochs x {INSERTION_ENVS} envs in {sec:.2f} s "
+              f"({metrics['frames'] / sec:.1f} env-steps/s with set-up), {launches} launches")
+        ckpt = os.path.join(runs, "FactoryTaskInsertion", "nn", "last_FactoryTaskInsertion.pth")
+        epoch = restored_bit_equal("FactoryTaskInsertion", args, ckpt, ts, epochs).pop()
+        t0 = time.perf_counter()
+        played = train.main(["task=FactoryTaskInsertion", "test=True", f"checkpoint={ckpt}",
+                             "task.env.episodeLength=64"])
+        print(f"FactoryTaskInsertion restore: bit-equal (epoch {epoch}); play: mean return {played:.2f} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if played != 0.0:
+            raise AssertionError(f"the template's return is zero, play gave {played}")
+    return launches
+
+
+def time_insertion(card: str) -> dict:
+    """`kernel_times` of Insertion's instantiation at the yaml's 128 envs and
+    at 4096, in comparison states; the 4096 figures under `<key>_4096`."""
+    out = {}
+    for n in (INSERTION_ENVS, INSERTION_WIDE):
+        env = insertion_env(n)
+        (q, qd, qfrc, xfrc, qt, sdf), _, _, _ = insertion_inputs(env, n, seed=44)
+        t = kernel_times(env, rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), card, reps=30, qt=rows(qt), sdf=sdf)
+        out.update(t if n == INSERTION_ENVS else {f"{k}_{n}": v for k, v in t.items() if k != "bound_by"})
+    return out
+
+
+def time_ball(card: str) -> dict:
+    """`kernel_times` of the ball-on-box instantiation at 4096 envs, balls on the box."""
+    h = ball_holder()
+    q, qd = ball_states(NUM_ENVS, seed=45)
+    zero = torch.zeros_like(qd)
+    return kernel_times(h, rows(q), rows(qd), rows(zero), None, card, reps=30, sdf=sdf_planes(h.model, q, qd))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1341,18 +1605,28 @@ def main() -> int:
         raise AssertionError("Cartpole should be contact-free and the Ant not")
     built = {"Ant": (env, ()), "Cartpole": (cart, ()),
              **{k: case(k, 8) for k in CASES}}
-    sizes = {t: _cuda.sizes_of(fused._extract(e.model), e.use_pd_targets, names) for t, (e, names) in built.items()}
     for k in ANYMAL_CASES:  # the per-env leaves of their own DR, the cap and terrain of their yaml
         e = anymal_env(k, 8)
         se = fused._extract(e.model)
-        names = fused.dyn_names(se, e.randomizer.batched_leaf_names()) if e.randomizer is not None else ()
-        built[k] = (e, names)
-        sizes[k] = _cuda.sizes_of(se, True, names, fused.topk_cap(se, physics_args(e)[0]), e.terrain is not None)
+        built[k] = (e, fused.dyn_names(se, e.randomizer.batched_leaf_names()) if e.randomizer is not None else ())
+    built["Ball"] = (ball_holder(), ())  # the SDF rows (K6) without a cap
+    built["Insertion"] = (insertion_env(8), ())  # SDF rows under the cap of 32, two envs per block
+
+    def params_of(t, e):
+        return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
+
+    # the size tuples the steps will take on this card (envs per block from its shared memory)
+    sizes = {t: _cuda.instantiation(fused._extract(e.model), params_of(t, e), torch.device("cuda", 0),
+                                    e.use_pd_targets, names, getattr(e, "terrain", None) is not None)[0]
+             for t, (e, names) in built.items()}
     if sizes["Quadcopter"][3] <= 32 or sizes["BallBalance"][4:7] != (1, 3, 1) or sizes["Example"][4] != 3 \
-            or sizes["Ant+yaml"][7:] != (0, 115, 0, 0, 0, 0) or sizes["Tendon+all"][7:] != (1, 65535, 10, 3, 0, 0) \
-            or sizes["Anymal"] != (13, 19, 18, 44, 0, 0, 1, 0, 0, 0, 0, 0, 0) \
-            or sizes["AnymalTerrain"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 1) \
-            or sizes["AnymalTerrain-plane"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 0) \
+            or sizes["Ant+yaml"][7:] != (0, 115, 0, 0, 0, 0, 0, 4) \
+            or sizes["Tendon+all"][7:] != (1, 65535, 10, 3, 0, 0, 0, 4) \
+            or sizes["Anymal"] != (13, 19, 18, 44, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 4) \
+            or sizes["AnymalTerrain"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 1, 0, 4) \
+            or sizes["AnymalTerrain-plane"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 0, 0, 4) \
+            or sizes["Ball"] != (2, 7, 6, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 4) \
+            or sizes["Insertion"] != (14, 16, 15, 64, 0, 0, 1, 0, 0, 0, 0, 32, 0, 64, 2) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -1367,15 +1641,16 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s in all; " + ", ".join(
         f"{t} {'_'.join(map(str, sz))} {sec:.1f} s" for (t, sz), sec in zip(sizes.items(), secs)))
     for t, (e, names) in built.items():
-        p_t = physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
         has_t = getattr(e, "terrain", None) is not None
-        _, step = fused._prepared(e.model, p_t, torch.device("cuda"), e.use_pd_targets, names, has_t)
-        print(f"shared memory per block, {t}: {step.smem_bytes} bytes ({_cuda.ENVS_PER_BLOCK} envs), "
-              f"{step.dyn_rows} per-env rows")
+        _, step = fused._prepared(e.model, params_of(t, e), torch.device("cuda"), e.use_pd_targets, names, has_t)
+        if step.sizes != sizes[t]:
+            raise AssertionError(f"{t}: the step took {step.sizes}, not the built {sizes[t]}")
+        print(f"shared memory per block, {t}: {step.smem_bytes} bytes ({step.epb} envs; the limit of one block "
+              f"is {step.smem_limit}), {step.dyn_rows} per-env rows")
 
     # 3. kernel vs plain version
-    if RAGGED_ENVS % _cuda.ENVS_PER_BLOCK == 0:
-        raise AssertionError(f"N={RAGGED_ENVS} fills every block of {_cuda.ENVS_PER_BLOCK} envs")
+    if any(RAGGED_ENVS % e == 0 for e in _cuda.ENVS_PER_BLOCK_CHOICES if e > 1):
+        raise AssertionError(f"N={RAGGED_ENVS} fills every block of some envs-per-block choice")
     err_ragged = compare(ant_env(RAGGED_ENVS), steps=3, seed=1)
     print(f"kernel vs plain, N={RAGGED_ENVS}, 3 steps:", json.dumps(err_ragged))
     err_main = compare(env, steps=1, seed=2)
@@ -1505,8 +1780,20 @@ def main() -> int:
     # 21. kernel times at full width
     anymal_t = {k: time_anymal(k, name) for k in ANYMAL_CASES}
 
+    # 22. FactoryTaskInsertion and the ball on an SDF box against their plain versions
+    sdf_err = {"Insertion": compare_insertion(), "Ball": compare_ball()}
+    # 23. the ball rests on the SDF box
+    sdf_launches = {"Ball": settle_ball()}
+    # 24. the training path at the yaml's width: 1 + 3 epochs, device ops per env step, train.main
+    sdf_launches["Insertion"] = train_epochs("FactoryTaskInsertion", INSERTION_WIDTH, profile=False)
+    ops_ins = profile_env_step(insertion_env(INSERTION_ENVS), label="FactoryTaskInsertion env.step")
+    print(f"device ops per FactoryTaskInsertion env step: {ops_ins:.1f}")
+    sdf_launches["Insertion"] += train_insertion()
+    # 25. kernel times
+    sdf_t = {"Insertion": time_insertion(name), "Ball": time_ball(name)}
+
     if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
-                            *anymal_launches.values())) \
+                            *anymal_launches.values(), *sdf_launches.values())) \
             or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
@@ -1515,6 +1802,7 @@ def main() -> int:
              "BallBalance": "fused_step_ballbalance_k4_qt", "Example": "fused_step_example_k4"}
     anymal_names = {"Anymal": "fused_step_anymal_qt", "AnymalTerrain": "fused_step_anymal_terrain_k5_k6_qt_dyn",
                     "AnymalTerrain-plane": "fused_step_anymal_plane_k5_qt_dyn"}
+    sdf_names = {"Insertion": "fused_step_insertion_k5_k6sdf_qt_epb2", "Ball": "fused_step_ball_k6sdf"}
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "max_abs_err": max_err,
@@ -1534,6 +1822,10 @@ def main() -> int:
            "launches": anymal_launches[k], "max_abs_err": anymal_err[k], **anymal_t[k], "library_ms": None,
            "num_envs": ANYMAL_ENVS, "sizes": list(sizes[k]), "per_env_leaves": list(built[k][1])}
           for k in ANYMAL_CASES),
+        *({"name": sdf_names[k], "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sdf_launches[k], "max_abs_err": sdf_err[k], **sdf_t[k], "library_ms": None,
+           "num_envs": INSERTION_ENVS if k == "Insertion" else NUM_ENVS, "sizes": list(sizes[k])}
+          for k in sdf_names),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

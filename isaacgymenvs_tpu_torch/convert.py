@@ -98,7 +98,8 @@ def model_from_arrays(fields: Mapping) -> Model:
         if v is None or isinstance(v, (bool, int, str)):
             kw[k] = v
         elif isinstance(v, tuple):
-            kw[k] = tuple(np.asarray(x, np.float32) if isinstance(x, np.ndarray) else x for x in v)
+            # array entries (the SDF grids and origins) as float32 numpy
+            kw[k] = tuple(np.asarray(x, np.float32) if hasattr(x, "shape") else x for x in v)
         else:
             arr = np.asarray(v)
             kw[k] = arr.astype(np.float32) if arr.dtype.kind == "f" else arr

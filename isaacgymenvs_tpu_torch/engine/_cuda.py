@@ -4,9 +4,13 @@
 library with a plain C interface, one library per model size tuple
 (nbody, nq, nv, plane rows, pair rows, anchors, q_target input or not,
 tendons, the set of per-env leaves as a bitmask, the model's candidate
-point and geom counts where a per-env leaf indexes them, the top-K cap, and
-terrain planes or not), at first use,
-into `isaacgymenvs_tpu_torch/_build/` (listed in .gitignore).
+point and geom counts where a per-env leaf indexes them, the top-K cap,
+terrain planes or not, SDF pair rows, and envs per block), at first use,
+into `isaacgymenvs_tpu_torch/_build/` (listed in .gitignore). A block keeps
+the spec and each of its envs in shared memory; envs per block is the
+largest of 4, 2 and 1 whose bytes (`smem_bytes`) fit the device's opt-in
+limit for one block (`envs_per_block`), and a model that does not fit at one
+is refused by name (`fused.unsupported_features`) before any launch.
 Without any row it is the contact-free instantiation (`-DFS_NC=0`): the
 same source with every contact stage compiled out. The library name carries
 a hash of the source and the flags, so an edited source is rebuilt. It is
@@ -33,7 +37,10 @@ from .dynamics import SimParams
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "fused_step.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-ENVS_PER_BLOCK = 4
+# envs per block, tried in this order: the first whose shared memory fits
+ENVS_PER_BLOCK_CHOICES = (4, 2, 1)
+# shared memory one block may opt in to on the H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+SMEM_OPTIN_BYTES = 232448
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -52,27 +59,76 @@ def nvcc() -> str:
     return path
 
 
-def sizes_of(s, has_qt: bool = False, names: tuple = (), cap: int = 0, has_terr: bool = False) -> tuple:
+def sizes_of(s, has_qt: bool = False, names: tuple = (), cap: int = 0, has_terr: bool = False,
+             epb: int = 4) -> tuple:
     """The size tuple of a model's kernel instantiation: (nbody, nq, nv,
     plane rows, pair rows, anchors, 1 with a q_target input, tendons, the
     per-env leaves `names` as a bitmask (`fused.dyn_mask`), the model's
     candidate-point and geom counts, 0 unless a per-env leaf of `names` is
-    laid out over them, the top-K cap (`fused.topk_cap`, 0 without), and 1
-    with terrain planes)."""
+    laid out over them, the top-K cap (`fused.topk_cap`, 0 without), 1 with
+    terrain planes, SDF pair rows, and envs per block)."""
     from .fused import dyn_mask
 
     ncp = s.ncp_model if any(k.startswith("cpoint_") for k in names) else 0
     ngeom = s.ngeom if "geom_size" in names else 0
     return (s.nbody, s.nq, s.nv, s.nc, s.pp_nc, s.att_n, int(bool(has_qt)), s.nt,
-            dyn_mask(names), ncp, ngeom, int(cap), int(bool(has_terr)))
+            dyn_mask(names), ncp, ngeom, int(cap), int(bool(has_terr)), s.sp_n, int(epb))
 
 
 def _defines(sizes) -> list:
-    nb, nq, nv, nc, npp, natt, qt, nt, dyn, ncp, ngeom, cap, terr = sizes
+    nb, nq, nv, nc, npp, natt, qt, nt, dyn, ncp, ngeom, cap, terr, nsp, epb = sizes
     return [f"-DFS_NB={nb}", f"-DFS_NQ={nq}", f"-DFS_NV={nv}", f"-DFS_NC={nc}",
-            f"-DFS_NPP={npp}", f"-DFS_NATT={natt}", f"-DFS_QT={qt}", f"-DFS_NT={nt}",
-            f"-DFS_DYN={dyn}", f"-DFS_NCP={ncp}", f"-DFS_NG={ngeom}", f"-DFS_CAP={cap}",
-            f"-DFS_TERR={terr}", f"-DFS_EPB={ENVS_PER_BLOCK}"]
+            f"-DFS_NPP={npp}", f"-DFS_NSP={nsp}", f"-DFS_NATT={natt}", f"-DFS_QT={qt}",
+            f"-DFS_NT={nt}", f"-DFS_DYN={dyn}", f"-DFS_NCP={ncp}", f"-DFS_NG={ngeom}",
+            f"-DFS_CAP={cap}", f"-DFS_TERR={terr}", f"-DFS_EPB={epb}"]
+
+
+def env_floats(s, has_qt: bool = False, names: tuple = (), cap: int = 0, has_terr: bool = False) -> int:
+    """Floats of one env's block of shared memory in the kernel's layout (the
+    E_* constants of fused_step.cu, rounded up to a multiple of 4): the
+    state, the articulated-body work, M^-1, J and W = M^-1 J over all R = 3
+    x contacts rows, the sensors, the per-env leaves, the terrain and SDF
+    planes and the top-K keys."""
+    from .fused import dyn_rows
+
+    nb, nq, nv, nct, npp, nsp = s.nbody, s.nq, s.nv, s.nct, s.pp_nc, s.sp_n
+    n = (nq * (2 if has_qt else 1) + 73 * nb + 26 * nv + 2 * nv * nv + 7 * nct + 2 * nv * 3 * nct
+         + 3 * (npp + nsp) + 9 * npp + sum(dyn_rows(s)[k] for k in names)
+         + (10 * s.nc if has_terr else 0) + 13 * nsp + (2 * nct if cap else 0))
+    return (n + 3) // 4 * 4
+
+
+def smem_bytes(s, p: SimParams, epb: int, has_qt: bool = False, names: tuple = (),
+               has_terr: bool = False) -> int:
+    """Dynamic shared memory one block of `epb` envs asks for: the spec
+    buffer (`pack_spec`), padded to a multiple of 4 floats, and the envs'
+    blocks."""
+    from .fused import apgd_betas, topk_cap
+
+    spec = pack_spec(s, p, apgd_betas(p.solver_apgd_iterations)).size
+    return 4 * ((spec + 3) // 4 * 4 + epb * env_floats(s, has_qt, names, topk_cap(s, p), has_terr))
+
+
+def envs_per_block(smem_of, limit: int) -> int:
+    """The largest of ENVS_PER_BLOCK_CHOICES whose block fits `limit` bytes,
+    `smem_of(epb)` being a block's bytes at epb envs; 0 when none fits."""
+    return next((e for e in ENVS_PER_BLOCK_CHOICES if smem_of(e) <= limit), 0)
+
+
+def device_smem_optin(device: torch.device) -> int:
+    """Shared memory one block may opt in to on `device`
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin), asked of the CUDA runtime of
+    the toolkit that builds the kernel."""
+    lib_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.realpath(nvcc()))), "lib64")
+    names = sorted(f for f in os.listdir(lib_dir) if f.startswith("libcudart.so")) if os.path.isdir(lib_dir) else []
+    if not names:
+        raise RuntimeError(f"no libcudart.so under {lib_dir}: the device's shared-memory limit cannot be read")
+    rt = ctypes.CDLL(os.path.join(lib_dir, names[0]))
+    value = ctypes.c_int(0)
+    rc = rt.cudaDeviceGetAttribute(ctypes.byref(value), 97, int(device.index or 0))
+    if rc != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute(MaxSharedMemoryPerBlockOptin) failed: CUDA error {rc}")
+    return int(value.value)
 
 
 def library_path(sizes) -> str:
@@ -114,7 +170,7 @@ def load(sizes):
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.fused_step_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.fused_step_layout.restype = ci
-            lib.fused_step_launch.argtypes = [vp] * 13 + [ci] * 5 + [vp]
+            lib.fused_step_launch.argtypes = [vp] * 14 + [ci] * 5 + [vp]
             lib.fused_step_launch.restype = ci
             _libs[tuple(sizes)] = lib
     return lib
@@ -122,8 +178,8 @@ def load(sizes):
 
 def layout(lib) -> tuple:
     """The compiled-in size tuple (see `sizes_of`) followed by spec_base,
-    env_floats, envs_per_block and the rows of the packed per-env input."""
-    out = (ctypes.c_int * 17)()
+    env_floats and the rows of the packed per-env input."""
+    out = (ctypes.c_int * 18)()
     lib.fused_step_layout(out)
     return tuple(out)
 
@@ -152,6 +208,7 @@ def pack_spec(s, p: SimParams, betas) -> np.ndarray:
                   p.baumgarte_erp_attractor]
     cat = lambda *a: np.concatenate([np.asarray(x, np.float64) for x in a], 0)
     zeros = np.zeros(s.att_n)
+    zsp = np.zeros(s.sp_n)  # an SDF row's radius is in its entry depth phi0
     tendons = ([s.tendon_coef, s.tendon_range, s.tendon_stiffness, s.tendon_damping] if s.nt
                else [np.zeros(0)] * 4)
     setpoint = np.where(s.sq_adr >= 0, s.qpos0[np.maximum(s.sq_adr, 0)], 0.0)
@@ -162,14 +219,15 @@ def pack_spec(s, p: SimParams, betas) -> np.ndarray:
         s.dof_body, s.sq_adr, s.armature, s.dof_damping, s.dof_friction,
         s.dof_stiffness, s.dof_limit_lower, s.dof_limit_upper, s.dof_limited, setpoint,
         s.dof_mask, s.anc,
-        # per contact, in row order: plane, pair, anchor
-        cat(s.cp_body, s.pp_a, s.att_body), cat(s.cp_pos, s.pp_pos, s.att_offset),
-        cat(s.cp_radius, s.pp_radius, zeros), cat(s.cp_mu, s.pp_mu, zeros), cat(s.rest, zeros),
-        cat(s.path_mask, s.pp_path.T, s.att_path.T),
+        # per contact, in row order: plane, pair, SDF, anchor
+        cat(s.cp_body, s.pp_a, s.sp_a, s.att_body), cat(s.cp_pos, s.pp_pos, s.sp_pos, s.att_offset),
+        cat(s.cp_radius, s.pp_radius, zsp, zeros), cat(s.cp_mu, s.pp_mu, s.sp_mu, zeros), cat(s.rest, zeros),
+        cat(s.path_mask, s.pp_path.T, s.sp_path.T, s.att_path.T),
         # per pair row: the geom, and where per-env leaves find the row's
-        # point and geom in the model's arrays; the tendons; per anchor: the target
+        # point and geom in the model's arrays; per SDF row: the grid's body
+        # and the row's point; the tendons; per anchor: the target
         s.pp_b, s.pp_gtype, s.pp_gpos, s.pp_gquat, s.pp_gsize,
-        s.pp_pt, s.pp_geom, s.pp_geom_fric, *tendons, s.att_target,
+        s.pp_pt, s.pp_geom, s.pp_geom_fric, s.sp_b, s.sp_pt, *tendons, s.att_target,
         np.asarray(betas, np.float64),
     ]
     return np.concatenate([np.asarray(a, np.float64).reshape(-1) for a in parts]).astype(np.float32)
@@ -197,6 +255,10 @@ def kernel_flops(s, p: SimParams, has_terr: bool = False) -> int:
     force times its coefficients. Per-env leaves change where a constant is
     read, not the count. A terrain plane row adds its depth along the
     plane's normal and the rotation of its Jacobian into the plane's frame.
+    An SDF row adds its point in the world, its depth against its entry
+    plane, its world Jacobian and that Jacobian's rotation into the plane's
+    frame; its sensor turns its force to world axes and takes a second arm
+    for the grid's body.
     With a top-K cap every row is formed with its J qd_free, each contact's
     key is compared with every other one, and only the cap contacts in the
     solve take W = M^-1 J, their scale, the Lipschitz sums, the APGD and the
@@ -206,8 +268,8 @@ def kernel_flops(s, p: SimParams, has_terr: bool = False) -> int:
     """
     from .fused import topk_cap
 
-    nb, nv, nc, npp, natt = s.nbody, s.nv, s.nc, s.pp_nc, s.att_n
-    nct = nc + npp + natt
+    nb, nv, nc, npp, nsp, natt = s.nbody, s.nv, s.nc, s.pp_nc, s.sp_n, s.att_n
+    nct = nc + npp + nsp + natt
     cap = topk_cap(s, p)
     nce = cap or nct  # contacts in the solve
     r, rs = 3 * nct, 3 * nce
@@ -237,6 +299,8 @@ def kernel_flops(s, p: SimParams, has_terr: bool = False) -> int:
     narrow = int(np.sum(np.where(gt == 2, 30, np.where(gt == 3, 40, 16))))
     rows += npp * (2 * (_QROT + 3) + _QMUL + 3 + _QROT + 2 * _QROT + 3 + 2 * _CROSS + 8
                    + 3 * nv * 5 + 3 * nv * 5 + 13) + narrow
+    # SDF row: point, phi0 - n . (x - x0), world Jacobian, its rotation
+    rows += nsp * (_QROT + 3 + 9 + 3 * nv * 5 + 3 * nv * 5)
     # anchor: its point, the error drive on three axes, world Jacobian
     rows += natt * (_QROT + 3 + 9 + 3 * nv * 5)
     lipschitz = (rs * (rs + 1) // 2) * (2 * nv + 2) + rs * rs + 4 * rs
@@ -248,20 +312,42 @@ def kernel_flops(s, p: SimParams, has_terr: bool = False) -> int:
                  + lipschitz + apgd + impulse + integrate)
     # per contact force, arm and torque, summed per body; a pair row also
     # turns its force to world axes and takes a second arm for the geom's body
-    sensors = nct * (3 + 3 + _CROSS) + 6 * nct + nv + npp * (15 + 3 + _CROSS + 6) if nct else 0
+    sensors = nct * (3 + 3 + _CROSS) + 6 * nct + nv + (npp + nsp) * (15 + 3 + _CROSS + 6) if nct else 0
     return int(p.substeps * p.solver_iterations * per_slice + sensors)
 
 
 def kernel_bytes(s, n_env: int, has_xfrc: bool, has_qt: bool = False, names: tuple = (),
                  has_terr: bool = False) -> int:
     """Boundary traffic of one launch: inputs read once (the per-env leaves
-    `names` and the terrain planes among them), outputs written once."""
+    `names`, the terrain planes and the SDF planes among them), outputs
+    written once."""
     from .fused import dyn_rows
 
     rows_in = s.nq + 2 * s.nv + (6 * s.nbody if has_xfrc else 0) + (s.nq if has_qt else 0)
-    rows_in += sum(dyn_rows(s)[k] for k in names) + (10 * s.nc if has_terr else 0)
+    rows_in += sum(dyn_rows(s)[k] for k in names) + (10 * s.nc if has_terr else 0) + 13 * s.sp_n
     rows_out = s.nq + s.nv + 6 * s.nbody + s.nv
     return 4 * n_env * (rows_in + rows_out)
+
+
+def instantiation(s, params: SimParams, device: torch.device, has_qt: bool = False, names: tuple = (),
+                  has_terr: bool = False):
+    """The kernel instantiation a model takes on `device`: (size tuple with
+    the envs per block that fit the device's shared memory, the spec buffer,
+    floats per env, dynamic shared-memory bytes per block, the device's
+    limit). Raises NotImplementedError, with the byte count, for a model that
+    does not fit at one env per block."""
+    from .fused import apgd_betas, topk_cap
+
+    limit = device_smem_optin(device)
+    smem_of = lambda e: smem_bytes(s, params, e, has_qt, names, has_terr)
+    epb = envs_per_block(smem_of, limit)
+    if not epb:
+        raise NotImplementedError(
+            f"shared memory: {smem_of(1)} bytes per block at one env per block, over the "
+            f"{limit}-byte limit of one block on {torch.cuda.get_device_name(device)}")
+    cap = topk_cap(s, params)
+    return (sizes_of(s, has_qt, names, cap, has_terr, epb), pack_spec(s, params, apgd_betas(params.solver_apgd_iterations)),
+            env_floats(s, has_qt, names, cap, has_terr), smem_of(epb), limit)
 
 
 class FusedStepCall:
@@ -275,34 +361,36 @@ class FusedStepCall:
 
     def __init__(self, s, params: SimParams, betas, device: torch.device, has_qt: bool = False,
                  names: tuple = (), has_terr: bool = False):
-        from .fused import dyn_rows, topk_cap
+        from .fused import dyn_rows
 
         if device.type != "cuda":
             raise ValueError(f"FusedStepCall needs a CUDA device, got {device}")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        self.sizes = sizes_of(s, has_qt, names, topk_cap(s, params), has_terr)
+        # envs per block from the shared-memory budget of the device
+        self.sizes, spec, env_f, self.smem_bytes, self.smem_limit = instantiation(
+            s, params, device, has_qt, names, has_terr)
+        if not np.array_equal(spec[spec.size - len(betas):], np.asarray(betas, np.float32)):
+            raise ValueError("betas disagree with the parameters' APGD iterations")
         self.has_qt = bool(has_qt)
         self.has_terr = bool(has_terr)
         self.names = tuple(names)
         self.dyn_rows = sum(dyn_rows(s)[k] for k in names)
         self.lib = load(self.sizes)
-        *built, spec_base, env_floats, epb, rows = layout(self.lib)
-        if tuple(built) != self.sizes or rows != self.dyn_rows:
-            raise RuntimeError(f"kernel built for {tuple(built)} with {rows} per-env rows, "
-                               f"model is {self.sizes} with {self.dyn_rows}")
-        spec = pack_spec(s, params, betas)
+        *built, spec_base, built_env_f, rows = layout(self.lib)
+        if tuple(built) != self.sizes or rows != self.dyn_rows or built_env_f != env_f:
+            raise RuntimeError(f"kernel built for {tuple(built)} with {rows} per-env rows and {built_env_f} "
+                               f"floats per env, model is {self.sizes} with {self.dyn_rows} and {env_f}")
         if spec.size != spec_base + len(betas):
             raise RuntimeError("spec buffer layout disagrees with the kernel")
         self.spec = torch.as_tensor(spec, device=device)
-        # dynamic shared memory a block asks for: the spec and its envs
-        self.smem_bytes = 4 * (((spec.size + 3) & ~3) + epb * env_floats)
+        self.epb = self.sizes[-1]
         self.n_slices = params.substeps * params.solver_iterations
         self.iters = params.solver_apgd_iterations
         self.device = device
         self.s = s
 
-    def __call__(self, q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None, warm_reset_every=0):
+    def __call__(self, q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None, warm_reset_every=0, sdf=None):
         s, n = self.s, q.shape[-1]
         if (q_target is not None) != self.has_qt:
             raise ValueError("this kernel instantiation was built {} a q_target input".format(
@@ -321,6 +409,10 @@ class FusedStepCall:
             ins.append((dyn, self.dyn_rows))
         if terr is not None:
             ins.append((terr, 10 * s.nc))
+        if (sdf is None) != (not s.sp_n):
+            raise ValueError(f"a model with {s.sp_n} SDF pair rows takes {13 * s.sp_n} rows of SDF planes")
+        if sdf is not None:
+            ins.append((sdf, 13 * s.sp_n))
         for t, rows in ins:
             if t.device != self.device or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError("fused step inputs must be contiguous float32 on the kernel's device")
@@ -332,7 +424,7 @@ class FusedStepCall:
         ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         rc = self.lib.fused_step_launch(
-            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc), ptr(q_target), ptr(dyn), ptr(terr),
+            ptr(q), ptr(qd), ptr(qfrc), ptr(xfrc), ptr(q_target), ptr(dyn), ptr(terr), ptr(sdf),
             ptr(q2), ptr(qd2), ptr(bf), ptr(bt), ptr(df),
             ptr(self.spec), int(self.spec.numel()), int(n), int(self.n_slices),
             int(self.iters), int(warm_reset_every), ctypes.c_void_p(stream),

@@ -12,7 +12,9 @@
 // below), K5 (the top-K active set, -DFS_CAP=<cap>, fused.py:1252-1350 and
 // :1422-1435, see "Top-K" below), K6 terrain rows (-DFS_TERR=1,
 // fused.py:889-907: plane rows against per-env entry-sampled planes, see
-// "Terrain rows" below) and merged decimation windows (the runtime argument
+// "Terrain rows" below), K6 SDF rows (-DFS_NSP, fused.py:1091-1127, sensors
+// :1476-1501: candidate points against voxel SDF grids through per-env
+// entry-sampled planes, see "SDF rows" below) and merged decimation windows (the runtime argument
 // `warm_reset_every`, fused.py:1547-1561: the warm start resets at slice i
 // when i is a non-zero multiple of it). Built with no rows at all it is the
 // contact-free instantiation of K1
@@ -42,8 +44,9 @@
 // companion matrix (twice the needed Gauss-Jordan work).
 //
 // Design. Sizes (nbody, nq, nv, plane rows, pair rows, anchors, q_target or
-// not, tendons, the per-env leaf set, the top-K cap, terrain or not) are
-// compile-time constants (-DFS_NB ..), one library per size tuple; the body tree, the model constants and the
+// not, tendons, the per-env leaf set, the top-K cap, terrain or not, SDF
+// rows, envs per block) are compile-time constants (-DFS_NB ..), one library
+// per size tuple; the body tree, the model constants and the
 // solver parameters come in a small float buffer that each block copies to
 // shared memory. A warp owns one env: its state, J, W = M^-1 J and M^-1 stay
 // in shared memory (~16 KB for Ant) across all slices and APGD iterations.
@@ -68,6 +71,29 @@
 // drives its point error on all three rows. The sensors give +F to a pair
 // row's point body and -F to its geom body, each with its own torque arm;
 // every (component, body) output is summed by one lane, without atomics.
+//
+// SDF rows. With -DFS_NSP=<rows> the contacts of the solve include, after
+// the pair rows, NSP rows of a candidate point on body A against the voxel
+// SDF grid of body B. The grid is never read here: a (13 NSP, N) input holds
+// per row the plane sampled outside at the call's entry pose
+// (fused.sdf_dyn: depth phi0 at the point's entry position x0, the grid's
+// normal n and tangents t1, t2, all world) and held for all of the call's
+// slices, as the TPU kernel holds it. The lane that owns the row takes the
+// point x from FK at the slice's pose, sets phi = phi0 - n . (x - x0), forms
+// the world point Jacobian at x along the signed dof path (A minus B) and
+// rotates it into [t1, t2, n]; the row then enters the solve beside the
+// plane rows, with the point's friction and restitution, Baumgarte and its
+// top-K key. Its sensor turns the impulse to world axes through the same
+// frame and gives +F to A and -F to B, each with its own torque arm. The
+// planes are staged in the env's shared memory (E_SDF, 13 NSP floats),
+// loaded cooperatively like the terrain input.
+//
+// Envs per block. FS_EPB envs share a block; the host picks the largest of
+// 4, 2 and 1 whose dynamic shared memory (spec + FS_EPB x ENV_FLOATS floats)
+// fits the device's opt-in limit for one block (engine/_cuda.py
+// envs_per_block), so a model with many rows (Insertion: 128 contacts, J
+// and W of 2 x 15 x 384 floats per env) runs at fewer envs per block rather
+// than failing its launch.
 //
 // Terrain rows. With -DFS_TERR=1 a plane row stands against its own plane:
 // a (10 NC, N) input holds, per candidate point, the ground height h under
@@ -114,13 +140,16 @@
 #include <cuda_runtime.h>
 
 #ifndef FS_NB
-#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts> [-DFS_NPP=<pair rows> -DFS_NATT=<anchors> -DFS_QT=1 -DFS_NT=<tendons> -DFS_DYN=<leaf bitmask> -DFS_NCP=<model cpoints> -DFS_NG=<model geoms> -DFS_CAP=<top-K cap> -DFS_TERR=1]"
+#error "compile with -DFS_NB=<nbody> -DFS_NQ=<nq> -DFS_NV=<nv> -DFS_NC=<plane contacts> [-DFS_NPP=<pair rows> -DFS_NSP=<SDF pair rows> -DFS_NATT=<anchors> -DFS_QT=1 -DFS_NT=<tendons> -DFS_DYN=<leaf bitmask> -DFS_NCP=<model cpoints> -DFS_NG=<model geoms> -DFS_CAP=<top-K cap> -DFS_TERR=1 -DFS_EPB=<envs per block>]"
 #endif
 #ifndef FS_EPB
 #define FS_EPB 4
 #endif
 #ifndef FS_NPP
 #define FS_NPP 0  // point-vs-geom pair rows
+#endif
+#ifndef FS_NSP
+#define FS_NSP 0  // SDF pair rows: candidate points against voxel SDF grids
 #endif
 #ifndef FS_NATT
 #define FS_NATT 0  // bilateral point anchors
@@ -150,13 +179,14 @@
 namespace {
 
 constexpr int NB = FS_NB, NQ = FS_NQ, NV = FS_NV, NC = FS_NC, EPB = FS_EPB;
-constexpr int NPP = FS_NPP, NATT = FS_NATT;
+constexpr int NPP = FS_NPP, NSP = FS_NSP, NATT = FS_NATT;
 constexpr bool QT = FS_QT != 0;
 constexpr int NT = FS_NT, NCP = FS_NCP, NG = FS_NG;
 constexpr unsigned DYN = FS_DYN;
-// contacts of the solve in row order: plane, pair, anchor; a contact has
-// three rows, stored comp-major [t1 | t2 | n] in blocks of NCT
-constexpr int NUNI = NC + NPP;     // unilateral contacts
+// contacts of the solve in row order: plane, pair, SDF, anchor; a contact
+// has three rows, stored comp-major [t1 | t2 | n] in blocks of NCT
+constexpr int NTWO = NPP + NSP;    // two-body contacts (pair and SDF rows)
+constexpr int NUNI = NC + NTWO;    // unilateral contacts
 constexpr int NCT = NUNI + NATT;
 constexpr int R = 3 * NCT;
 constexpr int CPL = (NCT + 31) / 32;  // contacts per lane
@@ -164,7 +194,8 @@ constexpr int CPLA = CPL > 0 ? CPL : 1;  // size of the per-lane contact arrays 
 constexpr int CAP = FS_CAP;
 constexpr bool TOPK = CAP > 0;
 constexpr bool TERR = FS_TERR != 0;
-static_assert(NC >= 0 && NPP >= 0 && NATT >= 0, "negative contact count");
+static_assert(NC >= 0 && NPP >= 0 && NSP >= 0 && NATT >= 0, "negative contact count");
+static_assert(EPB == 1 || EPB == 2 || EPB == 4, "envs per block is 4, 2 or 1");
 static_assert(!TOPK || (CAP < NCT && CAP > NATT), "the cap must lie below the contacts and above the anchors");
 static_assert(!TERR || NC > 0, "terrain planes need plane rows");
 static_assert(NV > 0 && NB > 0, "empty model");
@@ -220,8 +251,12 @@ constexpr int O_PPGSIZE = O_PPGQUAT + 4 * NPP;
 constexpr int O_PPPT = O_PPGSIZE + 3 * NPP;
 constexpr int O_PPGEOM = O_PPPT + NPP;
 constexpr int O_PPGFRIC = O_PPGEOM + NPP;
+// per SDF row (NSP): the grid's body, and the row's candidate point in the
+// model's arrays (for per-env leaves)
+constexpr int O_SPB = O_PPGFRIC + NPP;
+constexpr int O_SPPT = O_SPB + NSP;
 // per tendon (NT): coefficients over the dofs, range, stiffness, damping
-constexpr int O_TCOEF = O_PPGFRIC + NPP;
+constexpr int O_TCOEF = O_SPPT + NSP;
 constexpr int O_TRANGE = O_TCOEF + NT * NV;
 constexpr int O_TSTIFF = O_TRANGE + 2 * NT;
 constexpr int O_TDAMP = O_TSTIFF + NT;
@@ -255,8 +290,8 @@ constexpr int E_SC = E_CC + NV;          // (NCT,) Jacobi scale per contact
 constexpr int E_J = E_SC + NCT;          // (NV, R) comp-major rows
 constexpr int E_W = E_J + NV * R;        // (NV, R) = M^-1 J
 constexpr int E_FS = E_W + NV * R;       // (6, NCT) world contact force, torque about the point's body
-constexpr int E_FSB = E_FS + 6 * NCT;    // (3, NPP) the same force's torque about the geom's body
-constexpr int E_FR = E_FSB + 3 * NPP;    // (NPP, 9) pair-row frame t1, t2, n (world)
+constexpr int E_FSB = E_FS + 6 * NCT;    // (3, NTWO) the same force's torque about body B (geom or grid)
+constexpr int E_FR = E_FSB + 3 * NTWO;   // (NPP, 9) pair-row frame t1, t2, n (world)
 constexpr int E_BF = E_FR + 9 * NPP;     // (3, NB)
 constexpr int E_BT = E_BF + 3 * NB;      // (3, NB)
 constexpr int E_DF = E_BT + 3 * NB;      // (NV,)
@@ -306,7 +341,8 @@ static_assert(NT >= 0 && NCP >= 0 && NG >= 0, "negative count");
 
 constexpr int E_DYN = E_DF + NV;         // (DYN_ROWS,) the env's per-env leaves
 constexpr int E_TERR = E_DYN + DYN_ROWS;  // (10, NC) h, n, t1, t2 per plane row, with TERR
-constexpr int E_KEY = E_TERR + (TERR ? 10 * NC : 0);  // (NCT,) top-K keys, with TOPK
+constexpr int E_SDF = E_TERR + (TERR ? 10 * NC : 0);  // (13, NSP) phi0, x0, n, t1, t2 per SDF row
+constexpr int E_KEY = E_SDF + 13 * NSP;               // (NCT,) top-K keys, with TOPK
 constexpr int E_SEL = E_KEY + (TOPK ? NCT : 0);       // (NCT,) 1 where a contact is in the solve
 constexpr int ENV_FLOATS = ((E_SEL + (TOPK ? NCT : 0) + 3) / 4) * 4;
 
@@ -563,8 +599,9 @@ __device__ __forceinline__ void project(float t1, float t2, float n, float mu, f
   o[0] = t1 * sc; o[1] = t2 * sc; o[2] = ln * act;
 }
 
-// kind of contact i: plane row, pair row or bilateral anchor
-__device__ __forceinline__ bool is_pair(int i) { return NPP > 0 && i >= NC && i < NUNI; }
+// kind of contact i: plane row, pair row, SDF row or bilateral anchor
+__device__ __forceinline__ bool is_pair(int i) { return NPP > 0 && i >= NC && i < NC + NPP; }
+__device__ __forceinline__ bool is_sdf(int i) { return NSP > 0 && i >= NC + NPP && i < NUNI; }
 __device__ __forceinline__ bool is_anchor(int i) { return NATT > 0 && i >= NUNI && i < NCT; }
 
 // Pair row j: the candidate point xw (world) against the analytic geom of
@@ -818,8 +855,8 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
         if (i < NCT) {
           const int b = (int)sp[O_CPBODY + i];
           // the row's candidate point in the model's arrays, where per-env
-          // cpoint leaves are read: a plane row is its own, a pair row picks
-          const int pt = is_pair(i) ? (int)sp[O_PPPT + i - NC] : i;
+          // cpoint leaves are read: a plane row is its own, a pair or SDF row picks
+          const int pt = is_pair(i) ? (int)sp[O_PPPT + i - NC] : is_sdf(i) ? (int)sp[O_SPPT + i - NC - NPP] : i;
           const float* cpos = sp + O_CPPOS + 3 * i;
           float cpos_e[3];
           if constexpr (H_CPPOS) {
@@ -838,6 +875,19 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
             const float xw[3] = {xc[c][0], xc[c][1], xc[c][2]};
             pair_row(sp, e, i - NC, xw, sp[O_CPRAD + i], &phi, xc[c], fr, fr + 3, fr + 6);
             for (int k = 0; k < 9; ++k) e[E_FR + 9 * (i - NC) + k] = fr[k];
+            framed = true;
+          } else if (is_sdf(i)) {
+            // the row's entry plane: phi = phi0 - n . (x - x0), frame [t1, t2, n]
+            const float* pl = e + E_SDF;
+            const int j = i - NC - NPP;
+            float dn = 0.f;
+            for (int k = 0; k < 3; ++k) {
+              fr[k] = pl[(7 + k) * NSP + j];
+              fr[3 + k] = pl[(10 + k) * NSP + j];
+              fr[6 + k] = pl[(4 + k) * NSP + j];
+              dn += fr[6 + k] * (xc[c][k] - pl[(1 + k) * NSP + j]);
+            }
+            phi = pl[j] - dn;
             framed = true;
           } else if (is_anchor(i)) {
             phi = 0.f;
@@ -858,7 +908,8 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
           act[c] = phi > -margin ? 1.f : 0.f;
           mu[c] = sp[O_CPMU + i];
           if constexpr (H_CPFRIC) {
-            // a pair row averages its point's friction with the geom's static one
+            // a pair row averages its point's friction with the geom's static
+            // one; plane and SDF rows take their point's
             if (is_pair(i)) mu[c] = 0.5f * (e[E_DYN + DO_CPFRIC + pt] + sp[O_PPGFRIC + i - NC]);
             else if (!is_anchor(i)) mu[c] = e[E_DYN + DO_CPFRIC + pt];
           }
@@ -935,7 +986,7 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
             // Baumgarte / approach target, Newton restitution: bv[c][2] is
             // the pre-solve normal velocity
             float vnt = phi > 0.f ? fminf(erp * phi / h, maxdep) : phi / h;
-            const int pt = is_pair(i) ? (int)sp[O_PPPT + i - NC] : i;
+            const int pt = is_pair(i) ? (int)sp[O_PPPT + i - NC] : is_sdf(i) ? (int)sp[O_SPPT + i - NC - NPP] : i;
             const float rest = leaf<H_CPREST, DO_CPREST, O_REST>(sp, e, H_CPREST ? pt : i);
             const float vn_pre = bv[c][2];
             if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
@@ -1078,11 +1129,17 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
           if (i < NCT) {
             const int b = (int)sp[O_CPBODY + i];
             float Fp[3] = {lam[c][0] * inv_h, lam[c][1] * inv_h, lam[c][2] * inv_h};
+            const float l0 = Fp[0], l1 = Fp[1], l2 = Fp[2];
             if (is_pair(i)) {
               // row impulses are in the contact frame: back to world axes
               const float* fr = e + E_FR + 9 * (i - NC);
-              const float l0 = Fp[0], l1 = Fp[1], l2 = Fp[2];
               for (int k = 0; k < 3; ++k) Fp[k] = fr[k] * l0 + fr[3 + k] * l1 + fr[6 + k] * l2;
+            } else if (is_sdf(i)) {
+              // likewise through the SDF row's entry frame t1, t2, n
+              const float* pl = e + E_SDF;
+              const int j = i - NC - NPP;
+              for (int k = 0; k < 3; ++k)
+                Fp[k] = pl[(7 + k) * NSP + j] * l0 + pl[(10 + k) * NSP + j] * l1 + pl[(4 + k) * NSP + j] * l2;
             }
             float rel[3], tq[3];
             for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * b + k];
@@ -1091,12 +1148,12 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
               e[E_FS + k * NCT + i] = Fp[k];
               e[E_FS + (3 + k) * NCT + i] = tq[k];
             }
-            if (is_pair(i)) {
-              // the geom's body takes -F, with its own torque arm
-              const int bB = (int)sp[O_PPB + i - NC];
+            if (is_pair(i) || is_sdf(i)) {
+              // body B (the geom's or the grid's) takes -F, with its own torque arm
+              const int bB = is_pair(i) ? (int)sp[O_PPB + i - NC] : (int)sp[O_SPB + i - NC - NPP];
               for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * bB + k];
               cross3(rel, Fp, tq);
-              for (int k = 0; k < 3; ++k) e[E_FSB + k * NPP + i - NC] = tq[k];
+              for (int k = 0; k < 3; ++k) e[E_FSB + k * NTWO + i - NC] = tq[k];
             }
           }
         }
@@ -1112,10 +1169,11 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
           float a = 0.f;
           for (int i = 0; i < NCT; ++i)
             if ((int)sp[O_CPBODY + i] == b) a += e[E_FS + k * NCT + i];
-          if constexpr (NPP > 0) {
-            for (int j = 0; j < NPP; ++j)
-              if ((int)sp[O_PPB + j] == b)
-                a -= k < 3 ? e[E_FS + k * NCT + NC + j] : e[E_FSB + (k - 3) * NPP + j];
+          if constexpr (NTWO > 0) {
+            for (int j = 0; j < NTWO; ++j) {
+              const int bB = j < NPP ? (int)sp[O_PPB + j] : (int)sp[O_SPB + j - NPP];
+              if (bB == b) a -= k < 3 ? e[E_FS + k * NCT + NC + j] : e[E_FSB + (k - 3) * NTWO + j];
+            }
           }
           if (k < 3) e[E_BF + k * NB + b] = a;
           else e[E_BT + (k - 3) * NB + b] = a;
@@ -1154,7 +1212,8 @@ __global__ void __launch_bounds__(32 * EPB)
 fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
                   const float* __restrict__ qfrc_in, const float* __restrict__ xfrc_in,
                   const float* __restrict__ qt_in, const float* __restrict__ dyn_in,
-                  const float* __restrict__ terr_in, float* __restrict__ q_out, float* __restrict__ qd_out,
+                  const float* __restrict__ terr_in, const float* __restrict__ sdf_in,
+                  float* __restrict__ q_out, float* __restrict__ qd_out,
                   float* __restrict__ bf_out, float* __restrict__ bt_out,
                   float* __restrict__ df_out, const float* __restrict__ spec, int spec_len,
                   int n_env, int n_slices, int iters, int warm_reset_every) {
@@ -1171,6 +1230,7 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
   if constexpr (QT) load_rows(qt_in, envs, E_QTGT, NQ, env0, n_env);
   if constexpr (DYN_ROWS > 0) load_rows(dyn_in, envs, E_DYN, DYN_ROWS, env0, n_env);
   if constexpr (TERR) load_rows(terr_in, envs, E_TERR, 10 * NC, env0, n_env);
+  if constexpr (NSP > 0) load_rows(sdf_in, envs, E_SDF, 13 * NSP, env0, n_env);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (env0 + warp < n_env) run_env(sp, envs + warp * ENV_FLOATS, lane, n_slices, iters, warm_reset_every);
@@ -1186,16 +1246,16 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
 
 extern "C" {
 
-// out[0..16] = nbody, nq, nv, plane rows, pair rows, anchors, 1 with a
+// out[0..17] = nbody, nq, nv, plane rows, pair rows, anchors, 1 with a
 // q_target input, tendons, the per-env leaf bitmask, model cpoints and geoms
 // (0 unless a per-env leaf indexes them), the top-K cap (0: none), 1 with
-// terrain planes, spec floats before the betas, per-env shared floats, envs
-// per block, rows of the packed per-env input.
+// terrain planes, SDF pair rows, envs per block, spec floats before the
+// betas, per-env shared floats, rows of the packed per-env input.
 int fused_step_layout(int* out) {
   out[0] = NB; out[1] = NQ; out[2] = NV; out[3] = NC; out[4] = NPP; out[5] = NATT;
   out[6] = QT ? 1 : 0; out[7] = NT; out[8] = (int)DYN; out[9] = NCP; out[10] = NG;
-  out[11] = CAP; out[12] = TERR ? 1 : 0;
-  out[13] = SPEC_BASE; out[14] = ENV_FLOATS; out[15] = EPB; out[16] = DYN_ROWS;
+  out[11] = CAP; out[12] = TERR ? 1 : 0; out[13] = NSP; out[14] = EPB;
+  out[15] = SPEC_BASE; out[16] = ENV_FLOATS; out[17] = DYN_ROWS;
   return 0;
 }
 
@@ -1204,11 +1264,13 @@ int fused_step_layout(int* out) {
 // is read only by a library built with -DFS_QT=1, which refuses a null one
 // (cudaErrorInvalidValue); dyn (DYN_ROWS, n_env), the packed per-env leaves,
 // likewise by a library built with a non-zero -DFS_DYN, and terr (10 NC,
-// n_env), the terrain planes, by one built with -DFS_TERR=1. With
-// warm_reset_every = k > 0 the contact warm start resets every k slices.
+// n_env), the terrain planes, by one built with -DFS_TERR=1, and sdf
+// (13 NSP, n_env), the SDF planes, by one built with a non-zero -DFS_NSP.
+// With warm_reset_every = k > 0 the contact warm start resets every k slices.
 // Returns the CUDA error code of the launch (0 on success).
 int fused_step_launch(const void* q, const void* qd, const void* qfrc, const void* xfrc,
-                      const void* q_target, const void* dyn, const void* terr, void* q_out, void* qd_out,
+                      const void* q_target, const void* dyn, const void* terr, const void* sdf,
+                      void* q_out, void* qd_out,
                       void* bf_out, void* bt_out, void* df_out,
                       const void* spec, int spec_len, int n_env, int n_slices, int iters,
                       int warm_reset_every, void* stream) {
@@ -1216,6 +1278,7 @@ int fused_step_launch(const void* q, const void* qd, const void* qfrc, const voi
   if (QT && q_target == nullptr) return (int)cudaErrorInvalidValue;
   if (DYN_ROWS > 0 && dyn == nullptr) return (int)cudaErrorInvalidValue;
   if (TERR && terr == nullptr) return (int)cudaErrorInvalidValue;
+  if (NSP > 0 && sdf == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes = sizeof(float) * (size_t)(((spec_len + 3) & ~3) + EPB * ENV_FLOATS);
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1223,7 +1286,8 @@ int fused_step_launch(const void* q, const void* qd, const void* qfrc, const voi
   const int grid = (n_env + EPB - 1) / EPB;
   fused_step_kernel<<<grid, 32 * EPB, bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)qd, (const float*)qfrc, (const float*)xfrc,
-      (const float*)q_target, (const float*)dyn, (const float*)terr, (float*)q_out, (float*)qd_out,
+      (const float*)q_target, (const float*)dyn, (const float*)terr, (const float*)sdf,
+      (float*)q_out, (float*)qd_out,
       (float*)bf_out, (float*)bt_out, (float*)df_out,
       (const float*)spec, spec_len, n_env, n_slices, iters, warm_reset_every);
   return (int)cudaGetLastError();

@@ -25,11 +25,14 @@ restitution, per-env model leaves (`dyn`: the domain-randomization
 surface `DYN_LEAVES` plus per-env gravity), which reach the step as one
 packed (rows, N) input (`pack_dyn`), heightfield terrain through planes
 sampled per candidate point at the call's entry pose (`terrain_dyn`, ten
-(nc, N) rows), the top-K active set (`max_active_contacts`: only the cap
+(nc, N) rows), candidate points against voxel SDF grids through planes
+sampled per SDF pair row at the call's entry pose (`sdf_dyn`, thirteen
+(nsp, N) rows), the top-K active set (`max_active_contacts`: only the cap
 most-penetrating candidates enter the solve) and merged decimation windows
 (`warm_reset_every`: the warm start resets where separate calls would
-start). Geom-geom pairs and SDF pairs are later tiers and raise
-NotImplementedError by name.
+start). Geom-geom pairs raise NotImplementedError by name, and so does a
+model whose kernel instantiation would not fit the card's shared memory at
+one env per block (`_cuda.smem_bytes`).
 """
 from __future__ import annotations
 
@@ -70,14 +73,35 @@ def unsupported_features(model: Model, params: SimParams, terrain=None) -> list:
         "terrain without plane candidates": terrain is not None and not n_plane,
         f"solver={params.solver}": params.solver != "apgd",
         "geom-geom pairs (pair_geom_a)": bool(len(model.pair_geom_a)),
-        "SDF pair rows (spair_point)": bool(len(model.spair_point)),
         "pair rows against capsule or plane geoms": any(
             model.geom_type[g] not in _PAIR_GEOM_TYPES for g in model.ppair_geom
         ),
         # bilateral rows always take a slot: the cap must leave room for others
         f"top-K active set with max_active_contacts={cap} <= {natt} anchors": bool(cap and cap < nct and cap <= natt),
     }
-    return [k for k, v in asked.items() if v]
+    out = [k for k, v in asked.items() if v]
+    if not out:
+        # the kernel keeps each env's state, J and W = M^-1 J in shared memory:
+        # a model that does not fit at one env per block cannot launch
+        from ._cuda import SMEM_OPTIN_BYTES
+
+        need = _smem_at_one_env(model, params, terrain is not None)
+        if need > SMEM_OPTIN_BYTES:
+            out.append(f"shared memory: {need} bytes per block at one env per block, over the "
+                       f"{SMEM_OPTIN_BYTES}-byte limit of one block on the H100")
+    return out
+
+
+def _smem_at_one_env(model: Model, params: SimParams, has_terr: bool) -> int:
+    """Shared memory of the model's kernel block at one env (cached)."""
+    from . import _cuda
+
+    key = (id(model), id(params), "smem", has_terr)
+    hit = _CACHE.get(key)
+    if hit is None or hit[0] is not model or hit[1] is not params:
+        hit = (model, params, _cuda.smem_bytes(spec_of(model), params, 1, has_terr=has_terr))
+        _CACHE[key] = hit
+    return hit[2]
 
 
 def fused_supported(model: Model, params: SimParams, terrain=None) -> bool:
@@ -164,6 +188,15 @@ class _Spec(NamedTuple):
     pp_pt: np.ndarray  # (npp,) index into the model's cpoint arrays
     pp_geom: np.ndarray  # (npp,) index into the model's geom arrays
     pp_geom_fric: np.ndarray  # (npp,)
+    # candidate points against voxel SDF grids: the point on body A, the grid
+    # on body B; rows grouped by grid (stable), after the pair rows
+    sp_n: int
+    sp_a: np.ndarray  # (nsp,) point body
+    sp_b: np.ndarray  # (nsp,) the grid's body
+    sp_pos: np.ndarray  # (nsp, 3) point in body-A frame
+    sp_mu: np.ndarray  # (nsp,) the point's friction
+    sp_pt: np.ndarray  # (nsp,) index into the model's cpoint arrays
+    sp_path: np.ndarray  # (nv, nsp) SIGNED dof path mask (A - B)
     # bilateral point anchors
     att_n: int
     att_body: np.ndarray  # (natt,)
@@ -200,7 +233,7 @@ class _Spec(NamedTuple):
     cp_mu: np.ndarray
     path_mask: np.ndarray  # (nc, nv) contact-path dof mask
     body_of_contact: np.ndarray  # (nbody, nc) 0/1 accumulation matrix
-    rest: np.ndarray  # (nc + npp,) per-row Newton restitution
+    rest: np.ndarray  # (nc + npp + nsp,) per-row Newton restitution
     free_bodies: tuple
     # fixed tendons (None without any, as in the JAX package)
     tendon_coef: np.ndarray | None = None  # (nt, nv)
@@ -210,8 +243,8 @@ class _Spec(NamedTuple):
 
     @property
     def nct(self) -> int:
-        """Contacts in the solve: plane, pair and anchor rows, in that order."""
-        return self.nc + self.pp_nc + self.att_n
+        """Contacts in the solve: plane, pair, SDF and anchor rows, in that order."""
+        return self.nc + self.pp_nc + self.sp_n + self.att_n
 
     @property
     def nt(self) -> int:
@@ -238,6 +271,11 @@ def _extract(model: Model) -> _Spec:
     pp_gtype = np.asarray(model.geom_type, np.int64)[geoms]
     pp_gtype = np.where(pp_gtype == 5, 3, pp_gtype)  # MESH takes the cylinder branch
     pp_path = (anc[pp_a][:, dof_body] - anc[pp_b][:, dof_body]).astype(np.float32).T
+    # SDF pair rows in the order of the JAX package: grouped by grid, stable
+    sp_grid = np.asarray(model.spair_sdf, np.int64)
+    sp_pt = np.asarray(model.spair_point, np.int64)[np.argsort(sp_grid, kind="stable")]
+    sp_a = np.asarray(model.cpoint_body, np.int64)[sp_pt]
+    sp_b = np.asarray(model.sdf_body, np.int64)[np.sort(sp_grid, kind="stable")]
     att_b = np.asarray(model.att_body, np.int64)
     natt = len(att_b)
     rst = (
@@ -245,7 +283,7 @@ def _extract(model: Model) -> _Spec:
         if model.cpoint_restitution is not None
         else np.zeros(model.ncp, np.float32)
     )
-    rest = np.concatenate([rst[:nc], rst[pts]])
+    rest = np.concatenate([rst[:nc], rst[pts], rst[sp_pt]])
     has_t = model.tendon_coef is not None and model.tendon_coef.shape[0] > 0
     return _Spec(
         nbody=model.nbody,
@@ -268,6 +306,13 @@ def _extract(model: Model) -> _Spec:
         pp_pt=pts,
         pp_geom=geoms,
         pp_geom_fric=f32(model.geom_friction)[geoms],
+        sp_n=len(sp_pt),
+        sp_a=sp_a,
+        sp_b=sp_b,
+        sp_pos=f32(model.cpoint_pos).reshape(-1, 3)[sp_pt],
+        sp_mu=f32(model.cpoint_friction)[sp_pt],
+        sp_pt=sp_pt,
+        sp_path=(anc[sp_a][:, dof_body] - anc[sp_b][:, dof_body]).astype(np.float32).T,
         att_n=natt,
         att_body=att_b,
         att_offset=f32(model.att_offset).reshape(-1, 3)[:natt] if natt else np.zeros((0, 3), np.float32),
@@ -352,13 +397,19 @@ _DYN_COMP = ("body_ipos", "body_inertia", "cpoint_pos", "geom_size")
 DYN_INERT = ("dof_max_effort",)
 DYN_ORDER = DYN_LEAVES + ("gravity",)
 # reserved keys of the entry-sampled terrain planes (`terrain_dyn`), nc rows
-# each, and of the SDF planes, which are not ported
-_TERRAIN_PREFIX, _SDF_PREFIX = "_terr_", "_sp_"
+# each, and of the entry-sampled SDF planes (`sdf_dyn`), nsp rows each
 TERRAIN_KEYS = (
     ("_terr_h",)
     + tuple(f"_terr_n{k}" for k in range(3))
     + tuple(f"_terr_t1{k}" for k in range(3))
     + tuple(f"_terr_t2{k}" for k in range(3))
+)
+SP_KEYS = (
+    ("_sp_phi0",)
+    + tuple(f"_sp_x0{k}" for k in range(3))
+    + tuple(f"_sp_n{k}" for k in range(3))
+    + tuple(f"_sp_t1{k}" for k in range(3))
+    + tuple(f"_sp_t2{k}" for k in range(3))
 )
 
 
@@ -395,14 +446,9 @@ def dyn_mask(names) -> int:
 def dyn_names(s: _Spec, keys) -> tuple:
     """The leaves of `keys` that reach the step, in DYN_ORDER order: inert
     leaves, leaves of zero rows (tendon leaves of a model without tendons)
-    and the terrain plane keys (`TERRAIN_KEYS`, a separate input) are
-    dropped; SDF plane keys raise by name, any other unknown key is a
-    ValueError."""
-    keys = {k for k in keys if k not in TERRAIN_KEYS}
-    beyond = sorted(k for k in keys if k.startswith((_TERRAIN_PREFIX, _SDF_PREFIX)))
-    if beyond:
-        raise NotImplementedError(
-            "beyond the ported kernel tiers: entry-sampled SDF planes (" + ", ".join(beyond) + ")")
+    and the plane keys (`TERRAIN_KEYS`, `SP_KEYS`: separate inputs) are
+    dropped; any other key is a ValueError."""
+    keys = {k for k in keys if k not in TERRAIN_KEYS and k not in SP_KEYS}
     unknown = sorted(keys - set(DYN_ORDER) - set(DYN_INERT))
     if unknown:
         raise ValueError(f"dyn keys {unknown} are not per-env leaves of the fused step ({DYN_ORDER})")
@@ -472,6 +518,84 @@ def pack_terrain(planes: dict) -> torch.Tensor:
     """`terrain_dyn`'s planes {TERRAIN_KEYS: (N, nc)} as the step takes them:
     one (10 nc, N) float32 tensor, the keys' rows one after another."""
     return torch.cat([planes[k].to(torch.float32).T for k in TERRAIN_KEYS], 0).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# SDF pair rows: planes sampled at the call's entry pose
+# ---------------------------------------------------------------------------
+
+
+def _sdf_grids(model: Model, device) -> list:
+    """The model's SDF grids as `SdfGrid`s of tensors on `device` (cached)."""
+    from ..sdf.builder import SdfGrid
+
+    key = (id(model), "sdf", str(device))
+    hit = _CACHE.get(key)
+    if hit is None or hit[0] is not model:
+        grids = [
+            SdfGrid(torch.as_tensor(np.asarray(v, np.float32), device=device),
+                    torch.as_tensor(np.asarray(o, np.float32), device=device), float(h))
+            for v, o, h in zip(model.sdf_values, model.sdf_origin, model.sdf_spacing)
+        ]
+        hit = (model, grids)
+        _CACHE[key] = hit
+    return hit[1]
+
+
+def sdf_dyn(model: Model, q: torch.Tensor, qd: torch.Tensor) -> dict:
+    """The contact plane of each SDF pair row at the pose (q, qd): the
+    candidate point x0 in the world, the signed depth phi0 = radius - sdf(x0)
+    by trilinear lookup in the grid's body frame, the grid's normal n there
+    (central difference, turned to the world) and the tangents t1, t2 of n.
+    The step holds these planes for all its slices and moves the point
+    against the frozen first-order field, phi = phi0 - n . (x - x0) (the JAX
+    package's documented freeze). Rows are grouped by grid, stable within a
+    grid, as the step orders them.
+
+    q (N, nq), qd (N, nv) -> {SP_KEYS: (N, nsp)}.
+    """
+    from ..sdf.builder import sdf_gradient, sdf_query
+
+    kin = _dyn.forward_kinematics(model, q, qd)
+    dev, n_env = q.device, q.shape[0]
+    pts = np.asarray(model.spair_point, np.int64)
+    gids = np.asarray(model.spair_sdf, np.int64)
+    order = np.argsort(gids, kind="stable")
+    pts_o, gids_o = pts[order], gids[order]
+    cbody = np.asarray(model.cpoint_body, np.int64)
+    cpos = np.asarray(model.cpoint_pos, np.float32)
+    crad = np.asarray(model.cpoint_radius, np.float32)
+    grids = _sdf_grids(model, dev)
+    phis, x0s, ns = [], [], []
+    for gid in np.unique(gids_o):
+        sel = pts_o[gids_o == gid]
+        bodies = torch.as_tensor(cbody[sel], device=dev)
+        bb = model.sdf_body[int(gid)]
+        x = kin.x[:, bodies] + _maths.quat_rotate(kin.quat[:, bodies], torch.as_tensor(cpos[sel], device=dev))
+        qb = kin.quat[:, bb:bb + 1].expand(n_env, len(sel), 4)
+        d = _maths.quat_rotate_inverse(qb, x - kin.x[:, bb:bb + 1])
+        grid = grids[int(gid)]
+        dist = sdf_query(grid, d)
+        grad = sdf_gradient(grid, d)
+        n_l = grad / torch.clamp(torch.linalg.vector_norm(grad, dim=-1, keepdim=True), min=1e-9)
+        phis.append(torch.as_tensor(crad[sel], device=dev) - dist)
+        x0s.append(x)
+        ns.append(_maths.quat_rotate(qb, n_l))
+    phi0, x0, n = torch.cat(phis, 1), torch.cat(x0s, 1), torch.cat(ns, 1)
+    t1, t2 = _tangent_basis(n)
+    out = {"_sp_phi0": phi0}
+    for k in range(3):
+        out[f"_sp_x0{k}"] = x0[..., k]
+        out[f"_sp_n{k}"] = n[..., k]
+        out[f"_sp_t1{k}"] = t1[..., k]
+        out[f"_sp_t2{k}"] = t2[..., k]
+    return out
+
+
+def pack_sdf(planes: dict) -> torch.Tensor:
+    """`sdf_dyn`'s planes {SP_KEYS: (N, nsp)} as the step takes them: one
+    (13 nsp, N) float32 tensor, the keys' rows one after another."""
+    return torch.cat([planes[k].to(torch.float32).T for k in SP_KEYS], 0).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -575,8 +699,8 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
     T = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     rev_topo = list(range(s.nbody))[::-1]
     dof_of_body = [[d for d in range(s.nv) if s.dof_body[d] == b] for b in range(s.nbody)]
-    nc, npp, natt, nct = s.nc, s.pp_nc, s.att_n, s.nct
-    nuni = nc + npp  # unilateral rows come first, anchors last
+    nc, npp, nsp, natt, nct = s.nc, s.pp_nc, s.sp_n, s.att_n, s.nct
+    nuni = nc + npp + nsp  # unilateral rows come first, anchors last
     cap = topk_cap(s, p)
     erp, erp_att = p.baumgarte_erp, p.baumgarte_erp_attractor
     gravity = [float(g) for g in p.gravity]
@@ -609,7 +733,7 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
         cp_pick=T(cp_pick),
         cp_pos=[T(s.cp_pos[:, k:k + 1]) for k in range(3)],
         cp_radius=T(s.cp_radius[:, None]),
-        mu=T(np.concatenate([s.cp_mu, s.pp_mu, np.zeros(natt)])[:, None]),
+        mu=T(np.concatenate([s.cp_mu, s.pp_mu, s.sp_mu, np.zeros(natt)])[:, None]),
         rest=T(np.concatenate([s.rest, np.zeros(natt)])[:, None]),
         bil=T(np.concatenate([np.zeros(nuni), np.ones(natt)])[:, None]) > 0,
         Pm=T(s.path_mask.T[:, :, None]),
@@ -622,12 +746,15 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
         is_box=T(s.pp_gtype[:, None] == 2) > 0,
         is_cyl=T(s.pp_gtype[:, None] == 3) > 0,
         Pm_pp=T(s.pp_path[:, :, None]),
+        sp_pos=[T(s.sp_pos[:, k:k + 1]) for k in range(3)],
+        Pm_sp=T(s.sp_path[:, :, None]),
         att_offset=[T(s.att_offset[:, k:k + 1]) for k in range(3)],
         att_target=[T(s.att_target[:, k:k + 1]) for k in range(3)],
         Pm_att=T(s.att_path[:, :, None]),
     )
     idx = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
     pp_a, pp_b, att_b = idx(s.pp_a), idx(s.pp_b), idx(s.att_body)
+    sp_a, sp_b, sp_pt = idx(s.sp_a), idx(s.sp_b), idx(s.sp_pt)
     # a per-env leaf turns its term on even where the model's leaf is all zero
     has_fric = bool(np.any(s.dof_friction)) or "dof_friction" in names
     has_rest = bool(np.any(s.rest)) or "cpoint_restitution" in names
@@ -749,9 +876,11 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
             [pick(surf_box[k], surf_cyl[k], surf_sph[k]) for k in range(3)],
         )
 
-    def substep(q, qd, qfrc, xfrc, q_target, warm, dyn=None, terr=None):
+    def substep(q, qd, qfrc, xfrc, q_target, warm, dyn=None, terr=None, sdf=None):
         """One slice. `terr`: the (10 nc, N) entry-sampled terrain planes
-        (`pack_terrain`) or None for the flat ground z = 0."""
+        (`pack_terrain`) or None for the flat ground z = 0; `sdf`: the
+        (13 nsp, N) entry-sampled SDF planes (`pack_sdf`) of the SDF pair
+        rows."""
         dyn = dyn or {}
         N = q.shape[-1]
         Xl, Ql, Vl, S, Sdot = _fk(s, q, qd)
@@ -911,6 +1040,18 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
             t2 = _cross(n_w, t1)
             Jpp = point_jac_world(xs_w, c["Pm_pp"])  # at the surface point, signed A - B
             add_rows([sum(f[k][None] * Jpp[k] for k in range(3)) for f in (t1, t2, n_w)], phi_pp)
+        if nsp:
+            # SDF rows: a candidate point of body A against the grid of body B,
+            # through the row's entry plane (depth phi0 at x0, frame [t1, t2, n]):
+            # phi = phi0 - n . (x - x0), Jacobian at the point, signed A - B
+            sX = [Xb[k][sp_a] for k in range(3)]
+            spt = [cpp[k][sp_pt] for k in range(3)] if cpp is not None else c["sp_pos"]
+            xs_sp = [sX[k] + r for k, r in enumerate(_qrot([Qb[k][sp_a] for k in range(4)], spt))]
+            sp_phi0, sp_x0, sp_n, sp_t1, sp_t2 = (sdf[:nsp],) + tuple(
+                blocks(sdf[(1 + 3 * i) * nsp:(4 + 3 * i) * nsp], nsp, 3) for i in range(4))
+            phi_sp = sp_phi0 - sum(sp_n[k] * (xs_sp[k] - sp_x0[k]) for k in range(3))
+            Jsp = point_jac_world(xs_sp, c["Pm_sp"])
+            add_rows([sum(f[k][None] * Jsp[k] for k in range(3)) for f in (sp_t1, sp_t2, sp_n)], phi_sp)
         if natt:
             # bilateral anchors: three world-axis rows per anchor, always on
             aXat = [Xb[k][att_b] for k in range(3)]
@@ -930,17 +1071,18 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
         )
         # friction and restitution per row: plane rows are the model's
         # candidate points in order, a pair row picks its point (its friction
-        # averaged with the geom's static one), anchors have neither
+        # averaged with the geom's static one), an SDF row picks its point,
+        # anchors have neither
         za = q.new_zeros(natt, N)
         mu = c["mu"]
         if "cpoint_friction" in dyn:
             cpf = dyn["cpoint_friction"]
-            mu = torch.cat([cpf[:nc], 0.5 * (cpf[pp_pt] + geom_fric), za], 0)
+            mu = torch.cat([cpf[:nc], 0.5 * (cpf[pp_pt] + geom_fric), cpf[sp_pt], za], 0)
         if has_rest:
             rest = c["rest"]
             if "cpoint_restitution" in dyn:
                 cr = dyn["cpoint_restitution"]
-                rest = torch.cat([cr[:nc], cr[pp_pt], za], 0)
+                rest = torch.cat([cr[:nc], cr[pp_pt], cr[sp_pt], za], 0)
             vn_pre = torch.sum(J[:, 2 * nct:] * qd_free[:, None], dim=0)
             bounce = (
                 (rest > 0.0)
@@ -1041,13 +1183,22 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
             bf = [bf[k] + boc @ Fp[k] for k in range(3)]
             bt = [bt[k] + boc @ tq[k] for k in range(3)]
         if npp:
-            r1, r2, rn = lt1[nc:nuni], lt2[nc:nuni], ln_[nc:nuni]
+            r1, r2, rn = lt1[nc:nc + npp], lt2[nc:nc + npp], ln_[nc:nc + npp]
             Fw = [t1[k] * r1 + t2[k] * r2 + n_w[k] * rn for k in range(3)]
             tq_a = _cross([xs_w[k] - aX[k] for k in range(3)], Fw)
             tq_b = _cross([xs_w[k] - bXg[k] for k in range(3)], Fw)
             # +F on the point's body, -F on the geom's
             bf = [bf[k].index_add(0, pp_a, Fw[k]).index_add(0, pp_b, -Fw[k]) for k in range(3)]
             bt = [bt[k].index_add(0, pp_a, tq_a[k]).index_add(0, pp_b, -tq_b[k]) for k in range(3)]
+        if nsp:
+            s0 = nc + npp
+            r1, r2, rn = lt1[s0:nuni], lt2[s0:nuni], ln_[s0:nuni]
+            Fs = [sp_t1[k] * r1 + sp_t2[k] * r2 + sp_n[k] * rn for k in range(3)]
+            # torque arms about each body's origin, at the candidate point
+            tq_a = _cross([xs_sp[k] - sX[k] for k in range(3)], Fs)
+            tq_b = _cross([xs_sp[k] - Xb[k][sp_b] for k in range(3)], Fs)
+            bf = [bf[k].index_add(0, sp_a, Fs[k]).index_add(0, sp_b, -Fs[k]) for k in range(3)]
+            bt = [bt[k].index_add(0, sp_a, tq_a[k]).index_add(0, sp_b, -tq_b[k]) for k in range(3)]
         if natt:
             Fa = [lt1[nuni:], lt2[nuni:], ln_[nuni:]]
             tq_at = _cross([xa[k] - aXat[k] for k in range(3)], Fa)
@@ -1062,13 +1213,15 @@ def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = (), keys=Non
     """Plain PyTorch version of the whole step on (rows, N) tensors.
 
     Returns run(q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None,
-    warm_reset_every=0) -> (q, qd, body_force, body_torque, dof_force), all
-    (rows, N); xfrc is (6*nbody, N) comp-major or None, q_target (nq, N)
-    PD-drive setpoints or None (then qpos0), dyn the packed (rows, N)
-    per-env leaves of `names` (see `pack_dyn`) or None when `names` is
-    empty, terr the (10 nc, N) terrain planes (`pack_terrain`) or None for
-    flat ground; with `warm_reset_every` = k the contact warm start resets
-    every k slices (a merged decimation window solves like separate calls).
+    warm_reset_every=0, sdf=None) -> (q, qd, body_force, body_torque,
+    dof_force), all (rows, N); xfrc is (6*nbody, N) comp-major or None,
+    q_target (nq, N) PD-drive setpoints or None (then qpos0), dyn the packed
+    (rows, N) per-env leaves of `names` (see `pack_dyn`) or None when `names`
+    is empty, terr the (10 nc, N) terrain planes (`pack_terrain`) or None
+    for flat ground, sdf the (13 nsp, N) SDF planes (`pack_sdf`) of a model
+    with SDF pair rows; with `warm_reset_every` = k the contact warm start
+    resets every k slices (a merged decimation window solves like separate
+    calls).
     `keys`, `dtype`: see `_substep_fn`.
     """
     n_slices = p.substeps * p.solver_iterations
@@ -1076,18 +1229,20 @@ def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = (), keys=Non
     rows = dyn_rows(s)
     offsets = np.concatenate([[0], np.cumsum([rows[k] for k in names])]).astype(int)
 
-    def run(q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None, warm_reset_every=0):
+    def run(q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None, warm_reset_every=0, sdf=None):
         if (dyn is not None) != bool(names) or (names and dyn.shape[0] != offsets[-1]):
             raise ValueError(f"this step was prepared for the per-env leaves {names}")
         if terr is not None and (not s.nc or terr.shape[0] != 10 * s.nc):
             raise ValueError(f"terrain planes need {10 * s.nc} rows (10 per plane candidate), got {terr.shape[0]}")
+        if (sdf is None) != (not s.sp_n) or (sdf is not None and sdf.shape[0] != 13 * s.sp_n):
+            raise ValueError(f"a model with {s.sp_n} SDF pair rows takes {13 * s.sp_n} rows of SDF planes")
         leaves = {k: dyn[offsets[i]:offsets[i + 1]] for i, k in enumerate(names)}
         warm = None  # zeros at each call, carried across its slices
         for i in range(n_slices):
             if warm_reset_every and i and i % warm_reset_every == 0:
                 # a merged window resets the warm start where a separate call would begin
                 warm = None
-            q, qd, warm, bf, bt, doff = substep(q, qd, qfrc, xfrc, q_target, warm, leaves, terr)
+            q, qd, warm, bf, bt, doff = substep(q, qd, qfrc, xfrc, q_target, warm, leaves, terr, sdf)
         return q, qd, bf, bt, doff
 
     return run
@@ -1146,6 +1301,7 @@ def physics_step_fused(
     dyn: dict | PackedDyn | None = None,
     warm_reset_every: int = 0,
     terrain: torch.Tensor | None = None,  # (10 nc, N) planes of `pack_terrain`
+    sdf: torch.Tensor | None = None,  # (13 nsp, N) planes of `pack_sdf`
 ) -> FusedOut:
     """Batched full physics step through the fused kernel.
 
@@ -1155,9 +1311,11 @@ def physics_step_fused(
     and "gravity" (N, 3), or the same already packed by `pack_dyn` (a
     caller that steps many times with one sample packs it once). Terrain
     planes come as `terrain` (packed) or as the `TERRAIN_KEYS` of a `dyn`
-    dict, the way `terrain_dyn` returns them. `warm_reset_every` = k resets
-    the contact warm start every k slices: a call that merges the k-slice
-    steps of a decimation window solves like those separate calls.
+    dict, the way `terrain_dyn` returns them; a model with SDF pair rows
+    needs its SDF planes likewise, as `sdf` or as the `SP_KEYS` of a `dyn`
+    dict (`sdf_dyn`). `warm_reset_every` = k resets the contact warm start
+    every k slices: a call that merges the k-slice steps of a decimation
+    window solves like those separate calls.
     """
     beyond = unsupported_features(model, params)
     if beyond:
@@ -1170,7 +1328,14 @@ def physics_step_fused(
             if terrain is not None:
                 raise ValueError("terrain planes given twice: as `terrain` and in `dyn`")
             terrain = pack_terrain(dyn)
+        if any(k in dyn for k in SP_KEYS) and len(model.spair_point):
+            if sdf is not None:
+                raise ValueError("SDF planes given twice: as `sdf` and in `dyn`")
+            sdf = pack_sdf(dyn)
         dyn = pack_dyn(spec_of(model), dyn)
+    if (sdf is None) != (not len(model.spair_point)):
+        raise ValueError("a model with SDF pair rows takes their entry-sampled planes "
+                         "(fused.sdf_dyn(model, q, qd)) as `sdf` or in `dyn`, and only such a model")
     names, dyn_in = (dyn.names, dyn.rows) if dyn is not None else ((), None)
     s, step = _prepared(model, params, q.device, q_target is not None, names, terrain is not None)
     f32 = lambda a: a.to(torch.float32).T.contiguous()
@@ -1179,7 +1344,7 @@ def physics_step_fused(
         # (N, nbody, 6) -> comp-major rows (6*nbody, N)
         xf = xfrc.to(torch.float32).permute(2, 1, 0).reshape(6 * s.nbody, N).contiguous()
     qt = None if q_target is None else f32(q_target)
-    q2, qd2, bf, bt, doff = step(f32(q), f32(qd), f32(qfrc), xf, qt, dyn_in, terrain, int(warm_reset_every))
+    q2, qd2, bf, bt, doff = step(f32(q), f32(qd), f32(qfrc), xf, qt, dyn_in, terrain, int(warm_reset_every), sdf)
     return FusedOut(
         q=q2.T,
         qd=qd2.T,

@@ -24,12 +24,14 @@ is no eager fallback. A task with `use_pd_targets` also returns PD-drive
 setpoints, which every physics step of the control loop receives. A task
 with a heightfield (`self.terrain`, an `engine.dynamics.Terrain`) has each
 step's ground planes sampled under its candidate points at the step's entry
-pose (`fused.terrain_dyn`). With `sim.fused_merge_control_slices` the
-`control_freq_inv` physics steps of an env step are one call of
-`control_freq_inv` times the slices (dt and substeps scaled together, so
-the slice length stays), whose warm start resets where each separate call
-would begin; the terrain planes are then sampled once, at the env step's
-entry pose.
+pose (`fused.terrain_dyn`); a model with SDF pair rows (candidate points
+against voxel SDF grids) likewise has each step's SDF contact planes sampled
+at the step's entry pose (`fused.sdf_dyn`). With
+`sim.fused_merge_control_slices` the `control_freq_inv` physics steps of an
+env step are one call of `control_freq_inv` times the slices (dt and
+substeps scaled together, so the slice length stays), whose warm start
+resets where each separate call would begin; the terrain and SDF planes are
+then sampled once, at the env step's entry pose.
 
 With `task.randomize` the env carries a `dr.DomainRandomizer`: its sample
 lives on the state (`EnvState.dr`), and the per-env model leaves and
@@ -149,8 +151,9 @@ class VecTask:
             )
             batched = self.randomizer.batched_leaf_names()
             if "cpoint_pos" in batched and (self.terrain is not None or len(self.model.spair_point)):
-                # the JAX package steps these through its eager engine, which
-                # the port does not have
+                # the planes are sampled at the model's own candidate points:
+                # the JAX package steps per-env ones through its eager engine,
+                # which the port does not have
                 raise NotImplementedError("per-env cpoint_pos (actor scale) with terrain or SDF rows")
             self._setup_only = {s.name for s in self.randomizer.model_specs if s.setup_only}
         # the env-step counter on the state: DR schedules and perturb_state read it
@@ -273,6 +276,13 @@ class VecTask:
             return None
         return _fused.pack_terrain(_fused.terrain_dyn(self.model, self.terrain, q, qd))
 
+    def _sdf_planes(self, q, qd):
+        """The contact planes of the SDF pair rows at (q, qd), packed for the
+        physics step; None for a model without SDF pair rows."""
+        if not len(self.model.spair_point):
+            return None
+        return _fused.pack_sdf(_fused.sdf_dyn(self.model, q, qd))
+
     def _kin(self, q, qd):
         return _dyn.forward_kinematics(self.model, q, qd) if self.uses_kin else None
 
@@ -327,13 +337,14 @@ class VecTask:
             out = _fused.physics_step_fused(
                 self.model, self._merged_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=state.dyn,
                 warm_reset_every=self._warm_reset_every, terrain=self._terrain_planes(q, qd),
+                sdf=self._sdf_planes(q, qd),
             )
             q, qd = out.q, out.qd
         else:
             for _ in range(self.control_freq_inv):
                 out = _fused.physics_step_fused(
                     self.model, self.sim_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=state.dyn,
-                    terrain=self._terrain_planes(q, qd),
+                    terrain=self._terrain_planes(q, qd), sdf=self._sdf_planes(q, qd),
                 )
                 q, qd = out.q, out.qd
         sensors = Sensors(out.body_force, out.body_torque, out.dof_force)

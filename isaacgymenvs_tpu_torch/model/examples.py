@@ -11,6 +11,12 @@ rows: A's centre point against the box, B's centre point against the box,
 and B's centre point against A's sphere geom. With the box's eight corner
 points and the two sphere points as plane candidates the solve has 13
 contacts (39 rows) over nv = 18.
+
+`ball_on_sdf_box`: the smallest model with an SDF pair row and no top-K cap
+(the JAX package's tests/test_sdf.py test_ball_rests_on_sdf_box): a free
+ball of radius 0.05 m dropped from 0.5 m onto a fixed box whose voxel SDF
+grid (a 0.4 m cube mesh, resolution 48) is paired with the ball's centre
+point; it rests at z = 0.45 m.
 """
 from __future__ import annotations
 
@@ -157,3 +163,28 @@ def random_leaves(model: Model, names, n: int, seed: int, gravity=(0.0, 0.0, -9.
             lo, hi = (0.97, 1.03) if k in _GEOMETRY_LEAVES else (0.5, 1.5)
             out[k] = base[None] * rng.uniform(lo, hi, (n,) + base.shape)
     return {k: f32(v) for k, v in out.items()}
+
+
+def cube_mesh(half: float = 0.2):
+    """A closed cube mesh of half-width `half`, wound outward: (verts, tris)."""
+    verts = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                      [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float64) * half
+    tris = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4],
+                     [2, 3, 7], [2, 7, 6], [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]], np.int32)
+    return verts, tris
+
+
+def ball_on_sdf_box() -> Model:
+    """See the module docstring; builds the box's grid with the voxelizer."""
+    from ..sdf.builder import attach_sdf, mesh_to_sdf, pair_points_with_sdf
+
+    b = ModelBuilder()
+    mass, inertia = sphere_inertia(1000.0, 0.05)
+    ball = b.add_body(parent=-1, name="ball", pos=(0, 0, 0), quat=(0, 0, 0, 1), jnt_type=FREE, mass=mass,
+                      inertia=inertia)
+    b.qpos0_free[ball] = (np.array([0.03, 0.0, 0.5], np.float32), np.array([0, 0, 0, 1], np.float32))
+    b.add_geom(ball, GEOM_SPHERE, (0, 0, 0), (0, 0, 0, 1), (0.05, 0, 0), 0.8)
+    box = b.add_body(parent=-1, name="box", pos=(0, 0, 0.2), quat=(0, 0, 0, 1), jnt_type=_spec.FIXED)
+    model = b.finalize()
+    model, g = attach_sdf(model, box, mesh_to_sdf(*cube_mesh(0.2), resolution=48))
+    return pair_points_with_sdf(model, [0], g)  # the ball's centre point

@@ -9,6 +9,7 @@ from .anymal import Anymal
 from .anymal_terrain import AnymalTerrain
 from .ball_balance import BallBalance
 from .cartpole import Cartpole
+from .factory_templates import FactoryTaskInsertion
 from .ingenuity import Ingenuity
 from .quadcopter import Quadcopter
 
@@ -18,6 +19,7 @@ task_map: Dict[str, Type[VecTask]] = {
     "AnymalTerrain": AnymalTerrain,
     "BallBalance": BallBalance,
     "Cartpole": Cartpole,
+    "FactoryTaskInsertion": FactoryTaskInsertion,
     "Ingenuity": Ingenuity,
     "Quadcopter": Quadcopter,
 }

@@ -177,15 +177,16 @@ def test_twin_matches_jax_restitution_ball():
 
 
 def test_unsupported_models_raise(ant):
-    """What is still beyond the ported tiers raises by name: SDF pair rows,
-    geom-geom pairs, a pair row against a capsule, a top-K cap that leaves no
-    room beside the anchors, the entry-sampled SDF planes among the per-env
-    leaves, terrain planes for a model without plane candidates. Pair rows
-    against sphere, box, cylinder and mesh geoms, anchors, q_target, tendons,
-    per-env leaves (`dyn`), a top-K cap below the row count (pair and anchor
-    rows counted), terrain planes and merged decimation windows
-    (`warm_reset_every`) no longer do; an unknown `dyn` key is a ValueError
-    and an inert one is dropped."""
+    """What is still beyond the ported tiers raises by name: geom-geom pairs,
+    a pair row against a capsule, a top-K cap that leaves no room beside the
+    anchors, a model whose kernel block would not fit the card's shared
+    memory at one env per block, terrain planes for a model without plane
+    candidates. Pair rows against sphere, box, cylinder and mesh geoms,
+    anchors, q_target, tendons, per-env leaves (`dyn`), a top-K cap below the
+    row count (pair and anchor rows counted), terrain planes, SDF pair rows
+    and merged decimation windows (`warm_reset_every`) no longer do; SDF
+    planes for a model without SDF pair rows and an unknown `dyn` key are
+    ValueErrors and an inert key is dropped."""
     _, tenv, q, qd = ant
     m, p = tenv.model, tenv.sim_params
     assert tfused.fused_supported(m, p)
@@ -197,12 +198,12 @@ def test_unsupported_models_raise(ant):
     anchors = m.replace(att_body=(0, 0), att_offset=np.zeros((2, 3), np.float32),
                         att_target=np.zeros((2, 3), np.float32))
     cap2 = SimParams(**{**p.__dict__, "max_active_contacts": 2})
+    sphere = m.geom_type.index(0)
     cases = [
-        (m.replace(spair_point=(0,), spair_sdf=(0,)), p, {}, "spair_point"),
         (m.replace(pair_geom_a=(0,), pair_geom_b=(1,)), p, {}, "pair_geom_a"),
         (m.replace(ppair_point=(0,), ppair_geom=(capsule,)), p, {}, "capsule"),
         (anchors, cap2, {}, "top-K active set with max_active_contacts=2 <= 2 anchors"),
-        (m, p, {"dyn": {"_sp_phi0": torch.ones(4, 1), "body_mass": torch.ones(4, m.nbody)}}, "_sp_phi0"),
+        (m.replace(ppair_point=(0,) * 800, ppair_geom=(sphere,) * 800), p, {}, "shared memory: .* bytes"),
     ]
     for model, params, kw, word in cases:
         # the feature check precedes any device dispatch, so the CUDA path
@@ -269,7 +270,7 @@ def test_spec_buffer_layout(ant):
     assert spec.shape == (base + p.solver_apgd_iterations,)
     assert spec.dtype == np.float32
     assert _cuda.kernel_flops(s, p) > 0 and _cuda.kernel_bytes(s, 4096, True) > 0
-    assert _cuda.sizes_of(s) == (9, 15, 14, 25, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    assert _cuda.sizes_of(s) == (9, 15, 14, 25, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4)
 
 
 # ---- q_target drives, pair rows and anchors ---------------------------------
@@ -405,9 +406,10 @@ def test_extract_matches_jax_ball_balance():
     _, jenv, tenv = _both_envs("BallBalance")
     js, ts = jfused._extract(jenv.model), tfused._extract(tenv.model)
     assert (ts.nc, ts.pp_nc, ts.att_n, ts.nct) == (21, 1, 3, 25) == (js.nc, js.pp_nc, js.att_n, 25)
-    assert _cuda.sizes_of(ts, True) == (8, 20, 18, 21, 1, 3, 1, 0, 0, 0, 0, 0, 0)
+    assert _cuda.sizes_of(ts, True) == (8, 20, 18, 21, 1, 3, 1, 0, 0, 0, 0, 0, 0, 0, 4)
     for f in ts._fields:
-        if f in ("pp_a", "pp_b", "att_body", "free_bodies", "ncp_model", "ngeom", "pp_pt", "pp_geom"):
+        if f in ("pp_a", "pp_b", "att_body", "free_bodies", "ncp_model", "ngeom", "pp_pt", "pp_geom",
+                 "sp_a", "sp_b", "sp_pt"):
             continue
         a, b = getattr(ts, f), getattr(js, f)
         if isinstance(a, np.ndarray):
@@ -587,10 +589,10 @@ def test_dyn_layout_sizes_and_spec_regions(ant):
     np.testing.assert_array_equal(packed.rows[39:].numpy(), dyn["gravity"].T.numpy())
     assert tfused.pack_dyn(s, {}) is None and tfused.pack_dyn(s, {"dof_max_effort": torch.ones(n, 8)}) is None
     # size tuple: tendons, bitmask, and the cpoint / geom counts only where a leaf indexes them
-    assert _cuda.sizes_of(s) == (3, 9, 8, 10, 1, 0, 0, 1, 0, 0, 0, 0, 0)
-    assert _cuda.sizes_of(s, False, packed.names) == (3, 9, 8, 10, 1, 0, 0, 1, packed_mask := tfused.dyn_mask(packed.names), 0, 3, 0, 0)
+    assert _cuda.sizes_of(s) == (3, 9, 8, 10, 1, 0, 0, 1, 0, 0, 0, 0, 0, 0, 4)
+    assert _cuda.sizes_of(s, False, packed.names) == (3, 9, 8, 10, 1, 0, 0, 1, packed_mask := tfused.dyn_mask(packed.names), 0, 3, 0, 0, 0, 4)
     assert packed_mask == (1 << 6) | (1 << 12) | (1 << 14) | (1 << 15)
-    assert _cuda.sizes_of(s, False, ("cpoint_pos",))[8:] == (1 << 13, 10, 0, 0, 0)
+    assert _cuda.sizes_of(s, False, ("cpoint_pos",))[8:] == (1 << 13, 10, 0, 0, 0, 0, 4)
     assert "-DFS_NT=1" in _cuda._defines(_cuda.sizes_of(s)) and "-DFS_DYN=0" in _cuda._defines(_cuda.sizes_of(s))
     # spec buffer: pair-row indices and the tendon before the anchors' targets
     spec = _cuda.pack_spec(s, tp, tfused.apgd_betas(tp.solver_apgd_iterations))
@@ -608,7 +610,7 @@ def test_dyn_layout_sizes_and_spec_regions(ant):
     sa = tfused._extract(ant[1].model)
     five = ("dof_damping", "dof_stiffness", "dof_limit_lower", "dof_limit_upper", "body_mass")
     assert _cuda.kernel_bytes(sa, 1, True, False, five) - _cuda.kernel_bytes(sa, 1, True) == 4 * 65
-    assert _cuda.sizes_of(sa, False, five) == (9, 15, 14, 25, 0, 0, 0, 0, 115, 0, 0, 0, 0)
+    assert _cuda.sizes_of(sa, False, five) == (9, 15, 14, 25, 0, 0, 0, 0, 115, 0, 0, 0, 0, 0, 4)
 
 
 def test_plain_step_in_float64(ant):

@@ -410,3 +410,40 @@ def test_anymal_kernels_match_plain_version(key):
     for k, tol in TOL.items():
         assert float((getattr(ko, k) - ref[k]).abs().max()) < tol, k
     assert float(ko.body_force[:, :, 2].sum(1).min()) > 1.0  # every robot stands on the ground
+
+
+@pytest.mark.cuda
+def test_sdf_rows_kernel_matches_plain_version():
+    """K6 SDF rows on the card: the ball on an SDF box (N=37) and
+    FactoryTaskInsertion at two envs per block (N=9, a part-full last block,
+    the cap of 32 binding in the envs whose plug lies against the socket)
+    against the plain version, the SDF planes sampled at the entry pose."""
+    _needs_card()
+    from isaacgymenvs_tpu_torch.engine.dynamics import SimParams
+    from isaacgymenvs_tpu_torch.model.examples import ball_on_sdf_box
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    rows = lambda t: t.T.contiguous()
+    m = ball_on_sdf_box()
+    q = torch.tensor(m.qpos0, device="cuda").repeat(37, 1)
+    q[:, 2] = 0.4495
+    cases = [(m, SimParams(dt=1 / 60, substeps=2), q, torch.zeros(37, m.nv, device="cuda"), None, None, None)]
+    env = task_map["FactoryTaskInsertion"](load_config(["task=FactoryTaskInsertion", "num_envs=9"])["task"],
+                                          device="cuda")
+    q, qd = env.contact_states(9, 0)
+    qfrc, xfrc, qt = env.compute_force(None, q, qd, {"q_ref": q[:, env.q_idx]})
+    cases.append((env.model, env.sim_params, q, qd, qfrc, xfrc, qt))
+    for m, p, q, qd, qfrc, xfrc, qt in cases:
+        n, s = q.shape[0], fused.spec_of(m)
+        qfrc = torch.zeros(n, m.nv, device="cuda") if qfrc is None else qfrc
+        sdf = fused.pack_sdf(fused.sdf_dyn(m, q, qd))
+        before = _cuda.FusedStepCall.launches
+        out = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=qt, sdf=sdf)
+        assert _cuda.FusedStepCall.launches == before + 1
+        xf = None if xfrc is None else xfrc.permute(2, 1, 0).reshape(6 * m.nbody, n).contiguous()
+        ref = fused._step_math_torch(s, p, q.device)(rows(q), rows(qd), rows(qfrc), xf,
+                                                      None if qt is None else rows(qt), None, None, 0, sdf)
+        got = (out.q.T, out.qd.T, out.body_force.permute(2, 1, 0).reshape(3 * m.nbody, n),
+               out.body_torque.permute(2, 1, 0).reshape(3 * m.nbody, n), out.dof_force.T)
+        for k, a, b in zip(TOL, got, ref):
+            assert float((a - b).abs().max()) < TOL[k], k

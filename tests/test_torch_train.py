@@ -1,4 +1,8 @@
-"""The port's checkpoints and its `train` entry point, on the CPU."""
+"""The port's checkpoints and its `train` entry point, on the CPU.
+
+The train tests of the other task families sit in files of their own
+(tests/test_torch_train_<task>.py), so that the test workers, which take
+whole files, share them out."""
 import os
 import pickle
 
@@ -124,14 +128,14 @@ def test_train_main_writes_run_and_plays(tmp_path, capsys):
     assert np.isfinite(mean_ret) and "played" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("task", ["Ingenuity", "Quadcopter", "BallBalance"])
-def test_train_main_procedural_tasks(tmp_path, capsys, task):
-    """`train.main task=<name> pipeline=cpu` at 16 envs: two epochs with a
-    checkpoint each, a resume for a third, and play from the checkpoint."""
+def train_main_resume_play(tmp_path, capsys, task, horizon):
+    """`train.main task=<task> pipeline=cpu` at 16 envs: two epochs with a
+    checkpoint each, a resume for a third, and play from the checkpoint (the
+    procedural tasks' train tests, one file per task so that workers share
+    them)."""
     run = [f"task={task}", "pipeline=cpu", "num_envs=16", f"+train_dir={tmp_path}",
            "train.params.config.minibatch_size=128"]
     ts, metrics = ttrain.main([*run, "max_iterations=2", "train.params.config.save_frequency=1"])
-    horizon = {"Ingenuity": 16, "Quadcopter": 8, "BallBalance": 16}[task]
     assert metrics["epoch"] == 2 and metrics["frames"] == 2 * horizon * 16
     assert all(np.isfinite(metrics[k]) for k in ("a_loss", "c_loss", "kl", "lr"))
     names = sorted(p.name for p in (tmp_path / task / "nn").iterdir())
@@ -141,30 +145,6 @@ def test_train_main_procedural_tasks(tmp_path, capsys, task):
     assert ck["epoch"] == 2 and ck["frames"] == metrics["frames"]
     for a, b in zip(ck["env_task_state"], ts.env_state.task):  # the integrated targets travel with it
         assert torch.equal(a, b)
-    _, resumed = ttrain.main([*run, "max_iterations=3", f"checkpoint={last}"])
-    assert resumed["epoch"] == 3
-    mean_ret = ttrain.main([*run, "test=True", f"checkpoint={last}"])
-    assert np.isfinite(mean_ret) and "played" in capsys.readouterr().out
-
-
-def test_train_main_ant_with_domain_randomization(tmp_path, capsys):
-    """`task=Ant task.randomize=True pipeline=cpu`: two epochs, a resume and
-    play. The checkpoint carries no DR sample (as in the JAX package): a
-    restored run draws its own at reset. The trainer reports its frame count
-    to the env every epoch."""
-    run = ["task=Ant", "task.randomize=True", "pipeline=cpu", "num_envs=16", f"+train_dir={tmp_path}",
-           "train.params.config.minibatch_size=128"]
-    ts, metrics = ttrain.main([*run, "max_iterations=2"])
-    assert metrics["epoch"] == 2 and metrics["frames"] == 2 * 16 * 16
-    assert all(np.isfinite(metrics[k]) for k in ("a_loss", "c_loss", "kl", "lr"))
-    st = ts.env_state
-    assert st.dyn.names == ("dof_damping", "dof_stiffness", "dof_limit_lower", "dof_limit_upper", "body_mass")
-    assert st.dyn.rows.shape == (65, 16) and int(st.frames) == 32 and st.randomize_buf.tolist() == [32] * 16
-    mass = st.dr["ant.rigid_body_properties.mass"]
-    assert float(mass.min()) >= 0.5 and float(mass.max()) <= 1.5 and float(mass.std()) > 0.1
-    last = str(tmp_path / "Ant" / "nn" / "last_Ant.pth")
-    ck = load_checkpoint(last)
-    assert set(ck) == {"params", "obs_rms", "value_rms", "lr", "opt_state", "epoch", "frames", "env_task_state"}
     _, resumed = ttrain.main([*run, "max_iterations=3", f"checkpoint={last}"])
     assert resumed["epoch"] == 3
     mean_ret = ttrain.main([*run, "test=True", f"checkpoint={last}"])
