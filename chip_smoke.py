@@ -12,7 +12,10 @@
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
    and the example model's (10 plane contacts, point-vs-box and
    point-vs-sphere pair rows); prints ptxas's register, spill and stack
-   figures, the shared memory per block and the build seconds;
+   figures, the shared memory and envs per block (the choice that keeps
+   the most envs resident per SM, `_cuda.envs_per_block`), the blocks and
+   warps per SM the device grants each build (`fused_step_occupancy`) and
+   the build seconds;
 3. holds each against its plain PyTorch version on the card. Ant at
    N=RAGGED_ENVS=1003 for 3 steps (not a multiple of the kernel's envs per
    block, so the last block is part-full and its masked loads, stores and
@@ -106,7 +109,7 @@
 21. the three kernels timed at full width;
 22. FactoryTaskInsertion (64 plane rows and 64 SDF rows against the
    socket's voxel grid, the cap of 32, `q_target`, gravity compensation
-   through `xfrc`; two envs per block, from its shared memory) against its
+   through `xfrc`; eight envs per block, from its shared memory) against its
    plain version for one env step at N=1003, 128 (its yaml) and 4096, in
    contact states with SDF rows active in most envs and the cap binding in
    some (kept where the keys at the cap differ by more than KEY_GAP); the
@@ -119,7 +122,9 @@
    play;
 25. both timed (Insertion at 128 and 4096 envs, the ball at 4096) with
    envs per block and shared memory per block;
-26. prints one `kernels` JSON line with all instantiations and ends with
+26. prints one `kernels` JSON line with all instantiations (each with its
+   envs per block, shared memory per block, resident blocks and warps per
+   SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository around it; without either it
@@ -738,9 +743,13 @@ def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn
     print(f"fused step {'_'.join(map(str, sizes))} N={n}: {ms:.4f} ms/launch ({device_ms:.4f} ms on the device), "
           f"plain {plain_ms:.2f} ms, bound {bound:.6f} ms by operations ({flops / 1e9:.4f} GFLOP), {t_bytes:.6f} ms by bytes "
           f"({nbytes / 1e6:.4f} MB), {flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, {100 * bound / ms:.2f} % of the bound")
+    occ = step.occupancy()
+    figs = _cuda.ptxas_figures(_cuda.PTXAS_LOG.get(tuple(sizes), ""))
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "envs_per_block": step.epb,
-            "smem_bytes": step.smem_bytes}
+            "smem_bytes": step.smem_bytes, "blocks_per_sm": occ["blocks_per_sm"],
+            "warps_per_sm": occ["blocks_per_sm"] * step.epb, "registers": figs["registers"],
+            "spill_bytes": None if figs["spill_stores"] is None else figs["spill_stores"] + figs["spill_loads"]}
 
 
 def time_case(key: str, card: str) -> dict:
@@ -1579,6 +1588,75 @@ def time_ball(card: str) -> dict:
     return kernel_times(h, rows(q), rows(qd), rows(zero), None, card, reps=30, sdf=sdf_planes(h.model, q, qd))
 
 
+def build_all():
+    """Step 2: every instantiation's size tuple on this card, built with one
+    nvcc each, started together; prints ptxas's figures, the shared memory
+    per block and the residency the device grants each build. Returns (the
+    Ant env at the main path's width, its spec, key -> (env, per-env leaf
+    names), key -> size tuple)."""
+    from isaacgymenvs_tpu_torch.engine import _cuda, fused
+
+    env = ant_env(NUM_ENVS)
+    cart = cartpole_env(CARTPOLE_ENVS)
+    s, s0 = fused._extract(env.model), fused._extract(cart.model)
+    if s0.nct != 0 or s.nc == 0:
+        raise AssertionError("Cartpole should be contact-free and the Ant not")
+    built = {"Ant": (env, ()), "Cartpole": (cart, ()),
+             **{k: case(k, 8) for k in CASES}}
+    for k in ANYMAL_CASES:  # the per-env leaves of their own DR, the cap and terrain of their yaml
+        e = anymal_env(k, 8)
+        se = fused._extract(e.model)
+        built[k] = (e, fused.dyn_names(se, e.randomizer.batched_leaf_names()) if e.randomizer is not None else ())
+    built["Ball"] = (ball_holder(), ())  # the SDF rows (K6) without a cap
+    built["Insertion"] = (insertion_env(8), ())  # SDF rows under the cap of 32, envs per block from its shared memory
+
+    def params_of(t, e):
+        return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
+
+    # the size tuples the steps will take on this card (envs per block from its shared memory)
+    sizes = {t: _cuda.instantiation(fused._extract(e.model), params_of(t, e), torch.device("cuda", 0),
+                                    e.use_pd_targets, names, getattr(e, "terrain", None) is not None)[0]
+             for t, (e, names) in built.items()}
+    if sizes["Quadcopter"][3] <= 32 or sizes["BallBalance"][4:7] != (1, 3, 1) or sizes["Example"][4] != 3 \
+            or sizes["Ant+yaml"][7:] != (0, 115, 0, 0, 0, 0, 0, 4) \
+            or sizes["Tendon+all"][7:] != (1, 65535, 10, 3, 0, 0, 0, 8) \
+            or sizes["Anymal"] != (13, 19, 18, 44, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 4) \
+            or sizes["AnymalTerrain"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 1, 0, 4) \
+            or sizes["AnymalTerrain-plane"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 0, 0, 4) \
+            or sizes["Ball"] != (2, 7, 6, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8) \
+            or sizes["Insertion"] != (14, 16, 15, 64, 0, 0, 1, 0, 0, 0, 0, 32, 0, 64, 8) \
+            or len(set(sizes.values())) != len(sizes):
+        raise AssertionError(f"unexpected size tuples {sizes}")
+
+    def timed_build(size):
+        t0 = time.perf_counter()
+        _cuda.build(size, verbose=True)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sizes)) as pool:
+        secs = list(pool.map(timed_build, sizes.values()))
+    print(f"build: {time.perf_counter() - t0:.1f} s in all; " + ", ".join(
+        f"{t} {'_'.join(map(str, sz))} {sec:.1f} s" for (t, sz), sec in zip(sizes.items(), secs)))
+    for t, (e, names) in built.items():
+        has_t = getattr(e, "terrain", None) is not None
+        _, step = fused._prepared(e.model, params_of(t, e), torch.device("cuda"), e.use_pd_targets, names, has_t)
+        if step.sizes != sizes[t]:
+            raise AssertionError(f"{t}: the step took {step.sizes}, not the built {sizes[t]}")
+        occ = step.occupancy()
+        figs = _cuda.ptxas_figures(_cuda.PTXAS_LOG.get(sizes[t], ""))
+        print(f"shared memory per block, {t}: {step.smem_bytes} bytes ({step.epb} envs; the limit of one block "
+              f"is {step.smem_limit}), {step.dyn_rows} per-env rows; ptxas {figs['registers']} registers, "
+              f"{figs['spill_stores']} bytes spill stores, {figs['spill_loads']} bytes spill loads; the device "
+              f"keeps {occ['blocks_per_sm']} blocks ({occ['blocks_per_sm'] * step.epb} warps) resident per SM at "
+              f"{occ['registers']} registers per thread, {occ['local_bytes']} local bytes (host plan: "
+              f"{_cuda.resident_blocks(step.smem_bytes, step.epb, _cuda.plan_regs(step.s.nv))} blocks at "
+              f"{_cuda.plan_regs(step.s.nv)} registers)")
+        if occ["blocks_per_sm"] < 1 or occ["smem_bytes"] != step.smem_bytes:
+            raise AssertionError(f"{t}: occupancy {occ} for a block of {step.smem_bytes} bytes")
+    return env, s, built, sizes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1598,55 +1676,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build every instantiation, one nvcc each, started together
-    env = ant_env(NUM_ENVS)
-    cart = cartpole_env(CARTPOLE_ENVS)
-    s, s0 = fused._extract(env.model), fused._extract(cart.model)
-    if s0.nct != 0 or s.nc == 0:
-        raise AssertionError("Cartpole should be contact-free and the Ant not")
-    built = {"Ant": (env, ()), "Cartpole": (cart, ()),
-             **{k: case(k, 8) for k in CASES}}
-    for k in ANYMAL_CASES:  # the per-env leaves of their own DR, the cap and terrain of their yaml
-        e = anymal_env(k, 8)
-        se = fused._extract(e.model)
-        built[k] = (e, fused.dyn_names(se, e.randomizer.batched_leaf_names()) if e.randomizer is not None else ())
-    built["Ball"] = (ball_holder(), ())  # the SDF rows (K6) without a cap
-    built["Insertion"] = (insertion_env(8), ())  # SDF rows under the cap of 32, two envs per block
-
-    def params_of(t, e):
-        return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
-
-    # the size tuples the steps will take on this card (envs per block from its shared memory)
-    sizes = {t: _cuda.instantiation(fused._extract(e.model), params_of(t, e), torch.device("cuda", 0),
-                                    e.use_pd_targets, names, getattr(e, "terrain", None) is not None)[0]
-             for t, (e, names) in built.items()}
-    if sizes["Quadcopter"][3] <= 32 or sizes["BallBalance"][4:7] != (1, 3, 1) or sizes["Example"][4] != 3 \
-            or sizes["Ant+yaml"][7:] != (0, 115, 0, 0, 0, 0, 0, 4) \
-            or sizes["Tendon+all"][7:] != (1, 65535, 10, 3, 0, 0, 0, 4) \
-            or sizes["Anymal"] != (13, 19, 18, 44, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 4) \
-            or sizes["AnymalTerrain"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 1, 0, 4) \
-            or sizes["AnymalTerrain-plane"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 0, 0, 4) \
-            or sizes["Ball"] != (2, 7, 6, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 4) \
-            or sizes["Insertion"] != (14, 16, 15, 64, 0, 0, 1, 0, 0, 0, 0, 32, 0, 64, 2) \
-            or len(set(sizes.values())) != len(sizes):
-        raise AssertionError(f"unexpected size tuples {sizes}")
-
-    def timed_build(size):
-        t0 = time.perf_counter()
-        _cuda.build(size, verbose=True)
-        return time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sizes)) as pool:
-        secs = list(pool.map(timed_build, sizes.values()))
-    print(f"build: {time.perf_counter() - t0:.1f} s in all; " + ", ".join(
-        f"{t} {'_'.join(map(str, sz))} {sec:.1f} s" for (t, sz), sec in zip(sizes.items(), secs)))
-    for t, (e, names) in built.items():
-        has_t = getattr(e, "terrain", None) is not None
-        _, step = fused._prepared(e.model, params_of(t, e), torch.device("cuda"), e.use_pd_targets, names, has_t)
-        if step.sizes != sizes[t]:
-            raise AssertionError(f"{t}: the step took {step.sizes}, not the built {sizes[t]}")
-        print(f"shared memory per block, {t}: {step.smem_bytes} bytes ({step.epb} envs; the limit of one block "
-              f"is {step.smem_limit}), {step.dyn_rows} per-env rows")
+    env, s, built, sizes = build_all()
 
     # 3. kernel vs plain version
     if any(RAGGED_ENVS % e == 0 for e in _cuda.ENVS_PER_BLOCK_CHOICES if e > 1):
@@ -1802,7 +1832,7 @@ def main() -> int:
              "BallBalance": "fused_step_ballbalance_k4_qt", "Example": "fused_step_example_k4"}
     anymal_names = {"Anymal": "fused_step_anymal_qt", "AnymalTerrain": "fused_step_anymal_terrain_k5_k6_qt_dyn",
                     "AnymalTerrain-plane": "fused_step_anymal_plane_k5_qt_dyn"}
-    sdf_names = {"Insertion": "fused_step_insertion_k5_k6sdf_qt_epb2", "Ball": "fused_step_ball_k6sdf"}
+    sdf_names = {"Insertion": "fused_step_insertion_k5_k6sdf_qt", "Ball": "fused_step_ball_k6sdf"}
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "max_abs_err": max_err,

@@ -7,14 +7,18 @@ tendons, the set of per-env leaves as a bitmask, the model's candidate
 point and geom counts where a per-env leaf indexes them, the top-K cap,
 terrain planes or not, SDF pair rows, and envs per block), at first use,
 into `isaacgymenvs_tpu_torch/_build/` (listed in .gitignore). A block keeps
-the spec and each of its envs in shared memory; envs per block is the
-largest of 4, 2 and 1 whose bytes (`smem_bytes`) fit the device's opt-in
-limit for one block (`envs_per_block`), and a model that does not fit at one
-is refused by name (`fused.unsupported_features`) before any launch.
-Without any row it is the contact-free instantiation (`-DFS_NC=0`): the
-same source with every contact stage compiled out. The library name carries
-a hash of the source and the flags, so an edited source is rebuilt. It is
-loaded with ctypes; pointers and the stream go in as `c_void_p`.
+the spec and each of its envs in shared memory. An env's block holds its
+state, M^-1 and the rows J of its solve's slots: the cap's under a top-K
+cap, else every contact's; W = M^-1 J is never stored (`env_floats` mirrors
+the layout). Envs per block is the one of 8, 4, 2 and 1 that keeps the most
+envs resident per SM by shared memory and registers (`envs_per_block`,
+`resident_blocks`, `plan_regs`), and a model that does not fit at one env is refused by
+name (`fused.unsupported_features`) before any launch. `occupancy` reads
+what the device grants a build. Without any row it is the contact-free
+instantiation (`-DFS_NC=0`): the same source with every contact stage
+compiled out. The library name carries a hash of the source and the flags,
+so an edited source is rebuilt. It is loaded with ctypes; pointers and the
+stream go in as `c_void_p`.
 
 Nothing here runs at import: the CPU tests import this module without a
 compiler or a card.
@@ -37,15 +41,22 @@ from .dynamics import SimParams
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "fused_step.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-# envs per block, tried in this order: the first whose shared memory fits
-ENVS_PER_BLOCK_CHOICES = (4, 2, 1)
+# envs per block the host may choose from (`envs_per_block`)
+ENVS_PER_BLOCK_CHOICES = (8, 4, 2, 1)
 # shared memory one block may opt in to on the H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin)
 SMEM_OPTIN_BYTES = 232448
+# the H100's shared memory per SM, and what the device reserves for each resident block
+SMEM_PER_SM_BYTES = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+# registers per SM, and the warp's allocation unit; at most 32 blocks and 64 warps per SM
+REGS_PER_SM, REG_ALLOC_UNIT, MAX_BLOCKS_PER_SM, MAX_WARPS_PER_SM = 65536, 256, 32, 64
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _libs: dict = {}
+# size tuple -> ptxas's report of a build made with `verbose`
+PTXAS_LOG: dict = {}
 
 # layout of the parameter head of the spec buffer (fused_step.cu P_*)
 _NPARAM = 16
@@ -86,15 +97,21 @@ def _defines(sizes) -> list:
 def env_floats(s, has_qt: bool = False, names: tuple = (), cap: int = 0, has_terr: bool = False) -> int:
     """Floats of one env's block of shared memory in the kernel's layout (the
     E_* constants of fused_step.cu, rounded up to a multiple of 4): the
-    state, the articulated-body work, M^-1, J and W = M^-1 J over all R = 3
-    x contacts rows, the sensors, the per-env leaves, the terrain and SDF
-    planes and the top-K keys."""
+    state, M^-1, one region that the articulated-body work and then the
+    rows J of the solve's slots (the cap's, else every contact's; W = M^-1
+    J is never stored) with the sensors per slot take in turn, the per-env
+    leaves, the terrain and SDF planes, the warm start per contact, and with
+    a cap the keys and the slots' contacts."""
     from .fused import dyn_rows
 
     nb, nq, nv, nct, npp, nsp = s.nbody, s.nq, s.nv, s.nct, s.pp_nc, s.sp_n
-    n = (nq * (2 if has_qt else 1) + 73 * nb + 26 * nv + 2 * nv * nv + 7 * nct + 2 * nv * 3 * nct
-         + 3 * (npp + nsp) + 9 * npp + sum(dyn_rows(s)[k] for k in names)
-         + (10 * s.nc if has_terr else 0) + 13 * nsp + (2 * nct if cap else 0))
+    ns = cap or nct  # slots of the solve
+    # the articulated work and the solve's arrays share one region
+    articulated = 54 * nb + 16 * nv + nv * nv
+    solve = nv * 3 * ns + 6 * ns + (3 * ns if npp + nsp else 0)
+    n = (nq * (2 if has_qt else 1) + 19 * nb + 10 * nv + nv * nv + ns + max(articulated, solve)
+         + 9 * npp + sum(dyn_rows(s)[k] for k in names) + (10 * s.nc if has_terr else 0) + 13 * nsp
+         + 3 * nct + (nct + ns if cap else 0))
     return (n + 3) // 4 * 4
 
 
@@ -109,10 +126,37 @@ def smem_bytes(s, p: SimParams, epb: int, has_qt: bool = False, names: tuple = (
     return 4 * ((spec + 3) // 4 * 4 + epb * env_floats(s, has_qt, names, topk_cap(s, p), has_terr))
 
 
-def envs_per_block(smem_of, limit: int) -> int:
-    """The largest of ENVS_PER_BLOCK_CHOICES whose block fits `limit` bytes,
-    `smem_of(epb)` being a block's bytes at epb envs; 0 when none fits."""
-    return next((e for e in ENVS_PER_BLOCK_CHOICES if smem_of(e) <= limit), 0)
+def plan_regs(nv: int) -> int:
+    """Registers per thread the choice of envs per block plans with, by the
+    path of the Gram product (fused_step.cu PLAN_REGS, whose launch bounds
+    hold each build to it): 168 where the tensor cores form it (nv > 8),
+    what ptxas gave the largest of those builds on the H100 (PERF.md), and
+    128 where each lane does (nv <= 8). chip_smoke.py prints each build's
+    figure and the residency the device grants it."""
+    return 168 if nv > 8 else 128
+
+
+def resident_blocks(block_bytes: int, epb: int, regs: int) -> int:
+    """Blocks of `epb` warps the H100 keeps resident on one SM at
+    `block_bytes` of dynamic shared memory and `regs` registers per thread:
+    the least of what shared memory, registers, warps and the block limit
+    allow."""
+    by_smem = SMEM_PER_SM_BYTES // (block_bytes + SMEM_PER_BLOCK_RESERVED)
+    warp_regs = -(-regs * 32 // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
+    by_regs = (REGS_PER_SM // warp_regs) // epb
+    return min(by_smem, by_regs, MAX_WARPS_PER_SM // epb, MAX_BLOCKS_PER_SM)
+
+
+def envs_per_block(smem_of, limit: int, regs: int) -> int:
+    """Of ENVS_PER_BLOCK_CHOICES whose block fits `limit` bytes
+    (`smem_of(epb)` being a block's bytes at epb envs), the one that keeps
+    the most envs resident per SM (`resident_blocks` at `regs` registers per
+    thread), ties to the larger block, which copies the spec fewer times;
+    0 when none fits."""
+    fits = [e for e in ENVS_PER_BLOCK_CHOICES if smem_of(e) <= limit]
+    if not fits:
+        return 0
+    return max(fits, key=lambda e: (e * resident_blocks(smem_of(e), e, regs), e))
 
 
 def device_smem_optin(device: torch.device) -> int:
@@ -156,6 +200,7 @@ def build(sizes, verbose: bool = False) -> str:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     if verbose and res.stderr:
+        PTXAS_LOG[tuple(sizes)] = res.stderr
         print(f"ptxas {'_'.join(map(str, sizes))}:\n{res.stderr.strip()}")
     os.replace(tmp, out)
     return out
@@ -172,6 +217,8 @@ def load(sizes):
             lib.fused_step_layout.restype = ci
             lib.fused_step_launch.argtypes = [vp] * 14 + [ci] * 5 + [vp]
             lib.fused_step_launch.restype = ci
+            lib.fused_step_occupancy.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
+            lib.fused_step_occupancy.restype = ci
             _libs[tuple(sizes)] = lib
     return lib
 
@@ -182,6 +229,29 @@ def layout(lib) -> tuple:
     out = (ctypes.c_int * 18)()
     lib.fused_step_layout(out)
     return tuple(out)
+
+
+def occupancy(lib, spec_len: int) -> dict:
+    """What the device grants a build (`fused_step_occupancy`): resident
+    blocks per SM at `spec_len` spec floats, registers and local-memory
+    (spill) bytes per thread, dynamic shared-memory bytes per block."""
+    out = (ctypes.c_int * 4)()
+    rc = lib.fused_step_occupancy(int(spec_len), out)
+    if rc != 0:
+        raise RuntimeError(f"fused_step_occupancy failed: CUDA error {rc}")
+    return {"blocks_per_sm": out[0], "registers": out[1], "local_bytes": out[2], "smem_bytes": out[3]}
+
+
+def ptxas_figures(text: str) -> dict:
+    """Registers and spill bytes (stores, loads) from ptxas's `-v` report."""
+    import re
+
+    regs = re.findall(r"Used (\d+) registers", text)
+    stores = re.findall(r"(\d+) bytes spill stores", text)
+    loads = re.findall(r"(\d+) bytes spill loads", text)
+    return {"registers": int(regs[-1]) if regs else None,
+            "spill_stores": int(stores[-1]) if stores else None,
+            "spill_loads": int(loads[-1]) if loads else None}
 
 
 def body_depth(parent) -> np.ndarray:
@@ -259,10 +329,10 @@ def kernel_flops(s, p: SimParams, has_terr: bool = False) -> int:
     plane, its world Jacobian and that Jacobian's rotation into the plane's
     frame; its sensor turns its force to world axes and takes a second arm
     for the grid's body.
-    With a top-K cap every row is formed with its J qd_free, each contact's
-    key is compared with every other one, and only the cap contacts in the
-    solve take W = M^-1 J, their scale, the Lipschitz sums, the APGD and the
-    impulse. Without any
+    With a top-K cap every contact's row is counted with its J qd_free, each
+    contact's key is compared with every other one, and only the cap contacts
+    in the solve take W = M^-1 J, their scale, the Lipschitz sums, the APGD
+    and the impulse. Without any
     contact the step ends after qd_free with the velocity clip and the
     integration: no rows, solve, impulse or sensors.
     """
@@ -340,7 +410,7 @@ def instantiation(s, params: SimParams, device: torch.device, has_qt: bool = Fal
 
     limit = device_smem_optin(device)
     smem_of = lambda e: smem_bytes(s, params, e, has_qt, names, has_terr)
-    epb = envs_per_block(smem_of, limit)
+    epb = envs_per_block(smem_of, limit, plan_regs(s.nv))
     if not epb:
         raise NotImplementedError(
             f"shared memory: {smem_of(1)} bytes per block at one env per block, over the "
@@ -389,6 +459,10 @@ class FusedStepCall:
         self.iters = params.solver_apgd_iterations
         self.device = device
         self.s = s
+
+    def occupancy(self) -> dict:
+        """What the device grants this build at its spec (`occupancy`)."""
+        return occupancy(self.lib, int(self.spec.numel()))
 
     def __call__(self, q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None, warm_reset_every=0, sdf=None):
         s, n = self.s, q.shape[-1]

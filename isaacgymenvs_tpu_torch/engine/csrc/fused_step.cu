@@ -33,35 +33,61 @@
 // fused.py.
 //
 // What bounds it. Per env and slice the work the step needs is dominated by
-// the Lipschitz row sums of the symmetric |J^T M^-1 J| (R(R+1)/2 x nv
-// multiply-adds, R = 3 x contacts) and the APGD matvecs, then W = M^-1 J and the
-// Gauss-Jordan inverse; for Ant (nv 14, nc 25, 16 APGD iterations, 2
-// slices) that is about 0.47 MFLOP per env-step (`kernel_flops` in
-// engine/_cuda.py counts it) against about 0.8 KB of boundary traffic per
-// env. So it is bound by fp32 CUDA-core work, not by memory: 4096 envs need
-// ~1.9 GFLOP and ~3 MB. This kernel forms all R x R entries for the row
-// sums (twice the needed Lipschitz work) and inverts with an identity
-// companion matrix (twice the needed Gauss-Jordan work).
+// the Lipschitz row sums of the symmetric |J M^-1 J^T| (R(R+1)/2 x nv
+// multiply-adds, R = 3 x contacts in the solve) and the APGD matvecs, then
+// W = J M^-1 and the Gauss-Jordan inverse; for Ant (nv 14, nc 25, 16 APGD
+// iterations, 2 slices) that is about 0.47 MFLOP per env-step
+// (`kernel_flops` in engine/_cuda.py counts it) against about 0.8 KB of
+// boundary traffic per env. So it is bound by operations, not by memory:
+// 4096 envs need ~1.9 GFLOP and ~3 MB. The Gauss-Jordan inverse still runs
+// with an identity companion matrix (twice the needed work). What holds a
+// warp back is latency: one warp per env, its shared-memory loads and
+// dependent multiply-adds, so the design keeps as many warps resident per
+// SM as shared memory and registers allow.
 //
 // Design. Sizes (nbody, nq, nv, plane rows, pair rows, anchors, q_target or
 // not, tendons, the per-env leaf set, the top-K cap, terrain or not, SDF
 // rows, envs per block) are compile-time constants (-DFS_NB ..), one library
-// per size tuple; the body tree, the model constants and the
-// solver parameters come in a small float buffer that each block copies to
-// shared memory. A warp owns one env: its state, J, W = M^-1 J and M^-1 stay
-// in shared memory (~16 KB for Ant) across all slices and APGD iterations.
-// Lanes own contacts (a contact's three rows stay in registers through the
-// solve; with more than 32 contacts a lane owns several), bodies (FK and the bias force run level by level over the tree),
-// dofs, or matrix entries. The dense Delassus matrix is never stored: the
-// APGD matvec runs as J^T (W (s y)), O(R nv) instead of O(R^2), which also
-// saves 22.5 KB of shared memory per env; the one pass that needs the
-// entries (the Lipschitz row sums) forms them on the fly. Warp reductions
-// are xor butterflies, so every lane holds bit-identical sums. At the
-// boundary the arrays keep the TPU's (rows, N) layout: a block loads and
-// stores its envs cooperatively, neighbouring threads on neighbouring envs,
-// and masks the ragged edge (N is not padded).
+// per size tuple; the body tree, the model constants and the solver
+// parameters come in a small float buffer that each block copies to shared
+// memory. A warp owns one env: its state, M^-1 and the rows J of its solve
+// stay in shared memory across all slices and APGD iterations; W = M^-1 J
+// and the Delassus matrix are stored nowhere. The solve runs over slots:
+// slot k holds the contact of rank k under a top-K cap (see "Top-K"), else
+// contact k, and lane k mod 32 owns slot k (a slot's three rows stay in
+// registers through the solve). Lanes also own bodies (FK and the bias force
+// run level by level over the tree), dofs, or matrix entries. The APGD
+// matvec runs as s J (M^-1 (J^T (s y))): J^T (s y) summed over the warp,
+// M^-1 of it on the lanes of the dofs, broadcast by shuffles, then a dot
+// product per row, O(R nv + nv^2) instead of O(R^2). Warp reductions are xor
+// butterflies, so every lane holds bit-identical sums. At the boundary the
+// arrays keep the TPU's (rows, N) layout: a block loads and stores its envs
+// cooperatively, neighbouring threads on neighbouring envs, and masks the
+// ragged edge (N is not padded).
 //
-// Row kinds. The lane that owns a contact branches on its kind: a plane row
+// The Gram product. The Jacobi scale needs the diagonal of J M^-1 J^T and
+// the step size the row sums of its |entries|: a dense, data-independent
+// product, formed on the tensor cores with mma.sync.m16n8k8 in TF32 (wgmma's
+// 64-row tiles take four warps; an env has one). Per 16-row block of the
+// solve, W = J M^-1 (nv padded to a multiple of 8) comes out as accumulator
+// fragments; the diagonal is its dot product with J's rows, summed within
+// each quad; for the row sums the fragments become A fragments by eight
+// shuffles per 8-wide tile, and the 16 x 8 tiles of W J^T are formed from
+// the diagonal block rightwards: the matrix is symmetric, so an entry right
+// of the diagonal block adds to its row from the lane's own fragment and to
+// its column's row through a small shared array (E_CS), summed in a fixed
+// order. TF32 keeps 10 mantissa bits, which would move the step by ~1e-3
+// relative; the 3xTF32 split (x = hi + lo, both TF32; hi.hi + hi.lo + lo.hi
+// accumulated in fp32, in two independent chains, with two column tiles in
+// flight) keeps the scale and the bound at float32 accuracy. `mma_tf32`
+// holds the PTX; its host branch writes the fragment layout out with
+// shuffles, so the kernel can be rehearsed without a card. With nv <= 8
+// (one 8-wide tile of dofs) the tensor cores' fixed share (padding, the
+// split, the fragment shuffles) outweighs the product, and each slot's
+// lane forms its W rows in registers and dots them with every column of J
+// instead (GRAM_MMA).
+//
+// Row kinds. The lane that owns a slot branches on its contact's kind: a plane row
 // has the world axes as its frame and phi = radius - z; a pair row runs the
 // narrowphase of its geom type (a real branch per row: box, cylinder or
 // sphere), builds the frame (t1, t2, n) from the normal, takes the Jacobian at
@@ -88,12 +114,18 @@
 // planes are staged in the env's shared memory (E_SDF, 13 NSP floats),
 // loaded cooperatively like the terrain input.
 //
-// Envs per block. FS_EPB envs share a block; the host picks the largest of
-// 4, 2 and 1 whose dynamic shared memory (spec + FS_EPB x ENV_FLOATS floats)
-// fits the device's opt-in limit for one block (engine/_cuda.py
-// envs_per_block), so a model with many rows (Insertion: 128 contacts, J
-// and W of 2 x 15 x 384 floats per env) runs at fewer envs per block rather
-// than failing its launch.
+// Envs per block. FS_EPB envs (8, 4, 2 or 1) share a block. The host picks
+// the count that keeps the most envs resident per SM: blocks per SM from
+// the SM's shared memory (spec + FS_EPB x ENV_FLOATS floats, plus 1 KB per
+// block) and from the register file at a planned register count (168 with
+// the tensor-core Gram product, 128 with the per-lane one; PLAN_REGS, held
+// by the launch bounds), ties to the larger block, which copies the spec
+// fewer times (engine/_cuda.py envs_per_block). Anymal and AnymalTerrain
+// run blocks of 4, Insertion and the models with nv <= 8 blocks of 8.
+// `fused_step_occupancy` reports what the device grants a build. The
+// articulated work of a slice (composite inertia, Gauss-Jordan, bias
+// terms) and the solve's arrays share one region of the env's block: the
+// one is dead before the other is formed.
 //
 // Terrain rows. With -DFS_TERR=1 a plane row stands against its own plane:
 // a (10 NC, N) input holds, per candidate point, the ground height h under
@@ -107,17 +139,20 @@
 // Top-K. With -DFS_CAP=<cap> below the contact count only `cap` contacts
 // enter the solve: those of the largest predicted depth phi - min(v_n, 0) h
 // (v_n the unscaled normal row times qd_free; anchors first, inactive rows
-// last), ties to the lower index, lax.top_k's order. The contact pass is
-// split in two: the first forms every row's Jacobian, phi and J qd_free and
-// parks the keys in shared memory; each lane then counts, for its contacts,
-// the keys that beat them (rank < cap: selected); the second pass forms
-// W = M^-1 J and the Jacobi scale of the selected contacts only. The
-// Delassus system is never stored, so nothing is gathered: an unselected
-// contact is inactive (its impulse and warm start are zero, as the TPU
-// kernel's scatter of zeros off the set), its rows enter no matvec, and the
-// Lipschitz row sums run over selected rows and columns. When fewer than
-// cap rows are active, inactive fillers take the remaining slots by index
-// and count in the Lipschitz bound, as they do on the TPU.
+// last), ties to the lower index, lax.top_k's order. A ranking pass, a
+// contact per lane, forms each contact's point, depth and frame and its
+// normal row's J qd_free in registers (no row is stored) and parks the keys
+// in shared memory; each lane then counts, for its contacts, the keys that
+// beat them, and the contact of rank r < cap writes its index into slot r
+// (E_SLOT), as the TPU kernel gathers with slot = rank. The solve then forms
+// J for the cap's slots only (nv x 3 cap floats): the slot's lane forms its
+// contact's geometry again and its three rows. When fewer than cap rows are
+// active, inactive fillers take the remaining slots by rank and count in
+// the Lipschitz bound, as they do on the TPU. The warm start and the
+// impulses live per contact in shared memory (E_WARM, 3 x contacts), so they
+// survive a change of slot between slices; a contact off the set gets zero,
+// as the TPU kernel's scatter of zeros leaves it. Without a cap slot k is
+// contact k and the ranking pass is compiled out.
 //
 // Per-env leaves. Where the TPU kernel takes one operand per randomized
 // model leaf and swaps a constant for it at trace time, this kernel takes
@@ -188,14 +223,25 @@ constexpr unsigned DYN = FS_DYN;
 constexpr int NTWO = NPP + NSP;    // two-body contacts (pair and SDF rows)
 constexpr int NUNI = NC + NTWO;    // unilateral contacts
 constexpr int NCT = NUNI + NATT;
-constexpr int R = 3 * NCT;
-constexpr int CPL = (NCT + 31) / 32;  // contacts per lane
-constexpr int CPLA = CPL > 0 ? CPL : 1;  // size of the per-lane contact arrays (none of length 0)
 constexpr int CAP = FS_CAP;
 constexpr bool TOPK = CAP > 0;
 constexpr bool TERR = FS_TERR != 0;
+constexpr int CPL = (NCT + 31) / 32;  // contacts per lane (the ranking pass)
+// slots of the solve: slot k holds the contact of rank k under a cap, else contact k
+constexpr int NS = TOPK ? CAP : NCT;
+constexpr int RS = 3 * NS;               // rows of the solve, comp-major [t1 | t2 | n] in blocks of NS
+constexpr int SPL = (NS + 31) / 32;      // slots per lane: slot k on lane k mod 32
+constexpr int SPLA = SPL > 0 ? SPL : 1;  // size of the per-lane slot arrays (none of length 0)
+constexpr int VPL = (NV + 31) / 32;      // dofs per lane: dof v on lane v mod 32
+constexpr int NVT = (NV + 7) / 8;        // 8-wide tiles of the dofs (the mma's k and n)
+constexpr int RB = (RS + 15) / 16;       // 16-row blocks of the solve (the mma's m)
+constexpr int CT = (RS + 7) / 8;         // 8-column tiles of the solve (the mma's n)
+// The Gram product on the tensor cores pays from two 8-wide dof tiles on;
+// with nv <= 8 a lane's dot products over its own rows cost less than the
+// mma's fixed share (padding, the 3xTF32 split, fragment shuffles)
+constexpr bool GRAM_MMA = NVT > 1;
 static_assert(NC >= 0 && NPP >= 0 && NSP >= 0 && NATT >= 0, "negative contact count");
-static_assert(EPB == 1 || EPB == 2 || EPB == 4, "envs per block is 4, 2 or 1");
+static_assert(EPB == 1 || EPB == 2 || EPB == 4 || EPB == 8, "envs per block is 8, 4, 2 or 1");
 static_assert(!TOPK || (CAP < NCT && CAP > NATT), "the cap must lie below the contacts and above the anchors");
 static_assert(!TERR || NC > 0, "terrain planes need plane rows");
 static_assert(NV > 0 && NB > 0, "empty model");
@@ -271,27 +317,37 @@ constexpr int E_QFRC = E_QD + NV;
 constexpr int E_XFRC = E_QFRC + NV;      // (6, NB) comp-major
 constexpr int E_QTGT = E_XFRC + 6 * NB;  // (NQ,) q_target, only with QT
 constexpr int E_QDF = E_QTGT + (QT ? NQ : 0);  // qd_free
-constexpr int E_RHS = E_QDF + NV;
-constexpr int E_X = E_RHS + NV;          // (NB, 3)
+constexpr int E_X = E_QDF + NV;          // (NB, 3)
 constexpr int E_QT = E_X + 3 * NB;       // (NB, 4)
-constexpr int E_V = E_QT + 4 * NB;       // (NB, 6)
+constexpr int E_S = E_QT + 4 * NB;       // (NV, 6) motion subspace, read by the contact rows too
+constexpr int E_MINV = E_S + 6 * NV;     // (NV, NV)
+constexpr int E_SC = E_MINV + NV * NV;   // (NS,) Jacobi scale per slot
+// One region, two views. The articulated work of a slice is dead once
+// qd_free is formed, and the solve's arrays are formed after it, so they
+// share the floats (the sensors write E_FS in the last slice only, after
+// the solve).
+constexpr int E_U = E_SC + NS;
+// the articulated view
+constexpr int E_V = E_U;                 // (NB, 6)
 constexpr int E_ZETA = E_V + 6 * NB;     // (NB, 6)
 constexpr int E_NET = E_ZETA + 6 * NB;   // (NB, 6)
 constexpr int E_IC = E_NET + 6 * NB;     // (NB, 6, 6) composite inertia
-constexpr int E_S = E_IC + 36 * NB;      // (NV, 6)
-constexpr int E_SD = E_S + 6 * NV;
-constexpr int E_F = E_SD + 6 * NV;
+constexpr int E_SD = E_IC + 36 * NB;     // (NV, 6)
+constexpr int E_F = E_SD + 6 * NV;       // (NV, 6)
 constexpr int E_AG = E_F + 6 * NV;       // (NV, NV) Gauss-Jordan work
-constexpr int E_MINV = E_AG + NV * NV;
-constexpr int E_PIVA = E_MINV + NV * NV;
+constexpr int E_PIVA = E_AG + NV * NV;
 constexpr int E_PIVI = E_PIVA + NV;
 constexpr int E_CC = E_PIVI + NV;
-constexpr int E_SC = E_CC + NV;          // (NCT,) Jacobi scale per contact
-constexpr int E_J = E_SC + NCT;          // (NV, R) comp-major rows
-constexpr int E_W = E_J + NV * R;        // (NV, R) = M^-1 J
-constexpr int E_FS = E_W + NV * R;       // (6, NCT) world contact force, torque about the point's body
-constexpr int E_FSB = E_FS + 6 * NCT;    // (3, NTWO) the same force's torque about body B (geom or grid)
-constexpr int E_FR = E_FSB + 3 * NTWO;   // (NPP, 9) pair-row frame t1, t2, n (world)
+constexpr int E_RHS = E_CC + NV;
+constexpr int E_ART_END = E_RHS + NV;
+// the solve's view
+constexpr int E_J = E_U;                 // (NV, RS) the rows of the solve, slot-major within each block
+constexpr int E_FS = E_J + NV * RS;      // (6, NS) world contact force, torque about the point's body
+constexpr int E_DG = E_FS;               // (RS,) the system's diagonal, dead before the sensors write E_FS
+constexpr int E_CS = E_FS;               // (RS,) row sums from the transposed tiles, after E_DG is read
+constexpr int E_FSB = E_FS + 6 * NS;     // (3, NS) the same force's torque about body B (geom or grid)
+constexpr int E_SOLVE_END = E_FSB + (NTWO > 0 ? 3 * NS : 0);
+constexpr int E_FR = E_ART_END > E_SOLVE_END ? E_ART_END : E_SOLVE_END;  // (NPP, 9) pair-row frame t1, t2, n
 constexpr int E_BF = E_FR + 9 * NPP;     // (3, NB)
 constexpr int E_BT = E_BF + 3 * NB;      // (3, NB)
 constexpr int E_DF = E_BT + 3 * NB;      // (NV,)
@@ -342,9 +398,10 @@ static_assert(NT >= 0 && NCP >= 0 && NG >= 0, "negative count");
 constexpr int E_DYN = E_DF + NV;         // (DYN_ROWS,) the env's per-env leaves
 constexpr int E_TERR = E_DYN + DYN_ROWS;  // (10, NC) h, n, t1, t2 per plane row, with TERR
 constexpr int E_SDF = E_TERR + (TERR ? 10 * NC : 0);  // (13, NSP) phi0, x0, n, t1, t2 per SDF row
-constexpr int E_KEY = E_SDF + 13 * NSP;               // (NCT,) top-K keys, with TOPK
-constexpr int E_SEL = E_KEY + (TOPK ? NCT : 0);       // (NCT,) 1 where a contact is in the solve
-constexpr int ENV_FLOATS = ((E_SEL + (TOPK ? NCT : 0) + 3) / 4) * 4;
+constexpr int E_WARM = E_SDF + 13 * NSP;  // (3, NCT) physical impulses per contact: the warm start
+constexpr int E_KEY = E_WARM + 3 * NCT;   // (NCT,) top-K keys, with TOPK
+constexpr int E_SLOT = E_KEY + (TOPK ? NCT : 0);  // (NS,) the contact in each slot, with TOPK
+constexpr int ENV_FLOATS = ((E_SLOT + (TOPK ? NS : 0) + 3) / 4) * 4;
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -599,11 +656,6 @@ __device__ __forceinline__ void project(float t1, float t2, float n, float mu, f
   o[0] = t1 * sc; o[1] = t2 * sc; o[2] = ln * act;
 }
 
-// kind of contact i: plane row, pair row, SDF row or bilateral anchor
-__device__ __forceinline__ bool is_pair(int i) { return NPP > 0 && i >= NC && i < NC + NPP; }
-__device__ __forceinline__ bool is_sdf(int i) { return NSP > 0 && i >= NC + NPP && i < NUNI; }
-__device__ __forceinline__ bool is_anchor(int i) { return NATT > 0 && i >= NUNI && i < NCT; }
-
 // Pair row j: the candidate point xw (world) against the analytic geom of
 // body B (fused.py:932-1077). Gives phi, the surface point xs and the frame
 // (t1, t2, n), all in world coordinates; n points from the geom to the point.
@@ -696,6 +748,207 @@ __device__ void pair_row(const float* __restrict__ sp, const float* __restrict__
   cross3(nw, t1, t2);
 }
 
+// ---- the Delassus Gram product on the tensor cores: mma.sync m16n8k8 in TF32
+// with the 3xTF32 split (x = hi + lo, hi = tf32(x), lo = tf32(x - hi); the
+// product hi.hi + hi.lo + lo.hi, accumulated in fp32), which keeps the
+// Jacobi scale and the Lipschitz bound at float32 accuracy.
+
+// x rounded to TF32 by cvt.rna (to nearest, ties away from zero), as float bits
+__device__ __forceinline__ unsigned to_tf32(float x) {
+#ifdef __CUDA_ARCH__
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+#else
+  const unsigned u = __float_as_uint(x);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;  // inf and nan stay
+  return (u + 0x1000u) & 0xffffe000u;
+#endif
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b for one warp: a the 16 x 8 A tile, b the 8 x 8 B tile, d the
+// 16 x 8 accumulator, in the fragment layout of mma.m16n8k8 (g = lane / 4,
+// t = lane % 4): a = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b =
+// (t, g), (t + 4, g); d = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+// Every lane of the warp calls it. The host branch is that layout written
+// out with shuffles, for rehearsing the kernel without a card; the card's
+// build never compiles it.
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsigned* b, int lane) {
+#ifdef __CUDA_ARCH__
+  (void)lane;
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#else
+  const int g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < 8; ++k) {
+    const float ag = __uint_as_float(__shfl_sync(FULL, k < 4 ? a[0] : a[2], 4 * g + (k & 3)));
+    const float ag8 = __uint_as_float(__shfl_sync(FULL, k < 4 ? a[1] : a[3], 4 * g + (k & 3)));
+    const float b0 = __uint_as_float(__shfl_sync(FULL, k < 4 ? b[0] : b[1], 8 * t + (k & 3)));
+    const float b1 = __uint_as_float(__shfl_sync(FULL, k < 4 ? b[0] : b[1], 8 * t + 4 + (k & 3)));
+    d[0] += ag * b0; d[1] += ag * b1; d[2] += ag8 * b0; d[3] += ag8 * b1;
+  }
+#endif
+}
+
+// a b at float32 accuracy from three TF32 products, in two accumulators
+// that do not wait on each other: dm += hi.hi, ds += hi.lo + lo.hi (the
+// product is dm + ds)
+__device__ __forceinline__ void mma_tf32x3(float* dm, float* ds, const unsigned* ah, const unsigned* al,
+                                           const unsigned* bh, const unsigned* bl, int lane) {
+  mma_tf32(ds, al, bh, lane);
+  mma_tf32(dm, ah, bh, lane);
+  mma_tf32(ds, ah, bl, lane);
+}
+
+// entry (row r, dof v) of the solve's rows, zero in the padding
+__device__ __forceinline__ float j_at(const float* e, int v, int r) {
+  return (v < NV && r < RS) ? e[E_J + v * RS + r] : 0.f;
+}
+
+// W = J M^-1 for the 16 rows of block rb, as accumulator fragments: w[nt] holds
+// W(16 rb + g, 8 nt + 2t + {0, 1}) and W(16 rb + g + 8, 8 nt + 2t + {0, 1}).
+// B(jj, v) = M^-1(v, jj), so W's rows are those of M^-1 J as the plain step
+// forms them.
+__device__ __forceinline__ void w_block(const float* e, int rb, int lane, float (*w)[4]) {
+  const int g = lane >> 2, t = lane & 3, r0 = 16 * rb + g;
+  float ws[NVT][4];
+#pragma unroll
+  for (int nt = 0; nt < NVT; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) w[nt][x] = ws[nt][x] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < NVT; ++ks) {
+    const int k0 = 8 * ks + t;
+    unsigned ah[4], al[4];
+    split_tf32(j_at(e, k0, r0), ah[0], al[0]);
+    split_tf32(j_at(e, k0, r0 + 8), ah[1], al[1]);
+    split_tf32(j_at(e, k0 + 4, r0), ah[2], al[2]);
+    split_tf32(j_at(e, k0 + 4, r0 + 8), ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < NVT; ++nt) {
+      const int v = 8 * nt + g;
+      unsigned bh[2], bl[2];
+      split_tf32((v < NV && k0 < NV) ? e[E_MINV + v * NV + k0] : 0.f, bh[0], bl[0]);
+      split_tf32((v < NV && k0 + 4 < NV) ? e[E_MINV + v * NV + k0 + 4] : 0.f, bh[1], bl[1]);
+      mma_tf32x3(w[nt], ws[nt], ah, al, bh, bl, lane);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NVT; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) w[nt][x] += ws[nt][x];
+}
+
+// the sum of a value over the four lanes of a quad (the lanes of one row g)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// kind of contact i: plane row, pair row, SDF row or bilateral anchor
+__device__ __forceinline__ bool is_pair(int i) { return NPP > 0 && i >= NC && i < NC + NPP; }
+__device__ __forceinline__ bool is_sdf(int i) { return NSP > 0 && i >= NC + NPP && i < NUNI; }
+__device__ __forceinline__ bool is_anchor(int i) { return NATT > 0 && i >= NUNI && i < NCT; }
+
+// the row's candidate point in the model's arrays, where per-env cpoint
+// leaves are read: a plane row is its own, a pair or SDF row picks
+__device__ __forceinline__ int point_of(const float* sp, int i) {
+  return is_pair(i) ? (int)sp[O_PPPT + i - NC] : is_sdf(i) ? (int)sp[O_SPPT + i - NC - NPP] : i;
+}
+
+// Contact i at the slice's pose: its point xc (a pair row's surface point),
+// its depth phi and its frame fr = [t1, t2, n]; returns whether its rows are
+// rotated into fr (else they keep the world axes). Plane rows: world axes,
+// phi = radius - z, or their terrain plane's frame; pair rows: narrowphase
+// against the geom, frame from its normal; SDF rows: their entry plane;
+// anchors: world axes, phi = 0.
+__device__ bool contact_geom(const float* __restrict__ sp, const float* __restrict__ e, int i, float* xc,
+                             float* phi, float* fr) {
+  const int b = (int)sp[O_CPBODY + i];
+  const float* cpos = sp + O_CPPOS + 3 * i;
+  float cpos_e[3];
+  if constexpr (H_CPPOS) {
+    if (!is_anchor(i)) {
+      const int pt = point_of(sp, i);
+      for (int k = 0; k < 3; ++k) cpos_e[k] = e[E_DYN + DO_CPPOS + k * NCP + pt];
+      cpos = cpos_e;
+    }
+  }
+  float rot[3];
+  qrot(e + E_QT + 4 * b, cpos, rot);
+  for (int k = 0; k < 3; ++k) xc[k] = e[E_X + 3 * b + k] + rot[k];
+  for (int k = 0; k < 9; ++k) fr[k] = (k % 4 == 0) ? 1.f : 0.f;
+  if (is_pair(i)) {
+    const float xw[3] = {xc[0], xc[1], xc[2]};
+    pair_row(sp, e, i - NC, xw, sp[O_CPRAD + i], phi, xc, fr, fr + 3, fr + 6);
+    return true;
+  }
+  if (is_sdf(i)) {
+    // the row's entry plane: phi = phi0 - n . (x - x0), frame [t1, t2, n]
+    const float* pl = e + E_SDF;
+    const int j = i - NC - NPP;
+    float dn = 0.f;
+    for (int k = 0; k < 3; ++k) {
+      fr[k] = pl[(7 + k) * NSP + j];
+      fr[3 + k] = pl[(10 + k) * NSP + j];
+      fr[6 + k] = pl[(4 + k) * NSP + j];
+      dn += fr[6 + k] * (xc[k] - pl[(1 + k) * NSP + j]);
+    }
+    *phi = pl[j] - dn;
+    return true;
+  }
+  if (is_anchor(i)) {
+    *phi = 0.f;
+    return false;
+  }
+  if constexpr (TERR) {
+    // the point's terrain plane: height, then t1, t2, n into fr
+    const float* tr = e + E_TERR;
+    for (int k = 0; k < 3; ++k) {
+      fr[k] = tr[(4 + k) * NC + i];
+      fr[3 + k] = tr[(7 + k) * NC + i];
+      fr[6 + k] = tr[(1 + k) * NC + i];
+    }
+    *phi = sp[O_CPRAD + i] - (xc[2] - tr[i]) * fr[8];
+    return true;
+  }
+  *phi = sp[O_CPRAD + i] - xc[2];
+  return false;
+}
+
+// Column v of contact i's three rows: the point Jacobian at xc along the
+// contact's (signed) dof path, in world axes or rotated into fr.
+__device__ __forceinline__ void jac_col(const float* __restrict__ sp, const float* __restrict__ e, int i, int v,
+                                        const float* xc, const float* fr, bool framed, float* jr) {
+  const float pm = sp[O_PATH + i * NV + v];
+  const float* S = e + E_S + 6 * v;
+  float jw[3];
+  for (int k = 0; k < 3; ++k) {
+    const int a = (k + 1) % 3, bb = (k + 2) % 3;
+    jw[k] = (S[3 + k] + (S[a] * xc[bb] - S[bb] * xc[a])) * pm;
+  }
+  for (int k = 0; k < 3; ++k)
+    jr[k] = framed ? fr[3 * k] * jw[0] + fr[3 * k + 1] * jw[1] + fr[3 * k + 2] * jw[2] : jw[k];
+}
+
+// the friction of contact i: a pair row averages its point's per-env
+// friction with the geom's static one; plane and SDF rows take their point's
+__device__ __forceinline__ float mu_of(const float* __restrict__ sp, const float* __restrict__ e, int i) {
+  if constexpr (H_CPFRIC) {
+    if (is_pair(i)) return 0.5f * (e[E_DYN + DO_CPFRIC + point_of(sp, i)] + sp[O_PPGFRIC + i - NC]);
+    if (!is_anchor(i)) return e[E_DYN + DO_CPFRIC + point_of(sp, i)];
+  }
+  return sp[O_CPMU + i];
+}
+
 // One env, all slices. `e` is the env's shared-memory block; every lane of
 // the warp calls this.
 __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int lane,
@@ -708,15 +961,11 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
   const int nlev = (int)sp[P_NLEV];
   const float* betas = sp + SPEC_BASE;
 
-  float warm[CPLA][3];  // physical impulses, zero at each call
-#pragma unroll
-  for (int c = 0; c < CPLA; ++c) warm[c][0] = warm[c][1] = warm[c][2] = 0.f;
-
   for (int sl = 0; sl < n_slices; ++sl) {
-    if (warm_reset_every > 0 && sl > 0 && sl % warm_reset_every == 0) {
-      // a merged window: the warm start resets where a separate call would begin
-#pragma unroll
-      for (int c = 0; c < CPLA; ++c) warm[c][0] = warm[c][1] = warm[c][2] = 0.f;
+    if (sl == 0 || (warm_reset_every > 0 && sl % warm_reset_every == 0)) {
+      // the warm start is zero at each call, and a merged window resets it
+      // where a separate call would begin
+      for (int x = lane; x < 3 * NCT; x += 32) e[E_WARM + x] = 0.f;
     }
     // ---- FK + zeta, level by level over the tree
     for (int lev = 0; lev < nlev; ++lev) {
@@ -836,113 +1085,34 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
     }
     __syncwarp();
 
-    // contact state that outlives the solve: points, impulses, J^T lambda
-    float xc[CPLA][3], lam[CPLA][3], qcon[NV];
+    // slot state that outlives the solve: the slot's contact, its point,
+    // its impulses, and J^T lambda
+    int ci[SPLA];
+    float xs[SPLA][3], lam[SPLA][3], qcon[NV];
     if constexpr (NCT > 0) {
-      // ---- contact rows, a contact per lane: plane rows (frame = world
-      // axes, phi = radius - z, or their terrain plane's frame), pair rows
-      // (narrowphase against the geom, frame from its normal, Jacobian at
-      // the surface point with the signed path) and anchors (world axes,
-      // phi = 0, bilateral). First pass: J, phi, J qd_free for every row.
-      float act[CPLA], mu[CPLA], s_c[CPLA], bv[CPLA][3], phic[CPLA];
-      bool sel[CPLA];
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int i = lane + 32 * c;
-        act[c] = 0.f; mu[c] = 0.f; s_c[c] = 1.f; phic[c] = 0.f; sel[c] = i < NCT;
-        xc[c][0] = xc[c][1] = xc[c][2] = 0.f;
-        bv[c][0] = bv[c][1] = bv[c][2] = 0.f;
-        if (i < NCT) {
-          const int b = (int)sp[O_CPBODY + i];
-          // the row's candidate point in the model's arrays, where per-env
-          // cpoint leaves are read: a plane row is its own, a pair or SDF row picks
-          const int pt = is_pair(i) ? (int)sp[O_PPPT + i - NC] : is_sdf(i) ? (int)sp[O_SPPT + i - NC - NPP] : i;
-          const float* cpos = sp + O_CPPOS + 3 * i;
-          float cpos_e[3];
-          if constexpr (H_CPPOS) {
-            if (!is_anchor(i)) {
-              for (int k = 0; k < 3; ++k) cpos_e[k] = e[E_DYN + DO_CPPOS + k * NCP + pt];
-              cpos = cpos_e;
+      if constexpr (TOPK) {
+        // ---- ranking pass, a contact per lane: phi, the normal row's J
+        // qd_free (no row is stored) and the key phi - min(v_n, 0) h; anchors
+        // always win a slot, inactive rows fill by index
+        for (int c = 0; c < CPL; ++c) {
+          const int i = lane + 32 * c;
+          if (i < NCT) {
+            float xc[3], fr[9], phi;
+            const bool framed = contact_geom(sp, e, i, xc, &phi, fr);
+            float vn = 0.f;
+            for (int v = 0; v < NV; ++v) {
+              float jr[3];
+              jac_col(sp, e, i, v, xc, fr, framed, jr);
+              vn += jr[2] * e[E_QDF + v];
             }
-          }
-          float rot[3];
-          qrot(e + E_QT + 4 * b, cpos, rot);
-          for (int k = 0; k < 3; ++k) xc[c][k] = e[E_X + 3 * b + k] + rot[k];
-          float phi;
-          float fr[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
-          bool framed = false;  // rows rotated into fr (else the world axes)
-          if (is_pair(i)) {
-            const float xw[3] = {xc[c][0], xc[c][1], xc[c][2]};
-            pair_row(sp, e, i - NC, xw, sp[O_CPRAD + i], &phi, xc[c], fr, fr + 3, fr + 6);
-            for (int k = 0; k < 9; ++k) e[E_FR + 9 * (i - NC) + k] = fr[k];
-            framed = true;
-          } else if (is_sdf(i)) {
-            // the row's entry plane: phi = phi0 - n . (x - x0), frame [t1, t2, n]
-            const float* pl = e + E_SDF;
-            const int j = i - NC - NPP;
-            float dn = 0.f;
-            for (int k = 0; k < 3; ++k) {
-              fr[k] = pl[(7 + k) * NSP + j];
-              fr[3 + k] = pl[(10 + k) * NSP + j];
-              fr[6 + k] = pl[(4 + k) * NSP + j];
-              dn += fr[6 + k] * (xc[c][k] - pl[(1 + k) * NSP + j]);
-            }
-            phi = pl[j] - dn;
-            framed = true;
-          } else if (is_anchor(i)) {
-            phi = 0.f;
-          } else if constexpr (TERR) {
-            // the point's terrain plane: height, then t1, t2, n into fr
-            const float* tr = e + E_TERR;
-            for (int k = 0; k < 3; ++k) {
-              fr[k] = tr[(4 + k) * NC + i];
-              fr[3 + k] = tr[(7 + k) * NC + i];
-              fr[6 + k] = tr[(1 + k) * NC + i];
-            }
-            phi = sp[O_CPRAD + i] - (xc[c][2] - tr[i]) * fr[8];
-            framed = true;
-          } else {
-            phi = sp[O_CPRAD + i] - xc[c][2];
-          }
-          phic[c] = phi;
-          act[c] = phi > -margin ? 1.f : 0.f;
-          mu[c] = sp[O_CPMU + i];
-          if constexpr (H_CPFRIC) {
-            // a pair row averages its point's friction with the geom's static
-            // one; plane and SDF rows take their point's
-            if (is_pair(i)) mu[c] = 0.5f * (e[E_DYN + DO_CPFRIC + pt] + sp[O_PPGFRIC + i - NC]);
-            else if (!is_anchor(i)) mu[c] = e[E_DYN + DO_CPFRIC + pt];
-          }
-          for (int v = 0; v < NV; ++v) {
-            const float pm = sp[O_PATH + i * NV + v];
-            const float* S = e + E_S + 6 * v;
-            float jw[3];
-            for (int k = 0; k < 3; ++k) {
-              const int a = (k + 1) % 3, bb = (k + 2) % 3;
-              const float crossk = S[a] * xc[c][bb] - S[bb] * xc[c][a];
-              jw[k] = (S[3 + k] + crossk) * pm;
-            }
-            const float qdf = e[E_QDF + v];
-            for (int k = 0; k < 3; ++k) {
-              const float jr = framed ? fr[3 * k] * jw[0] + fr[3 * k + 1] * jw[1] + fr[3 * k + 2] * jw[2] : jw[k];
-              e[E_J + v * R + k * NCT + i] = jr;
-              bv[c][k] += jr * qdf;  // J qd_free, unscaled
-            }
-          }
-          if constexpr (TOPK) {
-            // predicted depth; anchors always win a slot, inactive rows fill by index
             const bool bil = is_anchor(i);
-            float key = phi - fminf(bv[c][2], 0.f) * h;
-            key = bil ? 1e30f : key;
-            e[E_KEY + i] = (act[c] > 0.f || bil) ? key : -1e30f;
+            const float key = bil ? 1e30f : phi - fminf(vn, 0.f) * h;
+            e[E_KEY + i] = (phi > -margin || bil) ? key : -1e30f;
           }
         }
-      }
-      if constexpr (TOPK) {
-        // ---- selection: a contact's rank is the number of keys that beat
-        // it, ties to the lower index; rank < cap is in the solve
         __syncwarp();
-#pragma unroll
+        // a contact's rank is the number of keys that beat it, ties to the
+        // lower index; the contact of rank r < cap takes slot r
         for (int c = 0; c < CPL; ++c) {
           const int i = lane + 32 * c;
           if (i < NCT) {
@@ -952,141 +1122,302 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
               const float kj = e[E_KEY + j];
               rank += (kj > ki || (kj == ki && j < i)) ? 1 : 0;
             }
-            sel[c] = rank < CAP;
-            e[E_SEL + i] = sel[c] ? 1.f : 0.f;
-            if (!sel[c]) act[c] = 0.f;  // no impulse, no warm start
+            if (rank < CAP) e[E_SLOT + rank] = (float)i;
           }
         }
+        __syncwarp();
       }
-      __syncwarp();
-      // ---- second pass, contacts in the solve: W = M^-1 J, the velocity
-      // targets (restitution, anchor drive), the Jacobi scale
+      // ---- the rows of the solve, a slot per lane: J into E_J, J qd_free,
+      // the velocity targets (restitution, anchor drive), the warm start
+      float act[SPLA], mu[SPLA], s_c[SPLA], bv[SPLA][3], wst[SPLA][3];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int i = lane + 32 * c;
-        if (i < NCT && sel[c]) {
-          const float phi = phic[c];
-          float dg[3];
-          for (int k = 0; k < 3; ++k) {
-            const int r = k * NCT + i;
-            float dd = 0.f;
-            for (int v = 0; v < NV; ++v) {
-              float wv = 0.f;
-              for (int jj = 0; jj < NV; ++jj) wv += e[E_MINV + v * NV + jj] * e[E_J + jj * R + r];
-              e[E_W + v * R + r] = wv;
-              dd += e[E_J + v * R + r] * wv;
+      for (int c = 0; c < SPL; ++c) {
+        const int k = lane + 32 * c;
+        ci[c] = 0; act[c] = 0.f; mu[c] = 0.f; s_c[c] = 1.f;
+        for (int kk = 0; kk < 3; ++kk) xs[c][kk] = bv[c][kk] = wst[c][kk] = 0.f;
+        if (k < NS) {
+          const int i = TOPK ? (int)e[E_SLOT + k] : k;
+          ci[c] = i;
+          float fr[9], phi;
+          const bool framed = contact_geom(sp, e, i, xs[c], &phi, fr);
+          if (is_pair(i))
+            for (int x = 0; x < 9; ++x) e[E_FR + 9 * (i - NC) + x] = fr[x];
+          act[c] = phi > -margin ? 1.f : 0.f;
+          mu[c] = mu_of(sp, e, i);
+          for (int v = 0; v < NV; ++v) {
+            float jr[3];
+            jac_col(sp, e, i, v, xs[c], fr, framed, jr);
+            const float qdf = e[E_QDF + v];
+            for (int kk = 0; kk < 3; ++kk) {
+              e[E_J + v * RS + kk * NS + k] = jr[kk];
+              bv[c][kk] += jr[kk] * qdf;  // J qd_free, unscaled
             }
-            dg[k] = dd;
           }
           if (is_anchor(i)) {
             // drive the anchor point's error to zero on all three axes
             const float* tgt = sp + O_ATTTGT + 3 * (i - NUNI);
-            for (int k = 0; k < 3; ++k) bv[c][k] -= (tgt[k] - xc[c][k]) * ke_att;
+            for (int kk = 0; kk < 3; ++kk) bv[c][kk] -= (tgt[kk] - xs[c][kk]) * ke_att;
           } else {
             // Baumgarte / approach target, Newton restitution: bv[c][2] is
             // the pre-solve normal velocity
             float vnt = phi > 0.f ? fminf(erp * phi / h, maxdep) : phi / h;
-            const int pt = is_pair(i) ? (int)sp[O_PPPT + i - NC] : is_sdf(i) ? (int)sp[O_SPPT + i - NC - NPP] : i;
+            const int pt = point_of(sp, i);
             const float rest = leaf<H_CPREST, DO_CPREST, O_REST>(sp, e, H_CPREST ? pt : i);
             const float vn_pre = bv[c][2];
             if (rest > 0.f && phi > -margin && vn_pre < -bounce_thr) vnt = fmaxf(vnt, -rest * vn_pre);
             bv[c][2] = vn_pre - vnt;
           }
-          const float dcm = (dg[0] + dg[1] + dg[2]) / 3.f + 1e-6f;
-          s_c[c] = rsqrtf(fmaxf(dcm, 1e-12f));
-          e[E_SC + i] = s_c[c];
-          for (int k = 0; k < 3; ++k) bv[c][k] *= s_c[c];
+          for (int kk = 0; kk < 3; ++kk) wst[c][kk] = e[E_WARM + kk * NCT + i];
         }
       }
       __syncwarp();
-      // ---- Lipschitz bound of the scaled system: max row sum of |A| over
-      // the rows and columns in the solve
-      float lip = 0.f;
+      // ---- the system's diagonal, J_r . (M^-1 J_r), from W = J M^-1 formed
+      // 16 rows at a time on the tensor cores, or (nv <= 8) each slot's W
+      // rows in its lane's registers; then the Jacobi scale per slot
+      const int g = lane >> 2, tq = lane & 3;
+      float wr[SPLA][3][GRAM_MMA ? 1 : NV];
+      if constexpr (GRAM_MMA) {
+        for (int rb = 0; rb < RB; ++rb) {
+          float w[NVT][4];
+          w_block(e, rb, lane, w);
+          const int r0 = 16 * rb + g;
+          float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int i = lane + 32 * c;
-        if (i < NCT && sel[c]) {
-          float Jr[3][NV], acc[3] = {0.f, 0.f, 0.f};
-          for (int k = 0; k < 3; ++k)
-            for (int v = 0; v < NV; ++v) Jr[k][v] = e[E_J + v * R + k * NCT + i];
-          for (int kc = 0; kc < 3; ++kc)
-            for (int j = 0; j < NCT; ++j) {
-              if constexpr (TOPK) {
-                if (e[E_SEL + j] == 0.f) continue;
-              }
-              const int col = kc * NCT + j;
-              float Wc[NV];
-              for (int v = 0; v < NV; ++v) Wc[v] = e[E_W + v * R + col];
-              const float sc = e[E_SC + j];
-              for (int k = 0; k < 3; ++k) {
+          for (int nt = 0; nt < NVT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int v = 8 * nt + 2 * tq + j;
+              d0 += w[nt][j] * j_at(e, v, r0);
+              d1 += w[nt][2 + j] * j_at(e, v, r0 + 8);
+            }
+          d0 = quad_sum(d0);
+          d1 = quad_sum(d1);
+          if (tq == 0) {
+            if (r0 < RS) e[E_DG + r0] = d0;
+            if (r0 + 8 < RS) e[E_DG + r0 + 8] = d1;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < SPL; ++c) {
+          const int k = lane + 32 * c;
+          if (k < NS)
+            for (int kk = 0; kk < 3; ++kk) {
+              const int r = kk * NS + k;
+              float dd = 0.f;
+#pragma unroll
+              for (int v = 0; v < (GRAM_MMA ? 1 : NV); ++v) {
                 float a = 0.f;
-                for (int v = 0; v < NV; ++v) a += Jr[k][v] * Wc[v];
-                acc[k] += fabsf(a * s_c[c] * sc);
+                for (int jj = 0; jj < NV; ++jj) a += e[E_MINV + v * NV + jj] * e[E_J + jj * RS + r];
+                wr[c][kk][v] = a;
+                dd += e[E_J + v * RS + r] * a;
+              }
+              e[E_DG + r] = dd;
+            }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < SPL; ++c) {
+        const int k = lane + 32 * c;
+        if (k < NS) {
+          const float dcm = (e[E_DG + k] + e[E_DG + NS + k] + e[E_DG + 2 * NS + k]) / 3.f + 1e-6f;
+          s_c[c] = rsqrtf(fmaxf(dcm, 1e-12f));
+          e[E_SC + k] = s_c[c];
+          for (int kk = 0; kk < 3; ++kk) bv[c][kk] *= s_c[c];
+        }
+      }
+      __syncwarp();
+      // ---- Lipschitz bound of the scaled system: the largest row sum of
+      // |s_i s_j J_i M^-1 J_j^T| + 1e-6 s_i^2 over every row of the solve.
+      // Per 16-row block: W on the tensor cores, its accumulator fragments
+      // turned into A fragments by shuffles within each quad, then the 16 x 8
+      // tiles of W J^T from the diagonal block rightwards (the system is
+      // symmetric): each lane sums |entry| s_j of rows g and g + 8 from its
+      // own fragments; an entry right of the diagonal block also counts for
+      // its column's row, summed over the tile's rows by shuffles into E_CS,
+      // whose rows belong to later blocks. With nv <= 8 each slot's lane
+      // dots its W rows with every column of J instead. Fixed orders
+      // throughout.
+      float lip = 0.f;
+      if constexpr (GRAM_MMA) {
+        for (int x = lane; x < RS; x += 32) e[E_CS + x] = 0.f;
+        __syncwarp();
+        for (int rb = 0; rb < RB; ++rb) {
+          float w[NVT][4];
+          w_block(e, rb, lane, w);
+          unsigned ah[NVT][4], al[NVT][4];
+          const int src_lo = (lane & ~3) | (tq >> 1), src_hi = src_lo + 2;
+          const bool odd = (tq & 1) != 0;
+#pragma unroll
+          for (int ks = 0; ks < NVT; ++ks) {
+            // A(g, t) sits in d[t & 1] of lane 4g + t / 2, A(g, t + 4) in lane 4g + 2 + t / 2
+            const float x0 = __shfl_sync(FULL, w[ks][0], src_lo), x1 = __shfl_sync(FULL, w[ks][1], src_lo);
+            const float y0 = __shfl_sync(FULL, w[ks][2], src_lo), y1 = __shfl_sync(FULL, w[ks][3], src_lo);
+            const float z0 = __shfl_sync(FULL, w[ks][0], src_hi), z1 = __shfl_sync(FULL, w[ks][1], src_hi);
+            const float u0 = __shfl_sync(FULL, w[ks][2], src_hi), u1 = __shfl_sync(FULL, w[ks][3], src_hi);
+            split_tf32(odd ? x1 : x0, ah[ks][0], al[ks][0]);
+            split_tf32(odd ? y1 : y0, ah[ks][1], al[ks][1]);
+            split_tf32(odd ? z1 : z0, ah[ks][2], al[ks][2]);
+            split_tf32(odd ? u1 : u0, ah[ks][3], al[ks][3]);
+          }
+          const int r0 = 16 * rb + g;
+          const float sr0 = r0 < RS ? e[E_SC + r0 % NS] : 0.f, sr1 = r0 + 8 < RS ? e[E_SC + (r0 + 8) % NS] : 0.f;
+          // two column tiles at a time, each in two accumulators: four
+          // independent mma chains (a tile past the last column adds zeros)
+          float acc0 = 0.f, acc1 = 0.f;
+          for (int ct = 2 * rb; ct < CT; ct += 2) {
+            float dm[2][4], ds[2][4];
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) dm[u][x] = ds[u][x] = 0.f;
+#pragma unroll
+            for (int ks = 0; ks < NVT; ++ks)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const int col = 8 * (ct + u) + g;
+                unsigned bh[2], bl[2];
+                split_tf32(j_at(e, 8 * ks + tq, col), bh[0], bl[0]);
+                split_tf32(j_at(e, 8 * ks + tq + 4, col), bh[1], bl[1]);
+                mma_tf32x3(dm[u], ds[u], ah[ks], al[ks], bh, bl, lane);
+              }
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int c0 = 8 * (ct + u) + 2 * tq, c1 = c0 + 1;
+              const float s0 = c0 < RS ? e[E_SC + c0 % NS] : 0.f, s1 = c1 < RS ? e[E_SC + c1 % NS] : 0.f;
+              const float a0 = fabsf(dm[u][0] + ds[u][0]), a1 = fabsf(dm[u][1] + ds[u][1]);
+              const float a2 = fabsf(dm[u][2] + ds[u][2]), a3 = fabsf(dm[u][3] + ds[u][3]);
+              acc0 += a0 * s0 + a1 * s1;
+              acc1 += a2 * s0 + a3 * s1;
+              if (ct > 2 * rb) {
+                // right of the diagonal block: the transposed entries' row sums
+                float p0 = a0 * sr0 + a2 * sr1, p1 = a1 * sr0 + a3 * sr1;
+#pragma unroll
+                for (int m = 4; m < 32; m <<= 1) {
+                  p0 += __shfl_xor_sync(FULL, p0, m);
+                  p1 += __shfl_xor_sync(FULL, p1, m);
+                }
+                if (g == 0) {
+                  if (c0 < RS) e[E_CS + c0] += p0;
+                  if (c1 < RS) e[E_CS + c1] += p1;
+                }
               }
             }
-          const float reg = 1e-6f * (s_c[c] * s_c[c]);
-          for (int k = 0; k < 3; ++k) lip = fmaxf(lip, acc[k] + reg);
+          }
+          __syncwarp();
+          acc0 = quad_sum(acc0);
+          acc1 = quad_sum(acc1);
+          if (r0 < RS) lip = fmaxf(lip, sr0 * (acc0 + e[E_CS + r0]) + 1e-6f * (sr0 * sr0));
+          if (r0 + 8 < RS) lip = fmaxf(lip, sr1 * (acc1 + e[E_CS + r0 + 8]) + 1e-6f * (sr1 * sr1));
+        }
+      } else {
+        // each slot's lane: its W rows against every column of J
+#pragma unroll
+        for (int c = 0; c < SPL; ++c) {
+          const int k = lane + 32 * c;
+          if (k < NS) {
+            float acc[3] = {0.f, 0.f, 0.f};
+            for (int j = 0; j < RS; ++j) {
+              float jc[GRAM_MMA ? 1 : NV];
+#pragma unroll
+              for (int v = 0; v < (GRAM_MMA ? 1 : NV); ++v) jc[v] = e[E_J + v * RS + j];
+              const float sj = e[E_SC + j % NS];
+#pragma unroll
+              for (int kk = 0; kk < 3; ++kk) {
+                float a = 0.f;
+#pragma unroll
+                for (int v = 0; v < (GRAM_MMA ? 1 : NV); ++v) a += wr[c][kk][v] * jc[v];
+                acc[kk] += fabsf(a) * sj;
+              }
+            }
+            for (int kk = 0; kk < 3; ++kk) lip = fmaxf(lip, s_c[c] * acc[kk] + 1e-6f * (s_c[c] * s_c[c]));
+          }
         }
       }
       lip = warp_max(lip);
       const float step = 1.f / fmaxf(lip, 1e-8f);
 
-      // ---- APGD with friction-cone projection
-      float yv[CPLA][3];
+      // ---- APGD with friction-cone projection; the matvec is
+      // s J M^-1 J^T (s y): J^T (s y) summed over the warp, M^-1 of it on
+      // the lanes of the dofs, broadcast, then J_r . u per row; with the
+      // per-lane Gram product each slot dots its W rows with J^T (s y)
+      float yv[SPLA][3];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int i = lane + 32 * c;
-        project(warm[c][0] / s_c[c], warm[c][1] / s_c[c], warm[c][2] / s_c[c], mu[c], act[c], is_anchor(i),
+      for (int c = 0; c < SPL; ++c) {
+        project(wst[c][0] / s_c[c], wst[c][1] / s_c[c], wst[c][2] / s_c[c], mu[c], act[c], is_anchor(ci[c]),
                 lam[c]);
-        for (int k = 0; k < 3; ++k) yv[c][k] = lam[c][k];
+        for (int kk = 0; kk < 3; ++kk) yv[c][kk] = lam[c][kk];
       }
       for (int it = 0; it < iters; ++it) {
         float u[NV];
         for (int v = 0; v < NV; ++v) u[v] = 0.f;
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          const int i = lane + 32 * c;
-          if (i < NCT && sel[c])
-            for (int k = 0; k < 3; ++k) {
-              const float ys = s_c[c] * yv[c][k];
-              for (int v = 0; v < NV; ++v) u[v] += e[E_W + v * R + k * NCT + i] * ys;
+        for (int c = 0; c < SPL; ++c) {
+          const int k = lane + 32 * c;
+          if (k < NS)
+            for (int kk = 0; kk < 3; ++kk) {
+              const float ys = s_c[c] * yv[c][kk];
+              for (int v = 0; v < NV; ++v) u[v] += e[E_J + v * RS + kk * NS + k] * ys;
             }
         }
         for (int v = 0; v < NV; ++v) u[v] = warp_sum(u[v]);
+        if constexpr (GRAM_MMA) {
+          float mu_v[VPL];
+#pragma unroll
+          for (int j = 0; j < VPL; ++j) {
+            const int v = lane + 32 * j;
+            float a = 0.f;
+            if (v < NV)
+              for (int jj = 0; jj < NV; ++jj) a += e[E_MINV + v * NV + jj] * u[jj];
+            mu_v[j] = a;
+          }
+#pragma unroll
+          for (int v = 0; v < NV; ++v) u[v] = __shfl_sync(FULL, mu_v[v / 32], v % 32);
+        }
         const float beta = betas[it];
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          const int i = lane + 32 * c;
+        for (int c = 0; c < SPL; ++c) {
+          const int k = lane + 32 * c;
           float z[3] = {0.f, 0.f, 0.f};
-          if (i < NCT && sel[c]) {
+          if (k < NS) {
             const float reg = 1e-6f * (s_c[c] * s_c[c]);
-            for (int k = 0; k < 3; ++k) {
+            for (int kk = 0; kk < 3; ++kk) {
               float a = 0.f;
-              for (int v = 0; v < NV; ++v) a += e[E_J + v * R + k * NCT + i] * u[v];
-              const float g = s_c[c] * a + reg * yv[c][k] + bv[c][k];
-              z[k] = yv[c][k] - step * g;
+              if constexpr (GRAM_MMA) {
+                for (int v = 0; v < NV; ++v) a += e[E_J + v * RS + kk * NS + k] * u[v];
+              } else {
+#pragma unroll
+                for (int v = 0; v < (GRAM_MMA ? 1 : NV); ++v) a += wr[c][kk][v] * u[v];
+              }
+              const float gr = s_c[c] * a + reg * yv[c][kk] + bv[c][kk];
+              z[kk] = yv[c][kk] - step * gr;
             }
           }
           float ln[3];
-          project(z[0], z[1], z[2], mu[c], act[c], is_anchor(i), ln);
-          for (int k = 0; k < 3; ++k) {
-            yv[c][k] = ln[k] + beta * (ln[k] - lam[c][k]);
-            lam[c][k] = ln[k];
+          project(z[0], z[1], z[2], mu[c], act[c], is_anchor(ci[c]), ln);
+          for (int kk = 0; kk < 3; ++kk) {
+            yv[c][kk] = ln[kk] + beta * (ln[kk] - lam[c][kk]);
+            lam[c][kk] = ln[kk];
           }
         }
       }
-      // ---- impulses back to physical units, generalized contact force
+      // ---- impulses back to physical units, generalized contact force; the
+      // warm start of the next slice per contact (zero off the set)
+      if constexpr (TOPK) {
+        for (int x = lane; x < 3 * NCT; x += 32) e[E_WARM + x] = 0.f;
+        __syncwarp();
+      }
       for (int v = 0; v < NV; ++v) qcon[v] = 0.f;
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int i = lane + 32 * c;
-        for (int k = 0; k < 3; ++k) {
-          lam[c][k] *= s_c[c];
-          warm[c][k] = lam[c][k];
-        }
-        if (i < NCT && sel[c])
-          for (int k = 0; k < 3; ++k)
-            for (int v = 0; v < NV; ++v) qcon[v] += e[E_J + v * R + k * NCT + i] * lam[c][k];
+      for (int c = 0; c < SPL; ++c) {
+        const int k = lane + 32 * c;
+        for (int kk = 0; kk < 3; ++kk) lam[c][kk] *= s_c[c];
+        if (k < NS)
+          for (int kk = 0; kk < 3; ++kk) {
+            e[E_WARM + kk * NCT + ci[c]] = lam[c][kk];
+            for (int v = 0; v < NV; ++v) qcon[v] += e[E_J + v * RS + kk * NS + k] * lam[c][kk];
+          }
       }
       for (int v = 0; v < NV; ++v) qcon[v] = warp_sum(qcon[v]);
     }  // NCT > 0
@@ -1120,40 +1451,42 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
         q[qa] = q[qa] + h * qd[va];
       }
     }
-    // ---- sensors of the last slice
+    // ---- sensors of the last slice, a slot per lane: a contact off the set
+    // carries no impulse and adds nothing
     if constexpr (NCT > 0) {
       if (sl == n_slices - 1) {
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          const int i = lane + 32 * c;
-          if (i < NCT) {
+        for (int c = 0; c < SPL; ++c) {
+          const int k = lane + 32 * c;
+          if (k < NS) {
+            const int i = ci[c];
             const int b = (int)sp[O_CPBODY + i];
             float Fp[3] = {lam[c][0] * inv_h, lam[c][1] * inv_h, lam[c][2] * inv_h};
             const float l0 = Fp[0], l1 = Fp[1], l2 = Fp[2];
             if (is_pair(i)) {
               // row impulses are in the contact frame: back to world axes
               const float* fr = e + E_FR + 9 * (i - NC);
-              for (int k = 0; k < 3; ++k) Fp[k] = fr[k] * l0 + fr[3 + k] * l1 + fr[6 + k] * l2;
+              for (int kk = 0; kk < 3; ++kk) Fp[kk] = fr[kk] * l0 + fr[3 + kk] * l1 + fr[6 + kk] * l2;
             } else if (is_sdf(i)) {
               // likewise through the SDF row's entry frame t1, t2, n
               const float* pl = e + E_SDF;
               const int j = i - NC - NPP;
-              for (int k = 0; k < 3; ++k)
-                Fp[k] = pl[(7 + k) * NSP + j] * l0 + pl[(10 + k) * NSP + j] * l1 + pl[(4 + k) * NSP + j] * l2;
+              for (int kk = 0; kk < 3; ++kk)
+                Fp[kk] = pl[(7 + kk) * NSP + j] * l0 + pl[(10 + kk) * NSP + j] * l1 + pl[(4 + kk) * NSP + j] * l2;
             }
-            float rel[3], tq[3];
-            for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * b + k];
-            cross3(rel, Fp, tq);
-            for (int k = 0; k < 3; ++k) {
-              e[E_FS + k * NCT + i] = Fp[k];
-              e[E_FS + (3 + k) * NCT + i] = tq[k];
+            float rel[3], tqv[3];
+            for (int kk = 0; kk < 3; ++kk) rel[kk] = xs[c][kk] - e[E_X + 3 * b + kk];
+            cross3(rel, Fp, tqv);
+            for (int kk = 0; kk < 3; ++kk) {
+              e[E_FS + kk * NS + k] = Fp[kk];
+              e[E_FS + (3 + kk) * NS + k] = tqv[kk];
             }
             if (is_pair(i) || is_sdf(i)) {
               // body B (the geom's or the grid's) takes -F, with its own torque arm
               const int bB = is_pair(i) ? (int)sp[O_PPB + i - NC] : (int)sp[O_SPB + i - NC - NPP];
-              for (int k = 0; k < 3; ++k) rel[k] = xc[c][k] - e[E_X + 3 * bB + k];
-              cross3(rel, Fp, tq);
-              for (int k = 0; k < 3; ++k) e[E_FSB + k * NTWO + i - NC] = tq[k];
+              for (int kk = 0; kk < 3; ++kk) rel[kk] = xs[c][kk] - e[E_X + 3 * bB + kk];
+              cross3(rel, Fp, tqv);
+              for (int kk = 0; kk < 3; ++kk) e[E_FSB + kk * NS + k] = tqv[kk];
             }
           }
         }
@@ -1165,18 +1498,20 @@ __device__ void run_env(const float* __restrict__ sp, float* __restrict__ e, int
         __syncwarp();
         // each (component, body) output is owned by one lane: no atomics
         for (int x = lane; x < 6 * NB; x += 32) {
-          const int k = x / NB, b = x % NB;
+          const int kc = x / NB, b = x % NB;
           float a = 0.f;
-          for (int i = 0; i < NCT; ++i)
-            if ((int)sp[O_CPBODY + i] == b) a += e[E_FS + k * NCT + i];
-          if constexpr (NTWO > 0) {
-            for (int j = 0; j < NTWO; ++j) {
-              const int bB = j < NPP ? (int)sp[O_PPB + j] : (int)sp[O_SPB + j - NPP];
-              if (bB == b) a -= k < 3 ? e[E_FS + k * NCT + NC + j] : e[E_FSB + (k - 3) * NTWO + j];
+          for (int k = 0; k < NS; ++k) {
+            const int i = TOPK ? (int)e[E_SLOT + k] : k;
+            if ((int)sp[O_CPBODY + i] == b) a += e[E_FS + kc * NS + k];
+            if constexpr (NTWO > 0) {
+              if (is_pair(i) || is_sdf(i)) {
+                const int bB = is_pair(i) ? (int)sp[O_PPB + i - NC] : (int)sp[O_SPB + i - NC - NPP];
+                if (bB == b) a -= kc < 3 ? e[E_FS + kc * NS + k] : e[E_FSB + (kc - 3) * NS + k];
+              }
             }
           }
-          if (k < 3) e[E_BF + k * NB + b] = a;
-          else e[E_BT + (k - 3) * NB + b] = a;
+          if (kc < 3) e[E_BF + kc * NB + b] = a;
+          else e[E_BT + (kc - 3) * NB + b] = a;
         }
       }
     }  // NCT > 0
@@ -1208,7 +1543,16 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float*
   }
 }
 
-__global__ void __launch_bounds__(32 * EPB)
+// The register budget the host plans envs per block with (engine/_cuda.py
+// plan_regs): the launch bounds ask ptxas to fit the blocks per SM that
+// budget gives, so the build keeps the residency the host chose. 168 (12
+// warps per SM) where the tensor cores form the Gram product, what ptxas
+// gave the largest of those builds; 128 (16 warps) with the per-lane
+// product, whose small models leave registers to spare.
+constexpr int PLAN_REGS = GRAM_MMA ? 168 : 128;
+constexpr int MIN_BLOCKS = (65536 / (32 * PLAN_REGS)) / EPB > 0 ? (65536 / (32 * PLAN_REGS)) / EPB : 1;
+
+__global__ void __launch_bounds__(32 * EPB, MIN_BLOCKS)
 fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
                   const float* __restrict__ qfrc_in, const float* __restrict__ xfrc_in,
                   const float* __restrict__ qt_in, const float* __restrict__ dyn_in,
@@ -1242,6 +1586,9 @@ fused_step_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_i
   store_rows(df_out, envs, E_DF, NV, env0, n_env);
 }
 
+// dynamic shared memory of one block: the spec, padded to 4 floats, and its envs
+size_t block_bytes(int spec_len) { return sizeof(float) * (size_t)(((spec_len + 3) & ~3) + EPB * ENV_FLOATS); }
+
 }  // namespace
 
 extern "C" {
@@ -1256,6 +1603,27 @@ int fused_step_layout(int* out) {
   out[6] = QT ? 1 : 0; out[7] = NT; out[8] = (int)DYN; out[9] = NCP; out[10] = NG;
   out[11] = CAP; out[12] = TERR ? 1 : 0; out[13] = NSP; out[14] = EPB;
   out[15] = SPEC_BASE; out[16] = ENV_FLOATS; out[17] = DYN_ROWS;
+  return 0;
+}
+
+// out[0] = blocks of this build that the device keeps resident on one SM
+// for a launch with spec_len spec floats
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, shared memory and registers
+// both counted), out[1] = registers per thread, out[2] = local-memory (spill)
+// bytes per thread, out[3] = dynamic shared-memory bytes per block. Returns
+// the CUDA error code (0 on success).
+int fused_step_occupancy(int spec_len, int* out) {
+  const size_t bytes = block_bytes(spec_len);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_step_kernel, 32 * EPB, bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fused_step_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = blocks; out[1] = attr.numRegs; out[2] = (int)attr.localSizeBytes; out[3] = (int)bytes;
   return 0;
 }
 
@@ -1279,7 +1647,7 @@ int fused_step_launch(const void* q, const void* qd, const void* qfrc, const voi
   if (DYN_ROWS > 0 && dyn == nullptr) return (int)cudaErrorInvalidValue;
   if (TERR && terr == nullptr) return (int)cudaErrorInvalidValue;
   if (NSP > 0 && sdf == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * (size_t)(((spec_len + 3) & ~3) + EPB * ENV_FLOATS);
+  const size_t bytes = block_bytes(spec_len);
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;

@@ -684,7 +684,7 @@ def _stackb(lst_of_comp, k):
 
 
 def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), keys=None,
-                dtype=torch.float32):
+                dtype=torch.float32, delassus=None):
     """Build the single-slice function (the twin of the JAX `_substep_fn`).
 
     `names` are the per-env leaves the slice will be given in its `dyn`
@@ -692,7 +692,11 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
     list `keys`, each slice with contact rows appends its (phi, selection
     key) rows, (nct, N) each, the key None without a top-K cap: a caller
     that holds the kernel against this version checks from them that no row
-    sits at the margin and no two keys tie at the cap. `dtype`: the
+    sits at the margin and no two keys tie at the cap. With a list
+    `delassus`, each such slice appends (J, M^-1) of its solve: J (nv, 3
+    nce, N) over the rows in the solve (gathered under a cap), M^-1 (nv, nv,
+    N), from which the kernel's Jacobi scale and Lipschitz bound are formed.
+    `dtype`: the
     floating type of the model constants, which the inputs must share
     (float64 gives a reference for how far float32 rounding alone moves a
     step)."""
@@ -1125,6 +1129,8 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
             nce = cap
         if keys is not None:
             keys.append((phi, key))
+        if delassus is not None:
+            delassus.append((J, Minv))
 
         # Delassus A = J^T Minv J over the rows in the solve
         W = sum(Minv[:, j:j + 1, :] * J[j][None] for j in range(s.nv))
@@ -1209,7 +1215,8 @@ def _substep_fn(s: _Spec, p: SimParams, h: float, device, names: tuple = (), key
     return substep
 
 
-def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = (), keys=None, dtype=torch.float32):
+def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = (), keys=None, dtype=torch.float32,
+                     delassus=None):
     """Plain PyTorch version of the whole step on (rows, N) tensors.
 
     Returns run(q, qd, qfrc, xfrc, q_target=None, dyn=None, terr=None,
@@ -1222,10 +1229,10 @@ def _step_math_torch(s: _Spec, p: SimParams, device, names: tuple = (), keys=Non
     with SDF pair rows; with `warm_reset_every` = k the contact warm start
     resets every k slices (a merged decimation window solves like separate
     calls).
-    `keys`, `dtype`: see `_substep_fn`.
+    `keys`, `dtype`, `delassus`: see `_substep_fn`.
     """
     n_slices = p.substeps * p.solver_iterations
-    substep = _substep_fn(s, p, p.dt / n_slices, device, names, keys, dtype)
+    substep = _substep_fn(s, p, p.dt / n_slices, device, names, keys, dtype, delassus)
     rows = dyn_rows(s)
     offsets = np.concatenate([[0], np.cumsum([rows[k] for k in names])]).astype(int)
 

@@ -234,30 +234,35 @@ def test_template_contract(envs):
 
 
 def test_insertion_fits_two_envs_per_block_and_an_oversized_model_is_refused(envs):
-    """Insertion's block: 4 envs would need more shared memory than one
-    block may have, 2 fit; its per-env floats as the kernel lays them out.
-    The same model with four times the SDF pair rows does not fit at one env
+    """Insertion's block: its per-env floats as the kernel lays them out (J
+    for the cap's 32 slots only, W nowhere, the articulated work in the same
+    floats: 3,812, once 15,592), so 8 envs fit one block, and 8 per block
+    keeps the most envs resident per SM (one block of 8 warps; 2 per block,
+    the one choice before W went, fits too).
+    The same model with enough further SDF pair rows does not fit at one env
     per block: `unsupported_features` names the limit with the byte count,
     and the step refuses it before any launch."""
     _, env = envs
     m, p = env.model, env.sim_params
     s = tfused.spec_of(m)
-    assert _cuda.env_floats(s, True, (), 32) == 15592
-    smem = {e: _cuda.smem_bytes(s, p, e, has_qt=True) for e in (4, 2, 1)}
-    assert smem[4] > _cuda.SMEM_OPTIN_BYTES >= smem[2]
-    assert _cuda.envs_per_block(lambda e: smem[e], _cuda.SMEM_OPTIN_BYTES) == 2
+    assert _cuda.env_floats(s, True, (), 32) == 3812
+    smem = {e: _cuda.smem_bytes(s, p, e, has_qt=True) for e in (8, 4, 2, 1)}
+    assert smem[8] <= _cuda.SMEM_OPTIN_BYTES and smem[2] <= _cuda.SMEM_OPTIN_BYTES
+    assert _cuda.envs_per_block(lambda e: smem[e], _cuda.SMEM_OPTIN_BYTES, _cuda.plan_regs(s.nv)) == 8
     assert tfused.unsupported_features(m, p) == []
     from isaacgymenvs_tpu_torch.sdf.builder import add_contact_points, pair_points_with_sdf
 
     big = m
-    for _ in range(3):
+    while True:
         big, cp = add_contact_points(big, env.plug_ref.body0, np.asarray(m.cpoint_pos)[:64], friction=0.5)
         big = pair_points_with_sdf(big, cp, 0)
-    need = _cuda.smem_bytes(tfused._extract(big), p, 1)
-    assert need > _cuda.SMEM_OPTIN_BYTES
+        need = _cuda.smem_bytes(tfused._extract(big), p, 1)
+        if need > _cuda.SMEM_OPTIN_BYTES:
+            break
     named = tfused.unsupported_features(big, p)
     assert named == [f"shared memory: {need} bytes per block at one env per block, over the "
                      f"{_cuda.SMEM_OPTIN_BYTES}-byte limit of one block on the H100"]
     q = torch.tensor(m.qpos0)[None]
     with pytest.raises(NotImplementedError, match="shared memory"):
-        tfused.physics_step_fused(big, p, q, torch.zeros(1, m.nv), torch.zeros(1, m.nv), sdf=torch.zeros(13 * 256, 1))
+        tfused.physics_step_fused(big, p, q, torch.zeros(1, m.nv), torch.zeros(1, m.nv),
+                                  sdf=torch.zeros(13 * tfused._extract(big).sp_n, 1))

@@ -109,10 +109,11 @@ def test_contact_free_kernel_matches_plain_version():
 
 @pytest.mark.cuda
 def test_unsupported_model_raises_on_card():
-    """Features of later tiers raise by name on CUDA tensors too: an SDF
-    pair row, the entry-sampled SDF planes among the per-env leaves, a top-K
-    cap that leaves no room beside the anchors. A cap below the row count,
-    terrain planes and a merged window's warm resets launch."""
+    """What the kernel cannot take raises by name on CUDA tensors too: a
+    model whose block would not fit the card's shared memory at one env
+    (800 pair rows), a top-K cap that leaves no room beside the anchors. A
+    cap below the row count, terrain planes and a merged window's warm
+    resets launch."""
     _needs_card()
     env = _ant(4, "cuda")
     state, _ = env.reset(0)
@@ -120,9 +121,9 @@ def test_unsupported_model_raises_on_card():
     args = (state.sim.q, state.sim.qd, torch.zeros(4, m.nv, device="cuda"))
     anchors = m.replace(att_body=(0, 0), att_offset=np.zeros((2, 3), np.float32),
                         att_target=np.zeros((2, 3), np.float32))
+    sphere = m.geom_type.index(0)
     for model, params, kw, word in (
-        (m.replace(spair_point=(0,), spair_sdf=(0,)), p, {}, "SDF"),
-        (m, p, {"dyn": {"_sp_phi0": torch.ones(4, 1, device="cuda")}}, "_sp_phi0"),
+        (m.replace(ppair_point=(0,) * 800, ppair_geom=(sphere,) * 800), p, {}, "shared memory"),
         (anchors, dataclasses.replace(p, max_active_contacts=2), {}, "top-K"),
     ):
         with pytest.raises(NotImplementedError, match=word):
@@ -415,7 +416,7 @@ def test_anymal_kernels_match_plain_version(key):
 @pytest.mark.cuda
 def test_sdf_rows_kernel_matches_plain_version():
     """K6 SDF rows on the card: the ball on an SDF box (N=37) and
-    FactoryTaskInsertion at two envs per block (N=9, a part-full last block,
+    FactoryTaskInsertion at eight envs per block (N=9, a part-full last block,
     the cap of 32 binding in the envs whose plug lies against the socket)
     against the plain version, the SDF planes sampled at the entry pose."""
     _needs_card()

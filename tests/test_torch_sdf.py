@@ -215,11 +215,17 @@ def test_sdf_planes_are_required_and_checked():
 
 @pytest.mark.parametrize("case", ["fits4", "fits2", "fits1", "none"])
 def test_envs_per_block_from_the_byte_count(case):
-    """The largest of 4, 2 and 1 envs whose block fits the limit, else 0:
-    a pure function of the bytes per block."""
+    """Of 8, 4, 2 and 1 envs whose block fits the limit, the one that keeps
+    the most envs resident per SM (at 168 registers per thread), ties to
+    the larger block; 0 when none fits: a pure function of the bytes per
+    block. At half of 15,590 floats per env an SM holds three blocks of 2
+    (6 envs) against one block of 4 or five of 1; at the full count one
+    block of 2 ties with two blocks of 1 and takes the tie; at twice it
+    one env per block is all that fits."""
     spec, per_env, limit = 4000, 15590, _cuda.SMEM_OPTIN_BYTES
     smem_of = lambda e: 4 * (spec + e * per_env)
     scale = {"fits4": 0.5, "fits2": 1.0, "fits1": 2.0, "none": 4.0}[case]
-    got = _cuda.envs_per_block(lambda e: int(smem_of(e) * scale), limit)
-    assert got == {"fits4": 4, "fits2": 2, "fits1": 1, "none": 0}[case]
-    assert _cuda.envs_per_block(lambda e: limit, limit) == 4 and _cuda.envs_per_block(lambda e: limit + 1, limit) == 0
+    got = _cuda.envs_per_block(lambda e: int(smem_of(e) * scale), limit, 168)
+    assert got == {"fits4": 2, "fits2": 2, "fits1": 1, "none": 0}[case]
+    assert _cuda.envs_per_block(lambda e: limit, limit, 168) == 8
+    assert _cuda.envs_per_block(lambda e: limit + 1, limit, 168) == 0
