@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of steps 14, 17 and 22 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14, 17, 22 and 26 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -122,7 +122,30 @@
    play;
 25. both timed (Insertion at 128 and 4096 envs, the ball at 4096) with
    envs per block and shared memory per block;
-26. prints one `kernels` JSON line with all instantiations (each with its
+26. Humanoid (nv 27: 27 of a warp's 32 dof lanes, the Gram product's k
+   padded to 32; 35 plane contacts, no cap; eight envs per block) against
+   its plain version at N=1003 for 3 steps and at 4096 for one, both feet
+   on the ground, the inputs kept where rounding alone moves the step by
+   at most COND_TOL (`humanoid_inputs`);
+27. 1 + 2 full-width Humanoid PPO epochs (`load_config(["task=Humanoid"])`:
+   4096 envs, horizon 32, batch 131,072, minibatch 32,768, 5 mini-epochs;
+   32 launches each), device ops per Humanoid env step;
+28. Humanoid SAC (`train=HumanoidSAC`, 4096 envs, batch 4,096, a buffer of
+   1,000,000): epochs past the warm-up, two timed (8 launches each, buffer
+   = steps x 4096, alpha > 0, finite losses), the actor and critics moved,
+   the targets moved by tau, a bit-equal save/restore, `test=True` play;
+29. the four recipes through `train.main` at their yaml widths
+   (`task=Humanoid`, `task=Humanoid train=HumanoidSAC`, `task=Ant
+   train=AntSAC`, `task=AnymalTerrain train=AnymalTerrainPPO_LSTM`):
+   RECIPE_EPOCHS epochs, a resume from the checkpoint, play;
+30. 1 + 2 full-width AnymalTerrain epochs with `train=AnymalTerrainPPO_LSTM`
+   (batch 98,304 in 24,576 windows of 4, 6 minibatches of 4,096 windows x 5;
+   24 launches each): the carry of the envs done in the last step is zero,
+   every other env's is not;
+31. two Ant rollouts at 4096 envs from one seed are bit-equal: env.step
+   alone, and PPO.rollout with the policy;
+32. the Humanoid kernel timed at 4096 envs;
+33. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
@@ -624,8 +647,9 @@ def compare_model(m, p, q, qd, qfrc, xfrc, q_target, steps: int, tol=TOL, force_
     """Kernel vs plain version from the same inputs, each step; the plain
     output carries the trajectory. Returns the max abs error per output;
     without contacts the force outputs must be exactly zero. With
-    `force_of` (a body index) also returns, under "seen_force", the share of
-    envs whose kernel body force on that body exceeded 1 mN at some step.
+    `force_of` (a body index, or a list of them) also returns, under
+    "seen_force", the share of envs whose kernel body force on each of those
+    bodies exceeded 1 mN at one step.
     With `dyn` (a `fused.PackedDyn` of per-env leaves) the kernel's first
     step must also differ from the kernel's step without them."""
     from isaacgymenvs_tpu_torch.engine import fused
@@ -635,7 +659,9 @@ def compare_model(m, p, q, qd, qfrc, xfrc, q_target, steps: int, tol=TOL, force_
     names, dyn_rows = (dyn.names, dyn.rows) if dyn is not None else ((), None)
     plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
     err = {k: 0.0 for k in tol}
+    where = {}  # output -> (env, index) of its largest error
     pressed = torch.zeros(n, dtype=torch.bool, device="cuda")
+    pressed_bodies = [force_of] if isinstance(force_of, int) else force_of
     if dyn is not None:
         with_leaves = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=dyn)
         without = fused.physics_step_fused(m, p, q, qd, qfrc, xfrc=xfrc, q_target=q_target)
@@ -657,18 +683,22 @@ def compare_model(m, p, q, qd, qfrc, xfrc, q_target, steps: int, tol=TOL, force_
             got = getattr(ko, k)
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"kernel output {k} is not finite")
-            err[k] = max(err[k], float((got - ref[k]).abs().max()))
+            diff = (got - ref[k]).abs().reshape(n, -1)
+            if float(diff.max()) > err[k]:
+                err[k] = float(diff.max())
+                where[k] = divmod(int(diff.argmax()), diff.shape[1])
             if s.nct == 0 and "force" in k and float(got.abs().max()) != 0.0:
                 raise AssertionError(f"contact-free kernel wrote a non-zero {k}")
         if not float((ko.q - q).abs().max()) > 0.0:
             raise AssertionError("the step left q where it was")
         if force_of is not None:
-            pressed |= torch.linalg.vector_norm(ko.body_force[:, force_of], dim=-1) > 1e-3
+            pressed |= (torch.linalg.vector_norm(ko.body_force[:, pressed_bodies], dim=-1) > 1e-3).all(dim=1)
         q, qd = ref["q"].contiguous(), ref["qd"].contiguous()
     torch.cuda.synchronize()
-    bad = {k: (e, tol[k]) for k, e in err.items() if not e < tol[k]}
+    bad = {k: (e, tol[k], where[k]) for k, e in err.items() if not e < tol[k]}
     if bad:
-        raise AssertionError(f"kernel disagrees with the plain version at N={n}: {bad}")
+        raise AssertionError(f"kernel disagrees with the plain version at N={n} (error, tolerance, (env, index)): "
+                             f"{bad}")
     if force_of is not None:
         err["seen_force"] = float(pressed.float().mean())
     return err
@@ -762,24 +792,27 @@ def time_case(key: str, card: str) -> dict:
 
 
 def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), profile: bool = True,
-                 overrides=()) -> int:
-    """Three timed PPO epochs on `task` at its yaml's full width (`width` =
-    envs, horizon, batch, minibatch, mini-epochs), with further config
-    `overrides` (e.g. task.randomize=True); returns the kernel launches of
-    the timed epochs."""
+                 overrides=(), recipe: str | None = None, timed: int = 3, check=None) -> int:
+    """`timed` timed PPO epochs after a warm-up on `task` at its yaml's full
+    width (`width` = envs, horizon, batch, minibatch, mini-epochs), with the
+    train yaml `recipe` (default <task>PPO; one with `network.rnn` trains
+    with PPORecurrent) and further config `overrides` (e.g.
+    task.randomize=True); `check(agent, ts, traj)` sees each timed epoch's
+    rollout. Returns the kernel launches of the timed epochs."""
     from isaacgymenvs_tpu_torch.engine import _cuda
-    from isaacgymenvs_tpu_torch.learn import PPO
+    from isaacgymenvs_tpu_torch.learn import PPO, PPORecurrent
     from isaacgymenvs_tpu_torch.tasks import task_map
     from isaacgymenvs_tpu_torch.utils.config import load_config
 
-    cfg = load_config([f"task={task}", *overrides])
+    cfg = load_config([f"task={task}", *([f"train={recipe}"] if recipe else []), *overrides])
     env = task_map[task](cfg["task"], device="cuda")
-    label = task + (" " + " ".join(overrides) if overrides else "")
-    agent = PPO(env, cfg["train"]["params"], seed=int(cfg["seed"]))
+    label = task + (f" {recipe}" if recipe else "") + (" " + " ".join(overrides) if overrides else "")
+    params = cfg["train"]["params"]
+    agent = (PPORecurrent if params.get("network", {}).get("rnn") else PPO)(env, params, seed=int(cfg["seed"]))
     c = agent.cfg
     horizon = width[1]
     if (env.num_envs, c.horizon_length, agent.batch_size, agent.minibatch_size, c.mini_epochs) != tuple(width):
-        raise AssertionError(f"{task}PPO.yaml is not at its full width")
+        raise AssertionError(f"{recipe or task + 'PPO'}.yaml is not at its full width")
     split = {}
     rollout = agent.rollout
 
@@ -789,6 +822,7 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
         out = rollout(ts, noise)
         torch.cuda.synchronize()
         split["rollout"] = time.perf_counter() - t0
+        split["traj"] = out[:2]
         return out
 
     agent.rollout = timed_rollout
@@ -796,7 +830,7 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
     before = [p.detach().clone() for p in agent.network.parameters()]
     ts, _ = agent.train_epoch(ts)  # warm-up
     total = 0
-    for epoch in range(3):
+    for epoch in range(timed):
         torch.cuda.synchronize()
         _cuda.FusedStepCall.launches = 0
         t0 = time.perf_counter()
@@ -814,6 +848,8 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
               f"{sec - split['rollout']:.4f} s, {agent.batch_size / sec:.1f} env-steps/s, {launches} launches, "
               f"a_loss {metrics['a_loss']:.5f} c_loss {metrics['c_loss']:.5f} kl {metrics['kl']:.5f} "
               f"lr {metrics['lr']:.2e}")
+        if check is not None:
+            check(agent, *split["traj"])
     if profile:
         profile_window(lambda: agent.train_epoch(ts), f"{label} train epoch", 1, "epoch")
     moved = max(float((p.detach() - b).abs().max()) for p, b in zip(agent.network.parameters(), before))
@@ -1588,6 +1624,280 @@ def time_ball(card: str) -> dict:
     return kernel_times(h, rows(q), rows(qd), rows(zero), None, card, reps=30, sdf=sdf_planes(h.model, q, qd))
 
 
+# ---- Humanoid (nv 27 on K1 + K2), SAC, recurrent PPO, determinism ----------
+
+HUMANOID_ENVS = 4096  # numEnvs of Humanoid.yaml
+HUMANOID_POOL = 8192  # comparison states are drawn this many at a time (`humanoid_inputs`)
+
+
+def humanoid_env(n: int):
+    return task_env("Humanoid", n)
+
+
+def humanoid_states(env, n: int, seed: int):
+    """Both feet on the ground (`Humanoid.standing_states`), motors at up to
+    0.02 of their gear (at 0.3 a foot lifts in the first step in a quarter
+    of the envs), no body wrench: (q, qd, qfrc, xfrc)."""
+    q, qd = env.standing_states(n, seed)
+    rng = np.random.RandomState(seed + 1)
+    act = torch.tensor(rng.uniform(-0.02, 0.02, (n, env.num_acts)).astype(np.float32), device="cuda")
+    return q, qd, env.qfrc_from_actuators(act), torch.zeros(n, env.model.nbody, 6, device="cuda")
+
+
+def humanoid_inputs(env, n: int, seed: int, steps: int):
+    """`humanoid_states` kept where rounding alone moves `steps` steps by at
+    most COND_TOL: the plain version in float32 against the same in
+    float64, and the kernel's step from q against its step from q with the
+    base's position one ulp up (launches that count for no main path). A
+    standing humanoid's foot forces carry up to 0.1 N of float32 noise under
+    16 APGD iterations, whose restarts and cone projections flip on
+    rounding; without the filter 2-14 of 8192 envs per step pass the
+    tolerance, by up to 0.063 N (PERF.md section 6). No joint crosses a limit in the step or lies
+    within LIMIT_GAP of one at its start or end. Drawn in pools of HUMANOID_POOL states until n
+    are kept; returns the inputs and the share kept."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    m, p = env.model, env.sim_params
+    s = fused._extract(m)
+    narrow = fused._step_math_torch(s, p, torch.device("cuda"))
+    wide = fused._step_math_torch(s, p, torch.device("cuda"), dtype=torch.float64)
+    dofs, d = env.dof_q_idx, env.dof_idx.cpu().numpy()
+    lo, hi = (torch.tensor(np.asarray(a)[d], device="cuda") for a in (m.dof_limit_lower, m.dof_limit_upper))
+    kept, drawn = [], 0
+    for k in range(64):
+        q, qd, qfrc, xfrc = humanoid_states(env, HUMANOID_POOL, seed + 7919 * k)
+        fixed = (rows(qfrc), xfrc_rows(xfrc))
+        ok = torch.ones(HUMANOID_POOL, dtype=torch.bool, device="cuda")
+        x = (q, qd)
+        for _ in range(steps):
+            a = narrow(rows(x[0]), rows(x[1]), *fixed)
+            b = wide(*(t.double() for t in (rows(x[0]), rows(x[1]), *fixed)))
+            gap = lambda i: (a[i] - b[i]).abs().amax(0)
+            ok &= (gap(0) < COND_TOL["q"]) & (gap(1) < COND_TOL["qd"])
+            ok &= (gap(2) < COND_TOL["force"]) & (gap(3) < COND_TOL["force"]) & (gap(4) < COND_TOL["force"])
+            shifted = x[0].clone()
+            shifted[:, :3] = torch.nextafter(shifted[:, :3], torch.full_like(shifted[:, :3], 1e9))
+            k0, k1 = (fused.physics_step_fused(m, p, y, x[1], qfrc, xfrc=xfrc) for y in (x[0], shifted))
+            ok &= ((k0.q - k1.q).abs().amax(1) < COND_TOL["q"]) & ((k0.qd - k1.qd).abs().amax(1) < COND_TOL["qd"])
+            for f in ("body_force", "body_torque", "dof_force"):
+                d = (getattr(k0, f) - getattr(k1, f)).abs()
+                ok &= d.reshape(d.shape[0], -1).amax(1) < COND_TOL["force"]
+            # no limited joint crosses a limit or lies within LIMIT_GAP of one at the step's start or end
+            start, end = x[0][:, dofs], a[0].T[:, dofs]
+            near = lambda y: torch.minimum((y - lo).abs(), (y - hi).abs())
+            crossed = ((start > hi) != (end > hi)) | ((start < lo) != (end < lo))
+            ok &= ~torch.any(crossed | (near(start) < LIMIT_GAP) | (near(end) < LIMIT_GAP), dim=1)
+            x = (a[0].T.contiguous(), a[1].T.contiguous())
+        kept.append(tuple(t[ok] for t in (q, qd, qfrc, xfrc)))
+        drawn += HUMANOID_POOL
+        if sum(len(c[0]) for c in kept) >= n:
+            break
+    have = sum(len(c[0]) for c in kept)
+    if have < n:
+        raise AssertionError(f"Humanoid: {have} of {drawn} states are well conditioned, {n} needed")
+    return tuple(torch.cat(t)[:n].contiguous() for t in zip(*kept)), have / drawn
+
+
+def compare_humanoid() -> float:
+    """The Humanoid instantiation (nv 27, 35 plane contacts, no cap) against
+    its plain version at N=RAGGED_ENVS for 3 steps and at full width for one,
+    from well-conditioned states with both feet on the ground; both feet
+    take force in 90 % of the envs or more. Returns the largest error."""
+    worst = 0.0
+    for n, steps in ((RAGGED_ENVS, 3), (HUMANOID_ENVS, 1)):
+        env = humanoid_env(n)
+        (q, qd, qfrc, xfrc), kept = humanoid_inputs(env, n, seed=51, steps=steps)
+        err = compare_model(env.model, env.sim_params, q, qd, qfrc, xfrc, None, steps, force_of=env.feet.tolist())
+        seen = err.pop("seen_force")
+        print(f"Humanoid kernel vs plain, N={n}, {steps} step(s), {100 * kept:.1f} % of the drawn states well conditioned, "
+              f"both feet pressed in {100 * seen:.1f} % of envs:", json.dumps(err))
+        if not seen > 0.9:
+            raise AssertionError(f"Humanoid N={n}: both feet took force in {seen:.3f} of the envs")
+        worst = max(worst, *err.values())
+    return worst
+
+
+def time_humanoid(card: str) -> dict:
+    """`kernel_times` of the Humanoid instantiation at full width, feet on the ground."""
+    env = humanoid_env(HUMANOID_ENVS)
+    q, qd, qfrc, xfrc = humanoid_states(env, HUMANOID_ENVS, seed=53)
+    return kernel_times(env, rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), card, reps=30)
+
+
+HUMANOID_WIDTH = (HUMANOID_ENVS, 32, 131072, 32768, 5)  # envs, horizon, batch, minibatch, mini-epochs
+LSTM_WIDTH = (4096, 24, 98304, 16384, 5)  # AnymalTerrainPPO_LSTM.yaml: 24,576 windows of 4, 4,096 per minibatch
+
+
+def train_humanoid_sac() -> int:
+    """HumanoidSAC.yaml at Humanoid.yaml's 4096 envs (batch 4,096, 8 env
+    steps per epoch, a buffer of 1,000,000): epochs up to and past the
+    warm-up, then two timed ones (8 launches each, the buffer at steps x
+    4096, alpha > 0, finite losses); the actor and critics moved, and one
+    more update moves the targets by tau; a save/restore round trip into a
+    fresh agent is bit-equal in every saved leaf; `test=True` plays the
+    checkpoint to a finite return. Returns the timed epochs' launches."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.learn import SAC
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    args = ["task=Humanoid", "train=HumanoidSAC"]
+    cfg = load_config(args)
+    params = cfg["train"]["params"]
+    agent = SAC(task_map["Humanoid"](cfg["task"], device="cuda"), params, seed=int(cfg["seed"]))
+    c, n = agent.cfg, agent.env.num_envs
+    ts = agent.init()
+    if (n, c.batch_size, c.num_steps_per_episode, ts.buffer.capacity) != (HUMANOID_ENVS, 4096, 8, 1_000_000):
+        raise AssertionError("HumanoidSAC.yaml is not at its full width")
+    nets = lambda: [[p.detach().clone() for p in m.parameters()] for m in (agent.actor, agent.critic)]
+    before = nets()
+    while ts.total_steps <= c.num_warmup_steps:
+        ts, _ = agent.train_epoch(ts)
+    total = 0
+    for epoch in range(2):
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, m = agent.train_epoch(ts)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        total += launches
+        stored = min(ts.total_steps * n, ts.buffer.capacity)
+        if launches != c.num_steps_per_episode or ts.buffer.size != stored:
+            raise AssertionError(f"{launches} launches in an epoch of 8 env steps, buffer at {ts.buffer.size}")
+        if not all(np.isfinite(m[k]) for k in ("c_loss", "a_loss", "alpha")) or not m["alpha"] > 0:
+            raise AssertionError(f"SAC epoch metrics out of range: {m}")
+        print(f"Humanoid SAC train epoch {epoch}: {sec:.4f} s, {c.num_steps_per_episode * n / sec:.1f} env-steps/s "
+              f"(8 env steps and 8 updates of batch {c.batch_size}), {launches} launches, buffer {ts.buffer.size}, "
+              f"c_loss {m['c_loss']:.4f} a_loss {m['a_loss']:.4f} alpha {m['alpha']:.4f}")
+    if not all(any(not torch.equal(a, b) for a, b in zip(x, y)) for x, y in zip(before, nets())):
+        raise AssertionError("the actor or the critics did not move")
+    old = [p.detach().clone() for p in agent.target.parameters()]
+    agent._update(ts)
+    tau = c.critic_tau
+    if not all(torch.equal(t, (1.0 - tau) * o + tau * k.detach())
+               for t, o, k in zip(agent.target.parameters(), old, agent.critic.parameters())):
+        raise AssertionError("the targets did not move by tau towards the critics")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "HumanoidSAC.pth")
+        agent.save(path, ts)
+        fresh = SAC(task_map["Humanoid"](cfg["task"], device="cuda"), params, seed=1)
+        fts = fresh.restore(path, fresh.init())
+        same = all(torch.equal(a, b) for x, y in ((agent.actor, fresh.actor), (agent.critic, fresh.critic),
+                                                  (agent.target, fresh.target))
+                   for a, b in zip(x.state_dict().values(), y.state_dict().values(), strict=True))
+        same &= torch.equal(agent.log_alpha, fresh.log_alpha)
+        same &= all(torch.equal(getattr(ts.obs_rms, f), getattr(fts.obs_rms, f)) for f in ("mean", "var", "count"))
+        if not same:
+            raise AssertionError("Humanoid SAC: restore did not give back the saved leaves bit for bit")
+        del fresh, fts
+        played = train.main([*args, "test=True", f"checkpoint={path}"])
+    print(f"Humanoid SAC restore: bit-equal; play: mean return {played:.2f}")
+    if not np.isfinite(played):
+        raise AssertionError(f"Humanoid SAC played to {played}")
+    return total
+
+
+# the recipes this port added, as `train` runs them: (config selection, run
+# name, checkpoint file, play overrides that cut the episodes)
+RECIPES = {
+    "Humanoid": (["task=Humanoid"], "Humanoid", "last_Humanoid.pth", []),
+    "HumanoidSAC": (["task=Humanoid", "train=HumanoidSAC"], "HumanoidSAC", "HumanoidSAC.pth", []),
+    "AntSAC": (["task=Ant", "train=AntSAC"], "AntSAC", "AntSAC.pth", ["task.env.episodeLength=100"]),
+    "AnymalTerrainPPO_LSTM": (["task=AnymalTerrain", "train=AnymalTerrainPPO_LSTM"], "AnymalTerrainLSTM",
+                              "last_AnymalTerrainLSTM.pth", ["task.env.learn.episodeLength_s=2"]),
+}
+RECIPE_EPOCHS = 2  # SAC's 16 env steps reach its updates (from the 11th on)
+
+
+def train_main_recipes() -> dict:
+    """Each recipe of RECIPES through `train.main` in-process at its yaml's
+    width, into a temporary run directory: RECIPE_EPOCHS epochs (one launch
+    per env step, finite metrics, SAC's critic loss > 0), a resume from the
+    checkpoint for one more epoch, and `test=True` play of it (episodes cut
+    where the yaml's would take minutes). Returns the training launches per
+    recipe."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    launches = {}
+    for key, (select, name, ckpt, play_cut) in RECIPES.items():
+        with tempfile.TemporaryDirectory() as runs:
+            args = [*select, f"+train_dir={runs}"]
+            torch.cuda.synchronize()
+            _cuda.FusedStepCall.launches = 0
+            t0 = time.perf_counter()
+            _, metrics = train.main([*args, f"max_iterations={RECIPE_EPOCHS}"])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches[key] = _cuda.FusedStepCall.launches
+            env_steps = metrics["frames"] // NUM_ENVS  # every recipe runs its yaml's 4096 envs
+            bad = {k: v for k, v in metrics.items() if isinstance(v, float) and not np.isfinite(v)
+                   and k != "mean_episode_return"}
+            sac = "SAC" in key
+            if launches[key] != env_steps or metrics["epoch"] != RECIPE_EPOCHS or bad \
+                    or (sac and not metrics["c_loss"] > 0):
+                raise AssertionError(f"{key}: {launches[key]} launches for {metrics['frames']} frames, {metrics}")
+            path = os.path.join(runs, name, "nn", ckpt)
+            _, resumed = train.main([*args, f"max_iterations={1 if sac else RECIPE_EPOCHS + 1}", f"checkpoint={path}"])
+            played = train.main([*args, "test=True", f"checkpoint={path}", *play_cut])
+        print(f"train.main {' '.join(select)}: {RECIPE_EPOCHS} epochs x {NUM_ENVS} envs in {sec:.2f} s "
+              f"({metrics['frames'] / sec:.1f} env-steps/s with set-up), {launches[key]} launches; resumed to "
+              f"epoch {resumed['epoch']}; played mean return {played:.2f}")
+        if not resumed["epoch"] == (1 if sac else RECIPE_EPOCHS + 1) or not np.isfinite(played):
+            raise AssertionError(f"{key}: resume reached epoch {resumed['epoch']}, play returned {played}")
+    return launches
+
+
+def lstm_carry_check(agent, ts, traj) -> None:
+    """After a rollout: the carry of the envs done in the last step is zero,
+    every other env's is not; 24,576 windows of 4 in minibatches of 4,096."""
+    if (agent.num_seqs, agent.seq_minibatch, agent.seq_length) != (24576, 4096, 4):
+        raise AssertionError(f"windows {agent.num_seqs} x {agent.seq_length}, {agent.seq_minibatch} per minibatch")
+    done = traj.done[-1]
+    zero = all(bool((x[done] == 0).all()) for x in ts.carry)
+    live = bool((ts.carry[1][~done].abs().amax(1) > 0).all())
+    print(f"  carry: {int(done.sum())} envs done in the last step, their carry zero: {zero}; "
+          f"the other {int((~done).sum())} non-zero: {live}")
+    if not zero or not live:
+        raise AssertionError("the recurrent carry was not reset where envs were done, or is zero elsewhere")
+
+
+def determinism(steps: int = 16) -> None:
+    """Two Ant rollouts at 4096 envs from one seed, bit for bit: env.step
+    under actions from a seeded generator (the kernel and the env step), and
+    `PPO.rollout` (policy forward, sampling, env) of two agents made from
+    one seed. Neither needs torch.use_deterministic_algorithms here."""
+    from isaacgymenvs_tpu_torch.learn import PPO
+
+    def env_run():
+        env = ant_env(NUM_ENVS)
+        state, obs = env.reset(21)
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        seen = []
+        for _ in range(steps):
+            state, obs, rew, _, _ = env.step(state, torch.rand(NUM_ENVS, 8, generator=gen, device="cuda") * 2 - 1)
+            seen += [obs, rew[:, None]]
+        return torch.cat(seen, 1), state.sim.q
+
+    def ppo_run():
+        train = {"network": {"mlp": {"units": [256, 128, 64], "activation": "elu"}},
+                 "config": {"horizon_length": steps, "value_bootstrap": True}}
+        agent = PPO(ant_env(NUM_ENVS), train, seed=23)
+        ts, traj, last = agent.rollout(agent.init())
+        return traj.obs, traj.action, traj.logp, traj.value, last, ts.env_state.sim.q
+
+    for label, run in (("env.step", env_run), ("PPO.rollout", ppo_run)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        equal = all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+        print(f"determinism, Ant {label} x {steps} steps at {NUM_ENVS} envs from one seed twice: bit-equal {equal}")
+        if not equal:
+            raise AssertionError(f"two {label} runs from one seed differ")
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, started together; prints ptxas's figures, the shared memory
@@ -1609,6 +1919,7 @@ def build_all():
         built[k] = (e, fused.dyn_names(se, e.randomizer.batched_leaf_names()) if e.randomizer is not None else ())
     built["Ball"] = (ball_holder(), ())  # the SDF rows (K6) without a cap
     built["Insertion"] = (insertion_env(8), ())  # SDF rows under the cap of 32, envs per block from its shared memory
+    built["Humanoid"] = (humanoid_env(8), ())  # nv 27: 27 dof lanes, four k-tiles of the Gram product
 
     def params_of(t, e):
         return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
@@ -1625,6 +1936,7 @@ def build_all():
             or sizes["AnymalTerrain-plane"] != (13, 19, 18, 44, 0, 0, 1, 0, 128, 44, 0, 20, 0, 0, 4) \
             or sizes["Ball"] != (2, 7, 6, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8) \
             or sizes["Insertion"] != (14, 16, 15, 64, 0, 0, 1, 0, 0, 0, 0, 32, 0, 64, 8) \
+            or sizes["Humanoid"] != (25, 28, 27, 35, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -1822,8 +2134,26 @@ def main() -> int:
     # 25. kernel times
     sdf_t = {"Insertion": time_insertion(name), "Ball": time_ball(name)}
 
+    # 26. Humanoid (nv 27, K1 + K2) against its plain version
+    humanoid_err = compare_humanoid()
+    # 27. Humanoid PPO at full width: 1 + 2 epochs, device ops per env step
+    humanoid_launches = {"PPO": train_epochs("Humanoid", HUMANOID_WIDTH, profile=False, timed=2)}
+    ops_humanoid = profile_env_step(humanoid_env(HUMANOID_ENVS), label="Humanoid env.step")
+    print(f"device ops per Humanoid env step: {ops_humanoid:.1f}")
+    # 28. Humanoid SAC at full width
+    humanoid_launches["SAC"] = train_humanoid_sac()
+    # 29. the four recipes through train.main: train, resume, play; 30. AnymalTerrain with the LSTM: 1 + 2 epochs
+    recipe_launches = train_main_recipes()
+    lstm_launches = train_epochs("AnymalTerrain", LSTM_WIDTH, profile=False, recipe="AnymalTerrainPPO_LSTM",
+                                 timed=2, check=lstm_carry_check)
+    # 31. two rollouts from one seed are bit-equal
+    determinism()
+    # 32. the Humanoid kernel timed
+    humanoid_t = time_humanoid(name)
+
     if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
-                            *anymal_launches.values(), *sdf_launches.values())) \
+                            *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
+                            *recipe_launches.values(), lstm_launches)) \
             or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
@@ -1835,7 +2165,8 @@ def main() -> int:
     sdf_names = {"Insertion": "fused_step_insertion_k5_k6sdf_qt", "Ball": "fused_step_ball_k6sdf"}
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
-         "launches": train_launches, "launches_rollout": launches, "max_abs_err": max_err,
+         "launches": train_launches, "launches_rollout": launches, "launches_sac": recipe_launches["AntSAC"],
+         "max_abs_err": max_err,
          **ant_t, "library_ms": None, "num_envs": NUM_ENVS},
         {"name": "fused_step_nc0", "route": "cuda", "source": source, "replaces": replaces,
          "launches": cart_launches, "max_abs_err": max_err0,
@@ -1850,12 +2181,19 @@ def main() -> int:
            "per_env_leaves": list(built[k][1])} for k in DYN_CASES),
         *({"name": anymal_names[k], "route": "cuda", "source": source, "replaces": replaces,
            "launches": anymal_launches[k], "max_abs_err": anymal_err[k], **anymal_t[k], "library_ms": None,
-           "num_envs": ANYMAL_ENVS, "sizes": list(sizes[k]), "per_env_leaves": list(built[k][1])}
+           "num_envs": ANYMAL_ENVS, "sizes": list(sizes[k]), "per_env_leaves": list(built[k][1]),
+           **({"launches_lstm": lstm_launches, "launches_lstm_train_main": recipe_launches["AnymalTerrainPPO_LSTM"]}
+              if k == "AnymalTerrain" else {})}
           for k in ANYMAL_CASES),
         *({"name": sdf_names[k], "route": "cuda", "source": source, "replaces": replaces,
            "launches": sdf_launches[k], "max_abs_err": sdf_err[k], **sdf_t[k], "library_ms": None,
            "num_envs": INSERTION_ENVS if k == "Insertion" else NUM_ENVS, "sizes": list(sizes[k])}
           for k in sdf_names),
+        {"name": "fused_step_humanoid", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": sum(humanoid_launches.values()), "launches_ppo": humanoid_launches["PPO"],
+         "launches_sac": humanoid_launches["SAC"], "launches_train_main": recipe_launches["Humanoid"]
+         + recipe_launches["HumanoidSAC"], "max_abs_err": humanoid_err, **humanoid_t, "library_ms": None,
+         "num_envs": HUMANOID_ENVS, "sizes": list(sizes["Humanoid"])},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -27,17 +27,23 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
 
 
 def actor_critic_from_flax(params: Mapping) -> dict:
-    """A flax `ActorCritic` params tree -> the port's ActorCritic state_dict.
+    """A flax network's params tree -> the state_dict of the port's module
+    of the same layout: `ActorCritic`, `CriticNet`, `LSTMActorCritic`, and
+    SAC's `SquashedGaussianActor` and `TwinQ`.
 
     Accepts the nested tree (with or without the top-level "policy" and
     "params" keys) or its flattened form with "/"-joined keys. A flax Dense
     kernel is (in, out), a torch Linear weight (out, in), so kernels are
     transposed; that also carries the wider d2rl inputs and the separate
-    critic trunk (`critic_mlp.*`) across. With `learn_sigma=False` the flax
-    tree has no log_sigma, and neither has the port's state_dict.
+    critic trunk (`critic_mlp.*`) across. A LayerNorm's scale becomes its
+    weight. The eight kernels of an `OptimizedLSTMCell` (`lstm/ii`, `if`,
+    `ig`, `io` without bias, `lstm/hi`, `hf`, `hg`, `ho` with bias) become
+    the port cell's `lstm.ih` and `lstm.hh`, the gates side by side in the
+    order i, f, g, o. With `learn_sigma=False` the flax tree has no
+    log_sigma, and neither has the port's state_dict.
     """
     flat = _flatten(params)
-    sd = {}
+    sd, lstm = {}, {}
     for key, arr in flat.items():
         parts = key.split("/")
         while parts[0] in ("policy", "params"):
@@ -46,41 +52,82 @@ def actor_critic_from_flax(params: Mapping) -> dict:
             sd["log_sigma"] = torch.tensor(arr, dtype=torch.float32)
             continue
         *mods, leaf = parts
+        if mods[:1] == ["lstm"]:
+            lstm[(mods[1], leaf)] = arr
+            continue
         name = ".".join(mods)
         if leaf == "kernel":
             sd[f"{name}.weight"] = torch.tensor(arr.T, dtype=torch.float32)
         elif leaf == "bias":
             sd[f"{name}.bias"] = torch.tensor(arr, dtype=torch.float32)
+        elif leaf == "scale":
+            sd[f"{name}.weight"] = torch.tensor(arr, dtype=torch.float32)
         else:
             raise KeyError(f"unexpected flax parameter {key}")
+    if lstm:
+        cat = lambda side, leaf: np.concatenate([lstm[(side + g, leaf)] for g in "ifgo"], axis=-1)
+        sd["lstm.ih.weight"] = torch.tensor(cat("i", "kernel").T, dtype=torch.float32)
+        sd["lstm.hh.weight"] = torch.tensor(cat("h", "kernel").T, dtype=torch.float32)
+        sd["lstm.hh.bias"] = torch.tensor(cat("h", "bias"), dtype=torch.float32)
+    return sd
+
+
+def _rms(d) -> dict:
+    return {k: torch.tensor(np.asarray(d[k], np.float32)) for k in ("mean", "var", "count")}
+
+
+def _policy_and_central(tree: Mapping) -> dict:
+    """A PPO params tree ({"policy": ..., "central": ...} or the policy's
+    alone) as one state_dict, the central value net's under `central.`."""
+    sd = actor_critic_from_flax(tree["policy"] if "policy" in tree else tree)
+    if "central" in tree:
+        sd.update({f"central.{k}": v for k, v in actor_critic_from_flax(tree["central"]).items()})
     return sd
 
 
 def train_state_from_jax(fields: Mapping, param_names) -> dict:
     """The learnable part of a JAX `PPOTrainState` in the layout of the
-    port's checkpoints, for `PPO.load_state`.
+    port's checkpoints, for `PPO.load_state` (and `PPORecurrent`'s).
 
-    `fields` holds numpy arrays: `params` (the flax tree), `obs_rms` and
-    `value_rms` (mean, var, count), `lr`, and optax's Adam state `mu`, `nu`
-    (trees shaped like `params`) and `count`. `param_names` is the port
-    network's parameter names in optimizer order
-    (`[n for n, _ in network.named_parameters()]`). Adam's moments become
-    `exp_avg` / `exp_avg_sq`, transposed as the weights are, and `count`
-    becomes every parameter's `step`.
+    `fields` holds numpy arrays: `params` (the flax tree, with a "central"
+    subtree for the central value net), `obs_rms` and `value_rms` (mean,
+    var, count), `state_rms` with the central value, `lr`, and optax's Adam
+    state `mu`, `nu` (trees shaped like `params`) and `count`.
+    `param_names` is `[n for n, _ in agent.named_trainables()]`, the
+    optimizer's order. Adam's moments become `exp_avg` / `exp_avg_sq`,
+    transposed as the weights are, and `count` becomes every parameter's
+    `step`.
     """
-    mu = actor_critic_from_flax(fields["mu"])
-    nu = actor_critic_from_flax(fields["nu"])
+    params = _policy_and_central(fields["params"])
+    mu, nu = _policy_and_central(fields["mu"]), _policy_and_central(fields["nu"])
     step = torch.tensor(float(np.asarray(fields["count"])))
-    rms = lambda d: {k: torch.tensor(np.asarray(d[k], np.float32)) for k in ("mean", "var", "count")}
-    return {
-        "params": actor_critic_from_flax(fields["params"]),
-        "obs_rms": rms(fields["obs_rms"]),
-        "value_rms": rms(fields["value_rms"]),
+    out = {
+        "params": {k: v for k, v in params.items() if not k.startswith("central.")},
+        "obs_rms": _rms(fields["obs_rms"]),
+        "value_rms": _rms(fields["value_rms"]),
         "lr": float(np.asarray(fields["lr"])),
         "opt_state": {"state": {
             i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
             for i, n in enumerate(param_names)
         }},
+    }
+    if any(k.startswith("central.") for k in params):
+        out["central"] = {k[len("central."):]: v for k, v in params.items() if k.startswith("central.")}
+        out["state_rms"] = _rms(fields["state_rms"])
+    return out
+
+
+def sac_state_from_jax(fields: Mapping) -> dict:
+    """A JAX `SACTrainState`'s learnable part in the layout of the port's
+    SAC checkpoints, for `SAC.load_state`: `fields` holds the flax trees
+    `actor_params`, `critic_params`, `target_params`, and `log_alpha` and
+    `obs_rms` (mean, var, count) as numpy arrays."""
+    return {
+        "actor_params": actor_critic_from_flax(fields["actor_params"]),
+        "critic_params": actor_critic_from_flax(fields["critic_params"]),
+        "target_params": actor_critic_from_flax(fields["target_params"]),
+        "log_alpha": torch.tensor(np.asarray(fields["log_alpha"], np.float32)),
+        "obs_rms": _rms(fields["obs_rms"]),
     }
 
 

@@ -107,6 +107,8 @@ class VecTask:
 
     num_obs: int = 0
     num_acts: int = 0
+    # privileged state of an asymmetric critic (observe_state); 0: none
+    num_states: int = 0
     # False when the hooks never read `kin`: step then skips the forward
     # kinematics pass, as XLA drops it from the JAX package's jitted step
     uses_kin: bool = True
@@ -181,6 +183,10 @@ class VecTask:
         raise NotImplementedError
 
     def reward_done(self, obs, q, qd, kin, sensors, task, actions, progress):
+        raise NotImplementedError
+
+    def observe_state(self, q, qd, kin, sensors, task, actions, progress):
+        """Privileged state of an asymmetric critic (num_states > 0)."""
         raise NotImplementedError
 
     def perturb_state(self, generator, q, qd, frames, task):
@@ -285,6 +291,15 @@ class VecTask:
 
     def _kin(self, q, qd):
         return _dyn.forward_kinematics(self.model, q, qd) if self.uses_kin else None
+
+    def states_of(self, state: EnvState) -> torch.Tensor:
+        """Privileged states of the current env state (the critic's first
+        input; outside the step the sensors are zero)."""
+        q, qd = state.sim.q, state.sim.qd
+        kin = _dyn.forward_kinematics(self.model, q, qd)
+        states = self.observe_state(q, qd, kin, self._no_sensors(self.num_envs), state.task, state.actions,
+                                    state.progress)
+        return torch.clamp(states, -self.clip_obs, self.clip_obs)
 
     # ---- the batched entry points -------------------------------------
     def reset(self, seed: int = 0) -> Tuple[EnvState, torch.Tensor]:
@@ -402,4 +417,7 @@ class VecTask:
             frames=frames,
         )
         extras["time_outs"] = timeout
+        if self.num_states:
+            states = self.observe_state(q, qd, kin, sensors, task, actions, progress)
+            extras["states"] = torch.clamp(states, -self.clip_obs, self.clip_obs)
         return new_state, obs, reward, done, extras

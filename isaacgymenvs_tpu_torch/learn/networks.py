@@ -83,3 +83,17 @@ class ActorCritic(nn.Module):
         ctrunk = self.critic_mlp(obs) if self.separate else trunk
         mu = self.mu(trunk)
         return mu, self.log_sigma.expand_as(mu), self.value(ctrunk)[..., 0]
+
+
+class CriticNet(nn.Module):
+    """Standalone value network on privileged states: the asymmetric
+    central value net (rl_games `central_value_config`), an MLP `cv_mlp`
+    and a `value` head."""
+
+    def __init__(self, num_states: int, units: Sequence[int] = (256, 128, 64), act: str = "elu"):
+        super().__init__()
+        self.cv_mlp = MLP(num_states, units, act)
+        self.value = nn.Linear(self.cv_mlp.out_dim, 1)
+
+    def forward(self, states) -> torch.Tensor:
+        return self.value(self.cv_mlp(states))[..., 0]

@@ -11,7 +11,14 @@ Semantics follow the rl_games agent the train yamls configure
   * adaptive-KL learning-rate schedule: lr adjusted after every minibatch
     from the analytic Gaussian KL against the rollout policy; or `linear`;
   * clipped value loss, bounds loss on mu (soft bound 1.1), entropy bonus;
-  * reward shaping by scale_value.
+  * reward shaping by scale_value;
+  * with `env.num_states > 0` the asymmetric central value net
+    (`CriticNet` on the privileged states, `central_value_config`), trained
+    in the same loss and optimizer as the policy, its states normalized by
+    `state_rms`;
+  * per-episode sums of `extras['episode_cumulative']` terms, logged as
+    `episode_cumulative/<k>` (mean over the episodes finished in the
+    rollout) and its `_min` / `_max`.
 
 The rollout runs under `torch.no_grad()`, the update under autograd. All
 of it is float32; TF32 is switched off, as the JAX package runs its matrix
@@ -20,10 +27,9 @@ ignored, as there. The policy's parameters live in `PPO.network` (an
 `nn.Module`): a `PPOTrainState` does not own them, it carries the
 optimizer bound to them, the learning rate, the normalizers and the env.
 
-Not ported yet, each raising NotImplementedError by name: the central
-value net (`env.num_states > 0`), recurrent networks (`network.rnn`),
-per-episode cumulative extras (`extras['episode_cumulative']`),
-`capture_extras`, `local_shuffle` (multi-device).
+Not ported yet, each raising NotImplementedError by name:
+`capture_extras` (AMP), `local_shuffle` (multi-device). A recurrent
+network (`network.rnn`) is `rnn.PPORecurrent`'s; `PPO` refuses it.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ import torch
 
 from ..envcore.vec_task import EnvState, VecTask
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from .networks import ActorCritic
+from .networks import ActorCritic, CriticNet
 from .running_stats import RunningMeanStd, rms_denormalize, rms_normalize, rms_update
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -122,6 +128,12 @@ class PPOTrainState:
     generator: torch.Generator  # action noise and minibatch shuffles
     optimizer: torch.optim.Adam
     lr: float  # dynamic (adaptive KL schedule)
+    states: torch.Tensor | None = None  # (N, num_states) privileged state (central value)
+    state_rms: RunningMeanStd | None = None
+    # per-env running sums of extras['episode_cumulative'] terms, from the
+    # first step that emits them
+    ep_cum: Dict[str, torch.Tensor] | None = None
+    carry: Any = None  # the recurrent policy's (c, h) (rnn.PPORecurrent)
 
 
 class Transition(NamedTuple):
@@ -138,7 +150,9 @@ class Transition(NamedTuple):
     ep_ret_done: torch.Tensor  # (T,) sum of returns of episodes finished
     ep_len_done: torch.Tensor
     n_done: torch.Tensor
-    extras: Dict[str, Any]  # {"_env_metrics": {name: (T,) step means}}
+    # {"_env_metrics": {name: (T,) step means}, "_ep_cum": {name: (sum, min, max) (T,) each}}
+    extras: Dict[str, Any]
+    states: torch.Tensor | None = None  # (T, N, num_states) with the central value
 
 
 def _gaussian_logp(x, mu, log_sigma):
@@ -164,19 +178,16 @@ class PPO:
 
     # env-extras keys captured into the rollout (AMP observations); none ported
     capture_extras: tuple = ()
+    # True in rnn.PPORecurrent, which builds its own network from network.rnn
+    recurrent: bool = False
 
     def __init__(self, env: VecTask, train_params: Dict[str, Any], seed: int = 0):
         self.env = env
         self.cfg = PPOConfig.from_train_cfg(train_params)
         net_cfg = train_params.get("network", {})
         mlp = net_cfg.get("mlp", {})
-        space = net_cfg.get("space", {}).get("continuous", {})
-        if getattr(env, "num_states", 0):
-            raise NotImplementedError(
-                "the central value net (env.num_states > 0) is not ported yet"
-            )
-        if net_cfg.get("rnn"):
-            raise NotImplementedError("recurrent networks (network.rnn) are not ported yet")
+        if net_cfg.get("rnn") and not self.recurrent:
+            raise NotImplementedError("network.rnn: a recurrent network trains with rnn.PPORecurrent, not PPO")
         if self.capture_extras:
             raise NotImplementedError("capture_extras is not ported yet")
         self.seed = seed
@@ -184,16 +195,18 @@ class PPO:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.manual_seed(seed)
-        self.network = ActorCritic(
-            env.num_obs,
-            env.num_acts,
-            units=tuple(mlp.get("units", (256, 128, 64))),
-            act=str(mlp.get("activation", "elu")),
-            d2rl=bool(mlp.get("d2rl", False)),
-            sigma_init=float(space.get("sigma_init", {}).get("val", 0.0)),
-            separate=bool(net_cfg.get("separate", False)),
-            learn_sigma=bool(space.get("learn_sigma", True)),
-        ).to(env.device)
+        self.network = self.build_network(env, net_cfg).to(env.device)
+        # asymmetric actor-critic: the central value net on privileged states
+        self.use_central_value = bool(getattr(env, "num_states", 0))
+        self.central_net = None
+        if self.use_central_value:
+            cv_cfg = train_params.get("config", {}).get("central_value_config", {})
+            cv_mlp = cv_cfg.get("network", {}).get("mlp", {})
+            self.central_net = CriticNet(
+                env.num_states,
+                units=tuple(cv_mlp.get("units", mlp.get("units", (256, 128, 64)))),
+                act=str(cv_mlp.get("activation", "elu")),
+            ).to(env.device)
         self.batch_size = self.cfg.horizon_length * env.num_envs
         self.minibatch_size = min(self.cfg.minibatch_size, self.batch_size)
         if self.batch_size % self.minibatch_size:
@@ -202,10 +215,37 @@ class PPO:
             )
         self.num_minibatches = self.batch_size // self.minibatch_size
 
+    def build_network(self, env, net_cfg) -> torch.nn.Module:
+        """The policy network of `params.network`; a recurrent agent builds its own."""
+        mlp = net_cfg.get("mlp", {})
+        space = net_cfg.get("space", {}).get("continuous", {})
+        return ActorCritic(
+            env.num_obs,
+            env.num_acts,
+            units=tuple(mlp.get("units", (256, 128, 64))),
+            act=str(mlp.get("activation", "elu")),
+            d2rl=bool(mlp.get("d2rl", False)),
+            sigma_init=float(space.get("sigma_init", {}).get("val", 0.0)),
+            separate=bool(net_cfg.get("separate", False)),
+            learn_sigma=bool(space.get("learn_sigma", True)),
+        )
+
+    def named_trainables(self):
+        """(name, parameter) in the optimizer's order: the policy's, then the
+        central value net's under `central.`."""
+        yield from self.network.named_parameters()
+        if self.central_net is not None:
+            for n, p in self.central_net.named_parameters():
+                yield f"central.{n}", p
+
     # ------------------------------------------------------------------
     def init(self) -> PPOTrainState:
         env, dev = self.env, self.env.device
         env_state, obs = env.reset(self.seed)
+        states = state_rms = None
+        if self.use_central_value:
+            states = env.states_of(env_state)
+            state_rms = RunningMeanStd.create((env.num_states,), dev)
         return PPOTrainState(
             env_state=env_state,
             obs=obs,
@@ -217,9 +257,11 @@ class PPO:
             # Adam as optax.scale_by_adam(eps=1e-8) followed by -lr * u: the
             # group's lr is set to the current lr before every step
             optimizer=torch.optim.Adam(
-                self.network.parameters(), lr=self.cfg.learning_rate, eps=1e-8
+                [p for _, p in self.named_trainables()], lr=self.cfg.learning_rate, eps=1e-8
             ),
             lr=self.cfg.learning_rate,
+            states=states,
+            state_rms=state_rms,
         )
 
     # ------------------------------------------------------------------
@@ -228,6 +270,14 @@ class PPO:
 
     def _denorm_value(self, rms, v_norm):
         return rms_denormalize(rms, v_norm) if self.cfg.normalize_value else v_norm
+
+    def _norm_states(self, rms, states):
+        return rms_normalize(rms, states) if self.cfg.normalize_input else states
+
+    def _value_of(self, v_pol, state_rms, states):
+        """Critic value (normalized space): the central net on the privileged
+        states when asymmetric, otherwise the policy's value head."""
+        return self.central_net(self._norm_states(state_rms, states)) if self.use_central_value else v_pol
 
     def env_step(self, env_state, obs, action):
         """One (macro-)transition of the env as seen by the learner; a
@@ -243,13 +293,16 @@ class PPO:
         """
         cfg = self.cfg
         env_state, obs, obs_rms = ts.env_state, ts.obs, ts.obs_rms
+        states, state_rms, ep_cum = ts.states, ts.state_rms, ts.ep_cum
         ep_ret, ep_len = ts.ep_return, ts.ep_len
-        steps, env_metrics = [], []
+        steps, env_metrics, ep_cum_steps, states_seen = [], [], [], []
         for t in range(cfg.horizon_length):
             if cfg.normalize_input:
                 obs_rms = rms_update(obs_rms, obs)
-            mu, log_sigma, v_norm = self.network(self._norm_obs(obs_rms, obs))
-            value = self._denorm_value(ts.value_rms, v_norm)
+                if self.use_central_value:
+                    state_rms = rms_update(state_rms, states)
+            mu, log_sigma, v_pol = self.network(self._norm_obs(obs_rms, obs))
+            value = self._denorm_value(ts.value_rms, self._value_of(v_pol, state_rms, states))
             eps = (
                 noise[t]
                 if noise is not None
@@ -259,10 +312,9 @@ class PPO:
             logp = _gaussian_logp(action, mu, log_sigma)
 
             env_state, next_obs, reward, done, extras = self.env_step(env_state, obs, action)
-            if "episode_cumulative" in extras:
-                raise NotImplementedError(
-                    "extras['episode_cumulative'] (ep_cum statistics) is not ported yet"
-                )
+            if self.use_central_value:
+                states_seen.append(states)
+                states = extras["states"]
             # every per-env numeric extra is logged as its mean over the envs
             env_metrics.append({
                 k: torch.mean(v.to(torch.float32))
@@ -274,6 +326,9 @@ class PPO:
                 shaped = shaped + cfg.gamma * value * extras["time_outs"].to(value.dtype)
             ep_ret = ep_ret + reward
             ep_len = ep_len + 1
+            if "episode_cumulative" in extras:
+                ep_cum, captured = self._ep_cum_step(ep_cum, extras["episode_cumulative"], done)
+                ep_cum_steps.append(captured)
             steps.append((
                 obs, action, mu, log_sigma, logp, value, shaped, done,
                 torch.sum(torch.where(done, ep_ret, torch.zeros_like(ep_ret))),
@@ -283,18 +338,38 @@ class PPO:
             ep_ret = torch.where(done, torch.zeros_like(ep_ret), ep_ret)
             ep_len = torch.where(done, torch.zeros_like(ep_len), ep_len)
             obs = next_obs
+        extras = {"_env_metrics": {k: torch.stack([m[k] for m in env_metrics]) for k in env_metrics[0]}}
+        if ep_cum_steps:
+            extras["_ep_cum"] = {k: tuple(torch.stack([c[k][i] for c in ep_cum_steps]) for i in range(3))
+                                 for k in ep_cum_steps[0]}
         traj = Transition(
             *(torch.stack(x) for x in zip(*steps)),
-            extras={"_env_metrics": {
-                k: torch.stack([m[k] for m in env_metrics]) for k in env_metrics[0]
-            }},
+            extras=extras,
+            states=torch.stack(states_seen) if self.use_central_value else None,
         )
         ts = dataclasses.replace(
-            ts, env_state=env_state, obs=obs, obs_rms=obs_rms, ep_return=ep_ret, ep_len=ep_len
+            ts, env_state=env_state, obs=obs, obs_rms=obs_rms, ep_return=ep_ret, ep_len=ep_len,
+            states=states, state_rms=state_rms, ep_cum=ep_cum,
         )
         # bootstrap value for the state after the last transition
-        _, _, v_norm = self.network(self._norm_obs(obs_rms, obs))
-        return ts, traj, self._denorm_value(ts.value_rms, v_norm)
+        _, _, v_pol = self.network(self._norm_obs(obs_rms, obs))
+        return ts, traj, self._denorm_value(ts.value_rms, self._value_of(v_pol, state_rms, states))
+
+    @staticmethod
+    def _ep_cum_step(ep_cum, terms, done):
+        """Add one step's `episode_cumulative` terms to the per-env sums;
+        returns (the sums, reset where done, {k: (sum, min, max) over the
+        envs done this step}). The term names stay those of the first step."""
+        if ep_cum is None:
+            ep_cum = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in sorted(terms.items())}
+        if set(terms) != set(ep_cum):
+            raise ValueError(f"extras['episode_cumulative'] changed its terms from {sorted(ep_cum)} "
+                             f"to {sorted(terms)}")
+        ep_cum = {k: ep_cum[k] + terms[k] for k in ep_cum}
+        inf = torch.tensor(float("inf"), device=done.device)
+        captured = {k: (torch.sum(torch.where(done, v, 0.0)), torch.min(torch.where(done, v, inf)),
+                        torch.max(torch.where(done, v, -inf))) for k, v in ep_cum.items()}
+        return {k: torch.where(done, 0.0, v) for k, v in ep_cum.items()}, captured
 
     def _gae(self, traj: Transition, last_value):
         cfg = self.cfg
@@ -328,12 +403,16 @@ class PPO:
         """Loss of one minibatch under the current `self.network`.
 
         batch = (nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm,
-        adv, ret_norm, *extra). Returns (total, (a_loss, c_loss, entropy,
-        b_loss, kl)).
+        adv, ret_norm, [nstates with the central value,] *extra). Returns
+        (total, (a_loss, c_loss, entropy, b_loss, kl)).
         """
         cfg = self.cfg
         nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm, adv, ret_norm = batch[:8]
         mu, log_sigma, v_norm = self.network(nobs)
+        n_base = 8
+        if self.use_central_value:
+            v_norm = self.central_net(batch[8])
+            n_base = 9
         logp = _gaussian_logp(action, mu, log_sigma)
         ratio = torch.exp(logp - old_logp)
         surr1 = adv * ratio
@@ -358,7 +437,7 @@ class PPO:
             - cfg.entropy_coef * entropy
             + cfg.bounds_loss_coef * b_loss
         )
-        xloss, _ = self.extra_loss(batch[8:])
+        xloss, _ = self.extra_loss(batch[n_base:])
         total = total + xloss
         kl = _policy_kl(old_mu, old_log_sigma, mu, log_sigma)
         return total, (a_loss, c_loss, entropy, b_loss, kl)
@@ -376,7 +455,7 @@ class PPO:
     def _clip_grads(self) -> None:
         """Scale the gradients by max_norm / max(global_norm, max_norm), as
         optax.clip_by_global_norm does (no epsilon in the denominator)."""
-        grads = [p.grad for p in self.network.parameters() if p.grad is not None]
+        grads = [p.grad for _, p in self.named_trainables() if p.grad is not None]
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         scale = torch.clamp(self.cfg.grad_norm / norm, max=1.0)
         for g in grads:
@@ -436,7 +515,10 @@ class PPO:
                 flat(old_vnorm),
                 adv,
                 flat(ret_norm),
-            ) + self.extra_dataset(ts, traj, flat)
+            )
+            if self.use_central_value:
+                dataset += (flat(self._norm_states(ts.state_rms, traj.states)),)
+            dataset += self.extra_dataset(ts, traj, flat)
 
         auxs = []
         for e in range(cfg.mini_epochs):
@@ -463,6 +545,12 @@ class PPO:
             "ep_len_sum": torch.sum(traj.ep_len_done),
             "n_episodes": n_done,
             **{f"env/{k}": torch.mean(v) for k, v in traj.extras["_env_metrics"].items()},
+            # per-episode cumulative terms over the episodes finished in this rollout
+            **{name: stat
+               for k, (sm, mn, mx) in traj.extras.get("_ep_cum", {}).items()
+               for name, stat in ((f"episode_cumulative/{k}", torch.sum(sm) / torch.clamp(n_done, min=1)),
+                                  (f"episode_cumulative_min/{k}_min", torch.min(mn)),
+                                  (f"episode_cumulative_max/{k}_max", torch.max(mx)))},
             "reward_mean_step": torch.mean(traj.reward),
             **aux_metrics,
         }
@@ -470,9 +558,13 @@ class PPO:
 
     # ------------------------------------------------------------------
     def save(self, path: str, ts: PPOTrainState, epoch: int = 0, frames: int = 0):
+        central = {}
+        if self.use_central_value:
+            central = {"central": self.central_net.state_dict(), "state_rms": _rms_state(ts.state_rms)}
         save_checkpoint(
             path,
             {
+                **central,
                 "params": self.network.state_dict(),
                 "obs_rms": _rms_state(ts.obs_rms),
                 "value_rms": _rms_state(ts.value_rms),
@@ -492,6 +584,8 @@ class PPO:
         and step counts are taken: its hyperparameters are the config's."""
         dev = self.env.device
         self.network.load_state_dict(state["params"])
+        if self.use_central_value:
+            self.central_net.load_state_dict(state["central"])
         opt_sd = ts.optimizer.state_dict()
         # the step counts stay on the host, where Adam reads them
         opt_sd["state"] = {
@@ -510,6 +604,7 @@ class PPO:
             value_rms=rms(state["value_rms"]),
             lr=float(state["lr"]),
             env_state=env_state,
+            state_rms=rms(state["state_rms"]) if self.use_central_value else ts.state_rms,
         )
 
     def restore(self, path: str, ts: PPOTrainState) -> Tuple[PPOTrainState, int]:
@@ -652,7 +747,9 @@ class PPO:
                         "info/kl": metrics["kl"],
                         "performance/total_fps": last_metrics["fps"],
                         "performance/step_fps": last_metrics["fps"],
-                        **{k: v for k, v in metrics.items() if k.startswith("env/")},
+                        **{k: v for k, v in metrics.items() if k.startswith("env/")
+                           # only once episodes finished
+                           or (k.startswith("episode_cumulative") and np.isfinite(v))},
                     },
                     frames,
                 )

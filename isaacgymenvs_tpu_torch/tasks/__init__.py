@@ -10,6 +10,7 @@ from .anymal_terrain import AnymalTerrain
 from .ball_balance import BallBalance
 from .cartpole import Cartpole
 from .factory_templates import FactoryTaskInsertion
+from .humanoid import Humanoid
 from .ingenuity import Ingenuity
 from .quadcopter import Quadcopter
 
@@ -20,6 +21,7 @@ task_map: Dict[str, Type[VecTask]] = {
     "BallBalance": BallBalance,
     "Cartpole": Cartpole,
     "FactoryTaskInsertion": FactoryTaskInsertion,
+    "Humanoid": Humanoid,
     "Ingenuity": Ingenuity,
     "Quadcopter": Quadcopter,
 }

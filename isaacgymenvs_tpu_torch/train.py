@@ -3,18 +3,25 @@
     python -m isaacgymenvs_tpu_torch.train task=Ant
     python -m isaacgymenvs_tpu_torch.train task=Cartpole max_iterations=100
     python -m isaacgymenvs_tpu_torch.train task=Cartpole test=True checkpoint=runs/Cartpole/nn/Cartpole.pth
+    python -m isaacgymenvs_tpu_torch.train task=Humanoid train=HumanoidSAC
+    python -m isaacgymenvs_tpu_torch.train task=AnymalTerrain train=AnymalTerrainPPO_LSTM
 
 The flags are those of the JAX package's root train.py (the IsaacGymEnvs
 Hydra launcher's): any config leaf can be overridden with a dotted path,
 e.g. `train.params.config.minibatch_size=16384`, `num_envs=512`, `seed=7`,
 `experiment=MyAnt`, `sigma=0.5`. `+train_dir=<dir>` puts the run directory
 (`<dir>/<name>/{config.yaml,nn/,summaries/}`) elsewhere than `runs/`.
+`train.params.algo.name=sac` (the SAC yamls) trains with `learn.SAC`, a
+`network.rnn` block with `learn.PPORecurrent`, anything else with `PPO`.
+`+profile=<dir>` writes a torch.profiler trace (CPU and CUDA activity) of
+the first `profile_epochs` (default 3) epochs to <dir>, one file per run,
+readable in TensorBoard or chrome://tracing.
 
 It runs on the card. `pipeline=cpu` or a `sim_device` that starts with
 `cpu` asks for the CPU; without a GPU and without such a flag it fails
 with the device error, it does not train on the CPU. Options whose code is
-not ported yet (SAC, AMP, HRL, recurrent networks, PBT, multi-GPU, video
-capture, profiling) exit with a message that says so.
+not ported yet (AMP, HRL, PBT, multi-GPU, video capture) exit with a
+message that says so.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import sys
 
 import yaml
 
-from .learn import PPO
+from .learn import PPO, SAC, PPORecurrent
 from .tasks import task_map
 from .utils.config import load_config
 from .utils.loggers import build_logger
@@ -34,12 +41,10 @@ def _unported(cfg, train_params):
     """Names of the requested options that the port does not carry yet."""
     algo = str(train_params.get("algo", {}).get("name", "a2c_continuous"))
     asked = {
-        f"algo.name={algo}": algo in ("sac", "amp_continuous", "hrl_continuous"),
-        "network.rnn": bool(train_params.get("network", {}).get("rnn")),
+        f"algo.name={algo}": algo in ("amp_continuous", "hrl_continuous"),
         "pbt.enabled": bool((cfg.get("pbt") or {}).get("enabled")),
         "multi_gpu": bool(cfg.get("multi_gpu")),
         "capture_video": bool(cfg.get("capture_video")),
-        "profile": bool(cfg.get("profile")),
     }
     return [k for k, v in asked.items() if v]
 
@@ -75,12 +80,18 @@ def main(argv=None):
         f"num_acts={env.num_acts} device={env.device}"
     )
 
-    agent = PPO(env, train_params, seed=seed)
+    algo = str(train_params.get("algo", {}).get("name", "a2c_continuous"))
+    if algo == "sac":
+        agent = SAC(env, train_params, seed=seed)
+    elif train_params.get("network", {}).get("rnn"):
+        agent = PPORecurrent(env, train_params, seed=seed)
+    else:
+        agent = PPO(env, train_params, seed=seed)
     run_name = train_params.get("config", {}).get("name") or task_name
     checkpoint = str(cfg.get("checkpoint") or "") or None
 
     sigma = cfg.get("sigma")
-    if sigma not in (None, ""):
+    if sigma not in (None, "") and hasattr(agent, "override_sigma"):
         # fixed exploration sigma, applied to fresh inits and after a restore
         orig_init, orig_restore = agent.init, agent.restore
 
@@ -104,17 +115,54 @@ def main(argv=None):
 
     max_iters = cfg.get("max_iterations")
     logger = build_logger(cfg, run_name, train_dir)
+    profiler = _Profiler(str(cfg.get("profile") or ""), int(cfg.get("profile_epochs", 3)), agent.env.device)
+    kw = {} if algo == "sac" else {
+        "save_best_after": int(train_params.get("config", {}).get("save_best_after", 100))}
     try:
         return agent.train(
             max_epochs=int(max_iters) if max_iters else None,
             checkpoint=checkpoint,
             train_dir=train_dir,
             name=run_name,
-            save_best_after=int(train_params.get("config", {}).get("save_best_after", 100)),
             logger=logger,
+            on_epoch=profiler.on_epoch if profiler.active else None,
+            **kw,
         )
     finally:
+        profiler.stop()
         logger.close()
+
+
+class _Profiler:
+    """`profile=<dir>`: a torch.profiler trace of the first `epochs` training
+    epochs, written to <dir> when they are done (or the run ends)."""
+
+    def __init__(self, out_dir: str, epochs: int, device):
+        self.out_dir, self.left, self.prof = out_dir, epochs, None
+        if not out_dir:
+            return
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        self.prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(out_dir))
+        self.prof.start()
+        print(f"[profile] tracing the first {epochs} epochs -> {out_dir}")
+
+    @property
+    def active(self) -> bool:
+        return self.prof is not None
+
+    def on_epoch(self, ts, metrics) -> bool:
+        self.left -= 1
+        if self.left <= 0:
+            self.stop()
+        return False
+
+    def stop(self) -> None:
+        if self.prof is not None:
+            self.prof.stop()
+            self.prof = None
+            print(f"[profile] trace written to {self.out_dir}")
 
 
 if __name__ == "__main__":

@@ -25,6 +25,18 @@ def test_load_config_matches_jax(task, overrides):
         assert (conf["minibatch_size"], conf["max_epochs"], conf["name"]) == (1024, 7, "X")
 
 
+@pytest.mark.parametrize("args", [["task=Humanoid"], ["task=Humanoid", "train=HumanoidSAC"],
+                                  ["task=Ant", "train=AntSAC"],
+                                  ["task=AnymalTerrain", "train=AnymalTerrainPPO_LSTM"]],
+                         ids=["HumanoidPPO", "HumanoidSAC", "AntSAC", "AnymalTerrainPPO_LSTM"])
+def test_recipes_match_jax(args):
+    """The train yamls of this port's SAC and recurrent recipes (the last
+    two are built on `defaults:`) compose to the JAX package's dicts."""
+    jcfg, tcfg = jax_load_config(args), tconfig.load_config(args)
+    strip = lambda c: {k: v for k, v in c.items() if k not in DEVICE_FLAGS}
+    assert strip(tcfg)["train"] == strip(jcfg)["train"] and tcfg["task"]["env"] == jcfg["task"]["env"]
+
+
 def test_cfg_dir_is_the_ports_own():
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(tconfig.__file__)))
     assert tconfig.cfg_dir() == os.path.join(pkg, "cfg")
@@ -32,8 +44,8 @@ def test_cfg_dir_is_the_ports_own():
 
 
 def test_unknown_task_raises():
-    with pytest.raises(FileNotFoundError, match="Humanoid"):
-        tconfig.load_config(["task=Humanoid"])
+    with pytest.raises(FileNotFoundError, match="ShadowHand"):
+        tconfig.load_config(["task=ShadowHand"])
 
 
 def test_resolvers_and_overrides():

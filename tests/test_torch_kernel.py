@@ -448,3 +448,27 @@ def test_sdf_rows_kernel_matches_plain_version():
                out.body_torque.permute(2, 1, 0).reshape(3 * m.nbody, n), out.dof_force.T)
         for k, a, b in zip(TOL, got, ref):
             assert float((a - b).abs().max()) < TOL[k], k
+
+
+@pytest.mark.cuda
+def test_humanoid_kernel_matches_plain_version():
+    """The Humanoid instantiation (nv 27, 35 plane contacts, 8 envs per
+    block) against its plain version for one step at 256 envs, from
+    well-conditioned standing states (chip_smoke.humanoid_inputs): within
+    the tolerances, both feet carrying force in 90 % of the envs or more."""
+    import pathlib
+    import sys
+
+    _needs_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    env = _task("Humanoid", 256)
+    (q, qd, qfrc, xfrc), _ = chip_smoke.humanoid_inputs(env, 256, seed=71, steps=1)
+    _, step = fused._prepared(env.model, env.sim_params, torch.device("cuda"))
+    assert step.sizes == (25, 28, 27, 35, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8)
+    before = _cuda.FusedStepCall.launches
+    err = chip_smoke.compare_model(env.model, env.sim_params, q, qd, qfrc, xfrc, None, 1,
+                                   force_of=env.feet.tolist())
+    assert _cuda.FusedStepCall.launches == before + 1 and err["seen_force"] > 0.9
+    assert step.occupancy()["blocks_per_sm"] >= 1

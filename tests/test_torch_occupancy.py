@@ -2,8 +2,8 @@
 block, and the 3xTF32 arithmetic of its Delassus Gram product, on the CPU.
 
 `_cuda.env_floats` mirrors the E_* constants of `engine/csrc/fused_step.cu`:
-here the source's own constexpr chain is evaluated for Anymal, AnymalTerrain
-and FactoryTaskInsertion and must give the same count (the wrapper checks it
+here the source's own constexpr chain is evaluated for Anymal, AnymalTerrain,
+FactoryTaskInsertion, Ingenuity and Humanoid and must give the same count (the wrapper checks it
 again against the compiled `ENV_FLOATS` on the card). Envs per block is the
 choice that keeps the most envs resident per SM at a given register count.
 The kernel forms the Jacobi scale and the Lipschitz bound from W = J M^-1 and
@@ -26,7 +26,7 @@ from isaacgymenvs_tpu_torch.utils.config import load_config
 
 # floats per env, envs per block and resident warps per SM at the planned registers per thread
 LAYOUT = {"Anymal": (3608, 4, 12), "AnymalTerrain": (2804, 4, 12), "FactoryTaskInsertion": (3812, 8, 8),
-          "Ingenuity": (832, 8, 16)}
+          "Ingenuity": (832, 8, 16), "Humanoid": (4688, 8, 8)}
 
 
 @pytest.fixture(scope="module")
@@ -126,8 +126,10 @@ def test_envs_per_block_from_bytes_and_registers(models, task):
     """Of 8, 4, 2 and 1 envs per block, the one that keeps the most envs
     resident per SM: at 168 registers per thread Anymal and AnymalTerrain
     take 3 blocks of 4 (12 warps), Insertion one block of 8 (its 16 KB spec
-    in every block keeps 2 blocks of 4 from fitting a third), and Ingenuity
-    at 128 two blocks of 8 (16 warps, as four blocks of 4 would be); at 255
+    in every block keeps 2 blocks of 4 from fitting a third), Humanoid one
+    block of 8 (164,512 bytes; 2 blocks of 4 give as many warps), and
+    Ingenuity at 128 two blocks of 8 (16 warps, as four blocks of 4 would
+    be); at 255
     registers the register file allows 8 warps, and each takes one block of
     8. The size tuple carries the choice."""
     env, s, p, has_qt, names, has_terr = models[task]
@@ -178,13 +180,9 @@ def _scale_and_bound(J, Minv, mm):
     return torch.stack(diags, 1), torch.stack(lips)
 
 
-@pytest.mark.parametrize("task", ["Anymal", "AnymalTerrain"])
-def test_3xtf32_gram_product_keeps_float32_accuracy(models, task):
-    """J and M^-1 of the plain step's first slice (robots standing 2 mm in
-    the ground; AnymalTerrain's rows gathered to its cap of 20, fillers
-    included) through the 3xTF32 emulation and through one TF32 product,
-    against float64: the diagonal and the Lipschitz bound agree within 1e-6
-    relative with the split, and a single TF32 product misses that."""
+def _first_slice_gram(models, task):
+    """J and M^-1 of the plain step's first slice, the robots standing 2 mm
+    in the ground."""
     env, s, p, has_qt, names, has_terr = models[task]
     m = env.model
     st, _ = env.reset(4)
@@ -203,9 +201,50 @@ def test_3xtf32_gram_product_keeps_float32_accuracy(models, task):
         rows(q), rows(qd), rows(qd), None, rows(q) if has_qt else None, dyn)
     J, Minv = gram[0]
     assert J.shape[1] == 3 * (fused.topk_cap(s, p) or s.nct)
+    return J, Minv
+
+
+@pytest.mark.parametrize("task", ["Anymal", "AnymalTerrain"])
+def test_3xtf32_gram_product_keeps_float32_accuracy(models, task):
+    """J and M^-1 of the plain step's first slice (robots standing 2 mm in
+    the ground; AnymalTerrain's rows gathered to its cap of 20, fillers
+    included) through the 3xTF32 emulation and through one TF32 product,
+    against float64: the diagonal and the Lipschitz bound agree within 1e-6
+    relative with the split, and a single TF32 product misses that."""
+    J, Minv = _first_slice_gram(models, task)
     d64, l64 = _scale_and_bound(J.double(), Minv.double(), lambda a, b: a @ b)
     d3, l3 = _scale_and_bound(J, Minv, _mm_3xtf32)
     d1, l1 = _scale_and_bound(J, Minv, _mm_tf32)
     rel = lambda a, b: float(((a.double() - b).abs() / b.abs()).max())
     assert rel(d3, d64) < 1e-6 and rel(l3, l64) < 1e-6
     assert max(rel(d1, d64), rel(l1, l64)) > 1e-6
+
+
+def test_3xtf32_gram_product_at_27_dofs(models):
+    """Humanoid (nv 27: four 8-wide k-tiles, k padded to 32): the 3xTF32
+    diagonal and Lipschitz bound stay within 4x of a plain float32
+    product's own error against float64 (its M^-1 with massless links makes
+    that 1.1e-6 relative on the diagonal), where one TF32 product is off by
+    more than 1e-3."""
+    J, Minv = _first_slice_gram(models, "Humanoid")
+    d64, l64 = _scale_and_bound(J.double(), Minv.double(), lambda a, b: a @ b)
+    rel = lambda a, b: float(((a.double() - b).abs() / b.abs()).max())
+    (d32, l32), (d3, l3), (d1, l1) = (_scale_and_bound(J, Minv, mm) for mm in (lambda a, b: a @ b, _mm_3xtf32,
+                                                                                 _mm_tf32))
+    assert rel(d3, d64) < 4 * rel(d32, d64) and rel(l3, l64) < 4 * max(rel(l32, l64), 1e-7)
+    assert rel(d3, d64) < 5e-6 and rel(l3, l64) < 1e-6 and rel(d1, d64) > 1e-3
+
+
+@pytest.mark.cuda
+def test_humanoid_occupancy_on_card():
+    """On the card the Humanoid build gets the residency the host planned:
+    one block of 8 envs per SM (8 warps), its 164,512 bytes of shared memory
+    being what binds; ptxas's registers (227 on the H100) cost no block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = task_map["Humanoid"](load_config(["task=Humanoid", "num_envs=8"])["task"], device="cuda")
+    _, step = fused._prepared(env.model, env.sim_params, torch.device("cuda"))
+    occ = step.occupancy()
+    assert step.epb == 8 and step.smem_bytes == occ["smem_bytes"] == 164512
+    assert occ["blocks_per_sm"] == _cuda.resident_blocks(step.smem_bytes, 8, _cuda.plan_regs(27)) == 1
+    assert occ["local_bytes"] >= 0 and occ["registers"] <= 255

@@ -244,30 +244,39 @@ def test_rollout_without_normalization_matches_jax(flag):
 
 
 @pytest.mark.parametrize("what, env_attrs, train, match", [
-    ("central value", {"num_states": 12}, {}, "num_states"),
+    ("captured extras", {}, {}, "capture_extras"),
     ("recurrent network", {}, {"network": {"rnn": {"name": "lstm", "units": 32}}}, "rnn"),
     ("local shuffle", {}, {"config": {"local_shuffle": True}}, "local_shuffle"),
 ])
 def test_ppo_raises_for_what_is_not_ported(what, env_attrs, train, match):
-    """Options whose code the port lacks raise by name instead of being ignored."""
+    """Options whose code the port lacks raise by name instead of being
+    ignored: captured extras (AMP), the multi-device shuffle; a recurrent
+    network is PPORecurrent's, not PPO's."""
     import types
 
     env = types.SimpleNamespace(num_obs=4, num_acts=1, num_envs=8, device=torch.device("cpu"), **env_attrs)
+    cls = type("Capturing", (tppo.PPO,), {"capture_extras": ("amp_obs",)}) if what == "captured extras" else tppo.PPO
     with pytest.raises(NotImplementedError, match=match):
-        tppo.PPO(env, train)
+        cls(env, train)
 
 
 def test_rollout_raises_for_episode_cumulative_extras():
+    """`episode_cumulative` terms are summed per env from the first step
+    that emits them (tests/test_torch_ppo_extras.py); an env whose terms
+    change name between steps is refused, as the JAX package's compiled
+    rollout fixes them from the first step's structure."""
     _, tagent = _agents("Cartpole")
-    step = tagent.env.step
+    step, calls = tagent.env.step, []
 
     def step_with_cumulative(state, action):
         out = step(state, action)
-        return (*out[:4], {**out[4], "episode_cumulative": {"r": out[2]}})
+        calls.append(1)
+        return (*out[:4], {**out[4], "episode_cumulative": {"r" if len(calls) < 3 else "r2": out[2]}})
 
     tagent.env.step = step_with_cumulative
-    with pytest.raises(NotImplementedError, match="episode_cumulative"):
+    with pytest.raises(ValueError, match="episode_cumulative"):
         tagent.rollout(tagent.init())
+    assert len(calls) == 3
 
 
 # ---- whole epochs ---------------------------------------------------------------
