@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of steps 14, 17, 22 and 26 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14, 17, 22, 26 and 33 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -145,7 +145,25 @@
 31. two Ant rollouts at 4096 envs from one seed are bit-equal: env.step
    alone, and PPO.rollout with the policy;
 32. the Humanoid kernel timed at 4096 envs;
-33. prints one `kernels` JSON line with all instantiations (each with its
+33. HumanoidAMP (nv 34: two dofs per lane, five k-tiles of the Gram product
+   with k padded to 40; 42 plane contacts under the top-K cap of 16,
+   `q_target`; eight envs per block) against its plain version for 3 env
+   steps (6 calls) at N=1003 and 4096, from states of the motion clip and
+   (one env in 16) lying on its back with more candidates in the margin
+   than the cap, kept where rounding alone moves each call by at most
+   COND_TOL (`amp_inputs`);
+34. 1 + 2 full-width AMP epochs (`load_config(["task=HumanoidAMP"])`, 4096
+   envs, horizon 16, batch 65,536, minibatch 32,768, 6 mini-epochs, MLP
+   [1024, 512] separate, discriminator [1024, 512] on 210-wide windows; 32
+   launches each, finite kl, disc_acc and disc_reward_mean), device ops per
+   HumanoidAMP env step;
+35. `train.main task=HumanoidAMP`: 2 epochs, a bit-equal restore (policy,
+   discriminator, the three normalizers, Adam), a resume, play;
+36. HRL on HumanoidAMP at 4096 envs (`train.params.algo.name=hrl_continuous`,
+   the seeded `amp_latent` LLC): one macro step advances `progress` by
+   llc_steps, then `train.main` for 2 epochs, a resume and play;
+37. the HumanoidAMP kernel timed at 4096 envs;
+38. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
@@ -796,11 +814,12 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
     """`timed` timed PPO epochs after a warm-up on `task` at its yaml's full
     width (`width` = envs, horizon, batch, minibatch, mini-epochs), with the
     train yaml `recipe` (default <task>PPO; one with `network.rnn` trains
-    with PPORecurrent) and further config `overrides` (e.g.
+    with PPORecurrent, `algo.name=amp_continuous` with AMPAgent) and further
+    config `overrides` (e.g.
     task.randomize=True); `check(agent, ts, traj)` sees each timed epoch's
     rollout. Returns the kernel launches of the timed epochs."""
     from isaacgymenvs_tpu_torch.engine import _cuda
-    from isaacgymenvs_tpu_torch.learn import PPO, PPORecurrent
+    from isaacgymenvs_tpu_torch.learn import PPO, AMPAgent, PPORecurrent
     from isaacgymenvs_tpu_torch.tasks import task_map
     from isaacgymenvs_tpu_torch.utils.config import load_config
 
@@ -808,7 +827,9 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
     env = task_map[task](cfg["task"], device="cuda")
     label = task + (f" {recipe}" if recipe else "") + (" " + " ".join(overrides) if overrides else "")
     params = cfg["train"]["params"]
-    agent = (PPORecurrent if params.get("network", {}).get("rnn") else PPO)(env, params, seed=int(cfg["seed"]))
+    kind = (AMPAgent if params.get("algo", {}).get("name") == "amp_continuous"
+            else PPORecurrent if params.get("network", {}).get("rnn") else PPO)
+    agent = kind(env, params, seed=int(cfg["seed"]))
     c = agent.cfg
     horizon = width[1]
     if (env.num_envs, c.horizon_length, agent.batch_size, agent.minibatch_size, c.mini_epochs) != tuple(width):
@@ -847,7 +868,8 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
         print(f"{label} train epoch {epoch}: {sec:.4f} s = rollout {split['rollout']:.4f} s + update "
               f"{sec - split['rollout']:.4f} s, {agent.batch_size / sec:.1f} env-steps/s, {launches} launches, "
               f"a_loss {metrics['a_loss']:.5f} c_loss {metrics['c_loss']:.5f} kl {metrics['kl']:.5f} "
-              f"lr {metrics['lr']:.2e}")
+              f"lr {metrics['lr']:.2e}" + "".join(f" {k} {metrics[k]:.5f}" for k in ("disc_acc", "disc_reward_mean")
+                                                  if k in metrics))
         if check is not None:
             check(agent, *split["traj"])
     if profile:
@@ -1898,6 +1920,255 @@ def determinism(steps: int = 16) -> None:
             raise AssertionError(f"two {label} runs from one seed differ")
 
 
+# ---- HumanoidAMP (nv 34: two dofs per lane, top-K cap 16, q_target), AMP, HRL ----
+
+AMP_ENVS = 4096  # numEnvs of HumanoidAMP.yaml
+AMP_SIZES = (31, 35, 34, 42, 0, 0, 1, 0, 0, 0, 0, 16, 0, 0, 8)
+AMP_WIDTH = (AMP_ENVS, 16, 65536, 32768, 6)  # HumanoidAMPPPO.yaml: envs, horizon, batch, minibatch, mini-epochs
+AMP_LAUNCHES = 6  # the comparison's physics calls: 3 env steps of controlFrequencyInv 2
+AMP_POOL = 16384  # comparison candidates are drawn this many at a time (`amp_inputs`): the plain
+# step's host side costs the same at 8192 envs, so larger pools take fewer of its calls
+LYING_SHARE = 4  # one candidate in this many lies on its back, pushed in (`HumanoidAMP.lying_states`)
+PAST_CAP_SHARE = 32  # one compared env in this many has more candidates in the margin than the cap
+
+
+def amp_env(n: int):
+    return task_env("HumanoidAMP", n)
+
+
+def amp_pool(env, n: int, seed: int):
+    """n comparison candidates (q, qd, q_target) on the card: one in
+    LYING_SHARE on its back, pushed 3-5 cm in, the rest from the motion clip
+    with the lowest point 0-1 mm in the ground; PD targets within 0.05 rad
+    of the pose. Returns them and the count of lying ones (first)."""
+    nl = n // LYING_SHARE
+    q1, qd1 = env.lying_states(nl, seed)
+    q2, qd2 = env.standing_states(n - nl, seed + 1)
+    q, qd = torch.cat([q1, q2]), torch.cat([qd1, qd2])
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    return q, qd, q + 0.1 * (torch.rand(q.shape, generator=g, device="cuda") - 0.5), nl
+
+
+def kernel_jitter_ok(env, p, q, qd, qt, seed: int, draws: int = 4):
+    """Per env: the kernel's step moves by at most COND_TOL when every entry
+    of q and qd is moved one ulp up or down at random (`draws` times;
+    launches that count for no main path). `conditioned` moves the base's
+    position alone; a solve near a tie of its restarts or its cone
+    projections can sit still under that and flip under another rounding."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    zero = torch.zeros_like(qd)
+    run = lambda a, b: fused.physics_step_fused(env.model, p, a, b, zero, q_target=qt)
+    ulp = lambda t: torch.nextafter(t, torch.where(torch.rand(t.shape, generator=g, device="cuda") < 0.5, -1e30, 1e30))
+    k0 = run(q, qd)
+    ok = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
+    for _ in range(draws):
+        k1 = run(ulp(q), ulp(qd))
+        ok &= ((k0.q - k1.q).abs().amax(1) < COND_TOL["q"]) & ((k0.qd - k1.qd).abs().amax(1) < COND_TOL["qd"])
+        for f in ("body_force", "body_torque", "dof_force"):
+            d = (getattr(k0, f) - getattr(k1, f)).abs()
+            ok &= d.reshape(d.shape[0], -1).amax(1) < COND_TOL["force"]
+    return ok
+
+
+def amp_inputs(env, n: int, seed: int):
+    """n inputs (q, qd, q_target) whose AMP_LAUNCHES chained physics calls
+    each pass `conditioned` (rounding moves each call by at most COND_TOL, no
+    key tie at the cap, no candidate at the margin, no joint at a limit) and
+    `kernel_jitter_ok`:
+    the first n // PAST_CAP_SHARE lying with more candidates in the margin
+    than the cap, the rest from the clip. Drawn in pools of AMP_POOL until n
+    are kept; returns the inputs, the share of the drawn pools kept and the
+    kept envs past the cap."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    s, p = fused._extract(env.model), env.sim_params
+    cap = fused.topk_cap(s, p)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    want_lying = n // PAST_CAP_SHARE
+    lying, standing, drawn = [], [], 0
+    for k in range(64):
+        q, qd, qt, nl = amp_pool(env, AMP_POOL, seed + 7919 * k)
+        alive = torch.arange(AMP_POOL, device="cuda")  # the candidates that passed every call so far
+        x = (q, qd)
+        for launch in range(AMP_LAUNCHES):
+            ok, active, _ = conditioned(env, s, (), x[0], x[1], qt[alive], None, None, p, 0)
+            ok &= kernel_jitter_ok(env, p, x[0], x[1], qt[alive], seed + 31 * k + launch)
+            if launch == 0:
+                ok &= (active > cap) | (alive >= nl)  # the lying ones must be past the cap
+            out = plain(rows(x[0][ok]), rows(x[1][ok]), torch.zeros(s.nv, int(ok.sum()), device="cuda"), None,
+                        rows(qt[alive[ok]]), None)
+            alive, x = alive[ok], (out[0].T.contiguous(), out[1].T.contiguous())
+        lying.append(tuple(t[alive[alive < nl]] for t in (q, qd, qt)))
+        standing.append(tuple(t[alive[alive >= nl]] for t in (q, qd, qt)))
+        drawn += AMP_POOL
+        have = lambda c: sum(len(t[0]) for t in c)
+        if have(lying) >= want_lying and have(standing) >= n - want_lying:
+            break
+    if have(lying) < want_lying or have(standing) < n - want_lying:
+        raise AssertionError(f"HumanoidAMP: {have(lying)} lying and {have(standing)} clip states of {drawn} are "
+                             f"well conditioned, {want_lying} and {n - want_lying} needed")
+    cat = lambda c, m: [torch.cat(t)[:m] for t in zip(*c)]
+    picked = [torch.cat([a, b]).contiguous() for a, b in zip(cat(lying, want_lying), cat(standing, n - want_lying))]
+    return picked, (have(lying) + have(standing)) / drawn, want_lying
+
+
+def compare_amp() -> float:
+    """The HumanoidAMP instantiation (nv 34, VPL 2, 42 plane contacts under
+    the cap of 16, q_target) against its plain version for 3 env steps (6
+    physics calls, the plain output carried) at N=RAGGED_ENVS and at full
+    width, from `amp_inputs`; contact force in 75 % of the envs or more.
+    Returns the largest error."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    env4 = amp_env(AMP_ENVS)
+    (q, qd, qt), kept, past = amp_inputs(env4, AMP_ENVS, seed=61)
+    worst = 0.0
+    for n in (RAGGED_ENVS, AMP_ENVS):
+        env = env4 if n == AMP_ENVS else amp_env(n)
+        sel = lambda t: t[:n].contiguous()
+        zero = torch.zeros(n, env.model.nv, device="cuda")
+        err = compare_model(env.model, env.sim_params, sel(q), sel(qd), zero, None, sel(qt), AMP_LAUNCHES)
+        ko = fused.physics_step_fused(env.model, env.sim_params, sel(q), sel(qd), zero, q_target=sel(qt))
+        pressed = float((torch.linalg.vector_norm(ko.body_force, dim=-1).amax(1) > 1.0).float().mean())
+        print(f"HumanoidAMP kernel vs plain, N={n}, 3 env steps ({AMP_LAUNCHES} calls), {100 * kept:.1f} % of the "
+              f"drawn states well conditioned over them, {min(past, n)} envs with more candidates in the margin than "
+              f"the cap, contact force in {100 * pressed:.1f} % of envs:", json.dumps(err))
+        if not pressed >= 0.75:
+            raise AssertionError(f"HumanoidAMP N={n}: contact force in {pressed:.3f} of the envs")
+        worst = max(worst, *err.values())
+    return worst
+
+
+def time_amp(card: str) -> dict:
+    """`kernel_times` of the HumanoidAMP instantiation at full width, from `amp_pool`."""
+    env = amp_env(AMP_ENVS)
+    q, qd, qt, _ = amp_pool(env, AMP_ENVS, seed=63)
+    zero = torch.zeros(env.model.nv, AMP_ENVS, device="cuda")
+    print(f"HumanoidAMP: {env.control_freq_inv} launches per env step (controlFrequencyInv, no merged window), "
+          f"{env.control_freq_inv * AMP_WIDTH[1]} per AMP epoch")
+    return kernel_times(env, rows(q), rows(qd), zero, None, card, reps=30, qt=rows(qt))
+
+
+def restored_amp_bit_equal(args, ckpt: str, ts, epochs: int) -> None:
+    """`restored_bit_equal` for an AMPAgent: the policy and the
+    discriminator, lr, the three normalizers (amp_rms too) and the Adam
+    moments of both nets, restored into a fresh agent of another seed."""
+    from isaacgymenvs_tpu_torch.learn import AMPAgent
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    cfg = load_config(args)
+    fresh = AMPAgent(task_map["HumanoidAMP"](cfg["task"], device="cuda"), cfg["train"]["params"], seed=1)
+    fts, epoch = fresh.restore(ckpt, fresh.init())
+    trained = ts.optimizer.param_groups[0]["params"]
+    same = epoch == epochs and fts.lr == ts.lr
+    same &= all(torch.equal(a, b) for (_, a), b in zip(fresh.named_trainables(), trained, strict=True))
+    for a, b in ((fts.obs_rms, ts.obs_rms), (fts.value_rms, ts.value_rms), (fts.amp_rms, ts.amp_rms)):
+        same &= all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("mean", "var", "count"))
+    fst, tst = fts.optimizer.state_dict()["state"], ts.optimizer.state_dict()["state"]
+    same &= set(fst) == set(tst) and all(
+        torch.equal(fst[i][k].cpu(), tst[i][k].cpu()) for i in tst for k in ("step", "exp_avg", "exp_avg_sq"))
+    if not same:
+        raise AssertionError("HumanoidAMP: restore did not give back the trained state bit for bit")
+
+
+def train_main_amp() -> int:
+    """`train.main task=HumanoidAMP` at the yaml's width (4096 envs,
+    HumanoidAMPPPO.yaml): 2 epochs (32 launches each, finite metrics), a
+    bit-equal restore, a resume to epoch 3, and play. Returns the training
+    launches."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    with tempfile.TemporaryDirectory() as runs:
+        args = ["task=HumanoidAMP", f"+train_dir={runs}"]
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, metrics = train.main([*args, "max_iterations=2"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        bad = {k: v for k, v in metrics.items() if isinstance(v, float) and not np.isfinite(v)
+               and k != "mean_episode_return"}
+        if launches != 2 * 16 * 2 or metrics["epoch"] != 2 or bad:
+            raise AssertionError(f"HumanoidAMP train.main: {launches} launches, {metrics}")
+        ckpt = os.path.join(runs, "HumanoidAMP", "nn", "last_HumanoidAMP.pth")
+        restored_amp_bit_equal(args, ckpt, ts, 2)
+        _, resumed = train.main([*args, "max_iterations=3", f"checkpoint={ckpt}"])
+        played = train.main([*args, "test=True", f"checkpoint={ckpt}"])
+    print(f"train.main task=HumanoidAMP: 2 epochs x {AMP_ENVS} envs in {sec:.2f} s ({metrics['frames'] / sec:.1f} "
+          f"env-steps/s with set-up), {launches} launches, disc_acc {metrics['disc_acc']:.4f} disc_reward_mean "
+          f"{metrics['disc_reward_mean']:.4f}; restore bit-equal; resumed to epoch {resumed['epoch']}; played mean "
+          f"return {played:.2f}")
+    if resumed["epoch"] != 3 or not np.isfinite(played):
+        raise AssertionError(f"HumanoidAMP: resume reached epoch {resumed['epoch']}, play returned {played}")
+    return launches
+
+
+def train_main_hrl() -> dict:
+    """HRL on HumanoidAMP at 4096 envs (`train.params.algo.name=hrl_continuous`,
+    the seeded `amp_latent` LLC): one macro step advances `progress` by
+    llc_steps in every env not done in it (2 x llc_steps launches); then
+    `train.main` for 2 epochs (16 macro steps of llc_steps env steps each),
+    a resume to epoch 3 and play. Returns the launches of the macro step and
+    of the training run, and the macro step's seconds."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.learn import HRL
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    override = "train.params.algo.name=hrl_continuous"
+    cfg = load_config(["task=HumanoidAMP", override])
+    agent = HRL(task_map["HumanoidAMP"](cfg["task"], device="cuda"), cfg["train"]["params"], seed=0)
+    ts = agent.init()
+    k = agent._llc_steps
+    g = torch.Generator(device="cuda").manual_seed(71)
+    latent = torch.randn(AMP_ENVS, agent._latent_dim, generator=g, device="cuda")
+    agent.env_step(ts.env_state, ts.obs, latent)  # warm-up
+    p0 = ts.env_state.progress.clone()
+    torch.cuda.synchronize()
+    _cuda.FusedStepCall.launches = 0
+    t0 = time.perf_counter()
+    es, obs, rew, done, _ = agent.env_step(ts.env_state, ts.obs, latent)
+    torch.cuda.synchronize()
+    macro_sec = time.perf_counter() - t0
+    out = {"macro": _cuda.FusedStepCall.launches}
+    moved = bool(((es.progress - p0 == k) | done).all())
+    print(f"HRL macro step: {k} env steps x {AMP_ENVS} envs in {macro_sec:.4f} s, {out['macro']} launches, "
+          f"progress advanced by {k} where not done: {moved}, done in {int(done.sum())} envs, "
+          f"mean reward {float(rew.mean()):.4f}")
+    if out["macro"] != 2 * k or not moved or tuple(obs.shape) != (AMP_ENVS, 105):
+        raise AssertionError("HRL: the macro step did not run llc_steps env steps")
+    del agent, ts, es
+    with tempfile.TemporaryDirectory() as runs:
+        args = ["task=HumanoidAMP", override, f"+train_dir={runs}"]
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        _, metrics = train.main([*args, "max_iterations=2"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out["train"] = _cuda.FusedStepCall.launches
+        bad = {k_: v for k_, v in metrics.items() if isinstance(v, float) and not np.isfinite(v)
+               and k_ != "mean_episode_return"}
+        if out["train"] != 2 * 16 * k * 2 or metrics["epoch"] != 2 or bad:
+            raise AssertionError(f"HRL train.main: {out['train']} launches, {metrics}")
+        ckpt = os.path.join(runs, "HumanoidAMP", "nn", "last_HumanoidAMP.pth")
+        _, resumed = train.main([*args, "max_iterations=3", f"checkpoint={ckpt}"])
+        played = train.main([*args, "test=True", f"checkpoint={ckpt}"])
+    print(f"train.main task=HumanoidAMP {override}: 2 epochs x 16 macro steps x {k} env steps x {AMP_ENVS} envs in "
+          f"{sec:.2f} s ({2 * 16 * k * AMP_ENVS / sec:.1f} env-steps/s with set-up), {out['train']} launches, kl "
+          f"{metrics['kl']:.5f}; resumed to epoch {resumed['epoch']}; played mean return {played:.2f}")
+    if resumed["epoch"] != 3 or not np.isfinite(played):
+        raise AssertionError(f"HRL: resume reached epoch {resumed['epoch']}, play returned {played}")
+    out["macro_sec"] = macro_sec
+    return out
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, started together; prints ptxas's figures, the shared memory
@@ -1920,6 +2191,7 @@ def build_all():
     built["Ball"] = (ball_holder(), ())  # the SDF rows (K6) without a cap
     built["Insertion"] = (insertion_env(8), ())  # SDF rows under the cap of 32, envs per block from its shared memory
     built["Humanoid"] = (humanoid_env(8), ())  # nv 27: 27 dof lanes, four k-tiles of the Gram product
+    built["HumanoidAMP"] = (amp_env(8), ())  # nv 34: two dofs per lane, five k-tiles, the cap of 16, q_target
 
     def params_of(t, e):
         return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
@@ -1937,6 +2209,7 @@ def build_all():
             or sizes["Ball"] != (2, 7, 6, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 8) \
             or sizes["Insertion"] != (14, 16, 15, 64, 0, 0, 1, 0, 0, 0, 0, 32, 0, 64, 8) \
             or sizes["Humanoid"] != (25, 28, 27, 35, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8) \
+            or sizes["HumanoidAMP"] != AMP_SIZES \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -1987,8 +2260,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
+    lap = lambda step: print(f"[{time.perf_counter() - t_start:.1f} s] steps up to {step} done")
+
     # 2. build every instantiation, one nvcc each, started together
     env, s, built, sizes = build_all()
+    lap(2)
 
     # 3. kernel vs plain version
     if any(RAGGED_ENVS % e == 0 for e in _cuda.ENVS_PER_BLOCK_CHOICES if e > 1):
@@ -2067,6 +2344,7 @@ def main() -> int:
         cart_t[n] = kernel_times(cenv, rows(state.sim.q), rows(state.sim.qd),
                                  rows(cenv.compute_force(act, None, None, ())[0]), None, name)
 
+    lap(8)
     # 9. the new instantiations against their plain versions
     new_err = {t: compare_case(t) for t in NEW_CASES}
 
@@ -2103,6 +2381,7 @@ def main() -> int:
     dyn_launches["Ant+yaml"] = train_epochs("Ant", overrides=("task.randomize=True",)) + train_ant_randomized()
     dyn_launches.update({f"{t}+dr": n for t, n in step_randomized_tasks().items()})
 
+    lap(16)
     # 17. Anymal and AnymalTerrain: the three instantiations against their plain versions
     anymal_err = {k: compare_anymal(k) for k in ANYMAL_CASES}
     # 18. one merged window against four separate launches
@@ -2122,6 +2401,7 @@ def main() -> int:
     # 21. kernel times at full width
     anymal_t = {k: time_anymal(k, name) for k in ANYMAL_CASES}
 
+    lap(21)
     # 22. FactoryTaskInsertion and the ball on an SDF box against their plain versions
     sdf_err = {"Insertion": compare_insertion(), "Ball": compare_ball()}
     # 23. the ball rests on the SDF box
@@ -2134,6 +2414,7 @@ def main() -> int:
     # 25. kernel times
     sdf_t = {"Insertion": time_insertion(name), "Ball": time_ball(name)}
 
+    lap(25)
     # 26. Humanoid (nv 27, K1 + K2) against its plain version
     humanoid_err = compare_humanoid()
     # 27. Humanoid PPO at full width: 1 + 2 epochs, device ops per env step
@@ -2151,9 +2432,27 @@ def main() -> int:
     # 32. the Humanoid kernel timed
     humanoid_t = time_humanoid(name)
 
+    lap(32)
+    # 33. HumanoidAMP (nv 34, VPL 2, the cap of 16, q_target) against its plain version
+    amp_err = compare_amp()
+    lap(33)
+    # 34. AMP at full width: 1 + 2 epochs
+    amp_launches = {"epochs": train_epochs("HumanoidAMP", AMP_WIDTH, profile=False, timed=2)}
+    ops_amp = profile_env_step(amp_env(AMP_ENVS), label="HumanoidAMP env.step")
+    print(f"device ops per HumanoidAMP env step: {ops_amp:.1f}")
+    lap(34)
+    # 35. train.main task=HumanoidAMP: train, restore bit-equal, resume, play; 36. HRL on HumanoidAMP
+    amp_launches["train_main"] = train_main_amp()
+    hrl = train_main_hrl()
+    amp_launches.update(hrl_macro_step=hrl["macro"], hrl_train_main=hrl["train"])
+    lap(36)
+    # 37. the HumanoidAMP kernel timed
+    amp_t = time_amp(name)
+    lap(37)
+
     if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
-                            *recipe_launches.values(), lstm_launches)) \
+                            *recipe_launches.values(), lstm_launches, *amp_launches.values())) \
             or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
@@ -2194,6 +2493,10 @@ def main() -> int:
          "launches_sac": humanoid_launches["SAC"], "launches_train_main": recipe_launches["Humanoid"]
          + recipe_launches["HumanoidSAC"], "max_abs_err": humanoid_err, **humanoid_t, "library_ms": None,
          "num_envs": HUMANOID_ENVS, "sizes": list(sizes["Humanoid"])},
+        {"name": "fused_step_humanoid_amp_k5_qt", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": sum(amp_launches.values()), **{f"launches_{k}": v for k, v in amp_launches.items()},
+         "max_abs_err": amp_err, **amp_t, "library_ms": None, "num_envs": AMP_ENVS,
+         "sizes": list(sizes["HumanoidAMP"])},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

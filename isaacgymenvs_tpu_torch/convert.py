@@ -28,8 +28,9 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
 
 def actor_critic_from_flax(params: Mapping) -> dict:
     """A flax network's params tree -> the state_dict of the port's module
-    of the same layout: `ActorCritic`, `CriticNet`, `LSTMActorCritic`, and
-    SAC's `SquashedGaussianActor` and `TwinQ`.
+    of the same layout: `ActorCritic`, `CriticNet`, `LSTMActorCritic`,
+    SAC's `SquashedGaussianActor` and `TwinQ`, AMP's `Discriminator` and
+    HRL's `AMPLatentActor`.
 
     Accepts the nested tree (with or without the top-level "policy" and
     "params" keys) or its flattened form with "/"-joined keys. A flax Dense
@@ -77,11 +78,14 @@ def _rms(d) -> dict:
 
 
 def _policy_and_central(tree: Mapping) -> dict:
-    """A PPO params tree ({"policy": ..., "central": ...} or the policy's
-    alone) as one state_dict, the central value net's under `central.`."""
+    """A PPO params tree ({"policy": ..., "central": ..., "disc": ...} or
+    the policy's alone) as one state_dict, the central value net's under
+    `central.`, AMP's discriminator under `disc.` (its `amp_rms` is data,
+    not weights, and is left out)."""
     sd = actor_critic_from_flax(tree["policy"] if "policy" in tree else tree)
-    if "central" in tree:
-        sd.update({f"central.{k}": v for k, v in actor_critic_from_flax(tree["central"]).items()})
+    for sub in ("central", "disc"):
+        if sub in tree:
+            sd.update({f"{sub}.{k}": v for k, v in actor_critic_from_flax(tree[sub]).items()})
     return sd
 
 
@@ -90,7 +94,8 @@ def train_state_from_jax(fields: Mapping, param_names) -> dict:
     port's checkpoints, for `PPO.load_state` (and `PPORecurrent`'s).
 
     `fields` holds numpy arrays: `params` (the flax tree, with a "central"
-    subtree for the central value net), `obs_rms` and `value_rms` (mean,
+    subtree for the central value net, and AMP's "disc" and "amp_rms"),
+    `obs_rms` and `value_rms` (mean,
     var, count), `state_rms` with the central value, `lr`, and optax's Adam
     state `mu`, `nu` (trees shaped like `params`) and `count`.
     `param_names` is `[n for n, _ in agent.named_trainables()]`, the
@@ -102,7 +107,7 @@ def train_state_from_jax(fields: Mapping, param_names) -> dict:
     mu, nu = _policy_and_central(fields["mu"]), _policy_and_central(fields["nu"])
     step = torch.tensor(float(np.asarray(fields["count"])))
     out = {
-        "params": {k: v for k, v in params.items() if not k.startswith("central.")},
+        "params": {k: v for k, v in params.items() if not k.startswith(("central.", "disc."))},
         "obs_rms": _rms(fields["obs_rms"]),
         "value_rms": _rms(fields["value_rms"]),
         "lr": float(np.asarray(fields["lr"])),
@@ -114,7 +119,34 @@ def train_state_from_jax(fields: Mapping, param_names) -> dict:
     if any(k.startswith("central.") for k in params):
         out["central"] = {k[len("central."):]: v for k, v in params.items() if k.startswith("central.")}
         out["state_rms"] = _rms(fields["state_rms"])
+    if any(k.startswith("disc.") for k in params):
+        out["disc"] = {k[len("disc."):]: v for k, v in params.items() if k.startswith("disc.")}
+        out["amp_rms"] = _rms(fields["params"]["amp_rms"])
     return out
+
+
+def motion_lib_from_arrays(fields: Mapping, device):
+    """A port `MotionLib` holding a JAX one's arrays (numpy, by attribute
+    name: root_pos, root_rot, dof_pos, dof_vel, key_pos, root_vel,
+    root_ang_vel, _fps, _lengths, _weights, _starts), without reading a
+    clip, on `device`."""
+    from .amp.motion_lib import MotionLib
+
+    lib = MotionLib.__new__(MotionLib)
+    dev = lib.device = torch.device(device)
+    f32 = lambda k: torch.tensor(np.asarray(fields[k], np.float32), device=dev)
+    for k in ("root_pos", "root_rot", "dof_pos", "dof_vel", "key_pos", "root_vel", "root_ang_vel", "_weights"):
+        setattr(lib, k, f32(k))
+    lib._fps = np.asarray(fields["_fps"], np.float64)
+    lib._lengths = np.asarray(fields["_lengths"], np.int64)
+    lib._durations = (lib._lengths - 1) / lib._fps
+    lib.num_motions = len(lib._lengths)
+    lib.num_dofs = lib.dof_pos.shape[-1]
+    lib._starts = torch.tensor(np.asarray(fields["_starts"], np.int64), device=dev)
+    lib._fps_t = torch.tensor(lib._fps, dtype=torch.float32, device=dev)
+    lib._dur_t = torch.tensor(lib._durations, dtype=torch.float32, device=dev)
+    lib._len_t = torch.tensor(lib._lengths, device=dev)
+    return lib
 
 
 def sac_state_from_jax(fields: Mapping) -> dict:

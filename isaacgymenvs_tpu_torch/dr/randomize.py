@@ -141,12 +141,14 @@ class DomainRandomizer:
         obs_dim=None,
         act_dim=None,
         obs_slices=None,
-        device="cpu",
+        *,
+        device,
     ):
         """actor_ranges: optional {actor_name: (body_lo, body_hi)} scoping
         each actor's specs to its own bodies/dofs/points; absent actors fall
         back to the whole-model leaf. obs_dim / act_dim / obs_slices may be
-        callables, resolved at sample time."""
+        callables, resolved at sample time. `device` is where the samples
+        live (the env's)."""
         self.model = model
         self.device = torch.device(device)
         self.actor_ranges = actor_ranges or {}

@@ -288,3 +288,73 @@ def forward_kinematics(model: Model, q: torch.Tensor, qd: torch.Tensor) -> Kin:
     else:
         S_t = Sd_t = q.new_zeros(N, 0, 6)
     return Kin(x=x, quat=quat, com=com, inertia_w=inertia_w, S=S_t, Sdot=Sd_t, v=v)
+
+
+class BodyPoses:
+    """World positions and rotations of every body at q: the `x` and `quat`
+    of `forward_kinematics`, from the same products, without velocities,
+    motion subspaces or inertias, and a tree level at a time (the bodies of
+    one depth and joint kind in one batch). A fixed body takes the hinge
+    products at angle 0 about a joint at its origin, which leave its pose
+    as the fixed branch does. The model's constants go to `device` once.
+
+    Calling it with q (N, nq) gives (x (N, nbody, 3), quat (N, nbody, 4)).
+    """
+
+    def __init__(self, model: Model, device):
+        dev = torch.device(device)
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        long = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+        parent = np.asarray(model.body_parent)
+        depth = np.zeros(model.nbody, np.int64)
+        for i, p in enumerate(parent):
+            depth[i] = 0 if p < 0 else depth[p] + 1
+        jt = np.asarray(model.jnt_type)
+        jpos = np.asarray(model.jnt_pos, np.float32).copy()
+        jpos[(jt != HINGE) & (jt != SLIDE)] = 0.0
+        self.nq, self.nbody = model.nq, model.nbody
+        # a fixed body reads the zero that is appended to q
+        qadr = np.where((jt == HINGE) | (jt == SLIDE), np.asarray(model.q_adr), model.nq)
+        self.levels = []
+        for d in range(int(depth.max()) + 1):
+            for kind in ("free", "hinge", "slide"):
+                sel = {"free": jt == FREE, "slide": jt == SLIDE, "hinge": (jt != FREE) & (jt != SLIDE)}[kind]
+                idx = np.where((depth == d) & sel)[0]
+                if not len(idx):
+                    continue
+                if kind == "free" and np.any(parent[idx] >= 0):
+                    raise NotImplementedError("BodyPoses: a free joint below the root")
+                self.levels.append((kind, long(idx), long(np.maximum(parent[idx], 0)), bool(d == 0),
+                                    f32(np.asarray(model.body_pos)[idx]), f32(np.asarray(model.body_quat)[idx]),
+                                    maths.normalize(f32(np.asarray(model.jnt_axis)[idx])),
+                                    f32(np.asarray(model.jnt_axis)[idx]), f32(jpos[idx]),
+                                    long(qadr[idx]), [int(model.q_adr[i]) for i in idx]))
+
+    def __call__(self, q: torch.Tensor):
+        N = q.shape[0]
+        x = q.new_zeros(N, self.nbody, 3)
+        quat = q.new_zeros(N, self.nbody, 4)
+        qz = torch.cat([q, q.new_zeros(N, 1)], -1)
+        for kind, idx, par, root, bpos, bquat, axis, raw_axis, jpos, qadr, fadr in self.levels:
+            if root:
+                xp = q.new_zeros(N, len(idx), 3)
+                qp = q.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(N, len(idx), 4)
+            else:
+                xp, qp = x[:, par], quat[:, par]
+            X_x = xp + maths.quat_rotate(qp, bpos)
+            X_q = maths.quat_mul(qp, bquat.expand(N, -1, 4))
+            if kind == "free":
+                xi = torch.stack([q[:, a:a + 3] for a in fadr], 1)
+                qi = maths.quat_unit(torch.stack([q[:, a + 3:a + 7] for a in fadr], 1))
+            elif kind == "slide":
+                qi = X_q
+                xi = X_x + maths.quat_rotate(X_q, raw_axis) * qz[:, qadr, None]
+            else:
+                s = qz[:, qadr, None]
+                jq = maths.quat_unit(torch.cat([axis * torch.sin(s / 2), torch.cos(s / 2)], -1))
+                qi = maths.quat_mul(X_q, jq)
+                anchor = X_x + maths.quat_rotate(X_q, jpos)
+                xi = anchor - maths.quat_rotate(qi, jpos)
+            x[:, idx] = xi
+            quat[:, idx] = qi
+        return x, quat

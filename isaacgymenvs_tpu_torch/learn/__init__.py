@@ -1,3 +1,5 @@
+from .amp import AMPAgent, AMPTrainState, Discriminator  # noqa: F401
+from .hrl import HRL, AMPLatentActor  # noqa: F401
 from .networks import MLP, ActorCritic, CriticNet  # noqa: F401
 from .ppo import PPO, PPOConfig, PPOTrainState, Transition  # noqa: F401
 from .replay_buffer import ReplayBuffer  # noqa: F401

@@ -18,7 +18,12 @@ Semantics follow the rl_games agent the train yamls configure
     `state_rms`;
   * per-episode sums of `extras['episode_cumulative']` terms, logged as
     `episode_cumulative/<k>` (mean over the episodes finished in the
-    rollout) and its `_min` / `_max`.
+    rollout) and its `_min` / `_max`;
+  * `capture_extras`: the env extras a subclass names are kept per step in
+    the rollout (`traj.extras[k]`, (T, N, ...)), for its hooks
+    `shape_rollout_rewards`, `extra_dataset` (entries that go through the
+    same minibatch permutation as the base ones) and `extra_loss` (AMP's
+    discriminator, `amp.AMPAgent`).
 
 The rollout runs under `torch.no_grad()`, the update under autograd. All
 of it is float32; TF32 is switched off, as the JAX package runs its matrix
@@ -27,9 +32,9 @@ ignored, as there. The policy's parameters live in `PPO.network` (an
 `nn.Module`): a `PPOTrainState` does not own them, it carries the
 optimizer bound to them, the learning rate, the normalizers and the env.
 
-Not ported yet, each raising NotImplementedError by name:
-`capture_extras` (AMP), `local_shuffle` (multi-device). A recurrent
-network (`network.rnn`) is `rnn.PPORecurrent`'s; `PPO` refuses it.
+Not ported yet, raising NotImplementedError by name: `local_shuffle`
+(multi-device). A recurrent network (`network.rnn`) is
+`rnn.PPORecurrent`'s; `PPO` refuses it.
 """
 from __future__ import annotations
 
@@ -150,7 +155,8 @@ class Transition(NamedTuple):
     ep_ret_done: torch.Tensor  # (T,) sum of returns of episodes finished
     ep_len_done: torch.Tensor
     n_done: torch.Tensor
-    # {"_env_metrics": {name: (T,) step means}, "_ep_cum": {name: (sum, min, max) (T,) each}}
+    # {"_env_metrics": {name: (T,) step means}, "_ep_cum": {name: (sum, min, max) (T,) each},
+    #  and each of `capture_extras`: (T, N, ...)}
     extras: Dict[str, Any]
     states: torch.Tensor | None = None  # (T, N, num_states) with the central value
 
@@ -176,7 +182,7 @@ def _rms_state(rms: RunningMeanStd) -> Dict[str, torch.Tensor]:
 class PPO:
     """PPO trainer bound to a VecTask env."""
 
-    # env-extras keys captured into the rollout (AMP observations); none ported
+    # env-extras keys captured into the rollout (AMP observations)
     capture_extras: tuple = ()
     # True in rnn.PPORecurrent, which builds its own network from network.rnn
     recurrent: bool = False
@@ -188,8 +194,6 @@ class PPO:
         mlp = net_cfg.get("mlp", {})
         if net_cfg.get("rnn") and not self.recurrent:
             raise NotImplementedError("network.rnn: a recurrent network trains with rnn.PPORecurrent, not PPO")
-        if self.capture_extras:
-            raise NotImplementedError("capture_extras is not ported yet")
         self.seed = seed
         # float32 matrix products in full precision, as the JAX package runs them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -296,6 +300,7 @@ class PPO:
         states, state_rms, ep_cum = ts.states, ts.state_rms, ts.ep_cum
         ep_ret, ep_len = ts.ep_return, ts.ep_len
         steps, env_metrics, ep_cum_steps, states_seen = [], [], [], []
+        captured = {k: [] for k in self.capture_extras}
         for t in range(cfg.horizon_length):
             if cfg.normalize_input:
                 obs_rms = rms_update(obs_rms, obs)
@@ -315,6 +320,8 @@ class PPO:
             if self.use_central_value:
                 states_seen.append(states)
                 states = extras["states"]
+            for k in self.capture_extras:
+                captured[k].append(extras[k])
             # every per-env numeric extra is logged as its mean over the envs
             env_metrics.append({
                 k: torch.mean(v.to(torch.float32))
@@ -338,7 +345,8 @@ class PPO:
             ep_ret = torch.where(done, torch.zeros_like(ep_ret), ep_ret)
             ep_len = torch.where(done, torch.zeros_like(ep_len), ep_len)
             obs = next_obs
-        extras = {"_env_metrics": {k: torch.stack([m[k] for m in env_metrics]) for k in env_metrics[0]}}
+        extras = {"_env_metrics": {k: torch.stack([m[k] for m in env_metrics]) for k in env_metrics[0]},
+                  **{k: torch.stack(v) for k, v in captured.items()}}
         if ep_cum_steps:
             extras["_ep_cum"] = {k: tuple(torch.stack([c[k][i] for c in ep_cum_steps]) for i in range(3))
                                  for k in ep_cum_steps[0]}
@@ -391,7 +399,8 @@ class PPO:
         return ()
 
     def extra_loss(self, batch_extra):
-        """Hook: additional loss terms from the extra dataset entries."""
+        """Hook: additional loss terms from the extra dataset entries, and a
+        dict of metrics (means over the epoch's minibatches)."""
         return 0.0, {}
 
     def shape_rollout_rewards(self, ts, traj):
@@ -404,7 +413,7 @@ class PPO:
 
         batch = (nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm,
         adv, ret_norm, [nstates with the central value,] *extra). Returns
-        (total, (a_loss, c_loss, entropy, b_loss, kl)).
+        (total, (a_loss, c_loss, entropy, b_loss, kl, extra_loss's metrics)).
         """
         cfg = self.cfg
         nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm, adv, ret_norm = batch[:8]
@@ -437,10 +446,10 @@ class PPO:
             - cfg.entropy_coef * entropy
             + cfg.bounds_loss_coef * b_loss
         )
-        xloss, _ = self.extra_loss(batch[n_base:])
+        xloss, xaux = self.extra_loss(batch[n_base:])
         total = total + xloss
         kl = _policy_kl(old_mu, old_log_sigma, mu, log_sigma)
-        return total, (a_loss, c_loss, entropy, b_loss, kl)
+        return total, (a_loss, c_loss, entropy, b_loss, kl, xaux)
 
     def _update_lr(self, lr: float, kl: float) -> float:
         cfg = self.cfg
@@ -462,7 +471,8 @@ class PPO:
             g.mul_(scale)
 
     def _minibatch_step(self, ts: PPOTrainState, mb, value_rms):
-        """One optimizer step at `ts.lr`; returns the loss's aux tuple."""
+        """One optimizer step at `ts.lr`; returns the loss's aux tuple and
+        the extra loss's metrics."""
         opt = ts.optimizer
         with torch.enable_grad():
             total, aux = self._loss(mb, value_rms)
@@ -473,7 +483,8 @@ class PPO:
         for group in opt.param_groups:
             group["lr"] = ts.lr
         opt.step()
-        return tuple(a.detach() for a in aux)
+        xaux = aux[5] if len(aux) > 5 else {}
+        return tuple(a.detach() for a in aux[:5]), {k: v.detach() for k, v in xaux.items()}
 
     # ------------------------------------------------------------------
     def train_epoch(self, ts: PPOTrainState, noise=None, perms=None):
@@ -520,7 +531,7 @@ class PPO:
                 dataset += (flat(self._norm_states(ts.state_rms, traj.states)),)
             dataset += self.extra_dataset(ts, traj, flat)
 
-        auxs = []
+        auxs, xauxs = [], []
         for e in range(cfg.mini_epochs):
             perm = (
                 perms[e]
@@ -529,9 +540,10 @@ class PPO:
             )
             # minibatches are contiguous slices of the permuted dataset
             for idx in perm.reshape(self.num_minibatches, self.minibatch_size):
-                aux = self._minibatch_step(ts, tuple(x[idx] for x in dataset), value_rms)
+                aux, xaux = self._minibatch_step(ts, tuple(x[idx] for x in dataset), value_rms)
                 ts.lr = self._update_lr(ts.lr, float(aux[4]))
                 auxs.append(aux)
+                xauxs.append(xaux)
         a_loss, c_loss, entropy, b_loss, kl = (torch.stack(x) for x in zip(*auxs))
         n_done = torch.sum(traj.n_done)
         metrics = {
@@ -553,18 +565,20 @@ class PPO:
                                   (f"episode_cumulative_max/{k}_max", torch.max(mx)))},
             "reward_mean_step": torch.mean(traj.reward),
             **aux_metrics,
+            **{k: torch.mean(torch.stack([x[k] for x in xauxs])) for k in xauxs[0]},
         }
         return ts, {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
-    def save(self, path: str, ts: PPOTrainState, epoch: int = 0, frames: int = 0):
-        central = {}
+    def save(self, path: str, ts: PPOTrainState, epoch: int = 0, frames: int = 0, extra=None):
+        """Write the checkpoint; `extra` (a dict) adds a subclass's entries."""
+        entries = dict(extra or {})
         if self.use_central_value:
-            central = {"central": self.central_net.state_dict(), "state_rms": _rms_state(ts.state_rms)}
+            entries.update(central=self.central_net.state_dict(), state_rms=_rms_state(ts.state_rms))
         save_checkpoint(
             path,
             {
-                **central,
+                **entries,
                 "params": self.network.state_dict(),
                 "obs_rms": _rms_state(ts.obs_rms),
                 "value_rms": _rms_state(ts.value_rms),
@@ -650,7 +664,7 @@ class PPO:
         succ_hist: Dict[int, int] = {}
         while finished < num_episodes:
             a, ts = self._play_step(ts, obs, done)
-            env_state, obs, rew, done, extras = self.env.step(env_state, a)
+            env_state, obs, rew, done, extras = self.env_step(env_state, obs, a)
             ep_ret = ep_ret + rew
             n_done = int(done.sum())
             if n_done:

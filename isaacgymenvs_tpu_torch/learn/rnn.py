@@ -229,7 +229,7 @@ class PPORecurrent(PPO):
             perm = perms[e] if perms is not None else torch.randperm(
                 self.num_seqs, generator=ts.generator, device=adv.device)
             for idx in perm.reshape(num_mb, self.seq_minibatch):
-                aux = self._minibatch_step(ts, tuple(x[idx] for x in dataset), value_rms)
+                aux, _ = self._minibatch_step(ts, tuple(x[idx] for x in dataset), value_rms)
                 ts.lr = self._update_lr(ts.lr, float(aux[4]))
                 auxs.append(aux)
         a_loss, c_loss, entropy, b_loss, kl = (torch.stack(x) for x in zip(*auxs))

@@ -16,7 +16,8 @@ class RunningMeanStd:
     count: torch.Tensor  # () float
 
     @classmethod
-    def create(cls, shape=(), device="cpu"):
+    def create(cls, shape, device):
+        """Zero mean, unit variance and a count of 1e-4, on `device`."""
         return cls(
             mean=torch.zeros(shape, device=device),
             var=torch.ones(shape, device=device),

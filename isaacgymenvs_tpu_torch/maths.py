@@ -114,3 +114,32 @@ def calc_heading_quat(q: torch.Tensor) -> torch.Tensor:
     axis = q.new_zeros(q.shape[:-1] + (3,))
     axis[..., 2] = 1.0
     return quat_from_angle_axis(calc_heading(q), axis)
+
+
+def calc_heading_quat_inv(q: torch.Tensor) -> torch.Tensor:
+    """The inverse of `calc_heading_quat`: a rotation about z by minus q's heading."""
+    axis = q.new_zeros(q.shape[:-1] + (3,))
+    axis[..., 2] = 1.0
+    return quat_from_angle_axis(-calc_heading(q), axis)
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation from q0 (t = 0) to q1 (t = 1) along the
+    shorter arc; a linear blend where the arc is below 1e-4."""
+    cos_half = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(cos_half < 0, -q1, q1)
+    cos_half = torch.abs(cos_half)
+    half = torch.arccos(torch.clamp(cos_half, -1.0, 1.0))
+    sin_half = torch.sqrt(torch.clamp(1.0 - cos_half * cos_half, min=0.0))
+    small = sin_half < 1e-4
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    if t.dim() < q0.dim():
+        t = t[..., None]
+    ratio_a = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * half) / torch.clamp(sin_half, min=1e-9))
+    ratio_b = torch.where(small, t, torch.sin(t * half) / torch.clamp(sin_half, min=1e-9))
+    return quat_unit(ratio_a * q0 + ratio_b * q1)
+
+
+def quat_to_tan_norm(q: torch.Tensor) -> torch.Tensor:
+    """6-D rotation representation: q's x axis (tangent) and z axis (normal)."""
+    return torch.cat([quat_axis(q, 0), quat_axis(q, 2)], dim=-1)

@@ -11,6 +11,7 @@ from .ball_balance import BallBalance
 from .cartpole import Cartpole
 from .factory_templates import FactoryTaskInsertion
 from .humanoid import Humanoid
+from .humanoid_amp import HumanoidAMP
 from .ingenuity import Ingenuity
 from .quadcopter import Quadcopter
 
@@ -22,6 +23,7 @@ task_map: Dict[str, Type[VecTask]] = {
     "Cartpole": Cartpole,
     "FactoryTaskInsertion": FactoryTaskInsertion,
     "Humanoid": Humanoid,
+    "HumanoidAMP": HumanoidAMP,
     "Ingenuity": Ingenuity,
     "Quadcopter": Quadcopter,
 }

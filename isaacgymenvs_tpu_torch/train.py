@@ -5,14 +5,19 @@
     python -m isaacgymenvs_tpu_torch.train task=Cartpole test=True checkpoint=runs/Cartpole/nn/Cartpole.pth
     python -m isaacgymenvs_tpu_torch.train task=Humanoid train=HumanoidSAC
     python -m isaacgymenvs_tpu_torch.train task=AnymalTerrain train=AnymalTerrainPPO_LSTM
+    python -m isaacgymenvs_tpu_torch.train task=HumanoidAMP
+    python -m isaacgymenvs_tpu_torch.train task=HumanoidAMP train.params.algo.name=hrl_continuous
 
 The flags are those of the JAX package's root train.py (the IsaacGymEnvs
 Hydra launcher's): any config leaf can be overridden with a dotted path,
 e.g. `train.params.config.minibatch_size=16384`, `num_envs=512`, `seed=7`,
 `experiment=MyAnt`, `sigma=0.5`. `+train_dir=<dir>` puts the run directory
 (`<dir>/<name>/{config.yaml,nn/,summaries/}`) elsewhere than `runs/`.
-`train.params.algo.name=sac` (the SAC yamls) trains with `learn.SAC`, a
-`network.rnn` block with `learn.PPORecurrent`, anything else with `PPO`.
+`train.params.algo.name=sac` (the SAC yamls) trains with `learn.SAC`,
+`amp_continuous` (HumanoidAMPPPO.yaml) with `learn.AMPAgent`,
+`hrl_continuous` with `learn.HRL` (latent macro actions over a frozen
+low-level controller, `llc_*` keys of `params.config`), a `network.rnn`
+block with `learn.PPORecurrent`, anything else with `PPO`.
 `+profile=<dir>` writes a torch.profiler trace (CPU and CUDA activity) of
 the first `profile_epochs` (default 3) epochs to <dir>, one file per run,
 readable in TensorBoard or chrome://tracing.
@@ -20,8 +25,8 @@ readable in TensorBoard or chrome://tracing.
 It runs on the card. `pipeline=cpu` or a `sim_device` that starts with
 `cpu` asks for the CPU; without a GPU and without such a flag it fails
 with the device error, it does not train on the CPU. Options whose code is
-not ported yet (AMP, HRL, PBT, multi-GPU, video capture) exit with a
-message that says so.
+not ported yet (PBT, multi-GPU, video capture) exit with a message that
+says so.
 """
 from __future__ import annotations
 
@@ -31,17 +36,15 @@ import sys
 
 import yaml
 
-from .learn import PPO, SAC, PPORecurrent
+from .learn import HRL, PPO, SAC, AMPAgent, PPORecurrent
 from .tasks import task_map
 from .utils.config import load_config
 from .utils.loggers import build_logger
 
 
-def _unported(cfg, train_params):
+def _unported(cfg):
     """Names of the requested options that the port does not carry yet."""
-    algo = str(train_params.get("algo", {}).get("name", "a2c_continuous"))
     asked = {
-        f"algo.name={algo}": algo in ("amp_continuous", "hrl_continuous"),
         "pbt.enabled": bool((cfg.get("pbt") or {}).get("enabled")),
         "multi_gpu": bool(cfg.get("multi_gpu")),
         "capture_video": bool(cfg.get("capture_video")),
@@ -62,7 +65,7 @@ def main(argv=None):
         print(f"seed=-1 -> sampled seed {seed}")
 
     train_params = cfg.get("train", {}).get("params", {})
-    unported = _unported(cfg, train_params)
+    unported = _unported(cfg)
     if unported:
         raise SystemExit(f"not ported yet: {', '.join(unported)}")
 
@@ -83,6 +86,10 @@ def main(argv=None):
     algo = str(train_params.get("algo", {}).get("name", "a2c_continuous"))
     if algo == "sac":
         agent = SAC(env, train_params, seed=seed)
+    elif algo == "amp_continuous":
+        agent = AMPAgent(env, train_params, seed=seed)
+    elif algo == "hrl_continuous":
+        agent = HRL(env, train_params, seed=seed)
     elif train_params.get("network", {}).get("rnn"):
         agent = PPORecurrent(env, train_params, seed=seed)
     else:

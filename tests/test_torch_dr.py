@@ -66,7 +66,7 @@ def test_transform_matches_jax_given_its_base_draw(distribution, operation, sche
     assert jspec_ == jdr.DRSpec(*tspec)  # the parsed specs agree field for field
     model = ex.tendon_chain_example()
     jrz = jdr.DomainRandomizer(ex.tendon_chain_example(jspec), {})
-    trz = DomainRandomizer(model, {})
+    trz = DomainRandomizer(model, {}, device="cpu")
     js, ts = jrz._sched_scale(jspec_, jnp.asarray(40.0)), trz._sched_scale(tspec, torch.tensor(40.0))
     assert float(js) == pytest.approx(float(ts)) == pytest.approx(0.4 if schedule == "linear" else 1.0)
     key, shape = jax.random.PRNGKey(3), (16, 5)
@@ -128,7 +128,7 @@ def test_batched_model_matches_jax_given_its_sample(masked):
     ranges = RANGES if masked else None
     jm, tm = ex.tendon_chain_example(jspec), ex.tendon_chain_example()
     jrz = jdr.DomainRandomizer(jm, params, actor_ranges=ranges, obs_dim=4, act_dim=2)
-    trz = DomainRandomizer(tm, params, actor_ranges=ranges, obs_dim=4, act_dim=2)
+    trz = DomainRandomizer(tm, params, actor_ranges=ranges, obs_dim=4, act_dim=2, device="cpu")
     assert [s.name for s in trz.model_specs] == [s.name for s in jrz.model_specs]
     assert [s.name for s in trz.scale_specs] == [s.name for s in jrz.scale_specs] == (["box.scale"] if masked else [])
     assert trz.param_info() == jrz.param_info() and trz.num_extern_params() == jrz.num_extern_params()
@@ -321,7 +321,8 @@ def test_per_key_observation_noise():
         "absent": {"range": [0, 0.01], "operation": "additive", "distribution": "gaussian"},
     }}
     slices = {"dof_pos": (0, 3), "goal": (5, 2), "other": (7, 3)}
-    rz = DomainRandomizer(ex.tendon_chain_example(), params, obs_dim=10, act_dim=2, obs_slices=lambda: slices)
+    rz = DomainRandomizer(ex.tendon_chain_example(), params, obs_dim=10, act_dim=2, obs_slices=lambda: slices,
+                          device="cpu")
     assert set(rz.obs_key_specs) == {"dof_pos", "goal", "absent"} and rz.obs_spec is None
     gen = torch.Generator().manual_seed(0)
     sample = rz.sample(gen, 4, 0)
@@ -375,7 +376,7 @@ def test_linear_schedule_ramps_from_identity():
     params = {"actor_params": {"a": {"dof_properties": {"damping": {
         "range": [2.0, 2.0], "operation": "scaling", "distribution": "uniform",
         "schedule": "linear", "schedule_steps": 10}}}}}
-    rz = DomainRandomizer(ex.tendon_chain_example(), params)
+    rz = DomainRandomizer(ex.tendon_chain_example(), params, device="cpu")
     gen = torch.Generator().manual_seed(0)
     for frames, want in ((0, 1.0), (5, 1.5), (10, 2.0), (40, 2.0)):
         v = rz.sample(gen, 3, torch.tensor(frames, dtype=torch.int32))["a.dof_properties.damping"]

@@ -472,3 +472,28 @@ def test_humanoid_kernel_matches_plain_version():
                                    force_of=env.feet.tolist())
     assert _cuda.FusedStepCall.launches == before + 1 and err["seen_force"] > 0.9
     assert step.occupancy()["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+def test_humanoid_amp_kernel_matches_plain_version():
+    """The HumanoidAMP instantiation (nv 34: two dofs per lane, five k-tiles
+    of the Gram product; 42 plane contacts under the top-K cap of 16,
+    q_target; 8 envs per block) against its plain version for 3 env steps
+    (6 calls) at 512 envs, from `chip_smoke.amp_inputs` (states of the clip,
+    and one in 32 lying on its back past the cap), within the tolerances."""
+    import pathlib
+    import sys
+
+    _needs_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    env = _task("HumanoidAMP", 512)
+    (q, qd, qt), _, past = chip_smoke.amp_inputs(env, 512, seed=73)
+    _, step = fused._prepared(env.model, env.sim_params, torch.device("cuda"), True)
+    assert step.sizes == chip_smoke.AMP_SIZES and past == 512 // chip_smoke.PAST_CAP_SHARE
+    before = _cuda.FusedStepCall.launches
+    zero = torch.zeros(512, env.model.nv, device="cuda")
+    chip_smoke.compare_model(env.model, env.sim_params, q, qd, zero, None, qt, chip_smoke.AMP_LAUNCHES)
+    assert _cuda.FusedStepCall.launches == before + chip_smoke.AMP_LAUNCHES
+    assert step.occupancy()["blocks_per_sm"] >= 1

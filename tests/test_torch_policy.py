@@ -62,7 +62,7 @@ def test_gaussian_logp():
 
 def test_running_stats():
     rng = np.random.RandomState(2)
-    jr, tr = jrs.RunningMeanStd.create((OBS,)), trs.RunningMeanStd.create((OBS,))
+    jr, tr = jrs.RunningMeanStd.create((OBS,)), trs.RunningMeanStd.create((OBS,), "cpu")
     for k in range(3):
         batch = (rng.normal(size=(2, 64, OBS)) * (k + 1) + k).astype(np.float32)
         jr = jrs.rms_update(jr, jnp.asarray(batch))

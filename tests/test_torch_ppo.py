@@ -244,20 +244,41 @@ def test_rollout_without_normalization_matches_jax(flag):
 
 
 @pytest.mark.parametrize("what, env_attrs, train, match", [
-    ("captured extras", {}, {}, "capture_extras"),
     ("recurrent network", {}, {"network": {"rnn": {"name": "lstm", "units": 32}}}, "rnn"),
     ("local shuffle", {}, {"config": {"local_shuffle": True}}, "local_shuffle"),
 ])
 def test_ppo_raises_for_what_is_not_ported(what, env_attrs, train, match):
     """Options whose code the port lacks raise by name instead of being
-    ignored: captured extras (AMP), the multi-device shuffle; a recurrent
-    network is PPORecurrent's, not PPO's."""
+    ignored: the multi-device shuffle; a recurrent network is
+    PPORecurrent's, not PPO's."""
     import types
 
     env = types.SimpleNamespace(num_obs=4, num_acts=1, num_envs=8, device=torch.device("cpu"), **env_attrs)
-    cls = type("Capturing", (tppo.PPO,), {"capture_extras": ("amp_obs",)}) if what == "captured extras" else tppo.PPO
     with pytest.raises(NotImplementedError, match=match):
-        cls(env, train)
+        tppo.PPO(env, train)
+
+
+def test_rollout_captures_extras():
+    """A subclass's `capture_extras` are kept per step in the rollout, time
+    leading, equal to what each env step emitted; the other extras are not."""
+    cfg = {"env": {"numEnvs": 8, "clipObservations": 5.0, "clipActions": 1.0}, "sim": {"dt": 1 / 60, "substeps": 2}}
+    from isaacgymenvs_tpu_torch.tasks import task_map as ttasks
+
+    env = ttasks["Cartpole"](cfg, device="cpu")
+    step = env.step
+    seen = []
+
+    def with_obs_copy(state, actions):
+        out = step(state, actions)
+        seen.append(out[1] * 2.0)
+        return (*out[:4], {**out[4], "doubled": seen[-1]})
+
+    env.step = with_obs_copy
+    agent = type("Capturing", (tppo.PPO,), {"capture_extras": ("doubled",)})(
+        env, {"config": {"horizon_length": 3, "minibatch_size": 24, "mini_epochs": 1}}, seed=0)
+    _, traj, _ = agent.rollout(agent.init())
+    assert traj.extras["doubled"].shape == (3, 8, 4) and "time_outs" not in traj.extras
+    torch.testing.assert_close(traj.extras["doubled"], torch.stack(seen))
 
 
 def test_rollout_raises_for_episode_cumulative_extras():

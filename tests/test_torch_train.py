@@ -168,8 +168,6 @@ def test_train_main_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("override, named", [
-    ("train.params.algo.name=amp_continuous", "algo.name=amp_continuous"),
-    ("train.params.algo.name=hrl_continuous", "algo.name=hrl_continuous"),
     ("pbt.enabled=True", "pbt.enabled"),
     ("multi_gpu=True", "multi_gpu"),
     ("capture_video=True", "capture_video"),

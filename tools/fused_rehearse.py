@@ -164,7 +164,8 @@ def main() -> int:
     s = fused._extract(m)
     epb = _cuda.envs_per_block(lambda e: _cuda.smem_bytes(s, p, e, qt_on), _cuda.SMEM_OPTIN_BYTES,
                                _cuda.plan_regs(s.nv))
-    sizes = _cuda.sizes_of(s, qt_on, (), fused.topk_cap(s, p), False, epb)
+    cap = fused.topk_cap(s, p)
+    sizes = _cuda.sizes_of(s, qt_on, (), cap, False, epb)
     work = os.path.join(HERE, "isaacgymenvs_tpu_torch", "_build", "rehearse")
     os.makedirs(work, exist_ok=True)
     src = open(_cuda.SOURCE).read()
@@ -205,9 +206,10 @@ def main() -> int:
     env_floats = int(run.stdout.split()[-1])
     ref = fused._step_math_torch(s, p, torch.device("cpu"))(ins["q"], ins["qd"], ins["qfrc"], ins["xfrc"],
                                                              ins.get("qt"))
-    ok = env_floats == _cuda.env_floats(s, qt_on)
+    host_floats = _cuda.env_floats(s, qt_on, (), cap)
+    ok = env_floats == host_floats
     print(f"{args.task} {'_'.join(map(str, sizes))}, {n} envs in blocks of {epb}: ENV_FLOATS {env_floats} "
-          f"(host {_cuda.env_floats(s, qt_on)})")
+          f"(host {host_floats})")
     for i, (name, fname) in enumerate(zip(TOL, ("q_out", "qd_out", "bf_out", "bt_out", "df_out"))):
         got = np.fromfile(os.path.join(work, f"{fname}.bin"), np.float32).reshape(ref[i].shape)
         err = float(np.abs(got - ref[i].numpy()).max())
