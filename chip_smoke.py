@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of steps 14, 17, 22, 26 and 33 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14, 17, 22, 26, 33 and 38 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -163,7 +163,26 @@
    the seeded `amp_latent` LLC): one macro step advances `progress` by
    llc_steps, then `train.main` for 2 epochs, a resume and play;
 37. the HumanoidAMP kernel timed at 4096 envs;
-38. prints one `kernels` JSON line with all instantiations (each with its
+38. FrankaCubeStack (nv 21, two free cubes; 40 BOX pair rows, no plane
+   rows, under the top-K cap of 20; `q_target` finger drives) and
+   FrankaCabinet (nv 13; 24 pair rows against the handle bar, a MESH geom
+   on the cylinder branch, under the cap of 16; finger drives of stiffness
+   1e6) against their plain versions for 3 env steps at N=1003 and at full
+   width (8192, 4096), from the tasks' `contact_states` (the cubes on the
+   table, cube A on cube B, cube A between the fingers; the hand or a
+   finger on the handle bar) under FrankaCubeStack's OSC torques, kept
+   where rounding alone moves each call by at most COND_TOL
+   (`franka_inputs`);
+39. FrankaCubeStack's OSC at 8192 envs: a +x task-space increment gives +x
+   grip-site acceleration in every env, and the torques, mass matrix,
+   inverse and Jacobian equal the CPU's from the same inputs (rtol 1e-4);
+40. 1 + 2 full-width PPO epochs of both (FrankaCubeStackPPO.yaml: batch
+   262,144, 16 minibatches x 5, 32 launches each; FrankaCabinetPPO.yaml:
+   65,536 in 8 x 8, 16 launches each), device ops per env step, and the
+   OSC's share of a FrankaCubeStack env step by wall time and device ops;
+41. `train.main` for both: 2 epochs, a bit-equal restore, a resume, play;
+42. both Franka kernels timed at full width;
+43. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
@@ -251,7 +270,7 @@ def cartpole_env(n: int):
     return task_map["Cartpole"](cfg, device="cuda")
 
 
-def task_env(name: str, n: int, randomize: bool = False):
+def task_env(name: str, n: int, randomize: bool = False, device: str = "cuda"):
     """A task of the port from its own yaml at `n` envs; with `randomize`,
     domain randomization on (Ant: the block of its yaml, else DR_BLOCK)."""
     from isaacgymenvs_tpu_torch.tasks import task_map
@@ -260,7 +279,7 @@ def task_env(name: str, n: int, randomize: bool = False):
     cfg = load_config([f"task={name}", f"num_envs={n}", f"task.randomize={randomize}"])["task"]
     if randomize and name != "Ant":
         cfg["task"]["randomization_params"] = DR_BLOCK
-    return task_map[name](cfg, device="cuda")
+    return task_map[name](cfg, device=device)
 
 
 def example_model(tendons: bool = False):
@@ -1096,7 +1115,7 @@ def anymal_pool(env, n: int, seed: int, terrain):
     return q, qd, qt, nt
 
 
-def conditioned(env, s, names, q, qd, qt, dyn_rows, terrain, p, wre):
+def conditioned(env, s, names, q, qd, qt, dyn_rows, terrain, p, wre, qfrc=None):
     """Per env: the cap-boundary keys of every slice differ by more than
     KEY_GAP, no candidate lies within MARGIN_GAP of the margin, no joint
     crosses a limit during the step or lies within LIMIT_GAP of one at its
@@ -1104,13 +1123,14 @@ def conditioned(env, s, names, q, qd, qt, dyn_rows, terrain, p, wre):
     roundings could take at different slices), and the plain step in
     float32, from q and from q's base position one ulp up and down, is
     within COND_TOL of the same in float64, as is the kernel's step from q
-    of its step from q one ulp up (launches that count for no main path).
+    of its step from q one ulp up (launches that count for no main path),
+    all under the joint forces `qfrc` (N, nv; zero without).
     Also returns the active candidates per env in the first slice."""
     from isaacgymenvs_tpu_torch.engine import fused
 
     keys = []
     terr = None if terrain is None else fused.pack_terrain(fused.terrain_dyn(env.model, terrain, q, qd))
-    zero = torch.zeros(s.nv, q.shape[0], device="cuda")
+    zero = torch.zeros(s.nv, q.shape[0], device="cuda") if qfrc is None else rows(qfrc)
     ins = (rows(q), rows(qd), zero, None, rows(qt), dyn_rows, terr)
     a = fused._step_math_torch(s, p, torch.device("cuda"), names, keys)(*ins, wre)
     wide = fused._step_math_torch(s, p, torch.device("cuda"), names, dtype=torch.float64)
@@ -1949,16 +1969,17 @@ def amp_pool(env, n: int, seed: int):
     return q, qd, q + 0.1 * (torch.rand(q.shape, generator=g, device="cuda") - 0.5), nl
 
 
-def kernel_jitter_ok(env, p, q, qd, qt, seed: int, draws: int = 4):
+def kernel_jitter_ok(env, p, q, qd, qt, seed: int, draws: int = 4, qfrc=None):
     """Per env: the kernel's step moves by at most COND_TOL when every entry
     of q and qd is moved one ulp up or down at random (`draws` times;
-    launches that count for no main path). `conditioned` moves the base's
+    launches that count for no main path), under the joint forces `qfrc`
+    (zero without). `conditioned` moves the base's
     position alone; a solve near a tie of its restarts or its cone
     projections can sit still under that and flip under another rounding."""
     from isaacgymenvs_tpu_torch.engine import fused
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    zero = torch.zeros_like(qd)
+    zero = torch.zeros_like(qd) if qfrc is None else qfrc
     run = lambda a, b: fused.physics_step_fused(env.model, p, a, b, zero, q_target=qt)
     ulp = lambda t: torch.nextafter(t, torch.where(torch.rand(t.shape, generator=g, device="cuda") < 0.5, -1e30, 1e30))
     k0 = run(q, qd)
@@ -2169,6 +2190,277 @@ def train_main_hrl() -> dict:
     return out
 
 
+# ---- FrankaCubeStack (OSC) and FrankaCabinet: pair rows under the top-K cap, the controllers ----
+
+# task -> the yaml's full width: envs, horizon, batch, minibatch, mini-epochs (FrankaCubeStackPPO.yaml,
+# FrankaCabinetPPO.yaml)
+FRANKA_WIDTH = {"FrankaCubeStack": (8192, 32, 262144, 16384, 5), "FrankaCabinet": (4096, 16, 65536, 8192, 8)}
+# the size tuples but for the envs per block, which the card's shared memory decides
+FRANKA_SIZES = {"FrankaCubeStack": (15, 23, 21, 0, 40, 0, 1, 0, 0, 0, 0, 20, 0, 0),
+                "FrankaCabinet": (19, 13, 13, 0, 24, 0, 1, 0, 0, 0, 0, 16, 0, 0)}
+FRANKA_LAUNCHES = 3  # the comparison's physics calls: 3 env steps of controlFrequencyInv 1
+FRANKA_POOL = 16384  # comparison candidates are drawn this many at a time (`franka_inputs`)
+# share of the comparison envs that must carry contact force on the cubes / the handle bar in the
+# kernel's first call (a finger under the bar may sag off it under gravity within the step)
+FRANKA_PRESSED = {"FrankaCubeStack": 0.9, "FrankaCabinet": 0.5}
+
+
+def franka_holder(env):
+    """What `conditioned` reads of an env: the model and the scalar dofs
+    whose limits it checks (the Franka's, and the cabinet's)."""
+    from types import SimpleNamespace
+
+    sdofs = env.scalar_dof_indices
+    m = env.model
+    dev = "cuda"
+    return SimpleNamespace(model=m, dof_idx=torch.tensor(sdofs, device=dev),
+                           dof_q_idx=torch.tensor([m.q_adr[m.dof_body[d]] for d in sdofs], device=dev))
+
+
+def franka_forces(env, q, qd):
+    """The comparison's joint forces and PD setpoints (N, nv), (N, nq):
+    FrankaCubeStack's OSC for a zero task-space increment (it holds the
+    grip site against the posture term, without gravity compensation, as
+    the reference's), FrankaCabinet none; every drive holds its joint where
+    it is."""
+    qfrc = torch.zeros_like(qd)
+    if getattr(env, "control_type", None) == "osc":
+        qfrc[:, env.v_idx[:7]] = env.osc_torques(torch.zeros(q.shape[0], 6, device="cuda"), q, qd)
+    return qfrc, q.clone()
+
+
+def float32_noise(env, s, p, q, qd, qfrc, qt) -> None:
+    """Prints the float32 rounding noise of the plain step on these
+    unfiltered inputs: per env, the largest gap of its force outputs and of
+    qd between the plain step in float32 and in float64 (median, 99th
+    percentile, largest, and the envs past the force tolerance)."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    ins = (rows(q), rows(qd), rows(qfrc), None, rows(qt), None)
+    a = fused._step_math_torch(s, p, torch.device("cuda"))(*ins)
+    b = fused._step_math_torch(s, p, torch.device("cuda"), dtype=torch.float64)(*(
+        None if x is None else x.double() for x in ins))
+    force = torch.stack([(a[i] - b[i]).abs().amax(0) for i in (2, 3, 4)]).amax(0)
+    vel = (a[1] - b[1]).abs().amax(0)
+    qs = lambda t: [float(x) for x in torch.quantile(t.double(), torch.tensor([0.5, 0.99], device="cuda",
+                                                                                dtype=torch.float64))]
+    print(f"{type(env).__name__}: the plain step in float32 against float64 on {q.shape[0]} unfiltered contact "
+          f"states: forces median {qs(force)[0]:.3e} N, 99th percentile {qs(force)[1]:.3e}, largest "
+          f"{float(force.max()):.3e} ({int((force > TOL['body_force']).sum())} envs past {TOL['body_force']}); qd "
+          f"median {qs(vel)[0]:.3e}, largest {float(vel.max()):.3e}")
+
+
+def franka_inputs(env, n: int, seed: int):
+    """n inputs (q, qd, qfrc, q_target) from the task's `contact_states`
+    whose FRANKA_LAUNCHES chained physics calls each pass `conditioned`
+    (rounding moves each call by at most COND_TOL, no key tie at the cap, no
+    candidate at the margin, no joint at a limit) and `kernel_jitter_ok`,
+    under `franka_forces`. Drawn in pools of FRANKA_POOL until n are kept;
+    returns the inputs, the share of the drawn pools kept, and the most and
+    mean candidates within the margin per kept env in the first call."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    s, p = fused._extract(env.model), env.sim_params
+    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    holder = franka_holder(env)
+    kept, drawn, actives = [], 0, []
+    for k in range(16):
+        q, qd = env.contact_states(FRANKA_POOL, seed + 7919 * k)
+        qfrc, qt = franka_forces(env, q, qd)
+        if k == 0:
+            float32_noise(env, s, p, q, qd, qfrc, qt)
+        alive = torch.arange(FRANKA_POOL, device="cuda")
+        x = (q, qd)
+        for launch in range(FRANKA_LAUNCHES):
+            ok, active, _ = conditioned(holder, s, (), x[0], x[1], qt[alive], None, None, p, 0, qfrc=qfrc[alive])
+            ok &= kernel_jitter_ok(env, p, x[0], x[1], qt[alive], seed + 31 * k + launch, qfrc=qfrc[alive])
+            if launch == 0:
+                first_active = active
+            out = plain(rows(x[0][ok]), rows(x[1][ok]), rows(qfrc[alive[ok]]), None, rows(qt[alive[ok]]), None)
+            first_active = first_active[ok]
+            alive, x = alive[ok], (out[0].T.contiguous(), out[1].T.contiguous())
+        kept.append(tuple(t[alive] for t in (q, qd, qfrc, qt)))
+        actives.append(first_active)
+        drawn += FRANKA_POOL
+        if sum(len(t[0]) for t in kept) >= n:
+            break
+    have = sum(len(t[0]) for t in kept)
+    if have < n:
+        raise AssertionError(f"{type(env).__name__}: {have} of {drawn} contact states are well conditioned, {n} needed")
+    act = torch.cat(actives)[:n]
+    return [torch.cat(t)[:n].contiguous() for t in zip(*kept)], have / drawn, (int(act.max()), float(act.float().mean()))
+
+
+def compare_franka(task: str) -> float:
+    """The task's instantiation against its plain version for 3 env steps
+    (3 physics calls, the plain output carried) at N=RAGGED_ENVS and at
+    full width, from `franka_inputs`; contact force on the cubes (on the
+    handle bar) in FRANKA_PRESSED of the envs or more. Returns the largest
+    error."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    width = FRANKA_WIDTH[task][0]
+    envw = task_env(task, width)
+    (q, qd, qfrc, qt), share, (most, mean) = franka_inputs(envw, width, seed=91)
+    m = envw.model
+    bodies = ([envw.cubeA_ref.body0, envw.cubeB_ref.body0] if task == "FrankaCubeStack"
+              else [m.body_names.index("cab:drawer_handle_top")])
+    worst = 0.0
+    for n in (RAGGED_ENVS, width):
+        sel = lambda t: t[:n].contiguous()
+        err = compare_model(m, envw.sim_params, sel(q), sel(qd), sel(qfrc), None, sel(qt), FRANKA_LAUNCHES)
+        ko = fused.physics_step_fused(m, envw.sim_params, sel(q), sel(qd), sel(qfrc), q_target=sel(qt))
+        pressed = float((torch.linalg.vector_norm(ko.body_force[:, bodies], dim=-1).amax(1) > 0.05).float().mean())
+        print(f"{task} kernel vs plain, N={n}, 3 env steps ({FRANKA_LAUNCHES} calls), {100 * share:.1f} % of the "
+              f"drawn contact states well conditioned over them, candidates in the margin in the first call "
+              f"{mean:.2f} per env on average, {most} at most (cap {fused.topk_cap(fused._extract(m), envw.sim_params)}"
+              f" of {len(m.ppair_point)}), contact force in {100 * pressed:.1f} % of envs:", json.dumps(err))
+        if not pressed >= FRANKA_PRESSED[task]:
+            raise AssertionError(f"{task} N={n}: contact force in {pressed:.3f} of the envs")
+        worst = max(worst, *err.values())
+    return worst
+
+
+def time_franka(task: str, card: str) -> dict:
+    """`kernel_times` of the task's instantiation at full width, from its contact states."""
+    width, horizon = FRANKA_WIDTH[task][:2]
+    env = task_env(task, width)
+    q, qd = env.contact_states(width, seed=93)
+    qfrc, qt = franka_forces(env, q, qd)
+    print(f"{task}: {env.control_freq_inv} launch per env step (controlFrequencyInv), "
+          f"{env.control_freq_inv * horizon} per PPO epoch")
+    return kernel_times(env, rows(q), rows(qd), rows(qfrc), None, card, reps=30, qt=rows(qt))
+
+
+def osc_on_card() -> None:
+    """FrankaCubeStack's OSC at the yaml's 8192 envs: from the default pose
+    (the reset state) a +x task-space increment gives +x grip-site
+    acceleration J M^-1 tau in every env. Then, from random poses near the
+    default, each function of the controller pipeline on the card against
+    the same function on the CPU from the same inputs (the card's own
+    upstream outputs, copied): the grip site's Jacobian and the mass matrix
+    from one forward kinematics, `spd_inverse` of the arm's block, and
+    `operational_space_control`, within rtol 1e-4 (atol 1e-5 of the largest
+    entry)."""
+    from isaacgymenvs_tpu_torch import controllers
+    from isaacgymenvs_tpu_torch.engine import dynamics
+
+    n = FRANKA_WIDTH["FrankaCubeStack"][0]
+    env = task_env("FrankaCubeStack", n)
+    cpu_env = task_env("FrankaCubeStack", n, device="cpu")
+    m = env.model
+    state, _ = env.reset(95)
+    q, qd = state.sim.q, state.sim.qd
+    g = torch.Generator(device="cuda").manual_seed(96)
+    dpose = torch.zeros(n, 6, device="cuda")
+    dpose[:, 0] = 0.1  # +x, (linear, angular) as the actions are ordered
+    tau = env.osc_torques(dpose, q, qd)
+    kin = dynamics.forward_kinematics(m, q, qd)
+    J = controllers.body_jacobian(kin, env._anc, env._dof_body, env.hand_body, env._eef(kin.x, kin.quat))
+    Minv = dynamics.spd_inverse(dynamics.mass_matrix(m, kin, (env._anc, env._dof_mask))[:, env.arm_t][:, :, env.arm_t]
+                                + 1e-6 * env._eye7)
+    xdd = (J[:, :, env.arm_t] @ (Minv @ tau[..., None]))[:, 3, 0]
+    if not bool((xdd > 0).all()):
+        raise AssertionError(f"OSC: +x error gave -x acceleration in {int((xdd <= 0).sum())} envs")
+    # random poses near the default, velocities, increments
+    q = q.clone()
+    q[:, env.q_idx] = env.default_dof + 0.4 * (torch.rand(n, 9, generator=g, device="cuda") - 0.5)
+    qd = 0.2 * (torch.rand(qd.shape, generator=g, device="cuda") - 0.5)
+    err = 0.1 * (torch.rand(n, 6, generator=g, device="cuda") - 0.5)
+    vel = 0.2 * (torch.rand(n, 6, generator=g, device="cuda") - 0.5)
+    q_err = 0.2 * (torch.rand(n, 7, generator=g, device="cuda") - 0.5)
+    kin = dynamics.forward_kinematics(m, q, qd)
+    site = env._eef(kin.x, kin.quat)
+    cpu = lambda t: t.cpu()
+    kin_c = type(kin)(*map(cpu, kin))
+    out, ref = {}, {}
+    for e, k, dev_out in ((env, kin, out), (cpu_env, kin_c, ref)):
+        dev_out["J"] = controllers.body_jacobian(k, e._anc, e._dof_body, e.hand_body, site.to(k.S.device))
+        dev_out["M"] = dynamics.mass_matrix(m, k, (e._anc, e._dof_mask))
+    M77 = out["M"][:, env.arm_t][:, :, env.arm_t] + 1e-6 * env._eye7
+    out["Minv"], ref["Minv"] = dynamics.spd_inverse(M77), dynamics.spd_inverse(cpu(M77))
+    J7 = out["J"][:, :, env.arm_t]
+    osc = lambda J, Minv, *a, **kw: controllers.operational_space_control(
+        J, Minv, *a, kp=env.kp, kd=env.kd, null_kp=env.kp_null, null_kd=env.kd_null, **kw)
+    args = (err, vel, qd[:, env.v_idx[:7]])
+    out["tau"] = osc(J7, out["Minv"], *args, q_err=q_err)
+    ref["tau"] = osc(cpu(J7), cpu(out["Minv"]), *map(cpu, args), q_err=cpu(q_err))
+    worst = {}
+    for k, v in out.items():
+        r = ref[k]
+        worst[k] = float(((v.cpu() - r).abs() - 1e-5 * r.abs().amax()).div(r.abs()).clamp(min=0).nan_to_num().amax())
+    print(f"OSC at {n} envs: +x grip-site acceleration in every env (min {float(xdd.min()):.4f} m/s^2); card vs "
+          f"CPU from the same inputs, largest relative error past an atol of 1e-5 of the largest entry:",
+          json.dumps(worst))
+    if not max(worst.values()) < 1e-4:
+        raise AssertionError(f"OSC on the card differs from the CPU run: {worst}")
+
+
+def osc_share(steps: int = 8) -> None:
+    """FrankaCubeStack at 8192 envs: the OSC's share of an env step, by
+    wall time (synchronized) and by device ops (torch.profiler): the
+    compute_force call alone against the whole env.step."""
+    n = FRANKA_WIDTH["FrankaCubeStack"][0]
+    env = task_env("FrankaCubeStack", n)
+    state, _ = env.reset(97)
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    act = torch.rand(n, env.num_acts, generator=gen, device="cuda") * 2 - 1
+    for _ in range(2):
+        state, _, _, _, _ = env.step(state, act)
+    q, qd = state.sim.q, state.sim.qd
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    osc_ms = timed(lambda: env.compute_force(act, q, qd, state.task))
+    step_ms = timed(lambda: env.step(state, act))
+    osc_ops = profile_window(lambda: [env.compute_force(act, q, qd, state.task) for _ in range(steps)],
+                             "FrankaCubeStack compute_force (OSC)", steps, "step")
+    step_ops = profile_env_step(env, steps, "FrankaCubeStack env.step")
+    print(f"device ops per FrankaCubeStack env step: {step_ops:.1f}")
+    print(f"FrankaCubeStack OSC share of an env step at {n} envs: {osc_ms:.3f} of {step_ms:.3f} ms wall "
+          f"({100 * osc_ms / step_ms:.1f} %), {osc_ops:.1f} of {step_ops:.1f} device ops "
+          f"({100 * osc_ops / step_ops:.1f} %)")
+
+
+def train_main_franka(task: str) -> int:
+    """`train.main task=<task>` at the yaml's width: 2 epochs (one launch per
+    env step, finite metrics), a bit-equal restore, a resume to epoch 3, and
+    play with episodes cut to 16 steps. Returns the training launches."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    width, horizon = FRANKA_WIDTH[task][:2]
+    with tempfile.TemporaryDirectory() as runs:
+        args = [f"task={task}", f"+train_dir={runs}"]
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        t0 = time.perf_counter()
+        ts, metrics = train.main([*args, "max_iterations=2"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _cuda.FusedStepCall.launches
+        bad = {k: v for k, v in metrics.items() if isinstance(v, float) and not np.isfinite(v)
+               and k != "mean_episode_return"}
+        if launches != 2 * horizon or metrics["epoch"] != 2 or metrics["frames"] != 2 * horizon * width or bad:
+            raise AssertionError(f"{task} train.main: {launches} launches, {metrics}")
+        ckpt = os.path.join(runs, task, "nn", f"last_{task}.pth")
+        restored_bit_equal(task, args, ckpt, ts, 2)
+        _, resumed = train.main([*args, "max_iterations=3", f"checkpoint={ckpt}"])
+        played = train.main([*args, "test=True", f"checkpoint={ckpt}", "task.env.episodeLength=16"])
+    print(f"train.main task={task}: 2 epochs x {width} envs in {sec:.2f} s ({metrics['frames'] / sec:.1f} "
+          f"env-steps/s with set-up), {launches} launches, kl {metrics['kl']:.5f}; restore bit-equal; resumed to "
+          f"epoch {resumed['epoch']}; played mean return {played:.2f}")
+    if resumed["epoch"] != 3 or not np.isfinite(played):
+        raise AssertionError(f"{task}: resume reached epoch {resumed['epoch']}, play returned {played}")
+    return launches
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, started together; prints ptxas's figures, the shared memory
@@ -2192,6 +2484,8 @@ def build_all():
     built["Insertion"] = (insertion_env(8), ())  # SDF rows under the cap of 32, envs per block from its shared memory
     built["Humanoid"] = (humanoid_env(8), ())  # nv 27: 27 dof lanes, four k-tiles of the Gram product
     built["HumanoidAMP"] = (amp_env(8), ())  # nv 34: two dofs per lane, five k-tiles, the cap of 16, q_target
+    for t in FRANKA_WIDTH:  # pair rows only (BOX; MESH on the cylinder branch) under caps of 20 and 16, q_target
+        built[t] = (task_env(t, 8), ())
 
     def params_of(t, e):
         return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
@@ -2210,6 +2504,7 @@ def build_all():
             or sizes["Insertion"] != (14, 16, 15, 64, 0, 0, 1, 0, 0, 0, 0, 32, 0, 64, 8) \
             or sizes["Humanoid"] != (25, 28, 27, 35, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 8) \
             or sizes["HumanoidAMP"] != AMP_SIZES \
+            or any(sizes[t][:14] != FRANKA_SIZES[t] for t in FRANKA_WIDTH) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -2449,10 +2744,28 @@ def main() -> int:
     # 37. the HumanoidAMP kernel timed
     amp_t = time_amp(name)
     lap(37)
+    # 38. FrankaCubeStack and FrankaCabinet against their plain versions
+    franka_err = {t: compare_franka(t) for t in FRANKA_WIDTH}
+    lap(38)
+    # 39. FrankaCubeStack's OSC on the card
+    osc_on_card()
+    # 40. 1 + 2 full-width PPO epochs of each, device ops per env step (FrankaCubeStack's with the OSC's share)
+    franka_launches = {t: {"epochs": train_epochs(t, FRANKA_WIDTH[t], profile=False, timed=2)} for t in FRANKA_WIDTH}
+    ops = profile_env_step(task_env("FrankaCabinet", FRANKA_WIDTH["FrankaCabinet"][0]), label="FrankaCabinet env.step")
+    print(f"device ops per FrankaCabinet env step: {ops:.1f}")
+    osc_share()
+    lap(40)
+    # 41. train.main for each: train, restore bit-equal, resume, play
+    for t in FRANKA_WIDTH:
+        franka_launches[t]["train_main"] = train_main_franka(t)
+    # 42. both kernels timed
+    franka_t = {t: time_franka(t, name) for t in FRANKA_WIDTH}
+    lap(42)
 
     if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
-                            *recipe_launches.values(), lstm_launches, *amp_launches.values())) \
+                            *recipe_launches.values(), lstm_launches, *amp_launches.values(),
+                            *(n for d in franka_launches.values() for n in d.values()))) \
             or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
@@ -2462,6 +2775,8 @@ def main() -> int:
     anymal_names = {"Anymal": "fused_step_anymal_qt", "AnymalTerrain": "fused_step_anymal_terrain_k5_k6_qt_dyn",
                     "AnymalTerrain-plane": "fused_step_anymal_plane_k5_qt_dyn"}
     sdf_names = {"Insertion": "fused_step_insertion_k5_k6sdf_qt", "Ball": "fused_step_ball_k6sdf"}
+    franka_names = {"FrankaCubeStack": "fused_step_franka_cube_stack_k4_k5_qt",
+                    "FrankaCabinet": "fused_step_franka_cabinet_k4mesh_k5_qt"}
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "launches_sac": recipe_launches["AntSAC"],
@@ -2497,6 +2812,10 @@ def main() -> int:
          "launches": sum(amp_launches.values()), **{f"launches_{k}": v for k, v in amp_launches.items()},
          "max_abs_err": amp_err, **amp_t, "library_ms": None, "num_envs": AMP_ENVS,
          "sizes": list(sizes["HumanoidAMP"])},
+        *({"name": franka_names[t], "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sum(franka_launches[t].values()), **{f"launches_{k}": v for k, v in franka_launches[t].items()},
+           "max_abs_err": franka_err[t], **franka_t[t], "library_ms": None, "num_envs": FRANKA_WIDTH[t][0],
+           "sizes": list(sizes[t])} for t in FRANKA_WIDTH),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -191,3 +191,23 @@ def dr_sample_from_jax(sample: Mapping, device="cpu") -> dict:
     the JAX randomizer and puts it on the port's env state (then re-packs
     the per-env leaves with `VecTask.pack_dyn`)."""
     return {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in sample.items()}
+
+
+def env_state_from_arrays(state, fields: Mapping, device="cuda"):
+    """The port's env `state` (an `envcore.vec_task.EnvState`) holding a
+    JAX env state's arrays (numpy, by field name): `q`, `qd`, `progress`,
+    `reset_buf`, `actions`, and `task`, a dict of per-env arrays (FrankaCubeStack's
+    cube poses live in `q`, its `stack` flag in `task`; FrankaCabinet's
+    `targets`). Bool and integer task arrays keep their kind. A test draws
+    the initial states with the JAX env and steps both packages from them."""
+    from .engine.dynamics import SimState
+
+    dev = torch.device(device)
+    t = lambda a, dtype=None: torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+    state.sim = SimState(q=t(fields["q"], torch.float32), qd=t(fields["qd"], torch.float32))
+    state.progress = t(fields["progress"], torch.int32)
+    state.reset_buf = t(fields["reset_buf"], torch.bool)
+    state.actions = t(fields["actions"], torch.float32)
+    kind = lambda a: torch.bool if a.dtype == np.bool_ else torch.int64 if a.dtype.kind in "iu" else torch.float32
+    state.task = {k: t(v, kind(np.asarray(v))) for k, v in fields["task"].items()}
+    return state

@@ -358,3 +358,48 @@ class BodyPoses:
             x[:, idx] = xi
             quat[:, idx] = qi
         return x, quat
+
+
+# ---------------------------------------------------------------------------
+# dynamics (host-side math outside the kernel: the task-space controllers)
+# ---------------------------------------------------------------------------
+
+
+def spd_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Inverses of small SPD matrices (..., n, n) by Cholesky. The
+    factorization's status is not read back (`cholesky_ex`), so a call on
+    the card does not wait for the device."""
+    L, _ = torch.linalg.cholesky_ex(A)
+    return torch.cholesky_inverse(L)
+
+
+_CRBA_CACHE: dict = {}
+
+
+def _crba_consts(model: Model, device):
+    """The model's body masses, armature and dof-body map as tensors on
+    `device`, made once per model and device."""
+    key = (id(model), str(device))
+    hit = _CRBA_CACHE.get(key)
+    if hit is None or hit[0] is not model:
+        hit = (model, torch.as_tensor(np.asarray(model.body_mass, np.float32), device=device),
+               torch.as_tensor(np.asarray(model.armature, np.float32), device=device),
+               torch.as_tensor(np.asarray(model.dof_body, np.int64), device=device))
+        _CRBA_CACHE[key] = hit
+    return hit[1:]
+
+
+def mass_matrix(model: Model, kin: Kin, masks) -> torch.Tensor:
+    """Joint-space mass matrices (N, nv, nv) by the CRBA in world/origin
+    coordinates: M[i, j] = S_i^T I^C_{body(i)} S_j for dof j on an ancestor
+    of dof i's body, j <= i, then mirrored, plus the armature. `masks` is
+    (`ancestor_matrix`, `dof_ancestor_mask`) as tensors on kin's device."""
+    anc, dof_mask = masks
+    mass, armature, dof_body = _crba_consts(model, kin.S.device)
+    I_o = maths.spatial_inertia_at_origin(mass.expand(kin.com.shape[:-1]), kin.com, kin.inertia_w)
+    # composite inertia: IC[b] = sum of I_o[k] over the subtree of b (anc[k, b] = 1)
+    IC = torch.einsum("kb,nkij->nbij", anc, I_o)
+    F = torch.einsum("ndij,ndj->ndi", IC[:, dof_body], kin.S)
+    Ml = (F @ kin.S.transpose(-1, -2)) * dof_mask
+    M = Ml + Ml.transpose(-1, -2) - torch.diag_embed(torch.diagonal(Ml, dim1=-2, dim2=-1))
+    return M + torch.diag(armature)

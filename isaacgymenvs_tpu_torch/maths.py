@@ -143,3 +143,58 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
 def quat_to_tan_norm(q: torch.Tensor) -> torch.Tensor:
     """6-D rotation representation: q's x axis (tangent) and z axis (normal)."""
     return torch.cat([quat_axis(q, 0), quat_axis(q, 2)], dim=-1)
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrix: skew(v) @ u == cross(v, u); (..., 3) -> (..., 3, 3)."""
+    z = torch.zeros_like(v[..., 0])
+    vx, vy, vz = v.unbind(-1)
+    return torch.stack([
+        torch.stack([z, -vz, vy], dim=-1),
+        torch.stack([vz, z, -vx], dim=-1),
+        torch.stack([-vy, vx, z], dim=-1),
+    ], dim=-2)
+
+
+def quat_to_angle_axis(q: torch.Tensor):
+    """(angle in [0, 2pi), unit axis) of q; the x axis where the rotation
+    is below the float resolution."""
+    sin_theta_sq = torch.sum(q[..., :3] ** 2, dim=-1)
+    sin_theta = torch.sqrt(sin_theta_sq)
+    angle = 2.0 * torch.atan2(sin_theta, q[..., 3])
+    unit_x = q.new_tensor([1.0, 0.0, 0.0]).expand(q[..., :3].shape)
+    axis = torch.where((sin_theta_sq > 1e-12)[..., None],
+                       q[..., :3] / torch.clamp(sin_theta, min=1e-12)[..., None], unit_x)
+    return angle, axis
+
+
+# rigid transforms (q, t): the point v maps to quat_rotate(q, v) + t
+def tf_apply(q: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return quat_rotate(q, v) + t
+
+
+def tf_vector(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return quat_rotate(q, v)
+
+
+def tf_inverse(q: torch.Tensor, t: torch.Tensor):
+    q_inv = quat_conjugate(q)
+    return q_inv, -quat_rotate(q_inv, t)
+
+
+def tf_combine(q1, t1, q2, t2):
+    """The transform (q1, t1) after (q2, t2)."""
+    return quat_mul(q1, q2), quat_rotate(q1, t2) + t1
+
+
+def spatial_inertia_at_origin(mass, com_world, inertia_world):
+    """6x6 spatial inertia about the world origin: mass (...,), com_world
+    (..., 3), inertia_world (..., 3, 3) about the CoM. With v = (omega, v_o)
+    and h = (L_o, p): p = m v_o - m [c]x omega, L_o = (I_c - m [c]x [c]x)
+    omega + m [c]x v_o."""
+    cx = skew(com_world)
+    m = mass[..., None, None]
+    eye = torch.eye(3, dtype=cx.dtype, device=cx.device).expand(cx.shape)
+    top = torch.cat([inertia_world - m * (cx @ cx), m * cx], dim=-1)
+    bottom = torch.cat([-m * cx, m * eye], dim=-1)
+    return torch.cat([top, bottom], dim=-2)

@@ -211,6 +211,7 @@ class ModelBuilder:
     geom_quat: list = dataclasses.field(default_factory=list)
     geom_size: list = dataclasses.field(default_factory=list)
     geom_friction: list = dataclasses.field(default_factory=list)
+    geom_mesh_points: list = dataclasses.field(default_factory=list)  # None or (k, 3) per geom
     dof_friction_l: list = dataclasses.field(default_factory=list)
     qpos0_free: dict = dataclasses.field(default_factory=dict)  # body -> (pos, quat)
     qpos0_scalar: dict = dataclasses.field(default_factory=dict)  # body -> float
@@ -295,15 +296,16 @@ class ModelBuilder:
         self.body_ipos[idx] = _np(c)
         self.body_inertia[idx] = _np(shift(I0, m0, c0 - c) + shift(I1, m1, c1 - c))
 
-    def add_geom(self, body: int, gtype: int, pos, quat, size, friction: float):
-        if gtype == GEOM_MESH:
-            raise NotImplementedError("mesh geoms are not ported yet")
+    def add_geom(self, body: int, gtype: int, pos, quat, size, friction: float, mesh_points=None):
+        """A collision geom on `body`; a MESH geom's `mesh_points` (k, 3), in
+        the geom's frame, become its contact candidates."""
         self.geom_body.append(body)
         self.geom_type.append(gtype)
         self.geom_pos.append(_np(pos))
         self.geom_quat.append(_np(quat))
         self.geom_size.append(_np(size))
         self.geom_friction.append(float(friction))
+        self.geom_mesh_points.append(_np(mesh_points) if mesh_points is not None else None)
 
     def add_tendon(self, name: str, joints, rng):
         self.tendons.append((name, list(joints), tuple(rng)))
@@ -351,7 +353,11 @@ class ModelBuilder:
         cp_body, cp_pos, cp_rad, cp_fric = [], [], [], []
         for g in range(len(self.geom_type)):
             gt, size = self.geom_type[g], self.geom_size[g]
-            if gt == GEOM_SPHERE:
+            if gt == GEOM_MESH:
+                mp = self.geom_mesh_points[g]
+                pts_local = [] if mp is None else list(mp)
+                rads = [0.0] * len(pts_local)
+            elif gt == GEOM_SPHERE:
                 pts_local, rads = [np.zeros(3)], [size[0]]
             elif gt == GEOM_CAPSULE:
                 # axis along local z, half-length size[1], radius size[0]

@@ -10,6 +10,8 @@ from .anymal_terrain import AnymalTerrain
 from .ball_balance import BallBalance
 from .cartpole import Cartpole
 from .factory_templates import FactoryTaskInsertion
+from .franka_cabinet import FrankaCabinet
+from .franka_cube_stack import FrankaCubeStack
 from .humanoid import Humanoid
 from .humanoid_amp import HumanoidAMP
 from .ingenuity import Ingenuity
@@ -22,6 +24,8 @@ task_map: Dict[str, Type[VecTask]] = {
     "BallBalance": BallBalance,
     "Cartpole": Cartpole,
     "FactoryTaskInsertion": FactoryTaskInsertion,
+    "FrankaCabinet": FrankaCabinet,
+    "FrankaCubeStack": FrankaCubeStack,
     "Humanoid": Humanoid,
     "HumanoidAMP": HumanoidAMP,
     "Ingenuity": Ingenuity,

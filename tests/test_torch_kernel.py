@@ -497,3 +497,30 @@ def test_humanoid_amp_kernel_matches_plain_version():
     chip_smoke.compare_model(env.model, env.sim_params, q, qd, zero, None, qt, chip_smoke.AMP_LAUNCHES)
     assert _cuda.FusedStepCall.launches == before + chip_smoke.AMP_LAUNCHES
     assert step.occupancy()["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["FrankaCubeStack", "FrankaCabinet"])
+def test_franka_kernels_match_plain_version(task):
+    """Rows 1v and 1w: FrankaCubeStack (nv 21, 40 BOX pair rows under the
+    top-K cap of 20, two free cubes, q_target) and FrankaCabinet (nv 13, 24
+    pair rows against a MESH handle on the cylinder branch under the cap of
+    16, finger drives of stiffness 1e6) against their plain versions for 3
+    env steps at 512 envs, from `chip_smoke.franka_inputs` (the tasks'
+    contact states under FrankaCubeStack's OSC torques, kept where rounding
+    alone moves each call by at most COND_TOL), within the tolerances."""
+    import pathlib
+    import sys
+
+    _needs_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    env = _task(task, 512)
+    (q, qd, qfrc, qt), _, _ = chip_smoke.franka_inputs(env, 512, seed=75)
+    _, step = fused._prepared(env.model, env.sim_params, torch.device("cuda"), True)
+    assert step.sizes[:14] == chip_smoke.FRANKA_SIZES[task]
+    before = _cuda.FusedStepCall.launches
+    chip_smoke.compare_model(env.model, env.sim_params, q, qd, qfrc, None, qt, chip_smoke.FRANKA_LAUNCHES)
+    assert _cuda.FusedStepCall.launches == before + chip_smoke.FRANKA_LAUNCHES
+    assert step.occupancy()["blocks_per_sm"] >= 1

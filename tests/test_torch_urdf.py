@@ -49,8 +49,12 @@ def test_bundled_cartpole_facts():
 
 
 def test_unported_urdf_features_raise():
-    """Mesh geometry raises by name; collapse_fixed is ported (a model
-    without fixed joints comes out the same with it)."""
+    """Nothing of the URDF subset raises any more: collapse_fixed is ported
+    (a model without fixed joints comes out the same with it), and so is
+    mesh geometry, where a mesh file that cannot be found drops its geom,
+    as the JAX parser does (the mesh path itself: tests/test_torch_franka.py)."""
+    from isaacgymenvs_tpu.model.urdf import parse_urdf as jax_parse_urdf
+
     root = ET.parse(CARTPOLE).getroot()
     loose = parse_urdf(root)
     collapsed = parse_urdf(root, collapse_fixed=True)
@@ -58,5 +62,6 @@ def test_unported_urdf_features_raise():
     geo = root.find("link").find("collision").find("geometry")
     geo.remove(geo.find("box"))
     ET.SubElement(geo, "mesh", filename="rail.obj")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        parse_urdf(root)
+    dropped = parse_urdf(root)
+    assert dropped.ngeom == loose.ngeom - 1 and dropped.ncp == loose.ncp - 8
+    assert dropped.ngeom == jax_parse_urdf(root).ngeom

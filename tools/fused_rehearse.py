@@ -12,9 +12,10 @@ barriers; the tensor-core product runs the host branch of `mma_tf32` (the
 `mma.m16n8k8` fragment layout written out with shuffles) and `to_tf32`
 rounds as `cvt.rna` does. The dynamic shared memory of each block is a host
 buffer filled with NaN first, so that a read of a word the kernel never set
-shows in the outputs. Runs the task's states (`standing_states` where the
-task has them, else its reset states) under random motor torques and body
-wrenches through it and through the plain PyTorch step (`_step_math_torch`),
+shows in the outputs. Runs the task's states (`contact_states` where the
+task has them, with the drives holding the pose and no further forces;
+else `standing_states` or its reset states, under random motor torques and
+body wrenches) through it and through the plain PyTorch step (`_step_math_torch`),
 and prints the largest error of each output; exits non-zero when an output
 is not finite, when the compiled ENV_FLOATS differs from `_cuda.env_floats`,
 or when an error passes the tolerances of chip_smoke.py (q 2e-4, qd 2e-3,
@@ -181,14 +182,18 @@ def main() -> int:
         print(build.stderr[-4000:])
         return 1
 
-    if hasattr(env, "standing_states"):
+    gentle = hasattr(env, "contact_states")
+    if gentle:
+        q, qd = env.contact_states(n, args.seed)
+    elif hasattr(env, "standing_states"):
         q, qd = env.standing_states(n, args.seed)
     else:
         state, _ = env.reset(args.seed)
         q, qd = state.sim.q, state.sim.qd
     rng = np.random.RandomState(args.seed + 1)
-    qfrc = torch.tensor(rng.uniform(-3, 3, (n, m.nv)).astype(np.float32))
-    xfrc = torch.tensor(rng.uniform(-1, 1, (n, m.nbody, 6)).astype(np.float32))
+    # contact states rest sub-gram fingers on cubes and handles: no random wrenches there
+    qfrc = torch.tensor(rng.uniform(-3, 3, (n, m.nv)).astype(np.float32) * (0.0 if gentle else 1.0))
+    xfrc = torch.tensor(rng.uniform(-1, 1, (n, m.nbody, 6)).astype(np.float32) * (0.0 if gentle else 1.0))
     rows = lambda t: t.T.contiguous()
     ins = {"q": rows(q), "qd": rows(qd), "qfrc": rows(qfrc),
            "xfrc": xfrc.permute(2, 1, 0).reshape(6 * m.nbody, n).contiguous()}
