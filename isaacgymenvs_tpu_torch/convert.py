@@ -198,7 +198,8 @@ def env_state_from_arrays(state, fields: Mapping, device="cuda"):
     JAX env state's arrays (numpy, by field name): `q`, `qd`, `progress`,
     `reset_buf`, `actions`, and `task`, a dict of per-env arrays (FrankaCubeStack's
     cube poses live in `q`, its `stack` flag in `task`; FrankaCabinet's
-    `targets`). Bool and integer task arrays keep their kind. A test draws
+    `targets`; NutBoltPick's `t`) or a tuple of them (the empty task
+    state of NutBoltPlace and NutBoltScrew). Bool and integer task arrays keep their kind. A test draws
     the initial states with the JAX env and steps both packages from them."""
     from .engine.dynamics import SimState
 
@@ -209,5 +210,7 @@ def env_state_from_arrays(state, fields: Mapping, device="cuda"):
     state.reset_buf = t(fields["reset_buf"], torch.bool)
     state.actions = t(fields["actions"], torch.float32)
     kind = lambda a: torch.bool if a.dtype == np.bool_ else torch.int64 if a.dtype.kind in "iu" else torch.float32
-    state.task = {k: t(v, kind(np.asarray(v))) for k, v in fields["task"].items()}
+    task = fields["task"]
+    state.task = (tuple(t(v, kind(np.asarray(v))) for v in task) if isinstance(task, tuple)
+                  else {k: t(v, kind(np.asarray(v))) for k, v in task.items()})
     return state

@@ -9,6 +9,7 @@ from .anymal import Anymal
 from .anymal_terrain import AnymalTerrain
 from .ball_balance import BallBalance
 from .cartpole import Cartpole
+from .factory_nut_bolt import FactoryTaskNutBoltPick, FactoryTaskNutBoltPlace, FactoryTaskNutBoltScrew
 from .factory_templates import FactoryTaskInsertion
 from .franka_cabinet import FrankaCabinet
 from .franka_cube_stack import FrankaCubeStack
@@ -24,6 +25,9 @@ task_map: Dict[str, Type[VecTask]] = {
     "BallBalance": BallBalance,
     "Cartpole": Cartpole,
     "FactoryTaskInsertion": FactoryTaskInsertion,
+    "FactoryTaskNutBoltPick": FactoryTaskNutBoltPick,
+    "FactoryTaskNutBoltPlace": FactoryTaskNutBoltPlace,
+    "FactoryTaskNutBoltScrew": FactoryTaskNutBoltScrew,
     "FrankaCabinet": FrankaCabinet,
     "FrankaCubeStack": FrankaCubeStack,
     "Humanoid": Humanoid,

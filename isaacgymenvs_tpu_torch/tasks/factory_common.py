@@ -1,6 +1,7 @@
 """Helpers the Factory tasks share (copied from the JAX package's
 isaacgymenvs_tpu/tasks/factory_nut_bolt.py `_stratified_pick` and
-`_strip_points`; the rest of the nut-bolt family is not ported yet)."""
+`_strip_points`): Insertion (tasks/factory_templates.py) and the nut-bolt
+family (tasks/factory_nut_bolt.py) use both."""
 from __future__ import annotations
 
 import numpy as np

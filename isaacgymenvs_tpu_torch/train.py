@@ -21,6 +21,11 @@ block with `learn.PPORecurrent`, anything else with `PPO`.
 `+profile=<dir>` writes a torch.profiler trace (CPU and CUDA activity) of
 the first `profile_epochs` (default 3) epochs to <dir>, one file per run,
 readable in TensorBoard or chrome://tracing.
+`debug_nans=True` is the counterpart of the JAX package's `jax_debug_nans`:
+every env step checks its q, qd, observations and rewards, every update
+its losses, for finite values, and raises FloatingPointError naming the
+first tensor that is not; the update runs under torch's anomaly
+detection. Each check waits for the device, so keep it off for speed.
 
 It runs on the card. `pipeline=cpu` or a `sim_device` that starts with
 `cpu` asks for the CPU; without a GPU and without such a flag it fails
@@ -30,10 +35,12 @@ says so.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import sys
 
+import torch
 import yaml
 
 from .learn import HRL, PPO, SAC, AMPAgent, PPORecurrent
@@ -111,8 +118,14 @@ def main(argv=None):
 
         agent.init, agent.restore = init_with_sigma, restore_with_sigma
 
+    guard = contextlib.nullcontext()
+    if cfg.get("debug_nans"):
+        _check_nans(agent)
+        guard = torch.autograd.set_detect_anomaly(True)
+
     if cfg.get("test"):
-        return agent.play(checkpoint=checkpoint)
+        with guard:
+            return agent.play(checkpoint=checkpoint)
 
     train_dir = str(cfg.get("train_dir") or "runs")
     run_dir = os.path.join(train_dir, run_name)
@@ -126,18 +139,57 @@ def main(argv=None):
     kw = {} if algo == "sac" else {
         "save_best_after": int(train_params.get("config", {}).get("save_best_after", 100))}
     try:
-        return agent.train(
+        with guard:
+            return agent.train(
             max_epochs=int(max_iters) if max_iters else None,
-            checkpoint=checkpoint,
-            train_dir=train_dir,
-            name=run_name,
-            logger=logger,
-            on_epoch=profiler.on_epoch if profiler.active else None,
-            **kw,
-        )
+                checkpoint=checkpoint,
+                train_dir=train_dir,
+                name=run_name,
+                logger=logger,
+                on_epoch=profiler.on_epoch if profiler.active else None,
+                **kw,
+            )
     finally:
         profiler.stop()
         logger.close()
+
+
+def _finite(name: str, t: torch.Tensor) -> None:
+    if not bool(torch.isfinite(t).all()):
+        raise FloatingPointError(f"debug_nans: {name} holds a non-finite value")
+
+
+def _check_nans(agent) -> None:
+    """debug_nans=True: wrap the agent's env step and its losses so that
+    each result is checked for finite values (`_finite`)."""
+    env = agent.env
+    step = env.step
+
+    def checked_step(state, actions):
+        out = step(state, actions)
+        new_state, obs, reward = out[0], out[1], out[2]
+        for name, t in (("q", new_state.sim.q), ("qd", new_state.sim.qd), ("obs", obs), ("reward", reward)):
+            _finite(f"env step {name}", t)
+        return out
+
+    env.step = checked_step
+    if hasattr(agent, "_loss"):  # PPO and its subclasses
+        loss = agent._loss
+
+        def checked_loss(*a, **k):
+            total, aux = loss(*a, **k)
+            _finite("loss", total)
+            return total, aux
+
+        agent._loss = checked_loss
+    if hasattr(agent, "_step"):  # SAC: one optimizer step per loss
+        opt_step = agent._step
+
+        def checked_opt_step(opt, loss, params):
+            _finite("loss", loss)
+            return opt_step(opt, loss, params)
+
+        agent._step = checked_opt_step
 
 
 class _Profiler:

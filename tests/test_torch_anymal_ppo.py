@@ -26,6 +26,7 @@ from isaacgymenvs_tpu_torch import maths
 from isaacgymenvs_tpu_torch.learn import ppo as tppo
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
 from test_torch_ppo import _adam_state, _jax_epoch, _jax_params, _np_tree, _port_params
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 N, HORIZON, MINI_EPOCHS, NUM_MB = 4, 3, 2, 2
 ARGS = ["task=AnymalTerrain", f"num_envs={N}", "task.env.terrain.numLevels=3", "task.env.terrain.numTerrains=4",

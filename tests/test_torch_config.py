@@ -58,3 +58,31 @@ def test_resolvers_and_overrides():
     assert (out["e"], out["f"], out["g"], out["new"]["key"]) == (7, "then", True, 1.5)
     with pytest.raises(ValueError):
         tconfig.apply_overrides({}, ["novalue"])
+
+
+@pytest.mark.parametrize("task", ["AntSAC", "HumanoidSAC"])
+def test_sac_task_variants_resolve_to_sac(task):
+    """tests/test_config.py:72-74 on the port: `task=AntSAC` (and
+    `HumanoidSAC`) finds the thin task yaml, which aliases the base class
+    through `name:`, and falls back to train/<task>.yaml for the recipe:
+    SAC, the same composed dict as the JAX package's."""
+    jcfg, tcfg = jax_load_config([f"task={task}"]), tconfig.load_config([f"task={task}"])
+    assert tcfg["train"]["params"]["algo"]["name"] == "sac"
+    assert tcfg["task"]["name"] == task[:-3]
+    strip = lambda c: {k: v for k, v in c.items() if k not in DEVICE_FLAGS}
+    assert strip(tcfg) == strip(jcfg)
+
+
+@pytest.mark.parametrize("task", ["FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew"])
+def test_nut_bolt_configs_match_jax(task):
+    """The nut-bolt yamls (task on FactoryEnvNutBolt on FactoryBase, and the
+    PPO recipes) compose to the JAX package's dicts, with the operating
+    point of the yamls: 128 envs, dt 1/60 with 2 substeps, 16 position
+    iterations, a cap of 16, minibatch 512 over 8 mini-epochs."""
+    jcfg, tcfg = jax_load_config([f"task={task}"]), tconfig.load_config([f"task={task}"])
+    strip = lambda c: {k: v for k, v in c.items() if k not in DEVICE_FLAGS}
+    assert strip(tcfg) == strip(jcfg)
+    t, c = tcfg["task"], tcfg["train"]["params"]["config"]
+    assert (t["env"]["numEnvs"], t["sim"]["substeps"], t["sim"]["physx"]["num_position_iterations"],
+            t["sim"]["physx"]["max_active_contacts"]) == (128, 2, 16, 16)
+    assert (c["minibatch_size"], c["mini_epochs"], c["horizon_length"]) == (512, 8, 128 if "Screw" in task else 120)

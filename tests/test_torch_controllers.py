@@ -26,6 +26,7 @@ from isaacgymenvs_tpu_torch import controllers, maths
 from isaacgymenvs_tpu_torch.engine import dynamics as dyn
 from isaacgymenvs_tpu_torch.model import load_urdf
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

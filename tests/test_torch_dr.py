@@ -24,6 +24,7 @@ from isaacgymenvs_tpu_torch.dr import randomize as tdr
 from isaacgymenvs_tpu_torch.model import examples as ex
 from isaacgymenvs_tpu_torch.tasks import task_map
 from isaacgymenvs_tpu_torch.utils.config import load_config
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 PARAMS = {
     "frequency": 5,

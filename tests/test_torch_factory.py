@@ -22,6 +22,7 @@ from isaacgymenvs_tpu_torch.engine import _cuda
 from isaacgymenvs_tpu_torch.engine import fused as tfused
 from isaacgymenvs_tpu_torch.engine.dynamics import SimState
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 N = 4
 TASK = "FactoryTaskInsertion"

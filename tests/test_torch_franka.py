@@ -29,6 +29,7 @@ from isaacgymenvs_tpu_torch.convert import env_state_from_arrays
 from isaacgymenvs_tpu_torch.engine import fused as tfused
 from isaacgymenvs_tpu_torch.model import GEOM_BOX, GEOM_MESH, HINGE, SLIDE, load_urdf
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

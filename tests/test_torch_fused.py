@@ -24,6 +24,7 @@ from isaacgymenvs_tpu_torch.engine import _cuda
 from isaacgymenvs_tpu_torch.engine import fused as tfused
 from isaacgymenvs_tpu_torch.engine.dynamics import SimParams
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 TOL = {"q": 2e-4, "qd": 2e-3, "body_force": 2e-2, "body_torque": 2e-2, "dof_force": 2e-2}
 CFG = {"env": {"numEnvs": 4, "clipActions": 1.0}, "sim": {"dt": 1 / 60, "substeps": 2}}

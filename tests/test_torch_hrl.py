@@ -15,6 +15,7 @@ from isaacgymenvs_tpu_torch.engine.dynamics import SimState
 from isaacgymenvs_tpu_torch.learn import HRL, PPO
 from isaacgymenvs_tpu_torch.tasks import task_map
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

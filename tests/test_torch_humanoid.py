@@ -18,6 +18,7 @@ import torch
 
 from isaacgymenvs_tpu_torch.engine.dynamics import SimState
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

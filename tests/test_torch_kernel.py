@@ -524,3 +524,44 @@ def test_franka_kernels_match_plain_version(task):
     chip_smoke.compare_model(env.model, env.sim_params, q, qd, qfrc, None, qt, chip_smoke.FRANKA_LAUNCHES)
     assert _cuda.FusedStepCall.launches == before + chip_smoke.FRANKA_LAUNCHES
     assert step.occupancy()["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew"])
+def test_nut_bolt_kernels_match_plain_version(task):
+    """Rows 1x-1z: the nut-bolt family (nv 17; 144, 100 or 72 plane rows
+    and as many SDF rows against two grids, the free nut's and that of the
+    bolt on its two slides, under the cap of 16; q_target, xfrc) against
+    their plain versions for 3 env steps at 256 envs, from
+    `chip_smoke.nutbolt_inputs` (the tasks' contact states under their own
+    controllers, kept where rounding alone moves each call by at most
+    COND_TOL), within the tolerances; the nut and the bolt take contact
+    force."""
+    import pathlib
+    import sys
+
+    _needs_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    n = 256
+    env = _task(task, chip_smoke.NUTBOLT_ENVS)
+    (q, qd), _, _ = chip_smoke.nutbolt_inputs(env, n, seed=77)
+    m, p = env.model, env.sim_params
+    _, step = fused._prepared(m, p, torch.device("cuda"), True)
+    assert step.sizes[:14] == chip_smoke.NUTBOLT_SIZES[task]
+    plain = fused._step_math_torch(step.s, p, torch.device("cuda"))
+    before = _cuda.FusedStepCall.launches
+    x = (q, qd)
+    for call in range(chip_smoke.NUTBOLT_LAUNCHES):
+        qfrc, xfrc, qt, sdf = chip_smoke.nutbolt_calls(env, *x)
+        ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, sdf=sdf)
+        po = plain(*(t.T.contiguous() for t in (x[0], x[1], qfrc)), chip_smoke.xfrc_rows(xfrc), qt.T.contiguous(),
+                   None, None, 0, sdf)
+        chip_smoke.compare_outputs(f"{task} call {call}", ko, po, m.nbody, n)
+        if call == 0:
+            force = torch.linalg.vector_norm(ko.body_force, dim=-1)
+            assert float((force[:, env.nut_ref.body0] > 0.05).float().mean()) >= 0.9
+            assert float((force[:, env.bolt_body] > 0.05).float().mean()) >= 0.25
+        x = (po[0].T.contiguous(), po[1].T.contiguous())
+    assert _cuda.FusedStepCall.launches == before + chip_smoke.NUTBOLT_LAUNCHES

@@ -7,6 +7,7 @@ import torch
 from isaacgymenvs_tpu import maths as jm
 from isaacgymenvs_tpu_torch import maths as tm
 from isaacgymenvs_tpu_torch.engine import fused as tfused
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

@@ -14,6 +14,7 @@ from isaacgymenvs_tpu_torch.learn import networks as tnet
 from isaacgymenvs_tpu_torch.learn import running_stats as trs
 from isaacgymenvs_tpu_torch.learn.ppo import PPO, _gaussian_logp
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 N, OBS, ACT = 4, 60, 8
 

@@ -23,6 +23,7 @@ from isaacgymenvs_tpu_torch.convert import actor_critic_from_flax, train_state_f
 from isaacgymenvs_tpu_torch.engine.dynamics import SimState
 from isaacgymenvs_tpu_torch.learn import ppo as tppo
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 ATOL, GRAD_RTOL = 1e-5, 1e-4  # float32 sums taken in another order
 TASKS = {

@@ -21,6 +21,7 @@ from isaacgymenvs_tpu_torch.learn import sac as tsac
 from isaacgymenvs_tpu_torch.learn.replay_buffer import ReplayBuffer
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
 from isaacgymenvs_tpu_torch.utils.checkpoint import load_checkpoint
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -23,6 +23,7 @@ from isaacgymenvs_tpu_torch.engine import _cuda
 from isaacgymenvs_tpu_torch.engine import fused as tfused
 from isaacgymenvs_tpu_torch.sdf import builder as tsdf
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 TOL = {"q": 2e-4, "qd": 2e-3, "body_force": 2e-2, "body_torque": 2e-2, "dof_force": 2e-2}
 MESHES = os.path.join(package_asset_root(), "factory", "mesh", "factory_insertion")

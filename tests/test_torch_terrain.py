@@ -26,6 +26,7 @@ from isaacgymenvs_tpu_torch.engine.dynamics import forward_kinematics
 from isaacgymenvs_tpu_torch import maths
 from isaacgymenvs_tpu_torch.utils import terrain_utils as tterrain
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 TOL = {"q": 2e-4, "qd": 2e-3, "body_force": 2e-2, "body_torque": 2e-2, "dof_force": 2e-2}
 GRID = ["task.env.terrain.numLevels=3", "task.env.terrain.numTerrains=4"]

@@ -1,6 +1,7 @@
 """Rehearse an instantiation of the fused-step kernel on the CPU, without a card.
 
     python tools/fused_rehearse.py [--task Humanoid] [--envs 12] [--seed 5]
+    python tools/fused_rehearse.py --task FactoryTaskNutBoltPick --envs 16
 
 Compiles `engine/csrc/fused_step.cu`, cut at `extern "C"`, with `g++
 -std=c++20` and the `-DFS_*` defines of the task's size tuple (as
@@ -19,9 +20,11 @@ body wrenches) through it and through the plain PyTorch step (`_step_math_torch`
 and prints the largest error of each output; exits non-zero when an output
 is not finite, when the compiled ENV_FLOATS differs from `_cuda.env_floats`,
 or when an error passes the tolerances of chip_smoke.py (q 2e-4, qd 2e-3,
-forces 2e-2). Builds under `isaacgymenvs_tpu_torch/_build/rehearse/`
-(gitignored). Tasks with per-env leaves, terrain or SDF rows are not
-covered here.
+forces 2e-2). A task with SDF pair rows (the nut-bolt family) runs under
+its own `compute_force` at zero actions, with its SDF planes sampled at the
+states (`fused.sdf_dyn`) as the kernel's sdf input. Builds under
+`isaacgymenvs_tpu_torch/_build/rehearse/` (gitignored). Tasks with per-env
+leaves or terrain are not covered here.
 """
 from __future__ import annotations
 
@@ -105,8 +108,9 @@ int main(int argc, char** argv) {
   auto spec = rd("spec.bin", spec_len);
   auto q = rd("q.bin", (size_t)NQ * n), qd = rd("qd.bin", (size_t)NV * n), qfrc = rd("qfrc.bin", (size_t)NV * n);
   auto xfrc = rd("xfrc.bin", (size_t)6 * NB * n);
-  std::vector<float> qt;
+  std::vector<float> qt, sdf;
   if (QT) qt = rd("qt.bin", (size_t)NQ * n);
+  if (NSP) sdf = rd("sdf.bin", (size_t)13 * NSP * n);
   std::vector<float> q2(NQ * n), qd2(NV * n), bf(3 * NB * n), bt(3 * NB * n), df(NV * n);
   std::vector<float> smem(block_bytes(spec_len) / 4);
   std::vector<uint32_t> xchbuf(32 * EPB);
@@ -126,8 +130,8 @@ int main(int argc, char** argv) {
         threadIdx.x = t;
         blockIdx.x = b;
         fused_step_kernel(q.data(), qd.data(), qfrc.data(), xfrc.data(), QT ? qt.data() : nullptr, nullptr,
-                          nullptr, nullptr, q2.data(), qd2.data(), bf.data(), bt.data(), df.data(), spec.data(),
-                          spec_len, n, n_slices, iters, 0);
+                          nullptr, NSP ? sdf.data() : nullptr, q2.data(), qd2.data(), bf.data(), bt.data(),
+                          df.data(), spec.data(), spec_len, n, n_slices, iters, 0);
       });
     for (auto& x : lanes) x.join();
     for (auto* p : wb) delete p;
@@ -159,8 +163,8 @@ def main() -> int:
 
     n = args.envs
     env = task_map[args.task](load_config([f"task={args.task}", f"num_envs={n}"])["task"], device="cpu")
-    if env.randomizer is not None or getattr(env, "terrain", None) is not None or len(env.model.spair_point):
-        raise SystemExit(f"{args.task}: per-env leaves, terrain and SDF rows are not covered by this rehearsal")
+    if env.randomizer is not None or getattr(env, "terrain", None) is not None:
+        raise SystemExit(f"{args.task}: per-env leaves and terrain are not covered by this rehearsal")
     m, p, qt_on = env.model, env.sim_params, env.use_pd_targets
     s = fused._extract(m)
     epb = _cuda.envs_per_block(lambda e: _cuda.smem_bytes(s, p, e, qt_on), _cuda.SMEM_OPTIN_BYTES,
@@ -194,11 +198,22 @@ def main() -> int:
     # contact states rest sub-gram fingers on cubes and handles: no random wrenches there
     qfrc = torch.tensor(rng.uniform(-3, 3, (n, m.nv)).astype(np.float32) * (0.0 if gentle else 1.0))
     xfrc = torch.tensor(rng.uniform(-1, 1, (n, m.nbody, 6)).astype(np.float32) * (0.0 if gentle else 1.0))
+    qt = q
+    sdf = None
+    if len(m.spair_point):
+        # the task's own forces under zero actions (the nut-bolt family's
+        # controller, gravity compensation and gripper setpoint) and the
+        # SDF planes sampled at the entry pose
+        task = {"t": torch.zeros(n, dtype=torch.int32)} if hasattr(env, "rl_len") else ()
+        qfrc, xfrc, qt = env.compute_force(torch.zeros(n, env.num_acts), q, qd, task)
+        sdf = fused.pack_sdf(fused.sdf_dyn(m, q, qd))
     rows = lambda t: t.T.contiguous()
     ins = {"q": rows(q), "qd": rows(qd), "qfrc": rows(qfrc),
            "xfrc": xfrc.permute(2, 1, 0).reshape(6 * m.nbody, n).contiguous()}
     if qt_on:
-        ins["qt"] = rows(q)
+        ins["qt"] = rows(qt)
+    if sdf is not None:
+        ins["sdf"] = sdf
     spec = _cuda.pack_spec(s, p, fused.apgd_betas(p.solver_apgd_iterations))
     spec.astype(np.float32).tofile(os.path.join(work, "spec.bin"))
     for name, t in ins.items():
@@ -210,7 +225,7 @@ def main() -> int:
         return 1
     env_floats = int(run.stdout.split()[-1])
     ref = fused._step_math_torch(s, p, torch.device("cpu"))(ins["q"], ins["qd"], ins["qfrc"], ins["xfrc"],
-                                                             ins.get("qt"))
+                                                             ins.get("qt"), None, None, 0, ins.get("sdf"))
     host_floats = _cuda.env_floats(s, qt_on, (), cap)
     ok = env_floats == host_floats
     print(f"{args.task} {'_'.join(map(str, sizes))}, {n} envs in blocks of {epb}: ENV_FLOATS {env_floats} "
