@@ -203,7 +203,36 @@
 47. `train.main` for the three: 1 epoch, a bit-equal restore, a resume,
    play;
 48. the three kernels timed at 128 and 4096 envs;
-49. prints one `kernels` JSON line with all instantiations (each with its
+49. IndustReal (PegsInsert: 17 bodies, nv 19, the plug's 76 points and 12
+   pad points as plane rows and SDF rows, the plug's against the grid of
+   the socket on three slides and a yaw hinge, the pads' against the free
+   plug's, under the cap of 32 of 176 rows, eight envs per block;
+   GearsInsert: the gear's 50 bore, 24 bottom and 40 pad points, three
+   grids, the shaft's crop and the whole base's on the base's yaw body,
+   under the cap of 64 of 228 rows, four envs per block: the first build
+   with more slots than a warp has lanes) against their plain versions for
+   3 env steps at N=1003 and one at the yaml's 128, each under the task's
+   task-space impedance at zero actions and its SDF planes, from the tasks'
+   `contact_states` kept where rounding alone moves each call by at most
+   COND_TOL (`industreal_inputs`; Gears only states with 33 rows in the
+   margin or more), with the count of rows in the margin printed;
+50. the behaviour of tests/test_industreal.py through the kernel at 128
+   envs: PegsInsert's straight push completes the insertion in
+   PEGS_PUSH_SHARE of the envs or more, GearsInsert's press and hold in
+   GEARS_HOLD_SHARE, and SBC steps the max displacement toward easier after
+   failed episodes in every env;
+51. per task env.step env-steps/s at 128 envs, device ops and the device's
+   busy share per env step, and the reset's 24 IK iterations alone (wall
+   ms and device ops of a step where some env resets; the same code in
+   both tasks);
+52. `train.main task=IndustRealTaskPegsInsert` at the yaml's width for 2
+   epochs (PPORecurrent; the 256-step episodes end in the second, and the
+   SBC update follows `new_max_disp` for the success rate it saw), a
+   bit-equal restore, play; one GearsInsert epoch through
+   `PPORecurrent.train_epoch` at 128 x 128 with one of its 8 mini-epochs
+   (2,048 minibatches of 8), the full epoch derived;
+53. both IndustReal kernels timed at 128 and 4096 envs;
+54. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
@@ -850,14 +879,16 @@ def time_case(key: str, card: str) -> dict:
 
 
 def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), profile: bool = True,
-                 overrides=(), recipe: str | None = None, timed: int = 3, check=None) -> int:
+                 overrides=(), recipe: str | None = None, timed: int = 3, check=None, warmup: bool = True) -> int:
     """`timed` timed PPO epochs after a warm-up on `task` at its yaml's full
     width (`width` = envs, horizon, batch, minibatch, mini-epochs), with the
     train yaml `recipe` (default <task>PPO; one with `network.rnn` trains
     with PPORecurrent, `algo.name=amp_continuous` with AMPAgent) and further
     config `overrides` (e.g.
     task.randomize=True); `check(agent, ts, traj)` sees each timed epoch's
-    rollout. Returns the kernel launches of the timed epochs."""
+    rollout; without `warmup` the first epoch is timed (its kernel built and
+    loaded by an earlier phase). Returns the kernel launches of the timed
+    epochs."""
     from isaacgymenvs_tpu_torch.engine import _cuda
     from isaacgymenvs_tpu_torch.learn import PPO, AMPAgent, PPORecurrent
     from isaacgymenvs_tpu_torch.tasks import task_map
@@ -889,7 +920,8 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
     agent.rollout = timed_rollout
     ts = agent.init()
     before = [p.detach().clone() for p in agent.network.parameters()]
-    ts, _ = agent.train_epoch(ts)  # warm-up
+    if warmup:
+        ts, _ = agent.train_epoch(ts)
     total = 0
     for epoch in range(timed):
         torch.cuda.synchronize()
@@ -921,15 +953,18 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
 
 
 def restored_bit_equal(task: str, args, ckpt: str, ts, epochs: int) -> list:
-    """Restore `ckpt` into a fresh agent of another seed: parameters, lr,
-    running stats and Adam moments must equal the trained state `ts` bit for
-    bit. Returns [the fresh agent's train state, the checkpoint's epoch]."""
-    from isaacgymenvs_tpu_torch.learn import PPO
+    """Restore `ckpt` into a fresh agent of another seed (PPORecurrent for a
+    recipe with `network.rnn`): parameters, lr, running stats and Adam
+    moments must equal the trained state `ts` bit for bit. Returns [the
+    fresh agent's train state, the checkpoint's epoch]."""
+    from isaacgymenvs_tpu_torch.learn import PPO, PPORecurrent
     from isaacgymenvs_tpu_torch.tasks import task_map
     from isaacgymenvs_tpu_torch.utils.config import load_config
 
     cfg = load_config(args)
-    fresh = PPO(task_map[task](cfg["task"], device="cuda"), cfg["train"]["params"], seed=1)
+    params = cfg["train"]["params"]
+    kind = PPORecurrent if params.get("network", {}).get("rnn") else PPO
+    fresh = kind(task_map[task](cfg["task"], device="cuda"), params, seed=1)
     fts, epoch = fresh.restore(ckpt, fresh.init())
     trained = ts.optimizer.param_groups[0]["params"]  # the trained network's parameters
     same = epoch == epochs and fts.lr == ts.lr
@@ -1004,8 +1039,11 @@ def profile_window(fn, label: str, units: int, unit: str) -> float:
     return n_kernels / units
 
 
-def profile_env_step(env, steps: int = 8, label: str = "env.step") -> float:
-    """env.step under random actions, profiled; returns device ops per step."""
+def profile_env_step(env, steps: int = 2, label: str = "env.step") -> float:
+    """env.step under random actions, profiled over `steps` steps after two
+    unprofiled ones; returns device ops per step. Two steps by default: the
+    profiler's processing costs about half a millisecond per recorded
+    event, and a nut-bolt or IndustReal step records 5,600-41,700."""
     state, _ = env.reset(4)
     gen = torch.Generator(device="cuda").manual_seed(5)
     act = lambda: torch.rand(env.num_envs, env.num_acts, generator=gen, device="cuda") * 2 - 1
@@ -2422,7 +2460,7 @@ def osc_on_card() -> None:
         raise AssertionError(f"OSC on the card differs from the CPU run: {worst}")
 
 
-def osc_share(steps: int = 8) -> None:
+def osc_share(steps: int = 4) -> None:
     """FrankaCubeStack at 8192 envs: the OSC's share of an env step, by
     wall time (synchronized) and by device ops (torch.profiler): the
     compute_force call alone against the whole env.step."""
@@ -2454,11 +2492,12 @@ def osc_share(steps: int = 8) -> None:
           f"({100 * osc_ops / step_ops:.1f} %)")
 
 
-def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2) -> int:
+def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2, resume: bool = True) -> int:
     """`train.main task=<task>` at the yaml's width: `epochs` epochs (one
-    launch per env step, finite metrics), a bit-equal restore, a resume for
-    one more, and play with episodes cut to 16 steps (NutBoltPick's acting
-    phase: 16 steps and its scripted tail). Returns the training launches."""
+    launch per env step, finite metrics), a bit-equal restore, with
+    `resume` a resume for one more, and play with episodes cut to 16 steps
+    (NutBoltPick's acting phase: 16 steps and its scripted tail). Returns
+    the training launches."""
     from isaacgymenvs_tpu_torch import train
     from isaacgymenvs_tpu_torch.engine import _cuda
 
@@ -2478,11 +2517,13 @@ def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2) ->
             raise AssertionError(f"{task} train.main: {launches} launches, {metrics}")
         ckpt = os.path.join(runs, task, "nn", f"last_{task}.pth")
         restored_bit_equal(task, args, ckpt, ts, epochs)
-        _, resumed = train.main([*args, f"max_iterations={epochs + 1}", f"checkpoint={ckpt}"])
+        resumed = {"epoch": epochs + 1}
+        if resume:
+            _, resumed = train.main([*args, f"max_iterations={epochs + 1}", f"checkpoint={ckpt}"])
         played = train.main([*args, "test=True", f"checkpoint={ckpt}", "task.env.episodeLength=16"])
     print(f"train.main task={task}: {epochs} epochs x {width} envs in {sec:.2f} s ({metrics['frames'] / sec:.1f} "
-          f"env-steps/s with set-up), {launches} launches, kl {metrics['kl']:.5f}; restore bit-equal; resumed to "
-          f"epoch {resumed['epoch']}; played mean return {played:.2f}")
+          f"env-steps/s with set-up), {launches} launches, kl {metrics['kl']:.5f}; restore bit-equal; "
+          f"{'resumed to epoch ' + str(resumed['epoch']) if resume else 'no resume'}; played mean return {played:.2f}")
     if resumed["epoch"] != epochs + 1 or not np.isfinite(played):
         raise AssertionError(f"{task}: resume reached epoch {resumed['epoch']}, play returned {played}")
     return launches
@@ -2772,6 +2813,425 @@ def time_nutbolt(task: str, card: str) -> dict:
     return out
 
 
+# ---- IndustReal (PegsInsert, GearsInsert): caps of 32 and 64, three grids on Gears ----
+
+INDUSTREAL_ENVS = 128  # numEnvs of both yamls
+INDUSTREAL_WIDE = 4096
+# task -> the yaml's full width: envs, horizon, batch, minibatch, mini-epochs (IndustRealTask*InsertPPO.yaml)
+INDUSTREAL_WIDTH = {"IndustRealTaskPegsInsert": (128, 128, 16384, 8192, 8),
+                    "IndustRealTaskGearsInsert": (128, 128, 16384, 8, 8)}
+# the size tuples but for the envs per block: the plug's 76 points and 2 x 6 pad points (Pegs), the gear's
+# 50 bore, 24 bottom and 2 x 20 pad points (Gears), each a plane row and an SDF row; caps of 32 and 64
+INDUSTREAL_SIZES = {"IndustRealTaskPegsInsert": (17, 20, 19, 88, 0, 0, 1, 0, 0, 0, 0, 32, 0, 88),
+                    "IndustRealTaskGearsInsert": (17, 20, 19, 114, 0, 0, 1, 0, 0, 0, 0, 64, 0, 114)}
+INDUSTREAL_POOL = 2048  # comparison candidates are drawn this many at a time (`industreal_inputs`)
+# the fewest rows in the margin of a Gears comparison state: more than a warp's 32 lanes, so that the
+# ranking writes slots past 32 and the solve runs two slots per lane
+GEARS_MIN_ACTIVE = 33
+# the bars of the JAX package's slow tests through the kernel, as shares of the 128 envs (PERF.md, section 6),
+# each the port's plain step's share on the CPU from its own draws less two standard errors of a share of
+# 128 draws: the straight push completes the insertion (success, engagement, the plug within the success
+# height of the socket's origin, the reward above the first step's: 128 of 128 on the CPU), and the gear
+# pressed then held stays inserted (success, engagement, height: 64 of 128 on the CPU; the JAX package's
+# eager engine kept 2 of its test's 4)
+PEGS_PUSH_SHARE = 0.9
+GEARS_HOLD_SHARE = 0.4
+
+
+def industreal_env(task: str, n: int, overrides=(), device: str = "cuda"):
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    return task_map[task](load_config([f"task={task}", f"num_envs={n}", *overrides])["task"], device=device)
+
+
+def industreal_calls(env, q, qd):
+    """One env step's physics inputs at (q, qd) under zero actions: the
+    task-space impedance's torques (clipped), gravity compensation, the
+    closed gripper's setpoints, and the SDF planes sampled at the entry.
+    PegsInsert's fingers are held where they are: the pads' points lie 6 mm
+    to either side of the finger's midline, beyond the 4 mm peg, so closing
+    fingers meet nothing and reach their limit at 0 within the step, where
+    a one-ulp difference switches the limit's spring."""
+    qfrc, xfrc, qt = env.compute_force(torch.zeros(q.shape[0], env.num_acts, device=q.device), q, qd, None)
+    if "Pegs" in type(env).__name__:
+        qt[:, env.q_idx[7:]] = q[:, env.q_idx[7:]]
+    return qfrc, xfrc, qt, sdf_planes(env.model, q, qd)
+
+
+def industreal_inputs(env, n: int, seed: int, calls: int, min_active: int = 0):
+    """n states (q, qd) from the task's `contact_states` whose `calls`
+    chained physics calls (each under `industreal_calls` at the plain
+    output of the one before) pass `conditioned` (the keys at the cap
+    NUTBOLT_KEY_GAP apart) and `kernel_jitter_ok`, with more than
+    `min_active` - 1 rows in the margin in the first call. Drawn in pools of
+    INDUSTREAL_POOL until n are kept; returns them, the share of the drawn
+    states kept, and the most, mean and fewest rows in the margin per kept
+    env in the first call."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    s, p = fused._extract(env.model), env.sim_params
+    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    holder = franka_holder(env)
+    kept, drawn, actives = [], 0, []
+    for k in range(24):
+        q, qd = env.contact_states(INDUSTREAL_POOL, seed + 7919 * k)
+        if k == 0:
+            qfrc, xfrc, qt, sdf = industreal_calls(env, q, qd)
+            float32_noise(env, s, p, q, qd, qfrc, qt, xfrc=xfrc, sdf=sdf)
+        alive = torch.arange(INDUSTREAL_POOL, device="cuda")
+        x = (q, qd)
+        for call in range(calls):
+            qfrc, xfrc, qt, sdf = industreal_calls(env, *x)
+            ok, active, _ = conditioned(holder, s, (), x[0], x[1], qt, None, None, p, 0, qfrc=qfrc, xfrc=xfrc, sdf=sdf,
+                                        key_gap=NUTBOLT_KEY_GAP)
+            ok &= kernel_jitter_ok(env, p, x[0], x[1], qt, seed + 31 * k + call, qfrc=qfrc, xfrc=xfrc, sdf=sdf)
+            if call == 0:
+                ok &= active >= min_active
+                first_active = active
+            out = plain(rows(x[0][ok]), rows(x[1][ok]), rows(qfrc[ok]), xfrc_rows(xfrc[ok]), rows(qt[ok]), None,
+                        None, 0, sdf[:, ok].contiguous())
+            first_active = first_active[ok]
+            alive, x = alive[ok], (out[0].T.contiguous(), out[1].T.contiguous())
+            if not len(alive):
+                break
+        kept.append((q[alive], qd[alive]))
+        actives.append(first_active)
+        drawn += INDUSTREAL_POOL
+        if sum(len(t[0]) for t in kept) >= n:
+            break
+    have = sum(len(t[0]) for t in kept)
+    if have < n:
+        raise AssertionError(f"{type(env).__name__}: {have} of {drawn} contact states are well conditioned, "
+                             f"{n} needed")
+    act = torch.cat(actives)[:n]
+    picked = [torch.cat(t)[:n].contiguous() for t in zip(*kept)]
+    return picked, have / drawn, (int(act.max()), float(act.float().mean()), int(act.min()))
+
+
+def compare_industreal(task: str) -> float:
+    """The task's instantiation (Pegs: cap 32 of 176 rows, two grids; Gears:
+    cap 64 of 228, three grids, two on the base's yaw body) against its
+    plain version at N=RAGGED_ENVS for 3 env steps and at the yaml's 128 for
+    one, each call under `industreal_calls` at the plain output of the one
+    before, from `industreal_inputs` (Gears: states with GEARS_MIN_ACTIVE
+    rows in the margin or more, so that slots past a warp's 32 lanes hold
+    rows); the plug (the gear) carries contact force in half of the envs or
+    more (those resting on the floor or the plate: a plug pushed into a wall
+    is pushed out within the first slice, and the step reports the last).
+    Returns the largest error."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    env = industreal_env(task, INDUSTREAL_ENVS)
+    gears = "Gears" in task
+    (q, qd), share, (most, mean, fewest) = industreal_inputs(env, RAGGED_ENVS, seed=111, calls=3,
+                                                             min_active=GEARS_MIN_ACTIVE if gears else 0)
+    m, p = env.model, env.sim_params
+    s = fused._extract(m)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    cap = fused.topk_cap(s, p)
+    worst = 0.0
+    for n, calls in ((RAGGED_ENVS, 3), (INDUSTREAL_ENVS, 1)):
+        x = (q[:n].contiguous(), qd[:n].contiguous())
+        for call in range(calls):
+            qfrc, xfrc, qt, sdf = industreal_calls(env, *x)
+            ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, sdf=sdf)
+            po = plain(rows(x[0]), rows(x[1]), rows(qfrc), xfrc_rows(xfrc), rows(qt), None, None, 0, sdf)
+            err = compare_outputs(f"{task} N={n} call {call}", ko, po, s.nbody, n)
+            worst = max(worst, *err.values())
+            if call == 0:
+                force = torch.linalg.vector_norm(ko.body_force[:, env.plug_body], dim=-1)
+                on_plug = float((force > 0.01).float().mean())
+                print(f"{task} kernel vs plain, N={n}, call 0: {100 * share:.1f} % of the drawn contact states well "
+                      f"conditioned over 3 calls{' with ' + str(GEARS_MIN_ACTIVE) + ' rows in the margin or more' if gears else ''}, "
+                      f"rows in the margin {mean:.2f} per env on average, {most} at most, {fewest} at fewest (cap "
+                      f"{cap} of {s.nct}), contact force on the plug in {100 * on_plug:.1f} % of envs:",
+                      json.dumps(err))
+                if not on_plug >= 0.5:
+                    raise AssertionError(f"{task} N={n}: force on the plug in {on_plug:.3f} of the envs")
+            x = (po[0].T.contiguous(), po[1].T.contiguous())
+        print(f"{task} kernel vs plain, N={n}, {calls} env step(s): largest error {worst:.3e}")
+    return worst
+
+
+def pegs_straight_push(n: int = INDUSTREAL_ENVS, device: str = "cuda") -> dict:
+    """tests/test_industreal.py:104 through the kernel at the yaml's 128
+    envs: the socket and the plug without xy or yaw noise, every plug spawned
+    5-10 mm into the hole; one zero-action step, then 50 steps pushing
+    straight down (z action -0.6). Per env the bar is the JAX test's:
+    success, engagement, the reward above the first step's, and the plug's
+    origin within the success height (+ 0.1 mm) of the socket's. Returns the
+    shares of envs meeting each and all of them, and the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    env = industreal_env("IndustRealTaskPegsInsert", n, (
+        "task.randomize.socket_pos_xy_noise=[0.0,0.0]", "task.randomize.socket_rot_noise=[0.0,0.0,0.0]",
+        "task.randomize.plug_pos_xy_noise=[0.0,0.0]", "task.rl.initial_max_disp=0.01",
+        "task.rl.curriculum_height_bound=[0.005,0.01]"), device)
+    state, _ = env.reset(0)
+    _cuda.FusedStepCall.launches = 0
+    state, _, rew0, _, _ = env.step(state, torch.zeros(n, 6, device=device))
+    a = torch.zeros(n, 6, device=device)
+    a[:, 2] = -0.6
+    for _ in range(50):
+        state, _, rew, _, ex = env.step(state, a)
+    launches = _cuda.FusedStepCall.launches
+    q = state.sim.q
+    dz = (q[:, env.pq + 2] - q[:, env.sq + 2]).abs()
+    bars = {"successes": ex["successes"] > 0, "engaged": ex["engaged"] > 0, "reward_up": rew > rew0,
+            "height": dz < env.success_height_thresh + 1e-4}
+    every = torch.stack(list(bars.values())).all(0) & torch.isfinite(q).all(1)
+    shares = {k: float(v.float().mean()) for k, v in bars.items()}
+    shares["all"] = float(every.float().mean())
+    print(f"Pegs straight push ({n} envs, 51 steps, {launches} launches): shares {json.dumps(shares)} "
+          f"(bar {PEGS_PUSH_SHARE} for all four); |dz| median {float(dz.median()):.2e} m")
+    return {**shares, "launches": launches}
+
+
+def gears_press_and_hold(n: int = INDUSTREAL_ENVS, device: str = "cuda") -> dict:
+    """tests/test_industreal.py:143 through the kernel at the yaml's 128
+    envs: the base and the gear without xy noise, the gear spawned 12-15 mm
+    onto the shaft, 32 position iterations (128 APGD), the two-sided z
+    rotation; the centre frames 0.02 m along x from the origins; one
+    zero-action step, 12 steps pressing (z action -0.25), 15 holding. Per env
+    the bar is the JAX test's: success, engagement, the gear's origin below
+    the base's + the success height (+ 0.1 mm). Returns the shares and the
+    launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    env = industreal_env("IndustRealTaskGearsInsert", n, (
+        "task.randomize.base_pos_xy_noise=[0.0,0.0]", "task.randomize.gear_pos_xyz_noise=[0.0,0.0,0.0]",
+        "task.rl.initial_max_disp=0.015", "task.rl.curriculum_height_bound=[0.012,0.015]",
+        "task.rl.unidirectional_rot=False", "task.sim.physx.num_position_iterations=32",
+        "task.rl.close_error_thresh=0.15"), device)
+    state, _ = env.reset(0)
+    pc, _, sc, _ = env._centers(state.sim.q)
+    off = float(((pc[:, 0] - state.sim.q[:, env.pq]) - 0.02).abs().max())
+    off = max(off, float(((sc[:, 0] - state.sim.q[:, env.sq]) - 0.02).abs().max()))
+    _cuda.FusedStepCall.launches = 0
+    zero = torch.zeros(n, 6, device=device)
+    state, _, _, _, _ = env.step(state, zero)
+    a = zero.clone()
+    a[:, 2] = -0.25
+    for _ in range(12):
+        state, _, _, _, _ = env.step(state, a)
+    for _ in range(15):
+        state, _, rew, _, ex = env.step(state, zero)
+    launches = _cuda.FusedStepCall.launches
+    q = state.sim.q
+    dz = q[:, env.pq + 2] - q[:, env.sq + 2]
+    bars = {"successes": ex["successes"] > 0, "engaged": ex["engaged"] > 0,
+            "height": dz < env.success_height_thresh + 1e-4}
+    every = torch.stack(list(bars.values())).all(0) & torch.isfinite(q).all(1) & torch.isfinite(rew)
+    shares = {k: float(v.float().mean()) for k, v in bars.items()}
+    shares["all"] = float(every.float().mean())
+    print(f"Gears press and hold ({n} envs, 28 steps, {launches} launches): centre frames {off:.1e} m off 0.02 "
+          f"along x; shares {json.dumps(shares)} (bar {GEARS_HOLD_SHARE} for all three)")
+    if not off < 1e-6:
+        raise AssertionError("the gear's centre frames are not 0.02 m along x from the origins")
+    return {**shares, "launches": launches}
+
+
+def sbc_steps_toward_easier(n: int = INDUSTREAL_ENVS, device: str = "cuda") -> dict:
+    """tests/test_industreal.py:196 through the kernel at the yaml's 128
+    envs: episodes of 6 steps from a max displacement of 0; two episodes of
+    zero actions (14 steps) fail, and each finished episode steps the
+    shared max displacement toward easier by 0.003 (at least 0.003 in every
+    env, at most the easy bound 0.01). Returns the shares and the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    env = industreal_env("IndustRealTaskPegsInsert", n, (
+        "task.env.episodeLength=6", "task.rl.max_episode_length=6", "task.rl.initial_max_disp=0.0"), device)
+    state, _ = env.reset(0)
+    if float(state.task["max_disp"].abs().max()) != 0.0:
+        raise AssertionError("SBC did not start at 0")
+    _cuda.FusedStepCall.launches = 0
+    zero = torch.zeros(n, 6, device=device)
+    success = 0.0
+    for _ in range(14):
+        state, _, _, _, ex = env.step(state, zero)
+        success = max(success, float(ex["successes"].max()))
+    launches = _cuda.FusedStepCall.launches
+    disp = state.task["max_disp"]
+    shares = {"at_least_0.003": float((disp >= 0.003 - 1e-6).float().mean()),
+              "at_most_0.01": float((disp <= 0.01 + 1e-6).float().mean())}
+    print(f"SBC ({n} envs, 14 steps, {launches} launches): max displacement {float(disp.min()):.4f}-"
+          f"{float(disp.max()):.4f} (bars >= 0.003 and <= 0.01 in every env), any success seen {success}; "
+          f"shares {json.dumps(shares)}")
+    return {**shares, "launches": launches}
+
+
+def industreal_bars() -> dict:
+    """The JAX package's three slow IndustReal tests through the kernel; the
+    shares against PEGS_PUSH_SHARE, GEARS_HOLD_SHARE and every env for SBC.
+    Returns the launches per task."""
+    push, hold, sbc = pegs_straight_push(), gears_press_and_hold(), sbc_steps_toward_easier()
+    if not (push["all"] >= PEGS_PUSH_SHARE and hold["all"] >= GEARS_HOLD_SHARE
+            and sbc["at_least_0.003"] == 1.0 and sbc["at_most_0.01"] == 1.0):
+        raise AssertionError(f"IndustReal bars missed: push {push}, hold {hold}, SBC {sbc}")
+    return {"IndustRealTaskPegsInsert": push["launches"] + sbc["launches"],
+            "IndustRealTaskGearsInsert": hold["launches"]}
+
+
+def industreal_env_step(task: str, profile: bool = True) -> float:
+    """env.step env-steps/s under random actions at the yaml's 128 envs
+    (bench.measure, 8 steps after 8); with `profile` one profiled env step
+    (device ops, busy share, top ops) and the reset's IK alone
+    (`resample_init` of every env, which a step runs where some env resets:
+    wall ms and device ops; the same code in both tasks). Returns the
+    device ops per env step without a reset (0 without `profile`). The
+    steps are few: the profiler takes half a millisecond per recorded op."""
+    from isaacgymenvs_tpu_torch.bench import measure
+
+    bench = measure(INDUSTREAL_ENVS, 8, reps=1, device="cuda", task=task)
+    print(f"{task} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s "
+          f"({INDUSTREAL_ENVS} envs)")
+    ops = 0.0
+    if profile:
+        env = industreal_env(task, INDUSTREAL_ENVS)
+        ops = profile_env_step(env, steps=1, label=f"{task} env.step")
+        state, _ = env.reset(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        env.resample_init(state.rng, state.task)
+        torch.cuda.synchronize()
+        ik_ms = (time.perf_counter() - t0) * 1e3
+        ik_ops = profile_window(lambda: env.resample_init(state.rng, state.task), f"{task} resample_init (24 IK "
+                                f"iterations)", 1, "step")
+        print(f"{task}: device ops per env step {ops:.1f} without a reset; the reset's IK {ik_ops:.1f} more, "
+              f"{ik_ms:.2f} ms of wall, in a step where some env resets")
+    return ops
+
+
+def industreal_train_main() -> int:
+    """`train.main task=IndustRealTaskPegsInsert` at the yaml's width (128
+    envs, horizon 128, an LSTM of 256 x 2 before the MLP, PPORecurrent) for
+    2 epochs: the 256-step episodes end in the second epoch, and the SBC
+    update acts on that step, with the max displacement the JAX rule gives
+    for the success rate it saw (`algo.new_max_disp`); a fresh PPORecurrent
+    restores the checkpoint bit for bit (the env's task state included);
+    play with `test=True` (episodes of 16). Returns the training
+    launches."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.tasks import industreal_algo as algo
+    from isaacgymenvs_tpu_torch.tasks.industreal_pegs_insert import IndustRealTaskPegsInsert
+
+    task, (width, horizon) = "IndustRealTaskPegsInsert", INDUSTREAL_WIDTH["IndustRealTaskPegsInsert"][:2]
+    seen = []
+    update = IndustRealTaskPegsInsert.population_update
+
+    def recorded(self, t, done, progress):  # kept on the device: no wait for it inside the rollout
+        out = update(self, t, done, progress)
+        last = (progress >= self.max_episode_length - 1).float()
+        n_last = last.sum()
+        rate = (t["success"] * last).sum() / torch.clamp(n_last, min=1.0)
+        want = algo.new_max_disp(rate, t["max_disp"], self.curriculum_height_bound, self.curriculum_height_step,
+                                 self.curriculum_success_thresh, self.curriculum_failure_thresh)
+        seen.append(torch.stack([n_last, rate, t["max_disp"][0], out["max_disp"][0], want[0],
+                                 out["max_disp"].max() - out["max_disp"].min()]))
+        return out
+
+    IndustRealTaskPegsInsert.population_update = recorded
+    try:
+        with tempfile.TemporaryDirectory() as runs:
+            args = [f"task={task}", f"+train_dir={runs}"]
+            torch.cuda.synchronize()
+            _cuda.FusedStepCall.launches = 0
+            t0 = time.perf_counter()
+            ts, metrics = train.main([*args, "max_iterations=2"])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = _cuda.FusedStepCall.launches
+            steps = torch.stack(seen).cpu()
+            acted = [tuple(float(v) for v in row[1:]) for row in steps if row[0] > 0]
+            bad = {k: v for k, v in metrics.items() if isinstance(v, float) and not np.isfinite(v)
+                   and k != "mean_episode_return"}
+            if launches != 2 * horizon or metrics["epoch"] != 2 or bad or metrics["frames"] != 2 * horizon * width:
+                raise AssertionError(f"{task} train.main: {launches} launches, {metrics}")
+            if len(acted) != 1 or acted[0][2] != acted[0][3] or acted[0][4] != 0.0 \
+                    or float(ts.env_state.task["max_disp"][0]) != acted[0][2]:
+                raise AssertionError(f"{task}: the SBC update did not follow new_max_disp: {acted}")
+            ckpt = os.path.join(runs, task, "nn", f"last_{task}.pth")
+            fts, _ = restored_bit_equal(task, args, ckpt, ts, 2)
+            if not all(torch.equal(fts.env_state.task[k], ts.env_state.task[k]) for k in ts.env_state.task):
+                raise AssertionError(f"{task}: restore did not give back the curriculum's state")
+            played = train.main([*args, "test=True", f"checkpoint={ckpt}", "task.env.episodeLength=16"])
+    finally:
+        IndustRealTaskPegsInsert.population_update = update
+    rate, before, after, want, _ = acted[0]
+    print(f"train.main task={task}: 2 epochs x {width} envs in {sec:.2f} s ({metrics['frames'] / sec:.1f} "
+          f"env-steps/s with set-up), {launches} launches, kl {metrics['kl']:.5f}; the SBC update acted once: "
+          f"success rate {rate:.4f}, max displacement {before:.4f} -> {after:.4f} (new_max_disp: {want:.4f}); "
+          f"restore bit-equal; played mean return {played:.2f}")
+    if not np.isfinite(played):
+        raise AssertionError(f"{task}: play returned {played}")
+    return launches
+
+
+def gears_epoch() -> int:
+    """One GearsInsert epoch through `PPORecurrent.train_epoch` at 128 x 128
+    (IndustRealTaskGearsInsertPPO.yaml: minibatches of 8 in windows of 4, 8
+    mini-epochs: 16,384 minibatch steps). The update runs one mini-epoch
+    (2,048 minibatch steps): the full epoch's time is given as the rollout +
+    8 x that update, derived. Returns the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.learn import PPORecurrent
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    task = "IndustRealTaskGearsInsert"
+    cfg = load_config([f"task={task}", "train.params.config.mini_epochs=1"])
+    env = industreal_env(task, INDUSTREAL_ENVS)
+    agent = PPORecurrent(env, cfg["train"]["params"], seed=0)
+    if (env.num_envs, agent.cfg.horizon_length, agent.batch_size, agent.minibatch_size) != \
+            INDUSTREAL_WIDTH[task][:4]:
+        raise AssertionError(f"{task}: not at the yaml's width")
+    split = {}
+    rollout = agent.rollout
+
+    def timed_rollout(ts, noise=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rollout(ts, noise)
+        torch.cuda.synchronize()
+        split["rollout"] = time.perf_counter() - t0
+        return out
+
+    agent.rollout = timed_rollout
+    ts = agent.init()
+    torch.cuda.synchronize()
+    _cuda.FusedStepCall.launches = 0
+    t0 = time.perf_counter()
+    ts, metrics = agent.train_epoch(ts)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = _cuda.FusedStepCall.launches
+    update = sec - split["rollout"]
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+    print(f"{task} PPORecurrent epoch at 128 x 128, one mini-epoch of 2,048 minibatch steps: {sec:.2f} s = rollout "
+          f"{split['rollout']:.2f} s + update {update:.2f} s; the yaml's 8 mini-epochs (16,384 minibatch steps), "
+          f"derived: {split['rollout'] + 8 * update:.2f} s, {16384 / (split['rollout'] + 8 * update):.1f} "
+          f"env-steps/s; {launches} launches, kl {metrics['kl']:.5f}")
+    if launches != 128 or bad:
+        raise AssertionError(f"{task} epoch: {launches} launches, metrics {metrics}")
+    return launches
+
+
+def time_industreal(task: str, card: str) -> dict:
+    """`kernel_times` of the task's instantiation at the yaml's 128 envs and
+    at 4096, in its `contact_states` under `industreal_calls`; the 4096
+    figures under `<key>_4096`."""
+    out = {}
+    for n in (INDUSTREAL_ENVS, INDUSTREAL_WIDE):
+        env = industreal_env(task, INDUSTREAL_ENVS)
+        q, qd = env.contact_states(n, seed=113)
+        qfrc, xfrc, qt, sdf = industreal_calls(env, q, qd)
+        t = kernel_times(env, rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), card, reps=30, qt=rows(qt), sdf=sdf)
+        out.update(t if n == INDUSTREAL_ENVS else {f"{k}_{n}": v for k, v in t.items() if k != "bound_by"})
+    print(f"{task}: 1 launch per env step (controlFrequencyInv 1), 128 per PPO epoch")
+    return out
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, started together; prints ptxas's figures, the shared memory
@@ -2799,6 +3259,8 @@ def build_all():
         built[t] = (task_env(t, 8), ())
     for t in NUTBOLT_WIDTH:  # plane and SDF rows, two grids on moving bodies, under the cap of 16, q_target
         built[t] = (task_env(t, 8), ())
+    for t in INDUSTREAL_WIDTH:  # plane and SDF rows under caps of 32 and 64 (Gears: three grids), q_target
+        built[t] = (task_env(t, 8), ())
 
     def params_of(t, e):
         return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
@@ -2819,6 +3281,7 @@ def build_all():
             or sizes["HumanoidAMP"] != AMP_SIZES \
             or any(sizes[t][:14] != FRANKA_SIZES[t] for t in FRANKA_WIDTH) \
             or any(sizes[t][:14] != NUTBOLT_SIZES[t] for t in NUTBOLT_WIDTH) \
+            or any(sizes[t][:14] != INDUSTREAL_SIZES[t] for t in INDUSTREAL_WIDTH) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -3001,7 +3464,7 @@ def main() -> int:
     # 20. the training path at full width: 1 + 3 epochs each, AnymalTerrain through train.main, the plane variant
     anymal_launches = {
         "Anymal": train_epochs("Anymal", (ANYMAL_ENVS, 24, 98304, 32768, 5), profile=False),
-        "AnymalTerrain": train_epochs("AnymalTerrain", (ANYMAL_ENVS, 24, 98304, 16384, 5)),
+        "AnymalTerrain": train_epochs("AnymalTerrain", (ANYMAL_ENVS, 24, 98304, 16384, 5), profile=False),
     }
     ops_terrain = profile_env_step(anymal_env("AnymalTerrain", ANYMAL_ENVS), label="AnymalTerrain env.step")
     print(f"device ops per AnymalTerrain env step: {ops_terrain:.1f}")
@@ -3086,23 +3549,41 @@ def main() -> int:
     lap(45)
     # 46. per task: 1 + 1 epochs at the yaml's width, device ops and busy share per env step
     for t in NUTBOLT_WIDTH:
-        nutbolt_launches[t]["epochs"] = train_epochs(t, NUTBOLT_WIDTH[t], profile=False, timed=1)
+        nutbolt_launches[t]["epochs"] = train_epochs(t, NUTBOLT_WIDTH[t], profile=False, timed=1, warmup=False)
         ops = profile_env_step(task_env(t, NUTBOLT_ENVS), label=f"{t} env.step")
         print(f"device ops per {t} env step: {ops:.1f}")
     lap(46)
     # 47. train.main for each: train, restore bit-equal, resume, play
     for t in NUTBOLT_WIDTH:
-        nutbolt_launches[t]["train_main"] = train_main_at_width(t, *NUTBOLT_WIDTH[t][:2], epochs=1)
+        nutbolt_launches[t]["train_main"] = train_main_at_width(t, *NUTBOLT_WIDTH[t][:2], epochs=1, resume=False)
     lap(47)
     # 48. the three kernels timed at 128 and 4096 envs
     nutbolt_t = {t: time_nutbolt(t, name) for t in NUTBOLT_WIDTH}
     lap(48)
+    # 49. IndustReal (PegsInsert: cap 32; GearsInsert: cap 64, three grids) against their plain versions
+    industreal_err = {t: compare_industreal(t) for t in INDUSTREAL_WIDTH}
+    lap(49)
+    # 50. the behaviour of the JAX package's slow IndustReal tests, through the kernel
+    industreal_launches = {t: {"bars": n} for t, n in industreal_bars().items()}
+    lap(50)
+    # 51. env-steps/s, device ops per env step and the reset's IK at the yaml's 128 envs
+    for t in INDUSTREAL_WIDTH:
+        industreal_env_step(t, profile=t == "IndustRealTaskPegsInsert")
+    lap(51)
+    # 52. train.main on PegsInsert (2 epochs: SBC acts once; restore, resume, play), one GearsInsert epoch
+    industreal_launches["IndustRealTaskPegsInsert"]["train_main"] = industreal_train_main()
+    industreal_launches["IndustRealTaskGearsInsert"]["epoch"] = gears_epoch()
+    lap(52)
+    # 53. both kernels timed at 128 and 4096 envs
+    industreal_t = {t: time_industreal(t, name) for t in INDUSTREAL_WIDTH}
+    lap(53)
 
     if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
                             *recipe_launches.values(), lstm_launches, *amp_launches.values(),
                             *(n for d in franka_launches.values() for n in d.values()),
-                            *(n for d in nutbolt_launches.values() for n in d.values()))) \
+                            *(n for d in nutbolt_launches.values() for n in d.values()),
+                            *(n for d in industreal_launches.values() for n in d.values()))) \
             or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
@@ -3115,6 +3596,8 @@ def main() -> int:
     franka_names = {"FrankaCubeStack": "fused_step_franka_cube_stack_k4_k5_qt",
                     "FrankaCabinet": "fused_step_franka_cabinet_k4mesh_k5_qt"}
     nutbolt_names = {t: f"fused_step_nut_bolt_{t[17:].lower()}_k5_k6sdf2_qt" for t in NUTBOLT_WIDTH}
+    industreal_names = {"IndustRealTaskPegsInsert": "fused_step_industreal_pegs_k5_k6sdf2_qt",
+                        "IndustRealTaskGearsInsert": "fused_step_industreal_gears_k5_k6sdf3_qt"}
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "launches_sac": recipe_launches["AntSAC"],
@@ -3159,6 +3642,11 @@ def main() -> int:
            **{f"launches_{k}": v for k, v in nutbolt_launches[t].items()},
            "max_abs_err": nutbolt_err[t], **nutbolt_t[t], "library_ms": None, "num_envs": NUTBOLT_ENVS,
            "sizes": list(sizes[t])} for t in NUTBOLT_WIDTH),
+        *({"name": industreal_names[t], "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sum(industreal_launches[t].values()),
+           **{f"launches_{k}": v for k, v in industreal_launches[t].items()},
+           "max_abs_err": industreal_err[t], **industreal_t[t], "library_ms": None, "num_envs": INDUSTREAL_ENVS,
+           "sizes": list(sizes[t])} for t in INDUSTREAL_WIDTH),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

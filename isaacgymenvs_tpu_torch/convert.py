@@ -198,7 +198,8 @@ def env_state_from_arrays(state, fields: Mapping, device="cuda"):
     JAX env state's arrays (numpy, by field name): `q`, `qd`, `progress`,
     `reset_buf`, `actions`, and `task`, a dict of per-env arrays (FrankaCubeStack's
     cube poses live in `q`, its `stack` flag in `task`; FrankaCabinet's
-    `targets`; NutBoltPick's `t`) or a tuple of them (the empty task
+    `targets`; NutBoltPick's `t`; IndustReal's `max_disp`, `obs_noise` (N, 3),
+    `prev_rew`, `success` and `engaged`) or a tuple of them (the empty task
     state of NutBoltPlace and NutBoltScrew). Bool and integer task arrays keep their kind. A test draws
     the initial states with the JAX env and steps both packages from them."""
     from .engine.dynamics import SimState

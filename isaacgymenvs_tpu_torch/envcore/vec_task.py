@@ -9,12 +9,17 @@ JAX package's ordering contract:
   2. progress += 1;
   3. envs flagged done on the PREVIOUS step are reset (fresh init states
      for every env from `resample_init`, selected with a where over the
-     done mask);
+     done mask; a task with `costly_reset` draws them only in a step where
+     some env resets);
   3b. with domain randomization: envs that reset and whose last
      randomization is `frequency` steps old take a fresh sample
      (`setup_only` leaves never), branch-free;
   4. observations on the post-reset state (then observation noise);
-  5. reward and new done flags, then the task's `extra_outputs`;
+  5. reward and new done flags, then the task's `extra_outputs` (5a), then
+     its `population_update` (5b, only where a task overrides it): a
+     full-batch change of the task state from statistics across envs (the
+     SBC curriculum of IndustReal), so the extras carry the values from
+     before it;
   6. `time_outs` = progress >= max_episode_length - 1 AND done.
 
 Physics always goes through `engine.fused.physics_step_fused`: on a CUDA
@@ -103,6 +108,7 @@ class VecTask:
       perturb_state(generator, q, qd, frames, task) -> (q, qd)
       resample_init(generator, old_task) -> (q, qd, task) of the resets
       extra_outputs(q, qd, kin, sensors, task, actions, progress) -> dict
+      population_update(task, done, progress) -> task
     """
 
     num_obs: int = 0
@@ -115,6 +121,11 @@ class VecTask:
     # True when compute_force also returns q_target, an (N, nq) vector of
     # PD-drive setpoints that the physics re-evaluates every slice
     use_pd_targets: bool = False
+    # True when resample_init is costly (IndustReal's 24 IK iterations,
+    # five in six of its step's device ops): the step then calls it only
+    # when some env resets, which waits for the device once per step; the
+    # others draw every step and select, branch-free
+    costly_reset: bool = False
 
     def __init__(self, cfg: Dict[str, Any], device="cuda"):
         self.cfg = cfg
@@ -202,6 +213,14 @@ class VecTask:
     def extra_outputs(self, q, qd, kin, sensors, task, actions, progress) -> dict:
         """Per-env values for `extras`, from the state after the reward."""
         return {}
+
+    def population_update(self, task, done, progress):
+        """Full-batch change of the task state after the reward and the
+        extras, from statistics across envs (IndustReal's Sampling-Based
+        Curriculum steps its shared max displacement from the success rate);
+        returns the task state in the same structure. The step calls it
+        only where a subclass overrides it."""
+        return task
 
     # ---- domain randomization ------------------------------------------
     def dr_actor_ranges(self):
@@ -370,12 +389,13 @@ class VecTask:
         progress = state.progress + 1
 
         # 3. partial resets of envs flagged done last step
-        init_q, init_qd, init_task = self.resample_init(state.rng, state.task)
-        done_prev = state.reset_buf
-        q = _select(done_prev, init_q, q)
-        qd = _select(done_prev, init_qd, qd)
-        task = _select(done_prev, init_task, state.task)
-        sensors = Sensors(*(_select(done_prev, torch.zeros_like(x), x) for x in sensors))
+        done_prev, task = state.reset_buf, state.task
+        if not self.costly_reset or bool(done_prev.any()):
+            init_q, init_qd, init_task = self.resample_init(state.rng, task)
+            q = _select(done_prev, init_q, q)
+            qd = _select(done_prev, init_qd, qd)
+            task = _select(done_prev, init_task, task)
+            sensors = Sensors(*(_select(done_prev, torch.zeros_like(x), x) for x in sensors))
         progress = torch.where(done_prev, torch.zeros_like(progress), progress)
 
         # 3b. re-randomize the envs that reset and are due, without asking
@@ -401,6 +421,8 @@ class VecTask:
         # 5. reward + new done flags
         reward, done, task = self.reward_done(obs, q, qd, kin, sensors, task, actions, progress)
         extras = dict(self.extra_outputs(q, qd, kin, sensors, task, actions, progress))
+        if type(self).population_update is not VecTask.population_update:
+            task = self.population_update(task, done, progress)
 
         # 6. timeout flag
         timeout = (progress >= self.max_episode_length - 1) & done

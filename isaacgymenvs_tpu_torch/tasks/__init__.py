@@ -15,6 +15,8 @@ from .franka_cabinet import FrankaCabinet
 from .franka_cube_stack import FrankaCubeStack
 from .humanoid import Humanoid
 from .humanoid_amp import HumanoidAMP
+from .industreal_gears_insert import IndustRealTaskGearsInsert
+from .industreal_pegs_insert import IndustRealTaskPegsInsert
 from .ingenuity import Ingenuity
 from .quadcopter import Quadcopter
 
@@ -32,6 +34,8 @@ task_map: Dict[str, Type[VecTask]] = {
     "FrankaCubeStack": FrankaCubeStack,
     "Humanoid": Humanoid,
     "HumanoidAMP": HumanoidAMP,
+    "IndustRealTaskGearsInsert": IndustRealTaskGearsInsert,
+    "IndustRealTaskPegsInsert": IndustRealTaskPegsInsert,
     "Ingenuity": Ingenuity,
     "Quadcopter": Quadcopter,
 }

@@ -565,3 +565,44 @@ def test_nut_bolt_kernels_match_plain_version(task):
             assert float((force[:, env.bolt_body] > 0.05).float().mean()) >= 0.25
         x = (po[0].T.contiguous(), po[1].T.contiguous())
     assert _cuda.FusedStepCall.launches == before + chip_smoke.NUTBOLT_LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["IndustRealTaskPegsInsert", "IndustRealTaskGearsInsert"])
+def test_industreal_kernels_match_plain_version(task):
+    """The IndustReal builds: PegsInsert (nv 19, 88 plane rows and 88 SDF
+    rows against two grids, the socket's on three slides and a yaw hinge and
+    the free plug's, under the cap of 32) and GearsInsert (114 + 114 rows,
+    three grids, under the cap of 64: more slots than a warp has lanes)
+    against their plain versions for 3 env steps at 256 envs, from
+    `chip_smoke.industreal_inputs` (the tasks' contact states under their
+    task-space impedance at zero actions, kept where rounding alone moves
+    each call by at most COND_TOL; Gears only states with 33 rows or more
+    in the margin), within the tolerances."""
+    import pathlib
+    import sys
+
+    _needs_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    n = 256
+    env = _task(task, chip_smoke.INDUSTREAL_ENVS)
+    gears = "Gears" in task
+    (q, qd), _, (_, _, fewest) = chip_smoke.industreal_inputs(
+        env, n, seed=79, calls=3, min_active=chip_smoke.GEARS_MIN_ACTIVE if gears else 0)
+    assert fewest >= (chip_smoke.GEARS_MIN_ACTIVE if gears else 0)
+    m, p = env.model, env.sim_params
+    _, step = fused._prepared(m, p, torch.device("cuda"), True)
+    assert step.sizes[:14] == chip_smoke.INDUSTREAL_SIZES[task] and step.epb == (4 if gears else 8)
+    plain = fused._step_math_torch(step.s, p, torch.device("cuda"))
+    before = _cuda.FusedStepCall.launches
+    x = (q, qd)
+    for call in range(3):
+        qfrc, xfrc, qt, sdf = chip_smoke.industreal_calls(env, *x)
+        ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, sdf=sdf)
+        po = plain(*(t.T.contiguous() for t in (x[0], x[1], qfrc)), chip_smoke.xfrc_rows(xfrc), qt.T.contiguous(),
+                   None, None, 0, sdf)
+        chip_smoke.compare_outputs(f"{task} call {call}", ko, po, m.nbody, n)
+        x = (po[0].T.contiguous(), po[1].T.contiguous())
+    assert _cuda.FusedStepCall.launches == before + 3
