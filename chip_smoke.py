@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of steps 14, 17, 22, 26, 33, 38 and 44 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14, 17, 22, 26, 33, 38, 44, 49 and 54 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -232,7 +232,31 @@
    `PPORecurrent.train_epoch` at 128 x 128 with one of its 8 mini-epochs
    (2,048 minibatches of 8), the full epoch derived;
 53. both IndustReal kernels timed at 128 and 4096 envs;
-54. prints one `kernels` JSON line with all instantiations (each with its
+54. Trifinger (14 bodies, nv 15; the cube's 8 corners and the 3 tips as
+   plane rows, the tips against the cube as pair rows, no cap, 4 substeps;
+   its yaml's domain randomization: 8 per-env leaves), ShadowHand (nv 30;
+   114 pair rows of the hand's candidates against the object, no plane
+   rows, under the cap of 24; `q_target`; 4 fixed tendons) and AllegroHand
+   (nv 22; 144 pair rows under the cap of 24; `q_target`; 2 control slices)
+   against their plain versions for 3 env steps at N=1003 from the tasks'
+   `contact_states` (the fingertips on the cube; the object on the palm),
+   each call under `hand_calls` (Trifinger's safety damping at zero
+   actions, the hands' setpoints held) at the plain output of the one
+   before, kept by `conditioned` and `kernel_jitter_ok` (`hand_inputs`):
+   contact force on the object in half of the envs or more, and more rows
+   in ShadowHand's margin than the cap in some env; then ShadowHand's
+   build under ShadowHandOpenAI_FF.yaml (HAND_FF: 13 per-env leaves of its
+   domain randomization, a random force on the object as xfrc, 3 control
+   slices) the same way for one env step;
+55. the JAX package's hand bars through the kernel at 16,384 envs: the
+   object rests on the palm after 60 zero-action steps in PALM_SHARE of
+   the envs (ShadowHand, AllegroHand), and Trifinger's position mode tracks
+   the default pose (TRACK_BAR);
+56. per task env.step env-steps/s and device ops per env step at 16,384
+   envs, and one warm-up and one timed PPO epoch at the yaml's width
+   (batch 131,072);
+57. the three hand kernels timed at 16,384 envs;
+58. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
@@ -242,6 +266,7 @@ exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import statistics
@@ -954,8 +979,9 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
 
 def restored_bit_equal(task: str, args, ckpt: str, ts, epochs: int) -> list:
     """Restore `ckpt` into a fresh agent of another seed (PPORecurrent for a
-    recipe with `network.rnn`): parameters, lr, running stats and Adam
-    moments must equal the trained state `ts` bit for bit. Returns [the
+    recipe with `network.rnn`): parameters (the central value net's too),
+    lr, running stats and Adam moments must equal the trained state `ts`
+    bit for bit. Returns [the
     fresh agent's train state, the checkpoint's epoch]."""
     from isaacgymenvs_tpu_torch.learn import PPO, PPORecurrent
     from isaacgymenvs_tpu_torch.tasks import task_map
@@ -964,12 +990,16 @@ def restored_bit_equal(task: str, args, ckpt: str, ts, epochs: int) -> list:
     cfg = load_config(args)
     params = cfg["train"]["params"]
     kind = PPORecurrent if params.get("network", {}).get("rnn") else PPO
-    fresh = kind(task_map[task](cfg["task"], device="cuda"), params, seed=1)
+    fresh = kind(task_map[task if task in task_map else cfg["task"]["name"]](cfg["task"], device="cuda"), params,
+                 seed=1)
     fts, epoch = fresh.restore(ckpt, fresh.init())
     trained = ts.optimizer.param_groups[0]["params"]  # the trained network's parameters
     same = epoch == epochs and fts.lr == ts.lr
-    same &= all(torch.equal(a, b) for a, b in zip(fresh.network.parameters(), trained, strict=True))
-    for a, b in ((fts.obs_rms, ts.obs_rms), (fts.value_rms, ts.value_rms)):
+    same &= all(torch.equal(a, b) for (_, a), b in zip(fresh.named_trainables(), trained, strict=True))
+    rms = [(fts.obs_rms, ts.obs_rms), (fts.value_rms, ts.value_rms)]
+    if fresh.use_central_value:  # the asymmetric critic's states
+        rms.append((fts.state_rms, ts.state_rms))
+    for a, b in rms:
         same &= all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("mean", "var", "count"))
     fst, tst = fts.optimizer.state_dict()["state"], ts.optimizer.state_dict()["state"]
     same &= set(fst) == set(tst) and all(
@@ -1193,7 +1223,8 @@ def conditioned(env, s, names, q, qd, qt, dyn_rows, terrain, p, wre, qfrc=None, 
     keys = []
     terr = None if terrain is None else fused.pack_terrain(fused.terrain_dyn(env.model, terrain, q, qd))
     zero = torch.zeros(s.nv, q.shape[0], device="cuda") if qfrc is None else rows(qfrc)
-    ins = (rows(q), rows(qd), zero, None if xfrc is None else xfrc_rows(xfrc), rows(qt), dyn_rows, terr)
+    ins = (rows(q), rows(qd), zero, None if xfrc is None else xfrc_rows(xfrc), None if qt is None else rows(qt),
+           dyn_rows, terr)
     a = fused._step_math_torch(s, p, torch.device("cuda"), names, keys)(*ins, wre, sdf)
     wide = fused._step_math_torch(s, p, torch.device("cuda"), names, dtype=torch.float64)
     b = wide(*(None if x is None else x.double() for x in ins), wre, None if sdf is None else sdf.double())
@@ -2031,19 +2062,19 @@ def amp_pool(env, n: int, seed: int):
     return q, qd, q + 0.1 * (torch.rand(q.shape, generator=g, device="cuda") - 0.5), nl
 
 
-def kernel_jitter_ok(env, p, q, qd, qt, seed: int, draws: int = 4, qfrc=None, xfrc=None, sdf=None):
+def kernel_jitter_ok(env, p, q, qd, qt, seed: int, draws: int = 4, qfrc=None, xfrc=None, sdf=None, dyn=None):
     """Per env: the kernel's step moves by at most COND_TOL when every entry
     of q and qd is moved one ulp up or down at random (`draws` times;
     launches that count for no main path), under the joint forces `qfrc`
     (zero without), the body wrenches `xfrc` and the SDF planes `sdf` where
-    given. `conditioned` moves the base's
+    given, and the packed per-env leaves `dyn`. `conditioned` moves the base's
     position alone; a solve near a tie of its restarts or its cone
     projections can sit still under that and flip under another rounding."""
     from isaacgymenvs_tpu_torch.engine import fused
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     zero = torch.zeros_like(qd) if qfrc is None else qfrc
-    run = lambda a, b: fused.physics_step_fused(env.model, p, a, b, zero, xfrc=xfrc, q_target=qt, sdf=sdf)
+    run = lambda a, b: fused.physics_step_fused(env.model, p, a, b, zero, xfrc=xfrc, q_target=qt, sdf=sdf, dyn=dyn)
     ulp = lambda t: torch.nextafter(t, torch.where(torch.rand(t.shape, generator=g, device="cuda") < 0.5, -1e30, 1e30))
     k0 = run(q, qd)
     ok = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
@@ -2492,17 +2523,21 @@ def osc_share(steps: int = 4) -> None:
           f"({100 * osc_ops / step_ops:.1f} %)")
 
 
-def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2, resume: bool = True) -> int:
-    """`train.main task=<task>` at the yaml's width: `epochs` epochs (one
-    launch per env step, finite metrics), a bit-equal restore, with
-    `resume` a resume for one more, and play with episodes cut to 16 steps
-    (NutBoltPick's acting phase: 16 steps and its scripted tail). Returns
-    the training launches."""
+def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2, resume: bool = True,
+                        overrides=()) -> int:
+    """`train.main task=<task> *overrides` (a recipe, a variant's switches)
+    at the yaml's width: `epochs` epochs (controlFrequencyInv launches per
+    env step, finite metrics), a bit-equal restore, with `resume` a resume
+    for one more, and play with episodes cut to 16 steps (NutBoltPick's
+    acting phase: 16 steps and its scripted tail). Returns the training
+    launches."""
     from isaacgymenvs_tpu_torch import train
     from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.utils.config import load_config
 
     with tempfile.TemporaryDirectory() as runs:
-        args = [f"task={task}", f"+train_dir={runs}"]
+        args = [f"task={task}", *overrides, f"+train_dir={runs}"]
+        cfi = int(load_config(args)["task"]["env"].get("controlFrequencyInv", 1))
         torch.cuda.synchronize()
         _cuda.FusedStepCall.launches = 0
         t0 = time.perf_counter()
@@ -2510,22 +2545,28 @@ def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2, re
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         launches = _cuda.FusedStepCall.launches
+        # the means of episodes are NaN, and their extremes +-inf, in a run where no episode ended
         bad = {k: v for k, v in metrics.items() if isinstance(v, float) and not np.isfinite(v)
-               and k != "mean_episode_return"}
-        if launches != epochs * horizon or metrics["epoch"] != epochs or bad \
+               and k != "mean_episode_return" and not k.startswith(("episode_cumulative_min/",
+                                                                      "episode_cumulative_max/"))}
+        if launches != epochs * horizon * cfi or metrics["epoch"] != epochs or bad \
                 or metrics["frames"] != epochs * horizon * width:
-            raise AssertionError(f"{task} train.main: {launches} launches, {metrics}")
-        ckpt = os.path.join(runs, task, "nn", f"last_{task}.pth")
+            raise AssertionError(f"{task} {' '.join(overrides)} train.main: {launches} launches, {metrics}")
+        ckpts = glob.glob(os.path.join(runs, "*", "nn", "last_*.pth"))
+        if len(ckpts) != 1:
+            raise AssertionError(f"{task} {' '.join(overrides)}: checkpoints {ckpts}")
+        ckpt = ckpts[0]
         restored_bit_equal(task, args, ckpt, ts, epochs)
         resumed = {"epoch": epochs + 1}
         if resume:
             _, resumed = train.main([*args, f"max_iterations={epochs + 1}", f"checkpoint={ckpt}"])
         played = train.main([*args, "test=True", f"checkpoint={ckpt}", "task.env.episodeLength=16"])
-    print(f"train.main task={task}: {epochs} epochs x {width} envs in {sec:.2f} s ({metrics['frames'] / sec:.1f} "
+    print(f"train.main task={task}{''.join(' ' + o for o in overrides)}: {epochs} epochs x {width} envs in {sec:.2f} s ({metrics['frames'] / sec:.1f} "
           f"env-steps/s with set-up), {launches} launches, kl {metrics['kl']:.5f}; restore bit-equal; "
           f"{'resumed to epoch ' + str(resumed['epoch']) if resume else 'no resume'}; played mean return {played:.2f}")
     if resumed["epoch"] != epochs + 1 or not np.isfinite(played):
-        raise AssertionError(f"{task}: resume reached epoch {resumed['epoch']}, play returned {played}")
+        raise AssertionError(f"{task} {' '.join(overrides)}: resume reached epoch {resumed['epoch']}, play returned "
+                             f"{played}")
     return launches
 
 
@@ -3232,6 +3273,255 @@ def time_industreal(task: str, card: str) -> dict:
     return out
 
 
+# ---- the hand tasks without ADR: Trifinger, ShadowHand, AllegroHand (pair rows, the cap of 24, tendons) ----
+
+HAND_ENVS = 16384  # numEnvs of the three yamls
+# task -> the yaml's full width: envs, horizon, batch, minibatch, mini-epochs (TrifingerPPO.yaml,
+# ShadowHandPPO.yaml, AllegroHandPPO.yaml)
+HAND_WIDTH = {"Trifinger": (16384, 8, 131072, 32768, 4), "ShadowHand": (16384, 8, 131072, 32768, 5),
+              "AllegroHand": (16384, 8, 131072, 32768, 5)}
+# the size tuples but for the envs per block: Trifinger with its yaml's domain randomization (8 per-env
+# leaves and gravity, the cube's 8 corners and the 3 tips as plane rows, the tips against the cube as pair
+# rows, no cap);
+# ShadowHand's 114 and AllegroHand's 144 pair rows under the cap of 24, q_target, ShadowHand's 4 tendons
+HAND_SIZES = {"Trifinger": (14, 16, 15, 11, 3, 0, 0, 0, 63728, 11, 13, 0, 0, 0),
+              "ShadowHand": (27, 31, 30, 0, 114, 0, 1, 4, 0, 0, 0, 24, 0, 0),
+              "AllegroHand": (23, 23, 22, 0, 144, 0, 1, 0, 0, 0, 0, 24, 0, 0),
+              "ShadowHandOpenAI_FF": (27, 31, 30, 0, 114, 0, 1, 4, 65267, 122, 84, 24, 0, 0)}
+# ShadowHand's build with its OpenAI variant's yaml: the 13 per-env leaves of its domain randomization
+# (tendons, dofs, masses, friction, the object's scale, gravity) and the random force on the object (xfrc,
+# forceScale 1), controlFrequencyInv 3; compared for one env step, its 3 physics calls
+HAND_FF = "ShadowHandOpenAI_FF"
+HAND_POOL = 4096  # comparison candidates are drawn this many at a time (`hand_inputs`)
+HAND_STEPS = 3  # env steps of the comparison (AllegroHand: 2 physics calls each, controlFrequencyInv 2)
+# the bars of the JAX package's tests through the kernel at the yamls' 16,384 envs, each the port's plain
+# step's share on the CPU from its own draws (PERF.md, section 6) less two standard errors: the object
+# rests on the palm after 60 zero-action steps (tests/test_shadow_hand.py::test_object_rests_on_palm;
+# z in 0.45-0.58, no episode ended), and Trifinger's position mode tracks the default pose
+# (tests/test_trifinger.py::test_position_command_mode_tracks_targets: the mean error of the upper and
+# middle joints under 0.2 rad and under half of the torque mode's at zero torques)
+PALM_SHARE = {"ShadowHand": 0.88, "AllegroHand": 0.94}
+TRACK_BAR = (0.2, 0.5)
+
+
+def hand_env(task: str, n: int, overrides=(), device: str = "cuda"):
+    """The task at n envs; a variant yaml reaches its class through its `name:`."""
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    cfg = load_config([f"task={task}", f"num_envs={n}", *overrides])["task"]
+    return task_map[cfg["name"]](cfg, device=device)
+
+
+def hand_calls(env, q, qd):
+    """One physics call's inputs at (q, qd): Trifinger's torques at zero
+    actions (the safety damping alone), a hand's PD setpoints held at its
+    joints' positions and, where its yaml's forceScale is above 0
+    (ShadowHandOpenAI_FF), a random force on the object as the task draws
+    its kicks (normal, times the object's mass and forceScale), seeded by
+    the env count; (qfrc, xfrc, q_target or None)."""
+    from isaacgymenvs_tpu_torch import maths
+
+    if not env.use_pd_targets:
+        qfrc, xfrc = env.compute_force(torch.zeros(q.shape[0], env.num_acts, device=q.device), q, qd, None)
+        return qfrc, xfrc, None
+    idx, held = env.actuated_idx, q[:, env.hand_q_idx]
+    hold = torch.clamp(maths.unscale(held[:, idx], env.dof_lower[idx], env.dof_upper[idx]), -1.0, 1.0)
+    task = {"targets": held}
+    if getattr(env, "force_scale", 0.0) > 0.0:
+        gen = torch.Generator(device=q.device).manual_seed(q.shape[0])
+        task["rb_force"] = torch.randn(q.shape[0], 3, generator=gen, device=q.device) * env.object_mass \
+            * env.force_scale
+    return env.compute_force(hold, q, qd, task)
+
+
+def hand_dyn(env, n: int, seed: int):
+    """The packed per-env leaves of a draw of the task's domain
+    randomization at n envs, or None without it."""
+    if env.randomizer is None:
+        return None
+    return env.pack_dyn(env.randomizer.sample(torch.Generator(device="cuda").manual_seed(seed), n, 0))
+
+
+def hand_inputs(env, n: int, seed: int, calls: int):
+    """n states (q, qd) from the task's `contact_states` (with Trifinger's
+    per-env leaves, a draw of its yaml's randomization) whose `calls` chained
+    physics calls (each under `hand_calls` at the plain output of the one
+    before) pass `conditioned` and `kernel_jitter_ok`. Drawn in pools of
+    HAND_POOL until n are kept; returns them, the packed leaves of the kept
+    envs (`fused.PackedDyn`) or None, the share of the drawn states kept, and the rows in the
+    margin of the kept envs in the first call."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    s, p = fused._extract(env.model), env.sim_params
+    holder = franka_holder(env)
+    names = ()
+    kept, drawn, actives, dyns = [], 0, [], []
+    for k in range(24):
+        q, qd = env.contact_states(HAND_POOL, seed + 7919 * k)
+        dyn = hand_dyn(env, HAND_POOL, seed + 31 * k)
+        names, dyn_rows = (dyn.names, dyn.rows) if dyn is not None else ((), None)
+        plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
+        if k == 0:
+            qfrc, xfrc, qt = hand_calls(env, q, qd)
+            print(f"{type(env).__name__} kernel vs plain inputs: {fused.topk_cap(s, p)} cap, {s.nct} rows")
+        alive = torch.arange(HAND_POOL, device="cuda")
+        x, d = (q, qd), dyn_rows
+        for call in range(calls):
+            qfrc, xfrc, qt = hand_calls(env, *x)
+            ok, active, _ = conditioned(holder, s, names, x[0], x[1], qt, d, None, p, 0, qfrc=qfrc, xfrc=xfrc)
+            ok &= kernel_jitter_ok(env, p, x[0], x[1], qt, seed + 31 * k + call, qfrc=qfrc, xfrc=xfrc,
+                                   dyn=None if d is None else fused.PackedDyn(names, d))
+            if call == 0:
+                first_active = active
+            sel = lambda t: None if t is None else t[ok]
+            d = None if d is None else d[:, ok].contiguous()
+            out = plain(rows(x[0][ok]), rows(x[1][ok]), rows(qfrc[ok]), xfrc_rows(xfrc[ok]),
+                        None if qt is None else rows(sel(qt)), d)
+            first_active = first_active[ok]
+            alive, x = alive[ok], (out[0].T.contiguous(), out[1].T.contiguous())
+            if not len(alive):
+                break
+        kept.append((q[alive], qd[alive]))
+        dyns.append(None if dyn_rows is None else dyn_rows[:, alive])
+        actives.append(first_active)
+        drawn += HAND_POOL
+        if sum(len(t[0]) for t in kept) >= n:
+            break
+    have = sum(len(t[0]) for t in kept)
+    if have < n:
+        raise AssertionError(f"{type(env).__name__}: {have} of {drawn} contact states are well conditioned, "
+                             f"{n} needed")
+    picked = [torch.cat(t)[:n].contiguous() for t in zip(*kept)]
+    dyn = None if dyns[0] is None else fused.PackedDyn(names, torch.cat(dyns, 1)[:, :n].contiguous())
+    return picked, dyn, have / drawn, torch.cat(actives)[:n]
+
+
+def compare_hand(task: str, steps: int = HAND_STEPS) -> float:
+    """The task's instantiation against its plain version at N=RAGGED_ENVS
+    for `steps` env steps (each call under `hand_calls` at the plain
+    output of the one before), from `hand_inputs`: the object carries
+    contact force in half of the envs or more, and (ShadowHand and its
+    variant) more rows lie in the margin than the cap of 24 in some env.
+    Returns the largest error."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    env = hand_env(task, HAND_ENVS)
+    calls = steps * env.control_freq_inv
+    (q, qd), dyn, share, active = hand_inputs(env, RAGGED_ENVS, seed=121, calls=calls)
+    m, p = env.model, env.sim_params
+    s = fused._extract(m)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"), () if dyn is None else dyn.names)
+    cap, n, worst = fused.topk_cap(s, p), RAGGED_ENVS, 0.0
+    x = (q, qd)
+    for call in range(calls):
+        qfrc, xfrc, qt = hand_calls(env, *x)
+        ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, dyn=dyn)
+        po = plain(rows(x[0]), rows(x[1]), rows(qfrc), xfrc_rows(xfrc), None if qt is None else rows(qt),
+                   None if dyn is None else dyn.rows)
+        err = compare_outputs(f"{task} N={n} call {call}", ko, po, s.nbody, n)
+        worst = max(worst, *err.values())
+        if call == 0:
+            on_obj = float((torch.linalg.vector_norm(ko.body_force[:, env.obj_ref.body0], dim=-1) > 0.01)
+                           .float().mean())
+            past = int((active > cap).sum()) if cap else 0
+            print(f"{task} kernel vs plain, N={n}, call 0: {100 * share:.1f} % of the drawn contact states well "
+                  f"conditioned over {calls} calls, rows in the margin {float(active.float().mean()):.2f} per env on "
+                  f"average, {int(active.max())} at most (cap {cap} of {s.nct}; {past} envs past it), contact force "
+                  f"on the object in {100 * on_obj:.1f} % of envs:", json.dumps(err))
+            if not on_obj >= 0.5 or (task.startswith("ShadowHand") and not past >= 1):
+                raise AssertionError(f"{task}: force on the object in {on_obj:.3f} of the envs, {past} past the cap")
+        x = (po[0].T.contiguous(), po[1].T.contiguous())
+    print(f"{task} kernel vs plain, N={n}, {steps} env steps ({calls} calls): largest error {worst:.3e}")
+    return worst
+
+
+def object_on_palm(task: str, n: int = HAND_ENVS, device: str = "cuda") -> dict:
+    """tests/test_shadow_hand.py::test_object_rests_on_palm through the
+    kernel at the yaml's width: 60 zero-action steps from a reset; the share
+    of envs whose object lies at z 0.45-0.58 with no episode ended, and the
+    launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    env = hand_env(task, n, device=device)
+    state, _ = env.reset(1)
+    _cuda.FusedStepCall.launches = 0
+    zero = torch.zeros(n, env.num_acts, device=device)
+    ended = torch.zeros(n, dtype=torch.bool, device=device)
+    for _ in range(60):
+        state, _, _, done, _ = env.step(state, zero)
+        ended |= done
+    z = state.sim.q[:, env.obj_q + 2]
+    share = float(((z > 0.45) & (z < 0.58) & ~ended).float().mean())
+    print(f"{task} object on the palm after 60 zero-action steps ({n} envs, {_cuda.FusedStepCall.launches} "
+          f"launches): {share:.4f} of the envs (bar {PALM_SHARE[task]}); z median {float(z.median()):.4f}")
+    return {"share": share, "launches": _cuda.FusedStepCall.launches}
+
+
+def trifinger_tracking(n: int = HAND_ENVS, device: str = "cuda") -> dict:
+    """tests/test_trifinger.py::test_position_command_mode_tracks_targets
+    through the kernel at the yaml's width (its randomization on): 40 steps
+    of the position mode commanding the default pose without safety
+    damping, against 40 of the torque mode at zero torques; the mean error
+    of the upper and middle joints of each, and the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    err, launches = {}, 0
+    for mode, default in (("position", True), ("torque", False)):
+        env = hand_env("Trifinger", n, (f"task.env.command_mode={mode}", "task.env.apply_safety_damping=False"),
+                       device)
+        state, _ = env.reset(1)
+        a = (2.0 * (env.default_dof - env.action_lo) / (env.action_hi - env.action_lo) - 1.0).expand(n, 9) \
+            if default else torch.zeros(n, 9, device=device)
+        _cuda.FusedStepCall.launches = 0
+        for _ in range(40):
+            state, _, _, _, _ = env.step(state, a)
+        launches += _cuda.FusedStepCall.launches
+        sel = torch.tensor([0, 1, 3, 4, 6, 7], device=device)
+        err[mode] = float((state.sim.q[:, env.q_idx] - env.default_dof).abs()[:, sel].mean())
+    print(f"Trifinger position mode tracks the default pose ({n} envs, 80 steps, {launches} launches): mean error "
+          f"{err['position']:.4f} rad against {err['torque']:.4f} at zero torques (bars {TRACK_BAR[0]} and "
+          f"{TRACK_BAR[1]}x)")
+    return {**err, "launches": launches}
+
+
+def hand_bars() -> dict:
+    """The JAX package's bars through the kernel; returns the launches per task."""
+    palm = {t: object_on_palm(t) for t in PALM_SHARE}
+    track = trifinger_tracking()
+    if not (all(palm[t]["share"] >= PALM_SHARE[t] for t in palm) and track["position"] < TRACK_BAR[0]
+            and track["position"] < TRACK_BAR[1] * track["torque"]):
+        raise AssertionError(f"hand bars missed: palm {palm}, tracking {track}")
+    return {"Trifinger": track["launches"], **{t: palm[t]["launches"] for t in palm}}
+
+
+def hand_env_step(task: str) -> float:
+    """env.step env-steps/s under random actions at the yaml's width
+    (bench.measure, 8 steps after 8; Trifinger with its yaml's
+    randomization) and one profiled env step; returns the device ops per
+    env step."""
+    from isaacgymenvs_tpu_torch.bench import measure
+
+    bench = measure(HAND_ENVS, 8, reps=1, device="cuda", task=task, randomize=task == "Trifinger")
+    print(f"{task} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s ({HAND_ENVS} envs)")
+    ops = profile_env_step(hand_env(task, HAND_ENVS), steps=1, label=f"{task} env.step")
+    print(f"device ops per {task} env step: {ops:.1f}")
+    return ops
+
+
+def time_hand(task: str, card: str) -> dict:
+    """`kernel_times` of the task's instantiation at the yaml's width, in its
+    `contact_states` under `hand_calls` (Trifinger with a draw of its leaves)."""
+    env = hand_env(task, HAND_ENVS)
+    q, qd = env.contact_states(HAND_ENVS, seed=123)
+    qfrc, xfrc, qt = hand_calls(env, q, qd)
+    out = kernel_times(env, rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), card, reps=30,
+                       qt=None if qt is None else rows(qt), dyn=hand_dyn(env, HAND_ENVS, 125))
+    print(f"{task}: {env.control_freq_inv} launch(es) per env step (controlFrequencyInv), "
+          f"{env.control_freq_inv * HAND_WIDTH[task][1]} per PPO epoch")
+    return out
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, started together; prints ptxas's figures, the shared memory
@@ -3261,6 +3551,12 @@ def build_all():
         built[t] = (task_env(t, 8), ())
     for t in INDUSTREAL_WIDTH:  # plane and SDF rows under caps of 32 and 64 (Gears: three grids), q_target
         built[t] = (task_env(t, 8), ())
+    for t in HAND_WIDTH:  # pair rows (Trifinger: and plane rows, its yaml's per-env leaves; the hands: the cap of 24)
+        e = hand_env(t, 8)
+        dyn = hand_dyn(e, 8, 0)
+        built[t] = (e, () if dyn is None else dyn.names)
+    e = hand_env(HAND_FF, 8)  # ShadowHand's build under its OpenAI variant's leaves and object force
+    built[HAND_FF] = (e, hand_dyn(e, 8, 0).names)
 
     def params_of(t, e):
         return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
@@ -3282,6 +3578,7 @@ def build_all():
             or any(sizes[t][:14] != FRANKA_SIZES[t] for t in FRANKA_WIDTH) \
             or any(sizes[t][:14] != NUTBOLT_SIZES[t] for t in NUTBOLT_WIDTH) \
             or any(sizes[t][:14] != INDUSTREAL_SIZES[t] for t in INDUSTREAL_WIDTH) \
+            or any(sizes[t][:14] != HAND_SIZES[t] for t in (*HAND_WIDTH, HAND_FF)) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -3577,13 +3874,30 @@ def main() -> int:
     # 53. both kernels timed at 128 and 4096 envs
     industreal_t = {t: time_industreal(t, name) for t in INDUSTREAL_WIDTH}
     lap(53)
+    # 54. Trifinger, ShadowHand and AllegroHand (rows 1ac-1ae) against their plain versions; ShadowHand's build
+    # under its OpenAI variant's leaves and object force
+    hand_err = {t: compare_hand(t) for t in HAND_WIDTH}
+    ff_err = compare_hand(HAND_FF, steps=1)
+    lap(54)
+    # 55. the behaviour of the JAX package's hand tests, through the kernel at 16,384 envs
+    hand_launches = {t: {"bars": n} for t, n in hand_bars().items()}
+    lap(55)
+    # 56. env-steps/s and device ops per env step; one PPO epoch after a warm-up, at the yaml's width
+    for t in HAND_WIDTH:
+        hand_env_step(t)
+        hand_launches[t]["epochs"] = train_epochs(t, HAND_WIDTH[t], profile=False, timed=1)
+    lap(56)
+    # 57. the three kernels timed at 16,384 envs
+    hand_t = {t: time_hand(t, name) for t in HAND_WIDTH}
+    lap(57)
 
     if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
                             *recipe_launches.values(), lstm_launches, *amp_launches.values(),
                             *(n for d in franka_launches.values() for n in d.values()),
                             *(n for d in nutbolt_launches.values() for n in d.values()),
-                            *(n for d in industreal_launches.values() for n in d.values()))) \
+                            *(n for d in industreal_launches.values() for n in d.values()),
+                            *(n for d in hand_launches.values() for n in d.values()))) \
             or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
@@ -3598,6 +3912,8 @@ def main() -> int:
     nutbolt_names = {t: f"fused_step_nut_bolt_{t[17:].lower()}_k5_k6sdf2_qt" for t in NUTBOLT_WIDTH}
     industreal_names = {"IndustRealTaskPegsInsert": "fused_step_industreal_pegs_k5_k6sdf2_qt",
                         "IndustRealTaskGearsInsert": "fused_step_industreal_gears_k5_k6sdf3_qt"}
+    hand_names = {"Trifinger": "fused_step_trifinger_k4_dyn", "ShadowHand": "fused_step_shadow_hand_k4_k5_qt_tendons",
+                  "AllegroHand": "fused_step_allegro_hand_k4_k5_qt"}
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "launches_sac": recipe_launches["AntSAC"],
@@ -3647,6 +3963,13 @@ def main() -> int:
            **{f"launches_{k}": v for k, v in industreal_launches[t].items()},
            "max_abs_err": industreal_err[t], **industreal_t[t], "library_ms": None, "num_envs": INDUSTREAL_ENVS,
            "sizes": list(sizes[t])} for t in INDUSTREAL_WIDTH),
+        *({"name": hand_names[t], "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sum(hand_launches[t].values()), **{f"launches_{k}": v for k, v in hand_launches[t].items()},
+           "max_abs_err": max(hand_err[t], ff_err) if t == "ShadowHand" else hand_err[t], **hand_t[t],
+           "library_ms": None, "num_envs": HAND_ENVS, "sizes": list(sizes[t]), "per_env_leaves": list(built[t][1]),
+           **({"max_abs_err_openai_ff": ff_err, "sizes_openai_ff": list(sizes[HAND_FF]),
+               "per_env_leaves_openai_ff": list(built[HAND_FF][1])} if t == "ShadowHand" else {})}
+          for t in HAND_WIDTH),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

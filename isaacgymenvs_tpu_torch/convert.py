@@ -199,9 +199,14 @@ def env_state_from_arrays(state, fields: Mapping, device="cuda"):
     `reset_buf`, `actions`, and `task`, a dict of per-env arrays (FrankaCubeStack's
     cube poses live in `q`, its `stack` flag in `task`; FrankaCabinet's
     `targets`; NutBoltPick's `t`; IndustReal's `max_disp`, `obs_noise` (N, 3),
-    `prev_rew`, `success` and `engaged`) or a tuple of them (the empty task
-    state of NutBoltPlace and NutBoltScrew). Bool and integer task arrays keep their kind. A test draws
-    the initial states with the JAX env and steps both packages from them."""
+    `prev_rew`, `success` and `engaged`; Trifinger's goal and last fingertips;
+    ShadowHand's and AllegroHand's goal, counters, targets, force and the
+    nested dict `rew_terms`) or a tuple of them (the empty task state of
+    NutBoltPlace and NutBoltScrew). Nested dicts come across as dicts. A
+    task entry `key` (the JAX ShadowHand's PRNG key, which the port's task
+    state does not hold: it draws from the state's generator) is left out.
+    Bool and integer task arrays keep their kind. A test draws the initial
+    states with the JAX env and steps both packages from them."""
     from .engine.dynamics import SimState
 
     dev = torch.device(device)
@@ -210,8 +215,20 @@ def env_state_from_arrays(state, fields: Mapping, device="cuda"):
     state.progress = t(fields["progress"], torch.int32)
     state.reset_buf = t(fields["reset_buf"], torch.bool)
     state.actions = t(fields["actions"], torch.float32)
-    kind = lambda a: torch.bool if a.dtype == np.bool_ else torch.int64 if a.dtype.kind in "iu" else torch.float32
-    task = fields["task"]
-    state.task = (tuple(t(v, kind(np.asarray(v))) for v in task) if isinstance(task, tuple)
-                  else {k: t(v, kind(np.asarray(v))) for k, v in task.items()})
+    state.task = task_from_arrays(fields["task"], device)
     return state
+
+
+def task_from_arrays(task, device="cuda"):
+    """A JAX task state's arrays (numpy: a dict, possibly nested, or a
+    tuple) as the port's task state (see `env_state_from_arrays`)."""
+    dev = torch.device(device)
+    kind = lambda a: torch.bool if a.dtype == np.bool_ else torch.int64 if a.dtype.kind in "iu" else torch.float32
+
+    def tree(v):
+        if isinstance(v, Mapping):
+            return {k: tree(x) for k, x in v.items() if k != "key"}
+        a = np.asarray(v)
+        return torch.tensor(a, dtype=kind(a), device=dev)
+
+    return tuple(tree(v) for v in task) if isinstance(task, tuple) else tree(task)

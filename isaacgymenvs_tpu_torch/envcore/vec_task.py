@@ -222,6 +222,39 @@ class VecTask:
         only where a subclass overrides it."""
         return task
 
+    # ---- dict observations ---------------------------------------------
+    # The policy input stays one flat vector; a task that declares
+    # `obs_spec()` ({key: (offset, size)}) also offers it as a dict of
+    # named slices, as the reference's dict-observation envs do.
+
+    def _obs_spec(self):
+        return self.obs_spec() if hasattr(self, "obs_spec") else None
+
+    @property
+    def observation_dict_space(self):
+        """{key: size} of the named observation slices, or None for a task
+        without an obs_spec."""
+        spec = self._obs_spec()
+        return {k: n for k, (_, n) in spec.items()} if spec else None
+
+    def obs_dict(self, obs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """A flat obs batch (..., num_obs) split into the task's named
+        slices; {"obs": obs} for a task without an obs_spec."""
+        spec = self._obs_spec()
+        if not spec:
+            return {"obs": obs}
+        return {k: obs[..., off:off + n] for k, (off, n) in spec.items()}
+
+    def step_dict(self, state, actions):
+        """`step` with the observations as `obs_dict`."""
+        state, obs, rew, done, extras = self.step(state, actions)
+        return state, self.obs_dict(obs), rew, done, extras
+
+    def reset_dict(self, seed: int = 0):
+        """`reset` with the observations as `obs_dict`."""
+        state, obs = self.reset(seed)
+        return state, self.obs_dict(obs)
+
     # ---- domain randomization ------------------------------------------
     def dr_actor_ranges(self):
         """Optional {actor_name: (body_lo, body_hi)} scoping the

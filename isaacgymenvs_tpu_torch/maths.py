@@ -90,6 +90,10 @@ def normalize_angle(x: torch.Tensor) -> torch.Tensor:
     return torch.atan2(torch.sin(x), torch.cos(x))
 
 
+def scale(x, lower, upper):
+    return 0.5 * (x + 1.0) * (upper - lower) + lower
+
+
 def unscale(x, lower, upper):
     return (2.0 * x - upper - lower) / (upper - lower)
 

@@ -10,11 +10,15 @@ parser shares with it:
     massless links
   * <geom> sphere/capsule/box/cylinder with fromto/pos/quat, density or an
     explicit <inertial>; plane geoms are the engine's ground
+  * <asset><mesh> STL files (binary or ASCII, with `scale`) and mesh geoms:
+    a MESH geom of the vertices' axis-aligned box, its frame moved to the
+    box's centre, with 6 farthest-point vertices as contact candidates and
+    the box's inertia; a mesh that is missing, of another format or
+    unreadable drops its geom
   * <actuator> motor/position/general/velocity with gear and ctrlrange
   * <tendon><fixed> joint couplings
   * <custom><numeric name="init_qpos"> (MuJoCo wxyz -> internal xyzw)
 
-Mesh geoms (STL) are not ported yet and raise NotImplementedError.
 Angles are converted to radians; MuJoCo quats (wxyz) to xyzw.
 """
 from __future__ import annotations
@@ -31,6 +35,7 @@ from .spec import (
     GEOM_BOX,
     GEOM_CAPSULE,
     GEOM_CYLINDER,
+    GEOM_MESH,
     GEOM_SPHERE,
     HINGE,
     SLIDE,
@@ -209,6 +214,26 @@ def parse_mjcf(root: ET.Element, base_dir: str = ".") -> Model:
     for d in root.findall("default"):
         defaults.parse(d)
 
+    from .urdf import _farthest_points, _load_stl, _quat_rot  # urdf imports this module
+
+    # asset meshes (STL): name -> scaled vertices
+    meshdir = compiler.get("meshdir", ".") if compiler is not None else "."
+    meshes = {}
+    for asset in root.findall("asset"):
+        for m in asset.findall("mesh"):
+            file = m.get("file")
+            if file is None or not file.lower().endswith(".stl"):
+                continue
+            scale = _fv(m.get("scale", "1 1 1"))
+            if scale.size == 1:
+                scale = np.repeat(scale, 3)
+            path = os.path.join(base_dir, meshdir, file)
+            if os.path.exists(path):
+                try:
+                    meshes[m.get("name", os.path.splitext(os.path.basename(file))[0])] = _load_stl(path, scale)
+                except Exception:
+                    pass
+
     b = ModelBuilder()
     worldbody = root.find("worldbody")
     if worldbody is None:
@@ -228,21 +253,34 @@ def parse_mjcf(root: ET.Element, base_dir: str = ".") -> Model:
         for j in elem.findall("freejoint"):
             joints.append({"type": "free", "name": j.get("name", name + "_free")})
 
-        geom_data = []  # (gtype, pos, quat, size, mass, inertia_com, fric, contype, conaffinity)
+        # (gtype, pos, quat, size, mass, inertia_com, fric, contype, conaffinity, mesh candidates)
+        geom_data = []
         for g in elem.findall("geom"):
             ga = defaults.resolve("geom", g.attrib, g.attrib.get("class", cls))
             gt_name = ga.get("type", "sphere")
             if gt_name == "plane":
                 continue  # the static world plane is the engine's ground
-            if gt_name == "mesh":
-                raise NotImplementedError("MJCF mesh geoms are not ported yet")
             density = float(ga.get("density", 1000.0))
             fric = float(_fv(ga.get("friction", "1 0.005 0.0001"))[0])
-            gtype, gpos, gquat, gsize = _geom_frame_and_size(ga, deg2rad)
-            m, icom = _geom_mass_inertia(gtype, gsize, density)
+            points = None
+            if gt_name == "mesh":
+                verts = meshes.get(ga.get("mesh"))
+                if verts is None or len(verts) == 0:
+                    continue  # a missing or unreadable mesh drops its geom
+                lo, hi = verts.min(0), verts.max(0)
+                gsize = np.maximum((hi - lo) / 2.0, 1e-5)  # the bounding box's half extents
+                center = (hi + lo) / 2.0
+                gquat = _parse_orientation(ga, deg2rad)
+                # the geom frame moves to the box's centre; the candidates follow
+                gpos = _fv(ga.get("pos", "0 0 0"), 3) + _quat_rot(gquat, center)
+                gtype, points = GEOM_MESH, _farthest_points(verts, 6) - center
+                m, icom = spec.box_inertia(density, gsize)
+            else:
+                gtype, gpos, gquat, gsize = _geom_frame_and_size(ga, deg2rad)
+                m, icom = _geom_mass_inertia(gtype, gsize, density)
             geom_data.append((
                 gtype, gpos, gquat, gsize, m, icom, fric,
-                int(ga.get("contype", 1)), int(ga.get("conaffinity", 1)),
+                int(ga.get("contype", 1)), int(ga.get("conaffinity", 1)), points,
             ))
 
         inertial_elem = elem.find("inertial")
@@ -265,13 +303,13 @@ def parse_mjcf(root: ET.Element, base_dir: str = ".") -> Model:
             inertia = R @ i_local @ R.T
         else:
             # accumulate from the geoms
-            for _gt, gpos, _gq, _gs, m, _ic, _f, _ct, _ca in geom_data:
+            for _gt, gpos, _gq, _gs, m, _ic, _f, _ct, _ca, _mp in geom_data:
                 total_mass += m
                 com = com + m * gpos
             if total_mass > 0:
                 com = com / total_mass
             inertia = np.zeros((3, 3))
-            for _gt, gpos, gquat, _gs, m, icom, _f, _ct, _ca in geom_data:
+            for _gt, gpos, gquat, _gs, m, icom, _f, _ct, _ca, _mp in geom_data:
                 R = _quat_to_mat_xyzw(gquat)
                 d = gpos - com
                 inertia = inertia + R @ icom @ R.T + m * (
@@ -329,10 +367,10 @@ def parse_mjcf(root: ET.Element, base_dir: str = ".") -> Model:
             if joints and jtype in (HINGE, SLIDE):
                 b.qpos0_scalar[body_idx] = ref
 
-        for gtype, gpos, gquat, gsize, _m, _ic, fric, contype, conaffinity in geom_data:
+        for gtype, gpos, gquat, gsize, _m, _ic, fric, contype, conaffinity, points in geom_data:
             if contype == 0 and conaffinity == 0:
                 continue  # visual-only
-            b.add_geom(body_idx, gtype, gpos, gquat, gsize, fric)
+            b.add_geom(body_idx, gtype, gpos, gquat, gsize, fric, mesh_points=points)
 
         for child in elem.findall("body"):
             parse_body(child, body_idx, cls)

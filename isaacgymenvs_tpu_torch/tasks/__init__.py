@@ -4,6 +4,7 @@ from __future__ import annotations
 from typing import Dict, Type
 
 from ..envcore.vec_task import VecTask
+from .allegro_hand import AllegroHand
 from .ant import Ant
 from .anymal import Anymal
 from .anymal_terrain import AnymalTerrain
@@ -19,8 +20,11 @@ from .industreal_gears_insert import IndustRealTaskGearsInsert
 from .industreal_pegs_insert import IndustRealTaskPegsInsert
 from .ingenuity import Ingenuity
 from .quadcopter import Quadcopter
+from .shadow_hand import ShadowHand
+from .trifinger import Trifinger
 
 task_map: Dict[str, Type[VecTask]] = {
+    "AllegroHand": AllegroHand,
     "Ant": Ant,
     "Anymal": Anymal,
     "AnymalTerrain": AnymalTerrain,
@@ -38,4 +42,6 @@ task_map: Dict[str, Type[VecTask]] = {
     "IndustRealTaskPegsInsert": IndustRealTaskPegsInsert,
     "Ingenuity": Ingenuity,
     "Quadcopter": Quadcopter,
+    "ShadowHand": ShadowHand,
+    "Trifinger": Trifinger,
 }

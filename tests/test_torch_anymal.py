@@ -22,11 +22,14 @@ import torch
 
 from isaacgymenvs_tpu_torch.engine.dynamics import SimState
 from isaacgymenvs_tpu_torch.utils.assets import package_asset_root
+import torch_conditioning as cond
 from jax_memory_guard import free_jax_programs  # noqa: F401 (autouse)
 
 N = 4
 URDF = os.path.join(package_asset_root(), "urdf", "anymal_c", "urdf", "anymal.urdf")
 GRID = ["task.env.terrain.numLevels=3", "task.env.terrain.numTerrains=4"]
+# the xy by which the comparison moves the grid: the middle of the spawn area of the envs it compares
+GRID_SHIFT = (12.0, 20.0)
 
 
 def _jax_fields(m):
@@ -177,6 +180,19 @@ def _with_port_state(jstate, tstate):
     return jstate.replace(sim=sim)
 
 
+def _move_grid(jenv, tenv, shift):
+    """Both envs' terrain grid and env origins moved by -shift in xy."""
+    from isaacgymenvs_tpu_torch.engine.dynamics import Terrain
+
+    shift = np.asarray(shift, np.float32)
+    jenv.terrain = jenv.terrain.replace(origin=jnp.asarray(np.asarray(jenv.terrain.origin) - shift))
+    jenv.terrain_origins = jenv.terrain_origins.at[..., :2].add(-jnp.asarray(shift))
+    t = tenv.terrain
+    tenv.terrain = Terrain(t.height, t.horizontal_scale, origin=t.origin - torch.tensor(shift))
+    tenv.terrain_origins = tenv.terrain_origins.clone()
+    tenv.terrain_origins[..., :2] -= torch.tensor(shift)
+
+
 def _settle(tenv, tstate, steps):
     zero = torch.zeros(N, 12)
     for _ in range(steps):
@@ -184,13 +200,40 @@ def _settle(tenv, tstate, steps):
     return tstate
 
 
-def _check_steps(jenv, tenv, jstate, tstate, steps, seed, flagged=None):
+def _physics_gaps(jenv, tenv, tstate, a):
+    """The float64 gaps (`torch_conditioning`) of the physics call the step
+    from `tstate` under actions `a` makes, in the port and in JAX: the
+    merged window of AnymalTerrain with its terrain planes and friction leaf."""
+    from isaacgymenvs_tpu.engine import fused as jfused
+    from isaacgymenvs_tpu_torch.engine import fused as tfused
+
+    q, qd = tstate.sim.q, tstate.sim.qd
+    qfrc, xfrc, qt = tenv.compute_force(torch.clamp(torch.tensor(a), -tenv.clip_actions, tenv.clip_actions), q, qd,
+                                        tstate.task)
+    s, dyn = tfused.spec_of(tenv.model), tstate.dyn
+    port = cond.port_gaps(s, tenv._merged_params, q, qd, qfrc, xfrc, qt, names=dyn.names, dyn=dyn.rows,
+                          terr=tenv._terrain_planes(q, qd), wre=tenv._warm_reset_every)
+    jp = jenv.sim_params
+    jdyn = {"cpoint_friction": tenv.randomizer.batched_model(tstate.dr)["cpoint_friction"].numpy(),
+            **jfused.terrain_dyn(jenv.model, jenv.terrain, jnp.asarray(q.numpy()), jnp.asarray(qd.numpy()))}
+    merged = jp.replace(dt=jp.dt * jenv.control_freq_inv, substeps=jp.substeps * jenv.control_freq_inv)
+    return port, cond.jax_gaps(jenv.model, merged, q, qd, qfrc, xfrc, qt, dyn=jdyn,
+                               wre=jp.substeps * jp.solver_iterations)
+
+
+def _check_steps(jenv, tenv, jstate, tstate, steps, seed, flagged=None, conditioned=False):
     """`steps` steps of both under the same actions; the env flagged done
-    resets on the first step and is left out from there."""
+    resets on the first step and is left out from there. With
+    `conditioned`, an env whose physics call in some step is ill-conditioned
+    for both packages (`torch_conditioning.kept`) is left out from that
+    step on. Returns the two states, the extras and the envs compared."""
     rng = np.random.RandomState(seed)
     keep = [e for e in range(N) if e != flagged]
     for k in range(steps):
         a = rng.uniform(-0.5, 0.5, (N, 12)).astype(np.float32)
+        if conditioned:
+            kept = cond.kept(*_physics_gaps(jenv, tenv, tstate, a))
+            keep = [e for e in keep if kept[e]]
         jstate, jobs, jrew, jdone, jex = jenv.step(jstate, jnp.asarray(a))
         tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
         assert tobs.shape == (N, tenv.num_obs)
@@ -201,7 +244,7 @@ def _check_steps(jenv, tenv, jstate, tstate, steps, seed, flagged=None):
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
         np.testing.assert_array_equal(tex["time_outs"].numpy(), np.asarray(jex["time_outs"]))
         np.testing.assert_array_equal(tstate.progress.numpy(), np.asarray(jstate.progress))
-    return jstate, tstate, tex, jex
+    return jstate, tstate, tex, jex, keep
 
 
 def test_anymal_step_matches_jax():
@@ -212,8 +255,28 @@ def test_anymal_step_matches_jax():
     tstate = _settle(tenv, _port_state(tenv, jstate), 5)
     jstate = _with_port_state(jstate, tstate).replace(reset_buf=jnp.asarray([False, False, True, False]))
     tstate = _port_state(tenv, jstate)
-    _, tstate, _, _ = _check_steps(jenv, tenv, jstate, tstate, 2, seed=1, flagged=2)
+    _, tstate, _, _, _ = _check_steps(jenv, tenv, jstate, tstate, 2, seed=1, flagged=2)
     assert int(tstate.progress[2]) == 1 and float(tstate.sim.q[2, 2]) > 0.3
+
+
+def _terrain_steps(shift):
+    """AnymalTerrain's 2 conditioned steps of `test_anymal_terrain_step_matches_jax`,
+    the grid moved by `shift` (None: the layout it trains in). Returns the
+    port's env and state, both extras, the envs compared and the start's
+    levels."""
+    jenv, tenv = _both("AnymalTerrain", [*GRID, "task.env.learn.addNoise=False"])
+    assert jenv.fused_merge_slices and tenv.merge_slices and tenv._warm_reset_every == 1
+    assert jenv.randomizer.batched_leaf_names() == tenv.randomizer.batched_leaf_names() == {"cpoint_friction"}
+    if shift is not None:
+        _move_grid(jenv, tenv, shift)
+    jstate, _ = jenv.reset(jax.random.PRNGKey(0))
+    tstate = _settle(tenv, _port_state(tenv, jstate), 5)
+    jstate = _with_port_state(jstate, tstate).replace(
+        reset_buf=jnp.asarray([False, True, False, False]), frames=jnp.asarray(5, jnp.int32))
+    tstate = _port_state(tenv, jstate)
+    level = tstate.task["level"].clone()
+    _, tstate, tex, jex, keep = _check_steps(jenv, tenv, jstate, tstate, 2, seed=2, flagged=1, conditioned=True)
+    return tenv, tstate, tex, jex, keep, level
 
 
 def test_anymal_terrain_step_matches_jax():
@@ -222,18 +285,15 @@ def test_anymal_terrain_step_matches_jax():
     terrain rows and the setup-only friction leaf: 2 steps from a settled
     start (the JAX state's DR sample and task on the port's state; its
     observation noise off, the streams differ), env 1 flagged done so it
-    respawns on its level. Per-term episode sums to 2e-3, terrain levels equal."""
-    jenv, tenv = _both("AnymalTerrain", [*GRID, "task.env.learn.addNoise=False"])
-    assert jenv.fused_merge_slices and tenv.merge_slices and tenv._warm_reset_every == 1
-    assert jenv.randomizer.batched_leaf_names() == tenv.randomizer.batched_leaf_names() == {"cpoint_friction"}
-    jstate, _ = jenv.reset(jax.random.PRNGKey(0))
-    tstate = _settle(tenv, _port_state(tenv, jstate), 5)
-    jstate = _with_port_state(jstate, tstate).replace(
-        reset_buf=jnp.asarray([False, True, False, False]), frames=jnp.asarray(5, jnp.int32))
-    tstate = _port_state(tenv, jstate)
-    level = tstate.task["level"].clone()
-    jstate, tstate, tex, jex = _check_steps(jenv, tenv, jstate, tstate, 2, seed=2, flagged=1)
-    keep = [0, 2, 3]
+    respawns on its level. Per-term episode sums to 2e-3, terrain levels equal.
+    The grid is moved by GRID_SHIFT in both envs, so that the robots stand
+    within a few metres of the world origin: 12-36 m out, float32 does not
+    determine a standing robot's step to the tolerance (the spatial algebra
+    is referenced to the origin), in either package. An env whose physics
+    call is still ill-conditioned for both (`torch_conditioning.kept`) is
+    left out of the comparison from that step on; two envs stay compared."""
+    tenv, tstate, tex, jex, keep, level = _terrain_steps(GRID_SHIFT)
+    assert len(keep) >= 2, keep
     np.testing.assert_allclose(tex["episode_sums"].numpy()[keep], np.asarray(jex["episode_sums"])[keep], atol=2e-3)
     np.testing.assert_array_equal(tex["terrain_level"].numpy(), np.asarray(jex["terrain_level"]))
     assert torch.equal(tstate.task["level"], level) and tex["episode_sums"].shape == (N, 13)
@@ -241,6 +301,18 @@ def test_anymal_terrain_step_matches_jax():
     origin = tenv.terrain_origins[level[1], tstate.task["type"][1]]
     assert float((tstate.sim.q[1, :2] - origin[:2]).abs().max()) <= 0.5 + 0.1
     assert float(tstate.sim.q[1, 2] - tenv.terrain.sample(tstate.sim.q[1:2, :2])[0]) > 0.4
+
+
+def test_anymal_terrain_float64_step_matches_jax_at_deployed_layout():
+    """The steps of `test_anymal_terrain_step_matches_jax` at the layout
+    AnymalTerrain trains in, the grid unmoved (the robots 12-36 m from the
+    world origin): each step's physics call in float64 against JAX's on
+    every env (`torch_conditioning.kept`, F64_TOL), the float32 steps and
+    episode sums on the envs it keeps, terrain levels equal."""
+    tenv, tstate, tex, jex, keep, level = _terrain_steps(None)
+    np.testing.assert_allclose(tex["episode_sums"].numpy()[keep], np.asarray(jex["episode_sums"])[keep], atol=2e-3)
+    np.testing.assert_array_equal(tex["terrain_level"].numpy(), np.asarray(jex["terrain_level"]))
+    assert torch.equal(tstate.task["level"], level)
 
 
 # ---- the task's own behaviour --------------------------------------------------

@@ -44,8 +44,9 @@ def test_cfg_dir_is_the_ports_own():
 
 
 def test_unknown_task_raises():
-    with pytest.raises(FileNotFoundError, match="ShadowHand"):
-        tconfig.load_config(["task=ShadowHand"])
+    # a task the port has no yaml for
+    with pytest.raises(FileNotFoundError, match="AllegroKuka"):
+        tconfig.load_config(["task=AllegroKuka"])
 
 
 def test_resolvers_and_overrides():

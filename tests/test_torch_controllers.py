@@ -186,6 +186,16 @@ def test_controller_functions_match_jax(franka):
                                                                              **jkw(qe)))(
             jJ7, jinv, dp, jnp.asarray(vel), jnp.asarray(qd7), jnp.asarray(q_err))
         close(t, j, rtol=1e-4, atol=1e-5 * float(np.abs(np.asarray(j)).max()))
+        # the same inputs in float64: the port's OSC equals JAX's in every env
+        wide = [x.numpy().astype(np.float64) for x in (J7, tinv, terr)] + [x.astype(np.float64) for x in (vel, qd7)]
+        t64 = controllers.operational_space_control(*map(torch.tensor, wide), 150.0, 24.0, 10.0, 6.3,
+                                                    **({"q_err": torch.tensor(q_err, dtype=torch.float64)}
+                                                       if with_null else {}))
+        with jax.enable_x64(True):
+            j64 = jax.vmap(lambda a, mi, e, v, w, qe: jc.operational_space_control(
+                a, mi, e, v, w, 150.0, 24.0, 10.0, 6.3, **jkw(qe)))(
+                *map(jnp.asarray, wide), jnp.asarray(q_err.astype(np.float64)))
+            np.testing.assert_allclose(t64.numpy(), np.asarray(j64), rtol=1e-9, atol=1e-9)
 
 
 def _arm_q(tm, values):

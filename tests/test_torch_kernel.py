@@ -606,3 +606,44 @@ def test_industreal_kernels_match_plain_version(task):
         chip_smoke.compare_outputs(f"{task} call {call}", ko, po, m.nbody, n)
         x = (po[0].T.contiguous(), po[1].T.contiguous())
     assert _cuda.FusedStepCall.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["Trifinger", "ShadowHand", "AllegroHand", "ShadowHandOpenAI_FF"])
+def test_hand_kernels_match_plain_version(task):
+    """The hand builds: Trifinger (nv 15, 11 plane rows and 3 pair rows, no
+    cap, its yaml's 8 per-env leaves and gravity), ShadowHand (nv 30, 114
+    pair rows under the cap of 24, 4 tendons, q_target), AllegroHand
+    (nv 22, 144 pair rows under the cap of 24, q_target, 2 control slices)
+    and ShadowHand under ShadowHandOpenAI_FF.yaml (its 13 per-env leaves,
+    a random force on the object, 3 control slices)
+    against their plain versions for 2 env steps at 256 envs, from
+    `chip_smoke.hand_inputs` (the tasks' contact states under
+    `chip_smoke.hand_calls`, kept where rounding alone moves each call by at
+    most COND_TOL), within the tolerances."""
+    import pathlib
+    import sys
+
+    _needs_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    n = 256
+    env = chip_smoke.hand_env(task, 64)
+    calls = 2 * env.control_freq_inv
+    (q, qd), dyn, _, _ = chip_smoke.hand_inputs(env, n, seed=83, calls=calls)
+    m, p = env.model, env.sim_params
+    names = () if dyn is None else dyn.names
+    _, step = fused._prepared(m, p, torch.device("cuda"), env.use_pd_targets, names)
+    assert step.sizes[:14] == chip_smoke.HAND_SIZES[task]
+    plain = fused._step_math_torch(step.s, p, torch.device("cuda"), names)
+    before = _cuda.FusedStepCall.launches
+    x = (q, qd)
+    for call in range(calls):
+        qfrc, xfrc, qt = chip_smoke.hand_calls(env, *x)
+        ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, dyn=dyn)
+        po = plain(x[0].T.contiguous(), x[1].T.contiguous(), qfrc.T.contiguous(), chip_smoke.xfrc_rows(xfrc),
+                   None if qt is None else qt.T.contiguous(), None if dyn is None else dyn.rows)
+        chip_smoke.compare_outputs(f"{task} call {call}", ko, po, m.nbody, n)
+        x = (po[0].T.contiguous(), po[1].T.contiguous())
+    assert _cuda.FusedStepCall.launches == before + calls
