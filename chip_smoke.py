@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of steps 14, 17, 22, 26, 33, 38, 44, 49 and 54 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14, 17, 22, 26, 33, 38, 44, 49, 54 and 58 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -197,11 +197,10 @@
    Screw model, the arm parked), Place keeps its grip for 60 steps and its
    scripted carry succeeds in every env within 150, Screw's
    press-and-rotate turns the nut past 60 degrees along the helix;
-46. per task 1 + 1 epochs at the yaml's width (128 envs, horizon 120 or
-   128, minibatch 512 x 8 mini-epochs) with the rollout / update split,
-   device ops and the device's busy share per env step;
-47. `train.main` for the three: 1 epoch, a bit-equal restore, a resume,
-   play;
+46. per task device ops and the device's busy share per env step;
+47. `train.main` for the three: 1 epoch at the yaml's width (128 envs,
+   horizon 120 or 128, minibatch 512 x 8 mini-epochs), a bit-equal
+   restore, play;
 48. the three kernels timed at 128 and 4096 envs;
 49. IndustReal (PegsInsert: 17 bodies, nv 19, the plug's 76 points and 12
    pad points as plane rows and SDF rows, the plug's against the grid of
@@ -221,7 +220,7 @@
    PEGS_PUSH_SHARE of the envs or more, GearsInsert's press and hold in
    GEARS_HOLD_SHARE, and SBC steps the max displacement toward easier after
    failed episodes in every env;
-51. per task env.step env-steps/s at 128 envs, device ops and the device's
+51. per task env.step env-steps/s at 128 envs (4 steps after 4), device ops and the device's
    busy share per env step, and the reset's 24 IK iterations alone (wall
    ms and device ops of a step where some env resets; the same code in
    both tasks);
@@ -256,7 +255,30 @@
    envs, and one warm-up and one timed PPO epoch at the yaml's width
    (batch 131,072);
 57. the three hand kernels timed at 16,384 envs;
-58. prints one `kernels` JSON line with all instantiations (each with its
+58. AllegroKuka with one arm (28 bodies, nv 29; the cube's 8 corners
+   against the table and six candidates per fingertip against the cube as
+   32 pair rows, no plane rows, no cap; `q_target`) and two arms (54
+   bodies, nv 52, two dofs per lane; 56 pair rows) against their plain
+   versions for 3 env steps at N=1003 and one at the yaml's 8,192 envs,
+   from the tasks' `contact_states` (the cube resting on the highest
+   fingertip or on the table) under their PD targets held at the joints,
+   kept by `conditioned` and `kernel_jitter_ok` (`kuka_inputs`): a
+   fingertip row within the margin in half of the envs or more, contact
+   force on the cube in nine in ten; then the one arm under its yaml's
+   domain randomization (10 per-env leaves and gravity) for one env step;
+59. the JAX package's cube-rest bar through the kernel at 8,192 envs:
+   after 25 zero-action steps the cube lies within 5 mm of its rest height
+   in KUKA_REST_SHARE of the envs;
+60. per family env.step env-steps/s, device ops and the busy share per env
+   step at 8,192 envs, one warm-up and one timed PPO epoch at the yaml's
+   width (batch 65,536);
+61. `train.main task=AllegroKukaReorientation` and `task=AllegroKukaTwoArms`
+   at 8,192 envs: 2 epochs, a bit-equal restore, a resume, play;
+62. the initial-state bank: `train.main` with task.env.saveStates=True
+   writes it, and an env with loadInitialStates resets every env to one
+   of its rows (also a partial reset within env.step);
+63. both AllegroKuka kernels timed at 8,192 envs;
+64. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
@@ -959,7 +981,9 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
         total += launches
         if launches != horizon * (1 if env.merge_slices else env.control_freq_inv):
             raise AssertionError(f"{launches} kernel launches in an epoch of {horizon} env steps")
-        bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+        # the extremes of the episodes' reward terms are +-inf in an epoch where no episode ended
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v)
+               and not k.startswith(("episode_cumulative_min/", "episode_cumulative_max/"))}
         if bad or not c.min_lr <= metrics["lr"] <= c.max_lr or not metrics["kl"] >= 0.0:
             raise AssertionError(f"epoch metrics out of range: {metrics}")
         print(f"{label} train epoch {epoch}: {sec:.4f} s = rollout {split['rollout']:.4f} s + update "
@@ -3116,7 +3140,7 @@ def industreal_bars() -> dict:
 
 def industreal_env_step(task: str, profile: bool = True) -> float:
     """env.step env-steps/s under random actions at the yaml's 128 envs
-    (bench.measure, 8 steps after 8); with `profile` one profiled env step
+    (bench.measure, 4 steps after 4); with `profile` one profiled env step
     (device ops, busy share, top ops) and the reset's IK alone
     (`resample_init` of every env, which a step runs where some env resets:
     wall ms and device ops; the same code in both tasks). Returns the
@@ -3124,7 +3148,7 @@ def industreal_env_step(task: str, profile: bool = True) -> float:
     steps are few: the profiler takes half a millisecond per recorded op."""
     from isaacgymenvs_tpu_torch.bench import measure
 
-    bench = measure(INDUSTREAL_ENVS, 8, reps=1, device="cuda", task=task)
+    bench = measure(INDUSTREAL_ENVS, 4, reps=1, device="cuda", task=task)
     print(f"{task} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s "
           f"({INDUSTREAL_ENVS} envs)")
     ops = 0.0
@@ -3522,6 +3546,227 @@ def time_hand(task: str, card: str) -> dict:
     return out
 
 
+# ---- AllegroKuka: one arm (nv 29, 32 pair rows) and two arms (nv 52, 56), no cap ----
+
+KUKA_ENVS = 8192  # numEnvs of the AllegroKuka yamls
+# task -> the yaml's full width: envs, horizon, batch, minibatch, mini-epochs (AllegroKukaReorientationPPO.yaml,
+# AllegroKukaTwoArmsReorientationPPO.yaml)
+KUKA_WIDTH = {"AllegroKukaReorientation": (8192, 8, 65536, 32768, 5),
+              "AllegroKukaTwoArmsReorientation": (8192, 8, 65536, 32768, 5)}
+# the one-arm build under AllegroKukaReorientation.yaml's domain randomization (its 10 per-env leaves and
+# gravity: the arm's and the cube's dof, mass, friction and scale specs), compared for one env step
+KUKA_DR = "AllegroKuka+dr"
+# the size tuples but for the envs per block: the cube's corners against the table and six candidates per
+# fingertip against the cube as pair rows, no plane rows, no cap, q_target (two arms: nv 52, two dofs per lane)
+KUKA_SIZES = {"AllegroKukaReorientation": (28, 30, 29, 0, 32, 0, 1, 0, 0, 0, 0, 0, 0, 0),
+              "AllegroKukaTwoArmsReorientation": (54, 53, 52, 0, 56, 0, 1, 0, 0, 0, 0, 0, 0, 0),
+              KUKA_DR: (28, 30, 29, 0, 32, 0, 1, 0, 63731, 32, 59, 0, 0, 0)}
+KUKA_STEPS = 3  # env steps of the comparison (controlFrequencyInv 1: one physics call each)
+KUKA_POOL = 4096  # comparison candidates are drawn this many at a time (`kuka_inputs`)
+# the bar of tests/test_allegro_kuka.py:21-32 and tests/test_allegro_kuka_two_arms.py:23-36 through the kernel
+# at the yamls' 8,192 envs: after 25 zero-action steps from a reset the cube lies within KUKA_REST_TOL of its
+# rest height, in this share of the envs or more: the port's plain step's share on the CPU from its own draws
+# (PERF.md, section 6) less two standard errors
+KUKA_REST_TOL = 5e-3
+KUKA_REST_SHARE = {"AllegroKukaReorientation": 1.0, "AllegroKukaTwoArmsReorientation": 1.0}
+
+
+def kuka_calls(env, q, qd):
+    """One physics call's inputs at (q, qd): the task's PD targets at the
+    actions that scale to the joints' positions (every drive holds its
+    joint), no joint forces or body wrenches; (qfrc, xfrc, q_target)."""
+    from isaacgymenvs_tpu_torch import maths
+
+    held = torch.clamp(maths.unscale(q[:, env.q_idx], env.dof_lower, env.dof_upper), -1.0, 1.0)
+    return env.compute_force(held, q, qd, None)
+
+
+def tip_rows_in_margin(env, q, qd):
+    """Per env, the fingertip rows within the contact margin in the first
+    slice of the plain step at (q, qd) under `kuka_calls`."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    s, p, keys = fused._extract(env.model), env.sim_params, []
+    qfrc, xfrc, qt = kuka_calls(env, q, qd)
+    fused._step_math_torch(s, p, torch.device("cuda"), (), keys)(rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc),
+                                                                  rows(qt))
+    tip = torch.tensor(np.asarray(env.model.cpoint_body)[np.asarray(env.model.ppair_point)] != env.obj_body,
+                       device="cuda")
+    return ((keys[0][0] > -p.contact_margin) & tip[:, None]).sum(0)
+
+
+def kuka_inputs(env, n: int, seed: int, calls: int):
+    """n states (q, qd) from the task's `contact_states` (with a domain
+    randomization draw where the env randomizes: the cube sized by its
+    scale) whose `calls` chained physics calls (each under `kuka_calls` at
+    the plain output of the one before) pass `conditioned` and
+    `kernel_jitter_ok`. Drawn in pools of KUKA_POOL until n are kept;
+    returns them, the packed leaves of the kept envs or None, and the share
+    of the drawn states kept."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    s, p = fused._extract(env.model), env.sim_params
+    holder = franka_holder(env)
+    kept, dyns, drawn, names = [], [], 0, ()
+    for k in range(24):
+        scale, dyn_rows = None, None
+        if env.randomizer is not None:
+            sample = env.randomizer.sample(torch.Generator(device="cuda").manual_seed(seed + 31 * k), KUKA_POOL, 0)
+            dyn = env.pack_dyn(sample)
+            names, dyn_rows, scale = dyn.names, dyn.rows, sample["object.scale"]
+        q, qd = env.contact_states(KUKA_POOL, seed + 7919 * k, cube_scale=scale)
+        plain = fused._step_math_torch(s, p, torch.device("cuda"), names)
+        alive, x, d = torch.arange(KUKA_POOL, device="cuda"), (q, qd), dyn_rows
+        for call in range(calls):
+            qfrc, xfrc, qt = kuka_calls(env, *x)
+            ok, _, _ = conditioned(holder, s, names, x[0], x[1], qt, d, None, p, 0, qfrc=qfrc, xfrc=xfrc)
+            ok &= kernel_jitter_ok(env, p, x[0], x[1], qt, seed + 31 * k + call, qfrc=qfrc, xfrc=xfrc,
+                                   dyn=None if d is None else fused.PackedDyn(names, d))
+            d = None if d is None else d[:, ok].contiguous()
+            out = plain(rows(x[0][ok]), rows(x[1][ok]), rows(qfrc[ok]), xfrc_rows(xfrc[ok]), rows(qt[ok]), d)
+            alive, x = alive[ok], (out[0].T.contiguous(), out[1].T.contiguous())
+            if not len(alive):
+                break
+        kept.append((q[alive], qd[alive]))
+        dyns.append(None if dyn_rows is None else dyn_rows[:, alive])
+        drawn += KUKA_POOL
+        if sum(len(t[0]) for t in kept) >= n:
+            break
+    have = sum(len(t[0]) for t in kept)
+    if have < n:
+        raise AssertionError(f"{type(env).__name__}: {have} of {drawn} contact states are well conditioned, "
+                             f"{n} needed")
+    picked = [torch.cat(t)[:n].contiguous() for t in zip(*kept)]
+    dyn = None if dyns[0] is None else fused.PackedDyn(names, torch.cat(dyns, 1)[:, :n].contiguous())
+    return picked, dyn, have / drawn
+
+
+def compare_kuka(key: str) -> float:
+    """Rows 1af, 1ag (and 1af'): the instantiation against its plain
+    version at N=RAGGED_ENVS for KUKA_STEPS env steps and at the yaml's
+    8,192 envs for one (the randomized build: N=RAGGED_ENVS for one), each
+    call under `kuka_calls` at the plain output of the one before, from
+    `kuka_inputs`; at the first call a fingertip row lies within the
+    contact margin in half the envs or more, and the cube carries contact
+    force in nine in ten. Returns the largest error."""
+    from isaacgymenvs_tpu_torch.engine import fused
+
+    task = "AllegroKukaReorientation" if key == KUKA_DR else key
+    env = hand_env(task, KUKA_ENVS, ("task.task.randomize=True",) if key == KUKA_DR else ())
+    runs = ((RAGGED_ENVS, 1),) if key == KUKA_DR else ((RAGGED_ENVS, KUKA_STEPS), (KUKA_ENVS, 1))
+    (q, qd), dyn, share = kuka_inputs(env, max(n for n, _ in runs), seed=131, calls=runs[0][1])
+    m, p = env.model, env.sim_params
+    s = fused._extract(m)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"), () if dyn is None else dyn.names)
+    worst = 0.0
+    for n, steps in runs:
+        x = (q[:n].contiguous(), qd[:n].contiguous())
+        d = None if dyn is None else fused.PackedDyn(dyn.names, dyn.rows[:, :n].contiguous())
+        for call in range(steps):
+            qfrc, xfrc, qt = kuka_calls(env, *x)
+            ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, dyn=d)
+            po = plain(rows(x[0]), rows(x[1]), rows(qfrc), xfrc_rows(xfrc), rows(qt), None if d is None else d.rows)
+            err = compare_outputs(f"{key} N={n} call {call}", ko, po, s.nbody, n)
+            worst = max(worst, *err.values())
+            if call == 0:
+                tips = tip_rows_in_margin(env, *x) if d is None else None
+                on_tip = float((tips > 0).float().mean()) if tips is not None else float("nan")
+                on_cube = float((torch.linalg.vector_norm(ko.body_force[:, env.obj_body], dim=-1) > 0.01)
+                                .float().mean())
+                print(f"{key} kernel vs plain, N={n}, call 0: {100 * share:.1f} % of the drawn contact states well "
+                      f"conditioned over {runs[0][1]} calls, a fingertip row in the margin in {100 * on_tip:.1f} % "
+                      f"of envs, contact force on the cube in {100 * on_cube:.1f} %:", json.dumps(err))
+                if not on_cube >= 0.9 or (tips is not None and not on_tip >= 0.5):
+                    raise AssertionError(f"{key} N={n}: a tip row in the margin in {on_tip:.3f} of the envs, "
+                                         f"force on the cube in {on_cube:.3f}")
+            x = (po[0].T.contiguous(), po[1].T.contiguous())
+        print(f"{key} kernel vs plain, N={n}, {steps} env step(s): largest error {worst:.3e}")
+    return worst
+
+
+def cube_at_rest(task: str, n: int = KUKA_ENVS, device: str = "cuda") -> dict:
+    """The JAX package's cube-rest bar through the kernel at the yaml's
+    width: 25 zero-action steps from a reset; the share of envs whose cube
+    lies within KUKA_REST_TOL of its rest height, and the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    env = hand_env(task, n, device=device)
+    state, _ = env.reset(1)
+    _cuda.FusedStepCall.launches = 0
+    zero = torch.zeros(n, env.num_acts, device=device)
+    for _ in range(25):
+        state, obs, _, _, _ = env.step(state, zero)
+    dev = (state.sim.q[:, env.oq + 2] - env.obj_init_z).abs()
+    share = float((dev < KUKA_REST_TOL).float().mean())
+    print(f"{task} cube at rest after 25 zero-action steps ({n} envs, {_cuda.FusedStepCall.launches} launches): "
+          f"{share:.4f} of the envs within {KUKA_REST_TOL} m (bar {KUKA_REST_SHARE[task]}), largest deviation "
+          f"{float(dev.max()):.2e} m; observations finite: {bool(torch.isfinite(obs).all())}")
+    if not (share >= KUKA_REST_SHARE[task] and bool(torch.isfinite(obs).all())):
+        raise AssertionError(f"{task}: the cube left its rest in {1 - share:.4f} of the envs")
+    return {"share": share, "launches": _cuda.FusedStepCall.launches}
+
+
+def kuka_env_step(task: str) -> float:
+    """env.step env-steps/s under random actions at the yaml's 8,192 envs
+    (bench.measure, 8 steps after 8) and one profiled env step (device ops,
+    busy share); returns the device ops per env step."""
+    from isaacgymenvs_tpu_torch.bench import measure
+
+    bench = measure(KUKA_ENVS, 8, reps=1, device="cuda", task=task)
+    print(f"{task} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s ({KUKA_ENVS} envs)")
+    ops = profile_env_step(hand_env(task, KUKA_ENVS), steps=1, label=f"{task} env.step")
+    print(f"device ops per {task} env step: {ops:.1f}")
+    return ops
+
+
+def kuka_state_bank(n: int = 1024, epochs: int = 21) -> dict:
+    """The saveStates path: `train.main task=AllegroKukaReorientation` with
+    task.env.saveStates=True at n envs (minibatches of the batch) for
+    `epochs` epochs takes one snapshot per epoch and, at exit, appends n x
+    epochs // 10 rows to the bank; an env with loadInitialStates at 8,192
+    envs resets every env to a bank row, and so does a partial reset within
+    env.step (half the envs flagged done), whose step launches the kernel.
+    Returns the launches."""
+    from isaacgymenvs_tpu_torch import train
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    task = "AllegroKukaReorientation"
+    with tempfile.TemporaryDirectory() as runs:
+        bank = os.path.join(runs, "bank.npz")
+        _cuda.FusedStepCall.launches = 0
+        train.main([f"task={task}", f"num_envs={n}", f"+train_dir={runs}", f"train.params.config.minibatch_size={8 * n}",
+                    f"max_iterations={epochs}", "task.env.saveStates=True", f"task.env.saveStatesFile={bank}"])
+        launches = _cuda.FusedStepCall.launches
+        data = np.load(bank)
+        env = hand_env(task, KUKA_ENVS, ("task.env.loadInitialStates=True", f"task.env.loadStatesFile={bank}"))
+    rows_q = torch.tensor(data["q"], device="cuda")
+    off_bank = lambda q: max(float(torch.cdist(c, rows_q, p=float("inf")).amin(1).max()) for c in q.split(1024))
+    state, _ = env.reset(3)
+    at_reset = off_bank(state.sim.q)
+    state.reset_buf = torch.arange(KUKA_ENVS, device="cuda") % 2 == 0
+    _cuda.FusedStepCall.launches = 0
+    state, obs, _, _, _ = env.step(state, torch.zeros(KUKA_ENVS, env.num_acts, device="cuda"))
+    launches += _cuda.FusedStepCall.launches
+    at_step = off_bank(state.sim.q[::2])
+    print(f"saveStates: train.main {epochs} epochs x {n} envs wrote {len(data['q'])} bank rows (want "
+          f"{n * (epochs // 10)}); loadInitialStates at {KUKA_ENVS} envs: every reset state within {at_reset:.1e} of "
+          f"a bank row, the partial reset of a step within {at_step:.1e}; {launches} launches")
+    if len(data["q"]) != n * (epochs // 10) or at_reset > 1e-6 or at_step > 1e-6 or not bool(torch.isfinite(obs).all()):
+        raise AssertionError("the initial-state bank was not written or not read back")
+    return launches
+
+
+def time_kuka(task: str, card: str) -> dict:
+    """`kernel_times` of the task's instantiation at the yaml's 8,192 envs,
+    in its `contact_states` under `kuka_calls`."""
+    env = hand_env(task, KUKA_ENVS)
+    q, qd = env.contact_states(KUKA_ENVS, seed=133)
+    qfrc, xfrc, qt = kuka_calls(env, q, qd)
+    out = kernel_times(env, rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), card, reps=30, qt=rows(qt))
+    print(f"{task}: 1 launch per env step (controlFrequencyInv 1), {KUKA_WIDTH[task][1]} per PPO epoch")
+    return out
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, started together; prints ptxas's figures, the shared memory
@@ -3557,6 +3802,10 @@ def build_all():
         built[t] = (e, () if dyn is None else dyn.names)
     e = hand_env(HAND_FF, 8)  # ShadowHand's build under its OpenAI variant's leaves and object force
     built[HAND_FF] = (e, hand_dyn(e, 8, 0).names)
+    for t in KUKA_WIDTH:  # pair rows only, no cap, q_target; two arms: nv 52, 56 rows
+        built[t] = (hand_env(t, 8), ())
+    e = hand_env("AllegroKukaReorientation", 8, ("task.task.randomize=True",))  # the one arm under its yaml's DR
+    built[KUKA_DR] = (e, hand_dyn(e, 8, 0).names)
 
     def params_of(t, e):
         return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
@@ -3579,6 +3828,7 @@ def build_all():
             or any(sizes[t][:14] != NUTBOLT_SIZES[t] for t in NUTBOLT_WIDTH) \
             or any(sizes[t][:14] != INDUSTREAL_SIZES[t] for t in INDUSTREAL_WIDTH) \
             or any(sizes[t][:14] != HAND_SIZES[t] for t in (*HAND_WIDTH, HAND_FF)) \
+            or any(sizes[t][:14] != KUKA_SIZES[t] for t in KUKA_SIZES) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -3844,13 +4094,12 @@ def main() -> int:
     nutbolt_launches["FactoryTaskNutBoltPlace"]["grip_and_carry"] = place_grip_and_carry()
     nutbolt_launches["FactoryTaskNutBoltScrew"]["press_and_rotate"] = screw_press_and_rotate()
     lap(45)
-    # 46. per task: 1 + 1 epochs at the yaml's width, device ops and busy share per env step
+    # 46. per task: device ops and busy share per env step (the epoch at the yaml's width is step 47's)
     for t in NUTBOLT_WIDTH:
-        nutbolt_launches[t]["epochs"] = train_epochs(t, NUTBOLT_WIDTH[t], profile=False, timed=1, warmup=False)
         ops = profile_env_step(task_env(t, NUTBOLT_ENVS), label=f"{t} env.step")
         print(f"device ops per {t} env step: {ops:.1f}")
     lap(46)
-    # 47. train.main for each: train, restore bit-equal, resume, play
+    # 47. train.main for each, one timed epoch at the yaml's width: train, restore bit-equal, play
     for t in NUTBOLT_WIDTH:
         nutbolt_launches[t]["train_main"] = train_main_at_width(t, *NUTBOLT_WIDTH[t][:2], epochs=1, resume=False)
     lap(47)
@@ -3890,6 +4139,30 @@ def main() -> int:
     # 57. the three kernels timed at 16,384 envs
     hand_t = {t: time_hand(t, name) for t in HAND_WIDTH}
     lap(57)
+    # 58. AllegroKuka, one arm and two arms (rows 1af, 1ag), against their plain versions at N=1003 (3 env
+    # steps) and 8,192 (one); the one arm under its yaml's domain randomization (row 1af') for one
+    kuka_err = {k: compare_kuka(k) for k in (*KUKA_WIDTH, KUKA_DR)}
+    lap(58)
+    # 59. the JAX package's cube-rest bars through the kernel at 8,192 envs
+    kuka_launches = {t: {"bars": cube_at_rest(t)["launches"]} for t in KUKA_WIDTH}
+    lap(59)
+    # 60. env-steps/s, device ops and busy share per env step; one PPO epoch after a warm-up at the yaml's width
+    for t in KUKA_WIDTH:
+        kuka_env_step(t)
+        kuka_launches[t]["epochs"] = train_epochs(t, KUKA_WIDTH[t], profile=False, timed=1)
+    lap(60)
+    # 61. train.main task=AllegroKukaReorientation and task=AllegroKukaTwoArms (the resolver) at 8,192 envs:
+    # train, restore bit-equal, resume, play
+    for t, name_ in (("AllegroKukaReorientation", "AllegroKukaReorientation"),
+                     ("AllegroKukaTwoArmsReorientation", "AllegroKukaTwoArms")):
+        kuka_launches[t]["train_main"] = train_main_at_width(name_, *KUKA_WIDTH[t][:2])
+    lap(61)
+    # 62. the saveStates bank: written by train.main, read back by loadInitialStates resets
+    kuka_launches["AllegroKukaReorientation"]["state_bank"] = kuka_state_bank()
+    lap(62)
+    # 63. both kernels timed at 8,192 envs
+    kuka_t = {t: time_kuka(t, name) for t in KUKA_WIDTH}
+    lap(63)
 
     if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
@@ -3897,7 +4170,8 @@ def main() -> int:
                             *(n for d in franka_launches.values() for n in d.values()),
                             *(n for d in nutbolt_launches.values() for n in d.values()),
                             *(n for d in industreal_launches.values() for n in d.values()),
-                            *(n for d in hand_launches.values() for n in d.values()))) \
+                            *(n for d in hand_launches.values() for n in d.values()),
+                            *(n for d in kuka_launches.values() for n in d.values()))) \
             or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
@@ -3912,6 +4186,8 @@ def main() -> int:
     nutbolt_names = {t: f"fused_step_nut_bolt_{t[17:].lower()}_k5_k6sdf2_qt" for t in NUTBOLT_WIDTH}
     industreal_names = {"IndustRealTaskPegsInsert": "fused_step_industreal_pegs_k5_k6sdf2_qt",
                         "IndustRealTaskGearsInsert": "fused_step_industreal_gears_k5_k6sdf3_qt"}
+    kuka_names = {"AllegroKukaReorientation": "fused_step_allegro_kuka_k4_qt",
+                  "AllegroKukaTwoArmsReorientation": "fused_step_allegro_kuka_two_arms_k4_qt"}
     hand_names = {"Trifinger": "fused_step_trifinger_k4_dyn", "ShadowHand": "fused_step_shadow_hand_k4_k5_qt_tendons",
                   "AllegroHand": "fused_step_allegro_hand_k4_k5_qt"}
     print(json.dumps({"kernels": [
@@ -3970,6 +4246,13 @@ def main() -> int:
            **({"max_abs_err_openai_ff": ff_err, "sizes_openai_ff": list(sizes[HAND_FF]),
                "per_env_leaves_openai_ff": list(built[HAND_FF][1])} if t == "ShadowHand" else {})}
           for t in HAND_WIDTH),
+        *({"name": kuka_names[t], "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sum(kuka_launches[t].values()), **{f"launches_{k}": v for k, v in kuka_launches[t].items()},
+           "max_abs_err": max(kuka_err[t], kuka_err[KUKA_DR]) if t == "AllegroKukaReorientation" else kuka_err[t],
+           **kuka_t[t], "library_ms": None, "num_envs": KUKA_ENVS, "sizes": list(sizes[t]),
+           **({"max_abs_err_dr": kuka_err[KUKA_DR], "sizes_dr": list(sizes[KUKA_DR]),
+               "per_env_leaves_dr": list(built[KUKA_DR][1])} if t == "AllegroKukaReorientation" else {})}
+          for t in KUKA_WIDTH),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -692,6 +692,9 @@ class PPO:
         return mean_ret
 
     # ------------------------------------------------------------------
+    def _saves_states(self) -> bool:
+        return bool(getattr(self.env, "save_states", False) and getattr(self.env, "save_states_file", ""))
+
     def train(
         self,
         max_epochs: int | None = None,
@@ -767,6 +770,12 @@ class PPO:
                     },
                     frames,
                 )
+            # the initial-state bank (AllegroKuka's saveStates): one (q, qd)
+            # snapshot per epoch, a host pull; dumped every 50 epochs and at exit
+            if self._saves_states():
+                self.env.accumulate_env_states(ts.env_state)
+                if epoch % 50 == 0:
+                    self.env.dump_env_states()
             self.env.set_train_info(frames)
             stop_requested = bool(on_epoch(ts, last_metrics)) if on_epoch is not None else False
             if epoch % log_every == 0 or epoch == 1:
@@ -786,6 +795,8 @@ class PPO:
             if mean_ret == mean_ret and mean_ret >= cfg.score_to_win:
                 print(f"score_to_win {cfg.score_to_win} reached at epoch {epoch}")
                 break
+        if self._saves_states():
+            self.env.dump_env_states()
         if nn_dir is not None:
             self.save(
                 os.path.join(nn_dir, f"last_{name}.pth"), ts, epoch, epoch * steps_per_epoch

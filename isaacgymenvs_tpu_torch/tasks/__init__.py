@@ -5,6 +5,8 @@ from typing import Dict, Type
 
 from ..envcore.vec_task import VecTask
 from .allegro_hand import AllegroHand
+from .allegro_kuka import AllegroKukaRegrasping, AllegroKukaReorientation, AllegroKukaThrow
+from .allegro_kuka_two_arms import AllegroKukaTwoArmsRegrasping, AllegroKukaTwoArmsReorientation
 from .ant import Ant
 from .anymal import Anymal
 from .anymal_terrain import AnymalTerrain
@@ -23,8 +25,38 @@ from .quadcopter import Quadcopter
 from .shadow_hand import ShadowHand
 from .trifinger import Trifinger
 
+
+def _resolve_subtask(subtask_map, cfg, *args, **kwargs):
+    name = (cfg.get("env") or {}).get("subtask") or "reorientation"
+    if name not in subtask_map:
+        raise ValueError(f"Unknown subtask={name} in {sorted(subtask_map)}")
+    return subtask_map[name](cfg, *args, **kwargs)
+
+
+def resolve_allegro_kuka(cfg, *args, **kwargs):
+    """`task=AllegroKuka`: the class of cfg.env.subtask (reorientation,
+    regrasping or throw; reorientation when empty)."""
+    return _resolve_subtask(dict(reorientation=AllegroKukaReorientation, regrasping=AllegroKukaRegrasping,
+                                 throw=AllegroKukaThrow), cfg, *args, **kwargs)
+
+
+def resolve_allegro_kuka_two_arms(cfg, *args, **kwargs):
+    """`task=AllegroKukaTwoArms`: the class of cfg.env.subtask
+    (reorientation or regrasping; reorientation when empty)."""
+    return _resolve_subtask(dict(reorientation=AllegroKukaTwoArmsReorientation,
+                                 regrasping=AllegroKukaTwoArmsRegrasping), cfg, *args, **kwargs)
+
+
 task_map: Dict[str, Type[VecTask]] = {
     "AllegroHand": AllegroHand,
+    # `task=AllegroKuka` and `task=AllegroKukaTwoArms` resolve the class from cfg.env.subtask
+    "AllegroKuka": resolve_allegro_kuka,
+    "AllegroKukaTwoArms": resolve_allegro_kuka_two_arms,
+    "AllegroKukaReorientation": AllegroKukaReorientation,
+    "AllegroKukaRegrasping": AllegroKukaRegrasping,
+    "AllegroKukaThrow": AllegroKukaThrow,
+    "AllegroKukaTwoArmsReorientation": AllegroKukaTwoArmsReorientation,
+    "AllegroKukaTwoArmsRegrasping": AllegroKukaTwoArmsRegrasping,
     "Ant": Ant,
     "Anymal": Anymal,
     "AnymalTerrain": AnymalTerrain,

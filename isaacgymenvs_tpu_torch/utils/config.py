@@ -4,8 +4,7 @@ The port's own copy of isaacgymenvs_tpu/utils/config.py; it reads the yaml
 files under this package's `cfg/` (config.yaml, task/, train/, pbt/). A
 task whose yaml is not there raises FileNotFoundError. The schema is the
 IsaacGymEnvs one (Hydra + OmegaConf resolvers); the subset those configs
-use is implemented (the env-subtask group of the AllegroKuka configs waits
-with those tasks):
+use is implemented:
 
   * `${path.to.key}` absolute interpolation from the config root;
   * `${.key}` / `${..key}` relative interpolation (OmegaConf dot rules:
@@ -13,7 +12,11 @@ with those tasks):
   * resolvers `${resolve_default:default,${...key}}`, `${eq:a,b}`,
     `${contains:a,b}`, `${if:cond,then,else}`;
   * `key.path=value` CLI overrides, `task=Ant` config-group selection,
-    `train` defaulting to `${task}PPO`.
+    `train` defaulting to `${task}PPO`;
+  * the env-subtask group of the AllegroKuka configs (`cfg/task/env/`):
+    the subtask named by the task yaml's `env.subtask` or by a
+    `task.env.subtask=` override has its group file's keys merged into the
+    env block; CLI overrides still win.
 """
 from __future__ import annotations
 
@@ -237,6 +240,14 @@ def load_config(
     pbt_name = pre.get("pbt", "no_pbt")
     pbt_path = os.path.join(cdir, "pbt", f"{pbt_name}.yaml")
     cfg["pbt"] = _load_yaml(pbt_path) if os.path.exists(pbt_path) else {"enabled": False}
+
+    # the env-subtask group (cfg/task/env/<subtask>.yaml): its keys go into
+    # the env block before the CLI overrides, which still win
+    subtask = pre.get("task.env.subtask") or (cfg["task"].get("env") or {}).get("subtask")
+    if subtask:
+        group_path = os.path.join(cdir, "task", "env", f"{subtask}.yaml")
+        if os.path.exists(group_path):
+            cfg["task"].setdefault("env", {}).update(_load_yaml(group_path))
 
     overrides = [
         o for o in overrides if o.partition("=")[0] not in ("task", "train", "pbt")

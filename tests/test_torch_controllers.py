@@ -9,7 +9,11 @@ against the JAX one, vmapped over the same forward-kinematics states,
 rtol 1e-5 (the OSC and IK outputs go through 6 x 6 inverses and
 decompositions, whose condition numbers of about 2e3 at these poses
 amplify float32 rounding: rtol 1e-4 with an atol of 1e-5 of the largest
-entry; they came within 2e-5 and 7e-5 relative). Then the
+entry; they came within 2e-5 and 7e-5 relative). The OSC's float32
+comparison leaves out only the poses where both packages' float32 OSC lie
+more than a quarter of that tolerance from their float64 OSC (float32
+does not determine the answer there, in either package), and the port's
+float64 OSC equals JAX's at 1e-9 on every pose. Then the
 port's counterparts of tests/test_controllers.py: the Jacobian against
 finite differences, IK convergence with dls, pinv and svd, and the OSC's
 direction.
@@ -175,27 +179,83 @@ def test_controller_functions_match_jax(franka):
     close(controllers.task_space_impedance(J7, terr, torch.tensor(vel), 150.0, 24.0),
           jax.vmap(lambda a, e, v: jc.task_space_impedance(a, e, v, 150.0, 24.0))(jJ7, dp, jnp.asarray(vel)),
           rtol=1e-5, atol=1e-4)
-    tinv = dyn.spd_inverse(tM + 1e-6 * torch.eye(7))
-    jinv = jnp.asarray(tinv.numpy())
     for with_null in (False, True):
-        kw = {"q_err": torch.tensor(q_err)} if with_null else {}
-        jkw = (lambda e: {"q_err": e}) if with_null else (lambda e: {})
-        t = controllers.operational_space_control(J7, tinv, terr, torch.tensor(vel), torch.tensor(qd7), 150.0, 24.0,
-                                                  10.0, 6.3, **kw)
-        j = jax.vmap(lambda a, mi, e, v, w, qe: jc.operational_space_control(a, mi, e, v, w, 150.0, 24.0, 10.0, 6.3,
-                                                                             **jkw(qe)))(
-            jJ7, jinv, dp, jnp.asarray(vel), jnp.asarray(qd7), jnp.asarray(q_err))
-        close(t, j, rtol=1e-4, atol=1e-5 * float(np.abs(np.asarray(j)).max()))
-        # the same inputs in float64: the port's OSC equals JAX's in every env
-        wide = [x.numpy().astype(np.float64) for x in (J7, tinv, terr)] + [x.astype(np.float64) for x in (vel, qd7)]
-        t64 = controllers.operational_space_control(*map(torch.tensor, wide), 150.0, 24.0, 10.0, 6.3,
-                                                    **({"q_err": torch.tensor(q_err, dtype=torch.float64)}
-                                                       if with_null else {}))
-        with jax.enable_x64(True):
-            j64 = jax.vmap(lambda a, mi, e, v, w, qe: jc.operational_space_control(
-                a, mi, e, v, w, 150.0, 24.0, 10.0, 6.3, **jkw(qe)))(
-                *map(jnp.asarray, wide), jnp.asarray(q_err.astype(np.float64)))
-            np.testing.assert_allclose(t64.numpy(), np.asarray(j64), rtol=1e-9, atol=1e-9)
+        t, j, t64, j64 = _osc_both(J7, tM, terr, vel, qd7, q_err, with_null)
+        keep = osc_conditioned_close(t, j, t64, j64)
+        assert int(keep.sum()) >= N // 2, keep
+
+
+# an env leaves the float32 OSC comparison only where both packages' float32
+# OSC lie more than this share of the comparison's tolerance from their
+# float64 OSC (a quarter, as torch_conditioning.COND_TOL is of the physics
+# step's tolerances)
+OSC_COND_SHARE = 0.25
+
+
+def _osc_both(J7, tM, terr, vel, qd7, q_err, with_null):
+    """operational_space_control of both packages at the same inputs (the
+    JAX one vmapped), in float32 and in float64: (port, JAX, port float64,
+    JAX float64), numpy (N, 7)."""
+    from isaacgymenvs_tpu import controllers as jc
+
+    tinv = dyn.spd_inverse(tM + 1e-6 * torch.eye(7))
+    jkw = (lambda e: {"q_err": e}) if with_null else (lambda e: {})
+    jfn = jax.vmap(lambda a, mi, e, v, w, qe: jc.operational_space_control(a, mi, e, v, w, 150.0, 24.0, 10.0, 6.3,
+                                                                           **jkw(qe)))
+    narrow = [x.numpy() for x in (J7, tinv, terr)] + [vel, qd7]
+    out = []
+    for dtype in (np.float32, np.float64):
+        ins = [x.astype(dtype) for x in narrow]
+        qe = q_err.astype(dtype)
+        t = controllers.operational_space_control(*map(torch.tensor, ins), 150.0, 24.0, 10.0, 6.3,
+                                                  **({"q_err": torch.tensor(qe)} if with_null else {}))
+        with jax.enable_x64(dtype == np.float64):
+            j = np.asarray(jfn(*map(jnp.asarray, ins), jnp.asarray(qe)))
+        out.append((t.numpy(), j))
+    (t, j), (t64, j64) = out
+    return t, j, t64, j64
+
+
+def osc_conditioned_close(t, j, t64, j64, rtol=1e-4, atol_share=1e-5):
+    """The port's float64 OSC equals JAX's in every env (1e-9); the float32
+    ones agree (rtol 1e-4, atol 1e-5 of the largest entry) on every env but
+    those where both lie more than OSC_COND_SHARE of that tolerance from
+    their float64 OSC. Returns the (N,) mask of the envs compared."""
+    np.testing.assert_allclose(t64, j64, rtol=1e-9, atol=1e-9)
+    tol = atol_share * float(np.abs(j).max()) + rtol * np.abs(j64)
+    share = lambda a, ref: (np.abs(a - ref) / tol).max(-1)
+    keep = (share(t, t64) <= OSC_COND_SHARE) | (share(j, j64) <= OSC_COND_SHARE)
+    close(torch.tensor(t[keep]), j[keep], rtol=rtol, atol=atol_share * float(np.abs(j).max()))
+    return keep
+
+
+def test_osc_conditioning_keeps_port_faults(franka):
+    """The conditioned OSC comparison fails where the port's float32 OSC
+    alone is off: the port's output moved by ten tolerances in an env where
+    JAX's float32 OSC lies within OSC_COND_SHARE of its float64 one stays
+    compared, and the assertion fails."""
+    tm, jm, tkin, jkin, q, qd = franka
+    hand = tm.body_names.index("panda_hand")
+    anc, dof_body = dyn.ancestor_matrix(tm), np.asarray(tm.dof_body)
+    site = tkin.x[:, hand] + maths.quat_rotate(tkin.quat[:, hand], torch.tensor([0.0, 0.0, 0.1]).expand(N, 3))
+    J7 = controllers.body_jacobian(tkin, anc, dof_body, hand, site)[:, :, :7]
+    rng = np.random.RandomState(2)
+    terr = controllers.pose_error(site, tkin.quat[:, hand], site + torch.tensor(rng.uniform(-0.1, 0.1, (N, 3)),
+                                                                              dtype=torch.float32),
+                                  torch.tensor(_unit(rng, N)))
+    masks = (torch.tensor(anc), torch.tensor(dyn.dof_ancestor_mask(tm)))
+    tM = dyn.mass_matrix(tm, tkin, masks)[:, :7, :7]
+    q_err = rng.uniform(-0.2, 0.2, (N, 7)).astype(np.float32)
+    vel = rng.uniform(-0.5, 0.5, (N, 6)).astype(np.float32)
+    t, j, t64, j64 = _osc_both(J7, tM, terr, vel, qd[:, :7], q_err, True)
+    osc_conditioned_close(t, j, t64, j64)
+    tol = 1e-5 * float(np.abs(j).max()) + 1e-4 * np.abs(j64)
+    jax_near = (np.abs(j - j64) / tol).max(-1) <= OSC_COND_SHARE
+    e = int(np.flatnonzero(jax_near)[0])
+    bad = t.copy()
+    bad[e] += 10 * tol[e]  # the port's float32 now ten tolerances off float64, JAX's within a quarter
+    with pytest.raises(AssertionError, match="Mismatched elements"):
+        osc_conditioned_close(bad, j, t64, j64)
 
 
 def _arm_q(tm, values):

@@ -647,3 +647,42 @@ def test_hand_kernels_match_plain_version(task):
         chip_smoke.compare_outputs(f"{task} call {call}", ko, po, m.nbody, n)
         x = (po[0].T.contiguous(), po[1].T.contiguous())
     assert _cuda.FusedStepCall.launches == before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["AllegroKukaReorientation", "AllegroKukaTwoArmsReorientation", "AllegroKuka+dr"])
+def test_allegro_kuka_kernels_match_plain_version(key):
+    """The AllegroKuka builds: one arm (nv 29, 32 pair rows, no cap,
+    q_target), two arms (nv 52 on two dofs per lane, 56 pair rows, no cap)
+    and the one arm under its yaml's domain randomization (10 per-env
+    leaves and gravity) against their plain versions for 2 env steps at 256
+    envs, from `chip_smoke.kuka_inputs` (the cube on a fingertip or on the
+    table under `chip_smoke.kuka_calls`, kept where rounding alone moves
+    each call by at most COND_TOL), within the tolerances."""
+    import pathlib
+    import sys
+
+    _needs_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    n = 256
+    dr = key == chip_smoke.KUKA_DR
+    env = chip_smoke.hand_env("AllegroKukaReorientation" if dr else key, 64,
+                              ("task.task.randomize=True",) if dr else ())
+    (q, qd), dyn, _ = chip_smoke.kuka_inputs(env, n, seed=85, calls=2)
+    m, p = env.model, env.sim_params
+    names = () if dyn is None else dyn.names
+    _, step = fused._prepared(m, p, torch.device("cuda"), True, names)
+    assert step.sizes[:14] == chip_smoke.KUKA_SIZES[key]
+    plain = fused._step_math_torch(step.s, p, torch.device("cuda"), names)
+    before = _cuda.FusedStepCall.launches
+    x = (q, qd)
+    for call in range(2):
+        qfrc, xfrc, qt = chip_smoke.kuka_calls(env, *x)
+        ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, dyn=dyn)
+        po = plain(x[0].T.contiguous(), x[1].T.contiguous(), qfrc.T.contiguous(), chip_smoke.xfrc_rows(xfrc),
+                   qt.T.contiguous(), None if dyn is None else dyn.rows)
+        chip_smoke.compare_outputs(f"{key} call {call}", ko, po, m.nbody, n)
+        x = (po[0].T.contiguous(), po[1].T.contiguous())
+    assert _cuda.FusedStepCall.launches == before + 2

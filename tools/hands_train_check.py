@@ -3,6 +3,7 @@
 
     python tools/hands_train_check.py                      # every variant
     python tools/hands_train_check.py --only ShadowHand    # those whose label starts so
+    python tools/hands_train_check.py --only AllegroKuka   # the AllegroKuka names chip_smoke.py leaves out
 
 Per variant, `chip_smoke.train_main_at_width`: `train.main` for EPOCHS
 epochs (the kernel's launches must be epochs x horizon x
@@ -42,6 +43,13 @@ VARIANTS = {
     "AllegroHandFF": ["AllegroHandFF"],
     "AllegroHandLSTM": ["AllegroHandLSTM"],
     "AllegroHandLSTM_Big": ["AllegroHandLSTM_Big"],
+    # chip_smoke.py trains AllegroKukaReorientation and the two-arm resolver; these are the other names
+    "AllegroKukaRegrasping": ["AllegroKukaRegrasping"],
+    "AllegroKukaThrow": ["AllegroKukaThrow"],
+    "AllegroKuka+subtask=throw": ["AllegroKuka", "task.env.subtask=throw"],
+    "AllegroKukaLSTM": ["AllegroKukaLSTM"],
+    "AllegroKukaTwoArmsRegrasping": ["AllegroKukaTwoArmsRegrasping"],
+    "AllegroKukaTwoArmsLSTM": ["AllegroKukaTwoArmsLSTM"],
 }
 
 
