@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of steps 14, 17, 22, 26, 33, 38, 44, 49, 54 and 58 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14, 17, 22, 26, 33, 38, 44, 49, 54, 58 and 64 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -237,7 +237,7 @@
    114 pair rows of the hand's candidates against the object, no plane
    rows, under the cap of 24; `q_target`; 4 fixed tendons) and AllegroHand
    (nv 22; 144 pair rows under the cap of 24; `q_target`; 2 control slices)
-   against their plain versions for 3 env steps at N=1003 from the tasks'
+   against their plain versions for 2 env steps at N=1003 from the tasks'
    `contact_states` (the fingertips on the cube; the object on the palm),
    each call under `hand_calls` (Trifinger's safety damping at zero
    actions, the hands' setpoints held) at the plain output of the one
@@ -259,7 +259,7 @@
    against the table and six candidates per fingertip against the cube as
    32 pair rows, no plane rows, no cap; `q_target`) and two arms (54
    bodies, nv 52, two dofs per lane; 56 pair rows) against their plain
-   versions for 3 env steps at N=1003 and one at the yaml's 8,192 envs,
+   versions for 2 env steps at N=1003 and one at the yaml's 8,192 envs,
    from the tasks' `contact_states` (the cube resting on the highest
    fingertip or on the table) under their PD targets held at the joints,
    kept by `conditioned` and `kernel_jitter_ok` (`kuka_inputs`): a
@@ -278,7 +278,25 @@
    writes it, and an env with loadInitialStates resets every env to one
    of its rows (also a partial reset within env.step);
 63. both AllegroKuka kernels timed at 8,192 envs;
-64. prints one `kernels` JSON line with all instantiations (each with its
+64. DeXtreme: AllegroHand's model (row 1ae) under the per-env leaves of
+   AllegroHandDextremeADR.yaml (row 1ah: dof damping, stiffness, friction,
+   armature, masses, friction and restitution; the restitution's bounce
+   branch on the pair rows) and of AllegroHandDextremeManualDR.yaml (row
+   1ah': its own leaves and gravity) against their plain versions at
+   N=1003 for 2 (ManualDR: 1) env steps, on the task's contact states
+   (`hand_inputs`) with leaves drawn through ADR's overrides
+   (`dextreme_overrides`: ranges moved out, each physics parameter pinned
+   at both edges in some envs);
+65. per task env.step env-steps/s, device ops and the busy share per env
+   step at 8,192 envs (the yaml's randomization and ADR on), one warm-up
+   and one timed PPO epoch at the yaml's width (batch 131,072);
+66. a forced ADR run at 8,192 envs (FORCED_ADR: queues of 8, an upper
+   threshold of 0, episodes of 4 steps): ADR's entropy and ranges move on
+   the card;
+67. `train.main` for both at 8,192 envs with ADR's checkpoint gate on: 2
+   epochs, a bit-equal restore (ADR's state included), a resume, play;
+68. both DeXtreme kernels timed at 8,192 envs;
+69. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
@@ -304,6 +322,9 @@ import torch
 NUM_ENVS = 4096
 HORIZON = 16
 RAGGED_ENVS = 1003
+# timed calls of a plain version (after one warm-up): each takes 30-720 ms on the host, and the script times
+# 43 of them against its 1,200 s limit
+PLAIN_REPS = 2
 CARTPOLE_ENVS = 512  # numEnvs of cfg/task/Cartpole.yaml
 CARTPOLE_EPOCHS = 100
 # Mean episode return Cartpole must pass after 100 epochs, in training and
@@ -897,7 +918,7 @@ def kernel_times(env, q, qd, qfrc, xfrc, name: str, reps: int = 50, qt=None, dyn
     ms = event_ms(lambda: call(step), reps)
     device_ms = kernel_device_ms(lambda: call(step))
     call(plain)
-    plain_ms = event_ms(lambda: call(plain), 5)
+    plain_ms = event_ms(lambda: call(plain), PLAIN_REPS)
     flop_s, byte_s = peaks(name)
     flops = _cuda.kernel_flops(s, p, has_t) * n
     nbytes = _cuda.kernel_bytes(s, n, xfrc is not None, qt is not None, names, has_t)
@@ -1004,8 +1025,9 @@ def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), 
 def restored_bit_equal(task: str, args, ckpt: str, ts, epochs: int) -> list:
     """Restore `ckpt` into a fresh agent of another seed (PPORecurrent for a
     recipe with `network.rnn`): parameters (the central value net's too),
-    lr, running stats and Adam moments must equal the trained state `ts`
-    bit for bit. Returns [the
+    lr, running stats, Adam moments and, where the env's
+    `adr_load_from_checkpoint` gate is on, ADR's state must equal the
+    trained state `ts` bit for bit. Returns [the
     fresh agent's train state, the checkpoint's epoch]."""
     from isaacgymenvs_tpu_torch.learn import PPO, PPORecurrent
     from isaacgymenvs_tpu_torch.tasks import task_map
@@ -1023,6 +1045,9 @@ def restored_bit_equal(task: str, args, ckpt: str, ts, epochs: int) -> list:
     rms = [(fts.obs_rms, ts.obs_rms), (fts.value_rms, ts.value_rms)]
     if fresh.use_central_value:  # the asymmetric critic's states
         rms.append((fts.state_rms, ts.state_rms))
+    if fresh.env.adr is not None and fresh.env.adr_load_from_checkpoint:  # ADR's state, under its gate
+        same &= all(torch.equal(a, b) for a, b in zip(fts.env_state.adr.as_dict().values(),
+                                                       ts.env_state.adr.as_dict().values()))
     for a, b in rms:
         same &= all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("mean", "var", "count"))
     fst, tst = fts.optimizer.state_dict()["state"], ts.optimizer.state_dict()["state"]
@@ -3349,6 +3374,8 @@ def hand_calls(env, q, qd):
     if not env.use_pd_targets:
         qfrc, xfrc = env.compute_force(torch.zeros(q.shape[0], env.num_acts, device=q.device), q, qd, None)
         return qfrc, xfrc, None
+    from isaacgymenvs_tpu_torch.tasks.shadow_hand import ShadowHand
+
     idx, held = env.actuated_idx, q[:, env.hand_q_idx]
     hold = torch.clamp(maths.unscale(held[:, idx], env.dof_lower[idx], env.dof_upper[idx]), -1.0, 1.0)
     task = {"targets": held}
@@ -3356,15 +3383,18 @@ def hand_calls(env, q, qd):
         gen = torch.Generator(device=q.device).manual_seed(q.shape[0])
         task["rb_force"] = torch.randn(q.shape[0], 3, generator=gen, device=q.device) * env.object_mass \
             * env.force_scale
-    return env.compute_force(hold, q, qd, task)
+    # the hand's own drives (DeXtreme's corruption of the actions left out)
+    return ShadowHand.compute_force(env, hold, q, qd, task)
 
 
 def hand_dyn(env, n: int, seed: int):
     """The packed per-env leaves of a draw of the task's domain
-    randomization at n envs, or None without it."""
+    randomization at n envs (with ADR, through `dextreme_overrides`), or
+    None without it."""
     if env.randomizer is None:
         return None
-    return env.pack_dyn(env.randomizer.sample(torch.Generator(device="cuda").manual_seed(seed), n, 0))
+    adr = None if env.adr is None else dextreme_overrides(env, n)
+    return env.pack_dyn(env.randomizer.sample(torch.Generator(device="cuda").manual_seed(seed), n, 0, adr=adr))
 
 
 def hand_inputs(env, n: int, seed: int, calls: int):
@@ -3767,6 +3797,97 @@ def time_kuka(task: str, card: str) -> dict:
     return out
 
 
+# ---- DeXtreme: AllegroHand under ADR (row 1ah: the ADR yaml's per-env physics leaves), the RNA, ManualDR ----
+
+DEX_ENVS = 8192  # numEnvs of both DeXtreme yamls
+# task -> the yaml's full width: envs, horizon, batch, minibatch, mini-epochs (AllegroHandDextremeADRPPO.yaml,
+# AllegroHandDextremeManualDRPPO.yaml)
+DEX_WIDTH = {"AllegroHandDextremeADR": (8192, 16, 131072, 16384, 4),
+             "AllegroHandDextremeManualDR": (8192, 16, 131072, 16384, 4)}
+# the checkpoints of train.main carry ADR's state, restored only with this gate on
+ADR_GATE = "+task.env.adr.adr_load_from_checkpoint=True"
+# the forced ADR run: queues of 8 and an upper threshold of 0, so that every full queue widens its edge;
+# episodes of 4 steps, so that the boundary workers push every 4 steps
+FORCED_ADR = ("task.env.adr.adr_queue_threshold_length=8", "task.env.adr.adr_objective_threshold_high=0",
+              "task.env.resetTime=-1", "task.env.episodeLength=4")
+FORCED_STEPS = 12
+
+
+def dextreme_overrides(env, n: int):
+    """ADR's overrides of the DR draw at n envs: the adr block's ranges
+    moved 10 deltas out (within their limits), two envs in three boundary
+    workers of the physics parameters in turn (each edge of each pinned in
+    some envs), the third a rollout worker. ManualDR's ADR names no
+    physics parameter: its DR draw takes the yaml's own ranges."""
+    a = env.adr
+    if not a.dr_params:
+        return {}
+    ids = torch.tensor([2 * p + e for p in sorted(a.dr_params.values()) for e in (0, 1)], device=a.device)
+    i = torch.arange(n, device=a.device)
+    wb = torch.where(i % 3 == 2, torch.full_like(i, -1), ids[i % len(ids)])
+    st = a.init_state(None, workers=wb)
+    st.lo = torch.maximum(st.lo - 10 * a._deltas, a._lim_lo)
+    st.hi = torch.minimum(st.hi + 10 * a._deltas, a._lim_hi)
+    return a.dr_overrides(st)
+
+
+def dextreme_env_step(task: str) -> float:
+    """env.step env-steps/s under random actions at the yaml's 8,192 envs
+    (bench.measure with the yaml's randomization, 8 steps after 8) and one
+    profiled env step (device ops, busy share); returns the device ops per
+    env step."""
+    from isaacgymenvs_tpu_torch.bench import measure
+
+    bench = measure(DEX_ENVS, 8, reps=1, device="cuda", task=task, randomize=True)
+    print(f"{task} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s ({DEX_ENVS} envs)")
+    ops = profile_env_step(hand_env(task, DEX_ENVS), steps=1, label=f"{task} env.step")
+    print(f"device ops per {task} env step: {ops:.1f}")
+    return ops
+
+
+def forced_adr_run() -> int:
+    """AllegroHandDextremeADR at 8,192 envs under FORCED_ADR for
+    FORCED_STEPS zero-action steps: the finished boundary workers fill their
+    queues and every full queue widens its edge, so the entropy `nats` and
+    the ranges move on the card. Returns the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    env = hand_env("AllegroHandDextremeADR", DEX_ENVS, FORCED_ADR)
+    state, _ = env.reset(2)
+    nats0, lo0, hi0 = float(state.adr.nats), state.adr.lo.clone(), state.adr.hi.clone()
+    zero = torch.zeros(DEX_ENVS, env.num_acts, device="cuda")
+    _cuda.FusedStepCall.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FORCED_STEPS):
+        state, obs, _, _, ex = env.step(state, zero)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    moved = int(((state.adr.lo != lo0) | (state.adr.hi != hi0)).sum())
+    nats = float(state.adr.nats)
+    print(f"forced ADR run ({DEX_ENVS} envs, {FORCED_STEPS} steps in {sec:.3f} s, {_cuda.FusedStepCall.launches} "
+          f"launches): nats {nats0:.4f} -> {nats:.4f}, {moved} of {env.adr.P} ranges moved, extras adr_nats "
+          f"{float(ex['adr_nats'][0]):.4f}; observations finite: {bool(torch.isfinite(obs).all())}")
+    if not (nats > nats0 and moved >= 1 and bool(torch.isfinite(obs).all())
+            and _cuda.FusedStepCall.launches == FORCED_STEPS * env.control_freq_inv):
+        raise AssertionError("the forced ADR run did not move the ranges on the card")
+    return _cuda.FusedStepCall.launches
+
+
+def time_dextreme(task: str, card: str) -> dict:
+    """`kernel_times` of the task's instantiation at the yaml's 8,192 envs,
+    in its `contact_states` under `hand_calls`, with leaves drawn through
+    `dextreme_overrides`."""
+    env = hand_env(task, DEX_ENVS)
+    q, qd = env.contact_states(DEX_ENVS, seed=137)
+    qfrc, xfrc, qt = hand_calls(env, q, qd)
+    out = kernel_times(env, rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), card, reps=30, qt=rows(qt),
+                       dyn=hand_dyn(env, DEX_ENVS, 139))
+    print(f"{task}: {env.control_freq_inv} launches per env step (controlFrequencyInv), "
+          f"{env.control_freq_inv * DEX_WIDTH[task][1]} per PPO epoch")
+    return out
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, started together; prints ptxas's figures, the shared memory
@@ -3806,6 +3927,9 @@ def build_all():
         built[t] = (hand_env(t, 8), ())
     e = hand_env("AllegroKukaReorientation", 8, ("task.task.randomize=True",))  # the one arm under its yaml's DR
     built[KUKA_DR] = (e, hand_dyn(e, 8, 0).names)
+    for t in DEX_WIDTH:  # AllegroHand's model (row 1ae) under each DeXtreme yaml's per-env leaves, drawn through ADR
+        e = hand_env(t, 8)
+        built[t] = (e, hand_dyn(e, 8, 0).names)
 
     def params_of(t, e):
         return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
@@ -3829,6 +3953,8 @@ def build_all():
             or any(sizes[t][:14] != INDUSTREAL_SIZES[t] for t in INDUSTREAL_WIDTH) \
             or any(sizes[t][:14] != HAND_SIZES[t] for t in (*HAND_WIDTH, HAND_FF)) \
             or any(sizes[t][:14] != KUKA_SIZES[t] for t in KUKA_SIZES) \
+            or any(sizes[t][:8] + sizes[t][11:14] != HAND_SIZES["AllegroHand"][:8] + HAND_SIZES["AllegroHand"][11:14]
+                   or not sizes[t][8] for t in DEX_WIDTH) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
 
@@ -4139,7 +4265,7 @@ def main() -> int:
     # 57. the three kernels timed at 16,384 envs
     hand_t = {t: time_hand(t, name) for t in HAND_WIDTH}
     lap(57)
-    # 58. AllegroKuka, one arm and two arms (rows 1af, 1ag), against their plain versions at N=1003 (3 env
+    # 58. AllegroKuka, one arm and two arms (rows 1af, 1ag), against their plain versions at N=1003 (2 env
     # steps) and 8,192 (one); the one arm under its yaml's domain randomization (row 1af') for one
     kuka_err = {k: compare_kuka(k) for k in (*KUKA_WIDTH, KUKA_DR)}
     lap(58)
@@ -4163,6 +4289,28 @@ def main() -> int:
     # 63. both kernels timed at 8,192 envs
     kuka_t = {t: time_kuka(t, name) for t in KUKA_WIDTH}
     lap(63)
+    # 64. DeXtreme against its plain versions at N=1003, on contact states with leaves drawn through ADR (each
+    # physics parameter pinned at both edges in some envs): row 1ah (the ADR yaml) for HAND_STEPS env steps, ManualDR's
+    # leaves (row 1ah') for one
+    dex_err = {"AllegroHandDextremeADR": compare_hand("AllegroHandDextremeADR"),
+               "AllegroHandDextremeManualDR": compare_hand("AllegroHandDextremeManualDR", steps=1)}
+    lap(64)
+    # 65. env-steps/s, device ops and busy share per env step; one PPO epoch after a warm-up at the yaml's width
+    dex_launches = {t: {} for t in DEX_WIDTH}
+    for t in DEX_WIDTH:
+        dextreme_env_step(t)
+        dex_launches[t]["epochs"] = train_epochs(t, DEX_WIDTH[t], profile=False, timed=1)
+    lap(65)
+    # 66. a forced ADR run: nats and the ranges move on the card
+    dex_launches["AllegroHandDextremeADR"]["forced_adr"] = forced_adr_run()
+    lap(66)
+    # 67. train.main for both at 8,192 envs: train, restore bit-equal (ADR's state under its gate), resume, play
+    for t in DEX_WIDTH:
+        dex_launches[t]["train_main"] = train_main_at_width(t, *DEX_WIDTH[t][:2], overrides=(ADR_GATE,))
+    lap(67)
+    # 68. both kernels timed at 8,192 envs
+    dex_t = {t: time_dextreme(t, name) for t in DEX_WIDTH}
+    lap(68)
 
     if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
@@ -4171,7 +4319,8 @@ def main() -> int:
                             *(n for d in nutbolt_launches.values() for n in d.values()),
                             *(n for d in industreal_launches.values() for n in d.values()),
                             *(n for d in hand_launches.values() for n in d.values()),
-                            *(n for d in kuka_launches.values() for n in d.values()))) \
+                            *(n for d in kuka_launches.values() for n in d.values()),
+                            *(n for d in dex_launches.values() for n in d.values()))) \
             or set(dyn_launches) != set(DYN_CASES) or set(anymal_launches) != set(ANYMAL_CASES):
         raise AssertionError("a kernel of the main path was never launched")
     source = "isaacgymenvs_tpu_torch/engine/csrc/fused_step.cu"
@@ -4188,6 +4337,8 @@ def main() -> int:
                         "IndustRealTaskGearsInsert": "fused_step_industreal_gears_k5_k6sdf3_qt"}
     kuka_names = {"AllegroKukaReorientation": "fused_step_allegro_kuka_k4_qt",
                   "AllegroKukaTwoArmsReorientation": "fused_step_allegro_kuka_two_arms_k4_qt"}
+    dex_names = {"AllegroHandDextremeADR": "fused_step_dextreme_adr_k4_k5_qt_dyn",
+                 "AllegroHandDextremeManualDR": "fused_step_dextreme_manual_dr_k4_k5_qt_dyn"}
     hand_names = {"Trifinger": "fused_step_trifinger_k4_dyn", "ShadowHand": "fused_step_shadow_hand_k4_k5_qt_tendons",
                   "AllegroHand": "fused_step_allegro_hand_k4_k5_qt"}
     print(json.dumps({"kernels": [
@@ -4253,6 +4404,10 @@ def main() -> int:
            **({"max_abs_err_dr": kuka_err[KUKA_DR], "sizes_dr": list(sizes[KUKA_DR]),
                "per_env_leaves_dr": list(built[KUKA_DR][1])} if t == "AllegroKukaReorientation" else {})}
           for t in KUKA_WIDTH),
+        *({"name": dex_names[t], "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sum(dex_launches[t].values()), **{f"launches_{k}": v for k, v in dex_launches[t].items()},
+           "max_abs_err": dex_err[t], **dex_t[t], "library_ms": None, "num_envs": DEX_ENVS, "sizes": list(sizes[t]),
+           "per_env_leaves": list(built[t][1])} for t in DEX_WIDTH),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

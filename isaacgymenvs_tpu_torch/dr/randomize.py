@@ -18,7 +18,8 @@ normal or a uniform [0, 1) tensor) and the transform (`_transform`: range,
 distribution, operation, schedule), so that a test can put another
 package's base draw through this transform.
 
-ADR range overrides (`adr=`) are not ported and raise.
+`sample(adr=)` takes the ranges that ADR (`dr/adr.py`) evolves for the
+specs it names, and pins its boundary workers' envs at a range edge.
 """
 from __future__ import annotations
 
@@ -97,13 +98,21 @@ def _base_draw(spec: DRSpec, generator: torch.Generator, shape) -> torch.Tensor:
     return draw(tuple(shape), generator=generator, device=generator.device)
 
 
-def _transform(spec: DRSpec, base: torch.Tensor, sched_scale) -> torch.Tensor:
+def _transform(spec: DRSpec, base: torch.Tensor, sched_scale, lo=None, hi=None) -> torch.Tensor:
     """Base draw -> the spec's factor or offset.
 
     The schedule interpolates from identity toward full strength as
     training progresses (linear) or applies full strength (constant).
-    `sched_scale` is a float or a 0-d tensor."""
-    lo, hi = spec.lo, spec.hi
+    `sched_scale` is a float or a 0-d tensor. `lo` / `hi` (0-d tensors on
+    the draw's device) replace the spec's range: the evolving ranges of
+    ADR."""
+    if lo is None:
+        lo, hi = spec.lo, spec.hi
+    elif spec.distribution == "loguniform":
+        llo, lhi = torch.log(torch.clamp(lo, min=1e-12)), torch.log(torch.clamp(hi, min=1e-12))
+        v = torch.exp(llo + base * (lhi - llo))
+        ident = _identity_value(spec)
+        return ident + (v - ident) * sched_scale
     if spec.distribution == "gaussian":
         mu, var = lo, hi
         if spec.operation == "scaling":
@@ -120,9 +129,9 @@ def _transform(spec: DRSpec, base: torch.Tensor, sched_scale) -> torch.Tensor:
     return ident + (v - ident) * sched_scale
 
 
-def _sample_spec(spec: DRSpec, generator: torch.Generator, shape, sched_scale) -> torch.Tensor:
+def _sample_spec(spec: DRSpec, generator: torch.Generator, shape, sched_scale, lo=None, hi=None) -> torch.Tensor:
     """Draw the randomization factor/offset for one spec."""
-    return _transform(spec, _base_draw(spec, generator, shape), sched_scale)
+    return _transform(spec, _base_draw(spec, generator, shape), sched_scale, lo, hi)
 
 
 def _apply_op(base, factor, operation: str):
@@ -300,9 +309,12 @@ class DomainRandomizer:
         """Per-env randomization sample for all model leaves, gravity, actor
         scales and correlated noise: dict name -> (n, *leaf.shape) factors or
         offsets. `frames` is the env-step count (an int or a 0-d tensor) that
-        linear schedules read."""
-        if adr is not None:
-            raise NotImplementedError("ADR range overrides (adr=) are not ported yet")
+        linear schedules read.
+
+        `adr`: {spec_name: {"lo", "hi", "pin_mask", "pin_val"}} from
+        `ADR.dr_overrides`: the named specs draw from the evolving range
+        [lo, hi], and the envs of `pin_mask` (n,) take `pin_val` (n,)."""
+        adr = adr or {}
         out = {}
         gen_vals = None
         gen_off = 0
@@ -316,7 +328,9 @@ class DomainRandomizer:
                 )
         for spec, (flat_idx, size) in zip(self.model_specs, self._flat_layout):
             base = self._base[spec.leaf]
-            v = _sample_spec(spec, generator, (n,) + tuple(base.shape), self._sched_scale(spec, frames))
+            ov = adr.get(spec.name)
+            v = _sample_spec(spec, generator, (n,) + tuple(base.shape), self._sched_scale(spec, frames),
+                             *((None, None) if ov is None else (ov["lo"], ov["hi"])))
             if gen_vals is not None:
                 # the external joint sample replaces the independent draw on
                 # the spec's actor-masked entries (identity elsewhere)
@@ -325,6 +339,9 @@ class DomainRandomizer:
                 flat = torch.full((n, base.numel()), _identity_value(spec), dtype=piece.dtype, device=self.device)
                 flat[:, flat_idx] = piece
                 v = flat.reshape((n,) + tuple(base.shape))
+            if ov is not None and ov.get("pin_mask") is not None:
+                pin = (n,) + (1,) * base.dim()
+                v = torch.where(ov["pin_mask"].reshape(pin), ov["pin_val"].reshape(pin).to(v.dtype), v)
             out[spec.name] = v
         if self.gravity_spec is not None:
             out["gravity"] = _sample_spec(

@@ -41,8 +41,19 @@ then sampled once, at the env step's entry pose.
 With `task.randomize` the env carries a `dr.DomainRandomizer`: its sample
 lives on the state (`EnvState.dr`), and the per-env model leaves and
 gravity it gives are packed once where the sample changes (`EnvState.dyn`)
-and handed to every physics step as its `dyn` input. ADR is not ported yet
-and raises.
+and handed to every physics step as its `dyn` input.
+
+With an `adr:` block that sets `use_adr` the env carries a `dr.ADR`, its
+population state on `EnvState.adr`: the reset draws the initial state, and
+every reset (full or partial) draws the resetting envs' ADR parameters
+(`task["adr"]`, (N, P)) from the current ranges; the DR draws take the
+ranges ADR evolves for the specs it names (`dr_overrides`); after the
+reward (6b) the boundary workers that finished push the task's
+`adr_objective` and full queues move their edges; `extras["adr_nats"]`
+carries the range entropy. A task with `frames_in_task` sees the env-step
+count as `task["_frames"]` in its hooks (the count before the step in
+`compute_force`, after it in `observe` and `reward_done`); it is not kept
+in the state.
 """
 from __future__ import annotations
 
@@ -82,6 +93,7 @@ class EnvState:
     dyn: Any = None  # fused.PackedDyn of `dr`: the per-env leaves as the physics step takes them
     randomize_buf: Any = None  # (N,) int32, steps since the last re-randomization
     frames: Any = None  # () int32, env steps since reset (DR schedules, pushes)
+    adr: Any = None  # dr.AdrState: ADR's ranges, queues and worker assignment (None without ADR)
 
 
 def _select(mask: torch.Tensor, a, b):
@@ -126,6 +138,8 @@ class VecTask:
     # when some env resets, which waits for the device once per step; the
     # others draw every step and select, branch-free
     costly_reset: bool = False
+    # True when the hooks read the env-step count as task["_frames"]
+    frames_in_task: bool = False
 
     def __init__(self, cfg: Dict[str, Any], device="cuda"):
         self.cfg = cfg
@@ -140,9 +154,6 @@ class VecTask:
         self.model, self.sim_params = self.build_model()
         task_cfg = cfg.get("task", {}) or {}
         sim_cfg = cfg.get("sim", {}) or {}
-        adr_cfg = env_cfg.get("adr") or cfg.get("adr")
-        if adr_cfg and adr_cfg.get("use_adr"):
-            raise NotImplementedError("ADR (automatic domain randomization) is not ported yet")
         p = self.sim_params
         self.merge_slices = bool(sim_cfg.get("fused_merge_control_slices")) and self.control_freq_inv > 1
         # the merged window: one call of control_freq_inv x the slices, each as long as before
@@ -169,8 +180,17 @@ class VecTask:
                 # which the port does not have
                 raise NotImplementedError("per-env cpoint_pos (actor scale) with terrain or SDF rows")
             self._setup_only = {s.name for s in self.randomizer.model_specs if s.setup_only}
-        # the env-step counter on the state: DR schedules and perturb_state read it
-        self._counts_frames = (self.randomizer is not None
+        self.adr = None
+        self.adr_load_from_checkpoint = False
+        adr_cfg = env_cfg.get("adr") or cfg.get("adr")
+        if adr_cfg and adr_cfg.get("use_adr"):
+            from ..dr.adr import ADR
+
+            self.adr = ADR(adr_cfg, self.num_envs, self.device)
+            # a checkpoint's ADR state is restored only where the cfg asks for it
+            self.adr_load_from_checkpoint = bool(adr_cfg.get("adr_load_from_checkpoint", False))
+        # the env-step counter on the state: DR schedules, perturb_state and frames_in_task read it
+        self._counts_frames = (self.randomizer is not None or self.frames_in_task
                                or type(self).perturb_state is not VecTask.perturb_state)
         self.total_train_env_frames = 0
         self.dt = self.sim_params.dt * self.control_freq_inv
@@ -209,6 +229,11 @@ class VecTask:
         """Init states for the envs that reset, which may read the task
         state they leave (a curriculum level)."""
         return self.sample_init(generator, self.num_envs)
+
+    def adr_objective(self, task):
+        """(N,) per-env episode objective that ADR's boundary workers push
+        when their episode ends (the reference's consecutive successes)."""
+        return torch.zeros(self.num_envs, device=self.device)
 
     def extra_outputs(self, q, qd, kin, sensors, task, actions, progress) -> dict:
         """Per-env values for `extras`, from the state after the reward."""
@@ -360,12 +385,16 @@ class VecTask:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         n = self.num_envs
         q, qd, task = self.sample_init(gen, n)
+        adr = None
+        if self.adr is not None:
+            adr = self.adr.init_state(gen)
+            task = {**task, "adr": self.adr.sample(adr, gen, n)}
         actions = torch.zeros(n, self.num_acts, device=self.device)
         progress = torch.zeros(n, dtype=torch.int32, device=self.device)
         obs = self.observe(q, qd, self._kin(q, qd), self._no_sensors(n), task, actions, progress)
         dr = dyn = rbuf = frames = None
         if self.randomizer is not None:
-            dr = self.randomizer.sample(gen, n, 0)
+            dr = self.randomizer.sample(gen, n, 0, adr=self._dr_overrides(adr))
             dyn = self.pack_dyn(dr)
             rbuf = torch.zeros(n, dtype=torch.int32, device=self.device)
         if self._counts_frames:
@@ -381,8 +410,17 @@ class VecTask:
             dyn=dyn,
             randomize_buf=rbuf,
             frames=frames,
+            adr=adr,
         )
         return state, torch.clamp(obs, -self.clip_obs, self.clip_obs)
+
+    def _dr_overrides(self, adr_state):
+        return None if self.adr is None else self.adr.dr_overrides(adr_state)
+
+    def _with_frames(self, task, frames):
+        """The hooks' view of the task state: with the env-step count as
+        task["_frames"] where the task asks for it."""
+        return {**task, "_frames": frames} if self.frames_in_task else task
 
     def step(
         self, state: EnvState, actions: torch.Tensor
@@ -396,10 +434,11 @@ class VecTask:
 
         # 1. apply actions + physics
         q, qd = state.sim.q, state.sim.qd
+        task_in = self._with_frames(state.task, frames)
         if self.use_pd_targets:
-            qfrc, xfrc, q_target = self.compute_force(actions, q, qd, state.task)
+            qfrc, xfrc, q_target = self.compute_force(actions, q, qd, task_in)
         else:
-            (qfrc, xfrc), q_target = self.compute_force(actions, q, qd, state.task), None
+            (qfrc, xfrc), q_target = self.compute_force(actions, q, qd, task_in), None
         if self.merge_slices:
             out = _fused.physics_step_fused(
                 self.model, self._merged_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=state.dyn,
@@ -416,7 +455,7 @@ class VecTask:
                 q, qd = out.q, out.qd
         sensors = Sensors(out.body_force, out.body_torque, out.dof_force)
         if type(self).perturb_state is not VecTask.perturb_state:
-            q, qd = self.perturb_state(state.rng, q, qd, frames, state.task)
+            q, qd = self.perturb_state(state.rng, q, qd, frames, task_in)
 
         # 2. bookkeeping
         progress = state.progress + 1
@@ -425,6 +464,9 @@ class VecTask:
         done_prev, task = state.reset_buf, state.task
         if not self.costly_reset or bool(done_prev.any()):
             init_q, init_qd, init_task = self.resample_init(state.rng, task)
+            if self.adr is not None:
+                # the resetting envs' ADR parameters, drawn from the current ranges
+                init_task = {**init_task, "adr": self.adr.sample(state.adr, state.rng, n)}
             q = _select(done_prev, init_q, q)
             qd = _select(done_prev, init_qd, qd)
             task = _select(done_prev, init_task, task)
@@ -437,7 +479,7 @@ class VecTask:
         if rz is not None:
             rbuf = rbuf + 1
             due = done_prev & (rbuf >= rz.frequency)
-            fresh = rz.sample(state.rng, n, frames)
+            fresh = rz.sample(state.rng, n, frames, adr=self._dr_overrides(state.adr))
             dr = {k: v if k in self._setup_only else _select(due, fresh[k], v) for k, v in dr.items()}
             dyn = self.pack_dyn(dr)
             rbuf = torch.where(due, torch.zeros_like(rbuf), rbuf)
@@ -446,6 +488,7 @@ class VecTask:
 
         # 4. observe on the post-reset state
         kin = self._kin(q, qd)
+        task = self._with_frames(task, frames)
         obs = self.observe(q, qd, kin, sensors, task, actions, progress)
         if rz is not None:
             obs = rz.observation_noise(state.rng, obs, frames, dr_sample=dr)
@@ -453,12 +496,20 @@ class VecTask:
 
         # 5. reward + new done flags
         reward, done, task = self.reward_done(obs, q, qd, kin, sensors, task, actions, progress)
+        if self.frames_in_task:
+            task.pop("_frames", None)  # a view for the hooks, not state
         extras = dict(self.extra_outputs(q, qd, kin, sensors, task, actions, progress))
         if type(self).population_update is not VecTask.population_update:
             task = self.population_update(task, done, progress)
 
         # 6. timeout flag
         timeout = (progress >= self.max_episode_length - 1) & done
+
+        # 6b. ADR: the finished boundary workers push their objective, full queues move their edges
+        adr = state.adr
+        if self.adr is not None:
+            adr = self.adr.update(adr, state.rng, done, self.adr_objective(task))
+            extras["adr_nats"] = adr.nats.expand(n)
         new_state = EnvState(
             sim=SimState(q=q, qd=qd),
             progress=progress,
@@ -470,6 +521,7 @@ class VecTask:
             dyn=dyn,
             randomize_buf=rbuf,
             frames=frames,
+            adr=adr,
         )
         extras["time_outs"] = timeout
         if self.num_states:

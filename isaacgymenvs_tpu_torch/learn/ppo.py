@@ -575,6 +575,8 @@ class PPO:
         entries = dict(extra or {})
         if self.use_central_value:
             entries.update(central=self.central_net.state_dict(), state_rms=_rms_state(ts.state_rms))
+        if ts.env_state.adr is not None:  # ADR's ranges, queues and worker assignment
+            entries["env_adr_state"] = ts.env_state.adr.as_dict()
         save_checkpoint(
             path,
             {
@@ -612,6 +614,10 @@ class PPO:
         task = state.get("env_task_state")
         if task is not None and env_state.task is not None:
             env_state = dataclasses.replace(env_state, task=task)
+        adr = state.get("env_adr_state")
+        if adr is not None and env_state.adr is not None and getattr(self.env, "adr_load_from_checkpoint", False):
+            # ADR's evolved ranges come back only where the task cfg asks for them
+            env_state = dataclasses.replace(env_state, adr=type(env_state.adr)(**adr))
         return dataclasses.replace(
             ts,
             obs_rms=rms(state["obs_rms"]),
@@ -623,7 +629,8 @@ class PPO:
 
     def restore(self, path: str, ts: PPOTrainState) -> Tuple[PPOTrainState, int]:
         """Re-hydrate the network, the optimizer, the normalizers, the
-        learning rate and the env-side task state from a checkpoint."""
+        learning rate and the env-side task state from a checkpoint; ADR's
+        state too where the env's `adr_load_from_checkpoint` is set."""
         ck = load_checkpoint(path, self.env.device)
         return self.load_state(ts, ck), int(ck.get("epoch", 0))
 

@@ -5,6 +5,7 @@ from typing import Dict, Type
 
 from ..envcore.vec_task import VecTask
 from .allegro_hand import AllegroHand
+from .allegro_hand_dextreme import AllegroHandDextremeADR, AllegroHandDextremeManualDR
 from .allegro_kuka import AllegroKukaRegrasping, AllegroKukaReorientation, AllegroKukaThrow
 from .allegro_kuka_two_arms import AllegroKukaTwoArmsRegrasping, AllegroKukaTwoArmsReorientation
 from .ant import Ant
@@ -49,6 +50,11 @@ def resolve_allegro_kuka_two_arms(cfg, *args, **kwargs):
 
 task_map: Dict[str, Type[VecTask]] = {
     "AllegroHand": AllegroHand,
+    "AllegroHandDextremeADR": AllegroHandDextremeADR,
+    "AllegroHandDextremeManualDR": AllegroHandDextremeManualDR,
+    # the reference's short names of the two DeXtreme tasks
+    "AllegroHandADR": AllegroHandDextremeADR,
+    "AllegroHandManualDR": AllegroHandDextremeManualDR,
     # `task=AllegroKuka` and `task=AllegroKukaTwoArms` resolve the class from cfg.env.subtask
     "AllegroKuka": resolve_allegro_kuka,
     "AllegroKukaTwoArms": resolve_allegro_kuka_two_arms,

@@ -45,8 +45,8 @@ def test_cfg_dir_is_the_ports_own():
 
 def test_unknown_task_raises():
     # a task the port has no yaml for
-    with pytest.raises(FileNotFoundError, match="AllegroHandDextremeADR"):
-        tconfig.load_config(["task=AllegroHandDextremeADR"])
+    with pytest.raises(FileNotFoundError, match="FactoryTaskGears"):
+        tconfig.load_config(["task=FactoryTaskGears"])
 
 
 def test_resolvers_and_overrides():

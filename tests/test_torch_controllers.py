@@ -99,7 +99,8 @@ def franka():
     q[:, :9] = (default + np.r_[[0.5] * 7, [0.005] * 2] * rng.uniform(-1, 1, (N, 9))).astype(np.float32)
     qd = rng.uniform(-1, 1, (N, tm.nv)).astype(np.float32)
     meta = jdyn.kin_meta(jm)
-    jkin = jax.vmap(lambda a, b: jdyn.forward_kinematics(jm, a, b, meta))(jnp.asarray(q), jnp.asarray(qd))
+    jfk = jax.jit(jax.vmap(lambda a, b: jdyn.forward_kinematics(jm, a, b, meta)))
+    jkin = jfk(jnp.asarray(q), jnp.asarray(qd))
     tkin = dyn.forward_kinematics(tm, torch.tensor(q), torch.tensor(qd))
     return tm, jm, tkin, jkin, q, qd
 

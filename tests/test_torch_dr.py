@@ -221,8 +221,19 @@ def test_sampling_ranges_and_ops():
     np.testing.assert_allclose(leaves["body_mass"].numpy(), np.asarray(env.model.body_mass)[None] * mass, rtol=1e-5)
     lower = s["ant.dof_properties.lower"].numpy()
     assert abs(lower.mean()) < 0.002 and 0.005 < lower.std() < 0.02  # gaussian offsets, sigma 0.01
-    with pytest.raises(NotImplementedError, match="ADR"):
-        rz.sample(torch.Generator().manual_seed(0), 4, 0, adr={})
+    # ADR overrides of no spec change nothing: the same draws from the same seed
+    plain = rz.sample(torch.Generator().manual_seed(0), 4, 0)
+    none = rz.sample(torch.Generator().manual_seed(0), 4, 0, adr={})
+    assert all(torch.equal(plain[k], none[k]) for k in plain)
+    # an override moves its named spec only: mass draws from [0.8, 0.9], env 0 pinned at 1.25, every other
+    # draw unchanged (tests/test_torch_adr.py holds the overrides against JAX's)
+    name = "ant.rigid_body_properties.mass"
+    pin = torch.tensor([True, False, False, False])
+    ov = rz.sample(torch.Generator().manual_seed(0), 4, 0,
+                   adr={name: {"lo": 0.8, "hi": 0.9, "pin_mask": pin, "pin_val": torch.full((4,), 1.25)}})
+    assert all(torch.equal(plain[k], ov[k]) for k in plain if k != name)
+    assert bool((ov[name][0] == 1.25).all()) and not torch.equal(ov[name], plain[name])
+    assert float(ov[name][1:].min()) >= 0.8 and float(ov[name][1:].max()) <= 0.9
 
 
 def test_per_env_physics_differs():
@@ -422,9 +433,10 @@ def test_every_ported_task_steps_with_randomization(task):
 
 
 def test_adr_and_unported_leaf_combinations_raise():
+    # ADR is ported: an adr block with use_adr gives the env its ADR engine (here without parameters)
     cfg = load_config(["task=Ant", "num_envs=4"])["task"]
     cfg["env"]["adr"] = {"use_adr": True}
-    with pytest.raises(NotImplementedError, match="ADR"):
-        task_map["Ant"](cfg, device="cpu")
+    env = task_map["Ant"](cfg, device="cpu")
+    assert env.adr is not None and env.adr.P == 0 and not env.adr_load_from_checkpoint
     with pytest.raises(ValueError, match="dr_actor_ranges"):
         _env(4, {"actor_params": {"ant": {"scale": {"range": [0.9, 1.1], "operation": "scaling"}}}})

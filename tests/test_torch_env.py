@@ -273,7 +273,7 @@ def test_procedural_model_matches_jax(procedural):
 
 
 def test_procedural_step_matches_jax(procedural):
-    """reset + 4 steps against the JAX env (its step op by op) from the same
+    """reset + 4 steps against the JAX env (its step under `jax.jit`) from the same
     injected state and actions: obs and reward atol 2e-3 (BallBalance's obs
     carry contact forces / 20), done, time-outs and the integrated targets
     in `task`. Env 3 dies on the first step; from then on its reset draws
@@ -284,11 +284,12 @@ def test_procedural_step_matches_jax(procedural):
     rng = np.random.RandomState(5)
     keep = [0, 1, 2, 3]
     tray_fz = np.zeros(N)
+    jstep = jax.jit(jenv.step)
     for k in range(4):
         a = rng.uniform(-1.2, 1.2, (N, tenv.num_acts)).astype(np.float32)
         if name == "BallBalance":
             a[:2] *= 0.1  # gentle: a tray that drops away would leave its ball in free fall
-        jstate, jobs, jrew, jdone, jex = jenv.step(jstate, jnp.asarray(a))
+        jstate, jobs, jrew, jdone, jex = jstep(jstate, jnp.asarray(a))
         tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
         assert tobs.shape == (N, tenv.num_obs) and tobs.dtype == torch.float32
         if name == "BallBalance":

@@ -190,16 +190,18 @@ def _port_state(tenv, jstate):
 
 def test_insertion_env_steps_match_jax(envs):
     """Reset and 3 env steps of both under the same random actions (which
-    the template stores and never applies), from the JAX reset state put on
+    the template stores and never applies; the JAX reset and step under
+    `jax.jit`), from the JAX reset state put on
     the port's state: q 2e-4, qd 2e-3; observations and rewards zero; done
     flags and progress equal."""
     jenv, tenv = envs
-    jstate, jobs = jenv.reset(jax.random.PRNGKey(0))
+    jstate, jobs = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
     tstate = _port_state(tenv, jstate)
     rng = np.random.RandomState(2)
+    jstep = jax.jit(jenv.step)
     for _ in range(3):
         a = rng.uniform(-1, 1, (N, 12)).astype(np.float32)
-        jstate, jobs, jrew, jdone, _ = jenv.step(jstate, jnp.asarray(a))
+        jstate, jobs, jrew, jdone, _ = jstep(jstate, jnp.asarray(a))
         tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
         assert not tobs.any() and not trew.any() and not np.asarray(jobs).any() and not np.asarray(jrew).any()
         np.testing.assert_allclose(tstate.sim.q.numpy(), np.asarray(jstate.sim.q), atol=2e-4)

@@ -245,7 +245,8 @@ def test_reset_and_steps_match_jax(key):
     then from the port's `contact_states` (FrankaCubeStack: both cubes on
     the table, cube A on cube B, cube A between the fingers, on the table
     again; FrankaCabinet: the hand or a finger on the handle bar), put on
-    both, three env steps of gentle random actions: q, qd, observation,
+    both, three env steps of gentle random actions (the JAX reset and step
+    under `jax.jit`): q, qd, observation,
     reward, done, `successes` and the task state; the first physics call's
     forces against the JAX package's fused step on the inputs of its own
     `compute_force` (the OSC runs in both), with contact force on the cubes
@@ -255,7 +256,7 @@ def test_reset_and_steps_match_jax(key):
     from isaacgymenvs_tpu.engine import fused as jfused
 
     jenv, tenv = _both(key)
-    jstate, jobs = jenv.reset(jax.random.PRNGKey(0))
+    jstate, jobs = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
     fields = lambda js: {"q": js.sim.q, "qd": js.sim.qd, "progress": js.progress, "reset_buf": js.reset_buf,
                          "actions": js.actions, "task": {k: np.asarray(v) for k, v in js.task.items()}}
     tstate = env_state_from_arrays(tenv.reset(0)[0], fields(jstate), "cpu")
@@ -270,6 +271,7 @@ def test_reset_and_steps_match_jax(key):
     tstate = env_state_from_arrays(tstate, fields(jstate), "cpu")
     rng = np.random.RandomState(4)
     calls, reset, successes = [], np.zeros(N, bool), 0
+    jstep = jax.jit(jenv.step)
     with pytest.MonkeyPatch.context() as mp:
         _recorder(mp, calls)
         for k in range(3):
@@ -279,7 +281,7 @@ def test_reset_and_steps_match_jax(key):
                                                                  jstate.task)
                 jphys = jfused.physics_step_fused(jenv.model, jenv.sim_params, jstate.sim.q, jstate.sim.qd, jqfrc,
                                                   xfrc=jxfrc, q_target=jqt, use_pallas=False)
-            jstate, jobs, jrew, jdone, jex = jenv.step(jstate, jnp.asarray(a))
+            jstate, jobs, jrew, jdone, jex = jstep(jstate, jnp.asarray(a))
             tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
             if k == 0:
                 targs, tkw, tphys = calls[0]
@@ -330,7 +332,7 @@ def test_cabinet_epoch_matches_jax():
     reward scale 0.01, its network cut to [32, 16]), both sides with the
     same action noise and minibatch permutations, the JAX side assembled
     from the JAX package's env, network and update as in
-    tests/test_torch_ppo.py: metrics rtol 2e-4 (atol 2e-6), parameters atol
+    tests/test_torch_ppo.py (its env step and gradient under `jax.jit`): metrics rtol 2e-4 (atol 2e-6), parameters atol
     1e-4, the running stats 1e-4."""
     from isaacgymenvs_tpu.learn import ppo as jppo
     from isaacgymenvs_tpu_torch.learn import ppo as tppo
@@ -358,7 +360,7 @@ def test_cabinet_epoch_matches_jax():
     B = HORIZON * N
     noise = (0.3 * rng.normal(size=(HORIZON, N, 9))).astype(np.float32)
     perms = np.stack([rng.permutation(B) for _ in range(MINI_EPOCHS)])
-    jts, want = _jax_epoch(jagent, jts, jnp.asarray(noise), perms)
+    jts, want = _jax_epoch(jagent, jts, jnp.asarray(noise), perms, jit=True)
     tts, got = tagent.train_epoch(tts, noise=torch.tensor(noise), perms=torch.tensor(perms))
     for k in ("a_loss", "c_loss", "entropy", "b_loss", "kl", "lr", "reward_mean_step"):
         np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-6, err_msg=k)

@@ -443,7 +443,8 @@ def test_forward_kinematics_matches_jax(ant):
 
     jenv, tenv, q, qd = ant
     qd = qd + np.random.RandomState(4).uniform(-1, 1, qd.shape).astype(np.float32)
-    jk = jax.vmap(lambda a, b: jdyn.forward_kinematics(jenv.model, a, b))(jnp.asarray(q), jnp.asarray(qd))
+    jfk = jax.jit(jax.vmap(lambda a, b: jdyn.forward_kinematics(jenv.model, a, b)))
+    jk = jfk(jnp.asarray(q), jnp.asarray(qd))
     tk = tdyn.forward_kinematics(tenv.model, torch.tensor(q), torch.tensor(qd))
     for f in ("x", "quat", "com", "inertia_w", "S", "Sdot", "v"):
         np.testing.assert_allclose(getattr(tk, f).numpy(), np.asarray(getattr(jk, f)), atol=1e-5, err_msg=f)

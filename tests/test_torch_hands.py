@@ -197,9 +197,11 @@ def test_models_match_jax(task, extra):
 # ---- the hooks at drawn states --------------------------------------------------
 
 def _jax_fk(jm, q, qd):
+    """JAX's forward kinematics of the batch, jitted (op by op it compiles
+    hundreds of small programs; the two agree within 1e-6 here)."""
     from isaacgymenvs_tpu.engine import dynamics as jdyn
 
-    return jax.vmap(lambda a, b: jdyn.forward_kinematics(jm, a, b))(jnp.asarray(q), jnp.asarray(qd))
+    return jax.jit(jax.vmap(lambda a, b: jdyn.forward_kinematics(jm, a, b)))(jnp.asarray(q), jnp.asarray(qd))
 
 
 def _port_task(jtask):
@@ -386,10 +388,15 @@ def test_reset_and_env_steps_match_jax(task):
     """The port's observation of the JAX reset state equals the JAX reset's;
     then from the port's `contact_states`, put on both, three env steps
     (AllegroHand: two physics calls each) of gentle random actions against
-    the JAX step run op by op, the port taking JAX's goal and kick draws: q, qd,
-    observation, reward, done, the task state and the extras."""
+    the JAX step, the port taking JAX's goal and kick draws: q, qd,
+    observation, reward, done, the task state and the extras. AllegroHand's
+    JAX reset and step run under `jax.jit` (op by op its step traces the
+    body of its two-call control loop again on every call); ShadowHand's
+    run op by op (one physics call a step, which runs in less time than it
+    compiles)."""
     jenv, tenv = _both(task)
-    jstate, jobs = jenv.reset(jax.random.PRNGKey(0))
+    jit = jax.jit if task == "AllegroHand" else (lambda f: f)
+    jstate, jobs = jit(jenv.reset)(jax.random.PRNGKey(0))
     tstate = env_state_from_arrays(tenv.reset(0)[0], _fields(jstate), "cpu")
     obs = tenv.observe(tstate.sim.q, tstate.sim.qd, tenv._kin(tstate.sim.q, tstate.sim.qd), tenv._no_sensors(N),
                        tstate.task, tstate.actions, tstate.progress)
@@ -397,7 +404,7 @@ def test_reset_and_env_steps_match_jax(task):
     q, qd = tenv.contact_states(N, seed=7)
     jstate = jstate.replace(sim=jstate.sim.replace(q=jnp.asarray(q.numpy()), qd=jnp.asarray(qd.numpy())))
     tstate = env_state_from_arrays(tstate, _fields(jstate), "cpu")
-    step = jenv.step  # op by op
+    step = jit(jenv.step)
     rng = np.random.RandomState(8)
     for k in range(3):
         a = rng.uniform(-0.1, 0.1, (N, tenv.num_acts)).astype(np.float32)

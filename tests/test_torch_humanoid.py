@@ -113,7 +113,7 @@ def _recorder(mp, module, sink):
 def test_step_matches_jax(envs):
     """Three env steps from standing states (both feet 0-1 mm in the ground)
     under small random actions (at 0.5 of the gear a foot lifts in the first
-    step) against the JAX step op by op: q 2e-4, qd 2e-3,
+    step) against the JAX step under `jax.jit`: q 2e-4, qd 2e-3,
     observation and reward 2e-2, done and the time-outs equal. The forces of
     the port step's first physics call against the JAX package's fused
     step on the same inputs: 2e-2, both feet carrying force."""
@@ -121,12 +121,13 @@ def test_step_matches_jax(envs):
     from isaacgymenvs_tpu_torch.engine import fused as tfused
 
     jenv, tenv = envs
-    jstate, _ = jenv.reset(jax.random.PRNGKey(1))
+    jstate, _ = jax.jit(jenv.reset)(jax.random.PRNGKey(1))
     q, qd = tenv.standing_states(N, seed=2)
     jstate = jstate.replace(sim=jstate.sim.replace(q=jnp.asarray(q.numpy()), qd=jnp.asarray(qd.numpy())))
     tstate = _port_state(tenv, jstate)
     rng = np.random.RandomState(4)
     tout = []
+    jstep = jax.jit(jenv.step)
     with pytest.MonkeyPatch.context() as mp:
         _recorder(mp, tfused, tout)
         for k in range(3):
@@ -135,7 +136,7 @@ def test_step_matches_jax(envs):
                 qfrc = jax.vmap(jenv.qfrc_from_actuators)(jnp.asarray(a) * jenv.power_scale)
                 jphys = jfused.physics_step_fused(jenv.model, jenv.sim_params, jstate.sim.q, jstate.sim.qd, qfrc,
                                                   xfrc=jnp.zeros((N, jenv.model.nbody, 6)), use_pallas=False)
-            jstate, jobs, jrew, jdone, jex = jenv.step(jstate, jnp.asarray(a))
+            jstate, jobs, jrew, jdone, jex = jstep(jstate, jnp.asarray(a))
             tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
             if k == 0:
                 for f, tol in TOL.items():

@@ -686,3 +686,41 @@ def test_allegro_kuka_kernels_match_plain_version(key):
         chip_smoke.compare_outputs(f"{key} call {call}", ko, po, m.nbody, n)
         x = (po[0].T.contiguous(), po[1].T.contiguous())
     assert _cuda.FusedStepCall.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["AllegroHandDextremeADR", "AllegroHandDextremeManualDR"])
+def test_dextreme_kernel_matches_plain_version(task):
+    """AllegroHand's build (nv 22, 144 pair rows under the cap of 24,
+    q_target, 2 control slices) under each DeXtreme yaml's per-env leaves
+    (the ADR yaml's drawn through ADR's overrides, each physics parameter
+    pinned at both edges in some envs, `chip_smoke.dextreme_overrides`; the
+    restitution turns the pair rows' bounce on), against its plain version
+    for 2 env steps at 256 envs from `chip_smoke.hand_inputs`, within the
+    tolerances."""
+    import pathlib
+    import sys
+
+    _needs_card()
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    n = 256
+    env = chip_smoke.hand_env(task, 64)
+    calls = 2 * env.control_freq_inv
+    (q, qd), dyn, _, _ = chip_smoke.hand_inputs(env, n, seed=89, calls=calls)
+    m, p = env.model, env.sim_params
+    _, step = fused._prepared(m, p, torch.device("cuda"), True, dyn.names)
+    assert step.sizes[:8] == chip_smoke.HAND_SIZES["AllegroHand"][:8] and step.sizes[8]
+    assert "cpoint_restitution" in dyn.names
+    plain = fused._step_math_torch(step.s, p, torch.device("cuda"), dyn.names)
+    before = _cuda.FusedStepCall.launches
+    x = (q, qd)
+    for call in range(calls):
+        qfrc, xfrc, qt = chip_smoke.hand_calls(env, *x)
+        ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, dyn=dyn)
+        po = plain(x[0].T.contiguous(), x[1].T.contiguous(), qfrc.T.contiguous(), chip_smoke.xfrc_rows(xfrc),
+                   qt.T.contiguous(), dyn.rows)
+        chip_smoke.compare_outputs(f"{task} call {call}", ko, po, m.nbody, n)
+        x = (po[0].T.contiguous(), po[1].T.contiguous())
+    assert _cuda.FusedStepCall.launches == before + calls

@@ -309,7 +309,8 @@ def _fields(js):
 @pytest.mark.parametrize("task", TASKS)
 def test_reset_and_env_steps_match_jax(task):
     """The port's observation of the JAX reset state equals the JAX reset's;
-    then, from that state put on both, three env steps under random actions:
+    then, from that state put on both, three env steps under random actions
+    (the JAX reset and step under `jax.jit`):
     q, qd, observations, rewards, done flags, the task state and the
     extras (`successes`; Screw's `descent`). Pick starts its four envs at
     the progress that crosses its phase boundaries: env 0 from rl_len - 2
@@ -323,7 +324,7 @@ def test_reset_and_env_steps_match_jax(task):
     resets starts its next episode from each package's own draws: it is
     compared up to the reset."""
     jenv, tenv = _both(task)
-    jstate, jobs = jenv.reset(jax.random.PRNGKey(0))
+    jstate, jobs = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
     tstate = env_state_from_arrays(tenv.reset(0)[0], _fields(jstate), "cpu")
     obs = tenv.observe(tstate.sim.q, tstate.sim.qd, tenv._kin(tstate.sim.q, tstate.sim.qd), tenv._no_sensors(N),
                        tstate.task, tstate.actions, tstate.progress)
@@ -341,9 +342,10 @@ def test_reset_and_env_steps_match_jax(task):
         obs_tol[20:26] = TOL["qd"]
     rng = np.random.RandomState(4)
     reset = np.zeros(N, bool)
+    jstep = jax.jit(jenv.step)
     for k in range(3):
         a = rng.uniform(-0.3, 0.3, (N, 12)).astype(np.float32)
-        jstate, jobs, jrew, jdone, jex = jenv.step(jstate, jnp.asarray(a))
+        jstate, jobs, jrew, jdone, jex = jstep(jstate, jnp.asarray(a))
         tstate, tobs, trew, tdone, tex = tenv.step(tstate, torch.tensor(a))
         kept = ~reset
         np.testing.assert_allclose(tstate.sim.q.numpy()[kept], np.asarray(jstate.sim.q)[kept], atol=TOL["q"])

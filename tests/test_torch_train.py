@@ -180,7 +180,7 @@ def test_train_main_exits_for_unported_options(override, named):
 def test_train_main_unknown_task():
     # a task the port has no yaml for
     with pytest.raises(FileNotFoundError):
-        ttrain.main(["task=AllegroHandDextremeADR", "pipeline=cpu"])
+        ttrain.main(["task=FactoryTaskGears", "pipeline=cpu"])
 
 
 def test_cartpole_learns_on_the_cpu():

@@ -166,7 +166,8 @@ def test_hooks_match_jax(extra):
     np.testing.assert_allclose(xfrc.numpy(), np.asarray(jxfrc), atol=0)
     assert float(qfrc.abs().max()) <= 0.36 + 1e-6
     tkin = forward_kinematics(tenv.model, tq, tqd)
-    jkin = jax.vmap(lambda a, b: jdyn.forward_kinematics(jenv.model, a, b))(jnp.asarray(q), jnp.asarray(qd))
+    jfk = jax.jit(jax.vmap(lambda a, b: jdyn.forward_kinematics(jenv.model, a, b)))
+    jkin = jfk(jnp.asarray(q), jnp.asarray(qd))
     progress = np.asarray([0, 3, tenv.max_episode_length - 1, 7], np.int32)
     args_t = (tq, tqd, tkin, Sensors(*map(torch.tensor, sens)), ttask, ta, torch.tensor(progress))
     args_j = (jnp.asarray(q), jnp.asarray(qd), jkin, JSensors(*map(jnp.asarray, sens)), jtask, jnp.asarray(acts),
@@ -227,10 +228,10 @@ def _fields(js):
 def test_reset_and_env_steps_match_jax(mode):
     """The port's observation of the JAX reset state equals the JAX reset's;
     from the port's `contact_states`, put on both, three env steps of random
-    actions against the JAX step run op by op: q, qd, observation, reward, done,
+    actions against the JAX step under `jax.jit`: q, qd, observation, reward, done,
     the task state and the success extras; the asymmetric states."""
     jenv, tenv = _both((f"task.env.command_mode={mode}",))
-    jstate, jobs = jenv.reset(jax.random.PRNGKey(0))
+    jstate, jobs = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
     tstate = env_state_from_arrays(tenv.reset(0)[0], _fields(jstate), "cpu")
     kin = tenv._kin(tstate.sim.q, tstate.sim.qd)
     obs = tenv.observe(tstate.sim.q, tstate.sim.qd, kin, tenv._no_sensors(N), tstate.task, tstate.actions,
@@ -239,7 +240,7 @@ def test_reset_and_env_steps_match_jax(mode):
     q, qd = tenv.contact_states(N, seed=9)
     jstate = jstate.replace(sim=jstate.sim.replace(q=jnp.asarray(q.numpy()), qd=jnp.asarray(qd.numpy())))
     tstate = env_state_from_arrays(tstate, _fields(jstate), "cpu")
-    step = jenv.step  # op by op
+    step = jax.jit(jenv.step)
     rng = np.random.RandomState(10)
     for k in range(3):
         a = rng.uniform(-0.5, 0.5, (N, 9)).astype(np.float32)
