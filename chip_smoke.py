@@ -34,7 +34,7 @@
 6. drives the training path on Ant at full width: `load_config(["task=Ant"])`
    (4096 envs, AntPPO.yaml as it stands: horizon 16, batch 65,536,
    minibatch 32,768, 4 mini-epochs, MLP [256, 128, 64]), one warm-up epoch
-   and three timed ones through `PPO.train_epoch`; per epoch the launch
+   and one timed one through `PPO.train_epoch`; per epoch the launch
    count must equal the env steps, every metric be finite, the lr stay in
    [min_lr, max_lr], kl >= 0; the parameters must have moved;
 7. trains Cartpole to a result through `train.main` in-process (the yaml's
@@ -56,7 +56,7 @@
    targets and the tray must carry about the ball's weight; settles the
    example model through `physics_step_fused` and checks that the box
    carries both spheres;
-11. for Ingenuity, Quadcopter and BallBalance: one warm-up and three timed
+11. for Ingenuity, Quadcopter and BallBalance: one warm-up and one timed
    full-width `PPO.train_epoch`s from `load_config(["task=<name>"])`, launch
    count = horizon x control_freq_inv per epoch, finite metrics, parameters
    moved; env-steps/s and the rollout/update split printed;
@@ -81,8 +81,8 @@
    env's OWN weight (the spread over envs of fz / own weight must be well
    under that of fz / nominal weight);
 16. the DR main path at full width: device ops per Ant env step with and
-   without `task.randomize=True`, `bench --randomize`, one warm-up and three
-   timed `train_epoch`s of `task=Ant task.randomize=True` (16 launches each),
+   without `task.randomize=True`, `bench --randomize`, one warm-up and one
+   timed `train_epoch` of `task=Ant task.randomize=True` (16 launches),
    then `train.main` with `task=Ant task.randomize=True` for ANT_DR_EPOCHS
    epochs, a restore that is bit-equal (the DR sample is drawn anew, as in
    the JAX package) and `play`; Cartpole, Ingenuity, Quadcopter and
@@ -102,10 +102,10 @@
    AnymalTerrain on every terrain type and level (finite, base above the
    local ground after 100 steps); a 30-step episode whose levels move both
    ways;
-20. 1 + 3 full-width epochs of Anymal and AnymalTerrain (batch 98,304, 24
+20. 1 + 1 full-width epochs of Anymal and AnymalTerrain (batch 98,304, 24
    launches each), device ops per AnymalTerrain env step,
-   `train.main task=AnymalTerrain` for 4 epochs with a bit-equal restore and
-   play, the plane variant driven for 16 env steps;
+   `train.main task=AnymalTerrain` for 2 epochs with a bit-equal restore,
+   the plane variant driven for 16 env steps;
 21. the three kernels timed at full width;
 22. FactoryTaskInsertion (64 plane rows and 64 SDF rows against the
    socket's voxel grid, the cap of 32, `q_target`, gravity compensation
@@ -116,10 +116,10 @@
    ball on an SDF box (one SDF row, no cap) at N=1003 for 3 steps;
 23. the ball dropped onto the SDF box rests at 0.45 +- 0.015 m with
    |qd_z| < 0.05 after 150 steps through `physics_step_fused`;
-24. 1 + 3 Insertion epochs at the yaml's width (128 envs, batch 4,096, 32
+24. 1 + 1 Insertion epochs at the yaml's width (128 envs, batch 4,096, 32
    launches each), device ops per Insertion env step, `train.main
-   task=FactoryTaskInsertion` for 4 epochs with a bit-equal restore and
-   play;
+   task=FactoryTaskInsertion` for INSERTION_EPOCHS epochs with a bit-equal
+   restore and play (its return is zero);
 25. both timed (Insertion at 128 and 4096 envs, the ball at 4096) with
    envs per block and shared memory per block;
 26. Humanoid (nv 27: 27 of a warp's 32 dof lanes, the Gram product's k
@@ -127,7 +127,7 @@
    its plain version at N=1003 for 3 steps and at 4096 for one, both feet
    on the ground, the inputs kept where rounding alone moves the step by
    at most COND_TOL (`humanoid_inputs`);
-27. 1 + 2 full-width Humanoid PPO epochs (`load_config(["task=Humanoid"])`:
+27. 1 + 1 full-width Humanoid PPO epochs (`load_config(["task=Humanoid"])`:
    4096 envs, horizon 32, batch 131,072, minibatch 32,768, 5 mini-epochs;
    32 launches each), device ops per Humanoid env step;
 28. Humanoid SAC (`train=HumanoidSAC`, 4096 envs, batch 4,096, a buffer of
@@ -137,8 +137,9 @@
 29. the four recipes through `train.main` at their yaml widths
    (`task=Humanoid`, `task=Humanoid train=HumanoidSAC`, `task=Ant
    train=AntSAC`, `task=AnymalTerrain train=AnymalTerrainPPO_LSTM`):
-   RECIPE_EPOCHS epochs, a resume from the checkpoint, play;
-30. 1 + 2 full-width AnymalTerrain epochs with `train=AnymalTerrainPPO_LSTM`
+   RECIPE_EPOCHS epochs; a resume from the checkpoint and play for one
+   recipe per learner (RESUMED: feed-forward PPO, SAC, the LSTM);
+30. 1 + 1 full-width AnymalTerrain epochs with `train=AnymalTerrainPPO_LSTM`
    (batch 98,304 in 24,576 windows of 4, 6 minibatches of 4,096 windows x 5;
    24 launches each): the carry of the envs done in the last step is zero,
    every other env's is not;
@@ -152,7 +153,7 @@
    (one env in 16) lying on its back with more candidates in the margin
    than the cap, kept where rounding alone moves each call by at most
    COND_TOL (`amp_inputs`);
-34. 1 + 2 full-width AMP epochs (`load_config(["task=HumanoidAMP"])`, 4096
+34. 1 + 1 full-width AMP epochs (`load_config(["task=HumanoidAMP"])`, 4096
    envs, horizon 16, batch 65,536, minibatch 32,768, 6 mini-epochs, MLP
    [1024, 512] separate, discriminator [1024, 512] on 210-wide windows; 32
    launches each, finite kl, disc_acc and disc_reward_mean), device ops per
@@ -176,11 +177,11 @@
 39. FrankaCubeStack's OSC at 8192 envs: a +x task-space increment gives +x
    grip-site acceleration in every env, and the torques, mass matrix,
    inverse and Jacobian equal the CPU's from the same inputs (rtol 1e-4);
-40. 1 + 2 full-width PPO epochs of both (FrankaCubeStackPPO.yaml: batch
+40. 1 + 1 full-width PPO epochs of both (FrankaCubeStackPPO.yaml: batch
    262,144, 16 minibatches x 5, 32 launches each; FrankaCabinetPPO.yaml:
-   65,536 in 8 x 8, 16 launches each), device ops per env step, and the
-   OSC's share of a FrankaCubeStack env step by wall time and device ops;
-41. `train.main` for both: 2 epochs, a bit-equal restore, a resume, play;
+   65,536 in 8 x 8, 16 launches each), and the OSC's share of a
+   FrankaCubeStack env step by wall time and device ops;
+41. `train.main` for both: 2 epochs, a bit-equal restore;
 42. both Franka kernels timed at full width;
 44. the Factory nut-bolt family (rows 1x-1z: Pick, Place and Screw, nv 17;
    12 rims, 48 thread points and each task's pad points as plane rows and
@@ -197,10 +198,10 @@
    Screw model, the arm parked), Place keeps its grip for 60 steps and its
    scripted carry succeeds in every env within 150, Screw's
    press-and-rotate turns the nut past 60 degrees along the helix;
-46. per task device ops and the device's busy share per env step;
-47. `train.main` for the three: 1 epoch at the yaml's width (128 envs,
-   horizon 120 or 128, minibatch 512 x 8 mini-epochs), a bit-equal
-   restore, play;
+46. NutBoltPick's device ops and the device's busy share per env step;
+47. `train.main task=FactoryTaskNutBoltPick`: 1 epoch at the yaml's width
+   (128 envs, horizon 120, minibatch 512 x 8 mini-epochs), a bit-equal
+   restore (Place and Screw run through the kernel in step 45);
 48. the three kernels timed at 128 and 4096 envs;
 49. IndustReal (PegsInsert: 17 bodies, nv 19, the plug's 76 points and 12
    pad points as plane rows and SDF rows, the plug's against the grid of
@@ -227,9 +228,9 @@
 52. `train.main task=IndustRealTaskPegsInsert` at the yaml's width for 2
    epochs (PPORecurrent; the 256-step episodes end in the second, and the
    SBC update follows `new_max_disp` for the success rate it saw), a
-   bit-equal restore, play; one GearsInsert epoch through
-   `PPORecurrent.train_epoch` at 128 x 128 with one of its 8 mini-epochs
-   (2,048 minibatches of 8), the full epoch derived;
+   bit-equal restore; one GearsInsert epoch through
+   `PPORecurrent.train_epoch` at 128 x 128 with GEARS_UPDATE_STEPS of its
+   16,384 minibatch steps (of 8 windows), the full epoch derived;
 53. both IndustReal kernels timed at 128 and 4096 envs;
 54. Trifinger (14 bodies, nv 15; the cube's 8 corners and the 3 tips as
    plane rows, the tips against the cube as pair rows, no cap, 4 substeps;
@@ -251,8 +252,8 @@
    object rests on the palm after 60 zero-action steps in PALM_SHARE of
    the envs (ShadowHand, AllegroHand), and Trifinger's position mode tracks
    the default pose (TRACK_BAR);
-56. per task env.step env-steps/s and device ops per env step at 16,384
-   envs, and one warm-up and one timed PPO epoch at the yaml's width
+56. per task env.step env-steps/s at 16,384 envs (ShadowHand's device ops
+   per env step), and one warm-up and one timed PPO epoch at the yaml's width
    (batch 131,072);
 57. the three hand kernels timed at 16,384 envs;
 58. AllegroKuka with one arm (28 bodies, nv 29; the cube's 8 corners
@@ -269,11 +270,11 @@
 59. the JAX package's cube-rest bar through the kernel at 8,192 envs:
    after 25 zero-action steps the cube lies within 5 mm of its rest height
    in KUKA_REST_SHARE of the envs;
-60. per family env.step env-steps/s, device ops and the busy share per env
-   step at 8,192 envs, one warm-up and one timed PPO epoch at the yaml's
-   width (batch 65,536);
+60. per family env.step env-steps/s at 8,192 envs (the one arm's device
+   ops and busy share per env step), one warm-up and one timed PPO epoch
+   at the yaml's width (batch 65,536);
 61. `train.main task=AllegroKukaReorientation` and `task=AllegroKukaTwoArms`
-   at 8,192 envs: 2 epochs, a bit-equal restore, a resume, play;
+   at 8,192 envs: 2 epochs, a bit-equal restore;
 62. the initial-state bank: `train.main` with task.env.saveStates=True
    writes it, and an env with loadInitialStates resets every env to one
    of its rows (also a partial reset within env.step);
@@ -287,16 +288,34 @@
    (`hand_inputs`) with leaves drawn through ADR's overrides
    (`dextreme_overrides`: ranges moved out, each physics parameter pinned
    at both edges in some envs);
-65. per task env.step env-steps/s, device ops and the busy share per env
-   step at 8,192 envs (the yaml's randomization and ADR on), one warm-up
+65. per task env.step env-steps/s at 8,192 envs, the yaml's randomization
+   and ADR on (ADR's device ops and busy share per env step), one warm-up
    and one timed PPO epoch at the yaml's width (batch 131,072);
 66. a forced ADR run at 8,192 envs (FORCED_ADR: queues of 8, an upper
    threshold of 0, episodes of 4 steps): ADR's entropy and ranges move on
    the card;
 67. `train.main` for both at 8,192 envs with ADR's checkpoint gate on: 2
-   epochs, a bit-equal restore (ADR's state included), a resume, play;
+   epochs, a bit-equal restore (ADR's state included); for the ADR task a
+   resume and play;
 68. both DeXtreme kernels timed at 8,192 envs;
-69. prints one `kernels` JSON line with all instantiations (each with its
+69. `isaacgymenvs_tpu_torch.make(task="Ant")` on its default device: the
+   env of the yaml's 4096 envs steps once through the kernel;
+70. PBT (`pbt_population`): one Ant member alone for PBT_ALONE_EPOCHS
+   epochs, then two members of one population launched together by
+   `pbt.launcher.run_local` (`python -m isaacgymenvs_tpu_torch.train
+   task=Ant pbt=pbt_default ...`, 4096 envs, episodes of 48 steps, an
+   interval, warm-up and delay of one epoch's frames, thresholds 0, member
+   0 at learning rate 0) for PBT_EPOCHS epochs each: both exit 0, both
+   write records into the shared workspace, a trailing member restarts
+   from the other's weights (restored bit for bit) with mutated params
+   inside their bounds; epoch seconds from record to record, two members
+   against one alone;
+71. HumanoidAMPHands at 4096 envs: its fused build is row 1u's; from the
+   cartwheel clip's reference states, envs with a hand pressed on the
+   ground are not ended (HumanoidAMP's rule would end them); `train.main
+   task=HumanoidAMPHands` with the recipe the JAX package resolves for it
+   (none: PPO's defaults) for one epoch, a bit-equal restore, play;
+72. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes) and ends with
    {"ok": true, "device": {...}}.
@@ -947,7 +966,7 @@ def time_case(key: str, card: str) -> dict:
 
 
 def train_epochs(task: str = "Ant", width=(NUM_ENVS, HORIZON, 65536, 32768, 4), profile: bool = True,
-                 overrides=(), recipe: str | None = None, timed: int = 3, check=None, warmup: bool = True) -> int:
+                 overrides=(), recipe: str | None = None, timed: int = 1, check=None, warmup: bool = True) -> int:
     """`timed` timed PPO epochs after a warm-up on `task` at its yaml's full
     width (`width` = envs, horizon, batch, minibatch, mini-epochs), with the
     train yaml `recipe` (default <task>PPO; one with `network.rnn` trains
@@ -1034,7 +1053,7 @@ def restored_bit_equal(task: str, args, ckpt: str, ts, epochs: int) -> list:
     from isaacgymenvs_tpu_torch.utils.config import load_config
 
     cfg = load_config(args)
-    params = cfg["train"]["params"]
+    params = cfg["train"].get("params", {})  # none where no recipe resolves (HumanoidAMPHands): PPO's defaults
     kind = PPORecurrent if params.get("network", {}).get("rnn") else PPO
     fresh = kind(task_map[task if task in task_map else cfg["task"]["name"]](cfg["task"], device="cuda"), params,
                  seed=1)
@@ -1499,10 +1518,11 @@ def terrain_types_and_curriculum(steps: int = 100) -> None:
         raise AssertionError("the terrain curriculum did not move both ways")
 
 
-def train_anymal_terrain(epochs: int = 4) -> int:
-    """`train.main task=AnymalTerrain` for `epochs` epochs at the yaml's width,
-    a bit-equal restore into a fresh agent, and play. Returns the launches of
-    the training run (one per env step: the merged window)."""
+def train_anymal_terrain(epochs: int = 2) -> int:
+    """`train.main task=AnymalTerrain` for `epochs` epochs at the yaml's width
+    and a bit-equal restore into a fresh agent (the LSTM recipe of step 29
+    plays). Returns the launches of the training run (one per env step: the
+    merged window)."""
     from isaacgymenvs_tpu_torch import train
     from isaacgymenvs_tpu_torch.engine import _cuda
 
@@ -1524,10 +1544,7 @@ def train_anymal_terrain(epochs: int = 4) -> int:
               f"mean terrain level {metrics['env/terrain_level']:.3f}")
         ckpt = os.path.join(runs, "AnymalTerrain", "nn", "last_AnymalTerrain.pth")
         epoch = restored_bit_equal("AnymalTerrain", args, ckpt, ts, epochs).pop()
-        played = train.main(["task=AnymalTerrain", "test=True", f"checkpoint={ckpt}"])
-        print(f"AnymalTerrain restore: bit-equal (epoch {epoch}); play: mean return {played:.2f}")
-        if not np.isfinite(played):
-            raise AssertionError("AnymalTerrain play returned a non-finite mean return")
+        print(f"AnymalTerrain restore: bit-equal (epoch {epoch})")
     return launches
 
 
@@ -1566,7 +1583,7 @@ def time_anymal(key: str, card: str) -> dict:
 
 INSERTION_ENVS = 128  # numEnvs of FactoryTaskInsertion.yaml
 INSERTION_WIDE = 4096
-INSERTION_EPOCHS = 4
+INSERTION_EPOCHS = 2
 INSERTION_WIDTH = (INSERTION_ENVS, 32, 4096, 512, 8)  # envs, horizon, batch, minibatch, mini-epochs of its yaml
 BALL_ENVS = 64  # balls settled on the SDF box side by side, each in its own env
 BALL_REST = (0.45, 0.015)  # height of the ball's centre on the box top and the band it must rest in
@@ -1994,15 +2011,18 @@ RECIPES = {
                               "last_AnymalTerrainLSTM.pth", ["task.env.learn.episodeLength_s=2"]),
 }
 RECIPE_EPOCHS = 2  # SAC's 16 env steps reach its updates (from the 11th on)
+# the recipes resumed and played: one per learner (feed-forward PPO, SAC, the LSTM); HumanoidSAC's checkpoint is
+# restored bit for bit and played in step 28
+RESUMED = ("Humanoid", "AntSAC", "AnymalTerrainPPO_LSTM")
 
 
 def train_main_recipes() -> dict:
     """Each recipe of RECIPES through `train.main` in-process at its yaml's
     width, into a temporary run directory: RECIPE_EPOCHS epochs (one launch
-    per env step, finite metrics, SAC's critic loss > 0), a resume from the
-    checkpoint for one more epoch, and `test=True` play of it (episodes cut
-    where the yaml's would take minutes). Returns the training launches per
-    recipe."""
+    per env step, finite metrics, SAC's critic loss > 0); for those of
+    RESUMED a resume from the checkpoint for one more epoch, and `test=True`
+    play of it (episodes cut where the yaml's would take minutes). Returns
+    the training launches per recipe."""
     from isaacgymenvs_tpu_torch import train
     from isaacgymenvs_tpu_torch.engine import _cuda
 
@@ -2025,6 +2045,10 @@ def train_main_recipes() -> dict:
                     or (sac and not metrics["c_loss"] > 0):
                 raise AssertionError(f"{key}: {launches[key]} launches for {metrics['frames']} frames, {metrics}")
             path = os.path.join(runs, name, "nn", ckpt)
+            if key not in RESUMED:
+                print(f"train.main {' '.join(select)}: {RECIPE_EPOCHS} epochs x {NUM_ENVS} envs in {sec:.2f} s "
+                      f"({metrics['frames'] / sec:.1f} env-steps/s with set-up), {launches[key]} launches")
+                continue
             _, resumed = train.main([*args, f"max_iterations={1 if sac else RECIPE_EPOCHS + 1}", f"checkpoint={path}"])
             played = train.main([*args, "test=True", f"checkpoint={path}", *play_cut])
         print(f"train.main {' '.join(select)}: {RECIPE_EPOCHS} epochs x {NUM_ENVS} envs in {sec:.2f} s "
@@ -2573,13 +2597,13 @@ def osc_share(steps: int = 4) -> None:
 
 
 def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2, resume: bool = True,
-                        overrides=()) -> int:
+                        overrides=(), play: bool = True) -> int:
     """`train.main task=<task> *overrides` (a recipe, a variant's switches)
     at the yaml's width: `epochs` epochs (controlFrequencyInv launches per
     env step, finite metrics), a bit-equal restore, with `resume` a resume
-    for one more, and play with episodes cut to 16 steps (NutBoltPick's
-    acting phase: 16 steps and its scripted tail). Returns the training
-    launches."""
+    for one more, and with `play` a play with episodes cut to 16 steps
+    (NutBoltPick's acting phase: 16 steps and its scripted tail). Returns
+    the training launches."""
     from isaacgymenvs_tpu_torch import train
     from isaacgymenvs_tpu_torch.engine import _cuda
     from isaacgymenvs_tpu_torch.utils.config import load_config
@@ -2609,10 +2633,11 @@ def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2, re
         resumed = {"epoch": epochs + 1}
         if resume:
             _, resumed = train.main([*args, f"max_iterations={epochs + 1}", f"checkpoint={ckpt}"])
-        played = train.main([*args, "test=True", f"checkpoint={ckpt}", "task.env.episodeLength=16"])
+        played = train.main([*args, "test=True", f"checkpoint={ckpt}", "task.env.episodeLength=16"]) if play else 0.0
     print(f"train.main task={task}{''.join(' ' + o for o in overrides)}: {epochs} epochs x {width} envs in {sec:.2f} s ({metrics['frames'] / sec:.1f} "
           f"env-steps/s with set-up), {launches} launches, kl {metrics['kl']:.5f}; restore bit-equal; "
-          f"{'resumed to epoch ' + str(resumed['epoch']) if resume else 'no resume'}; played mean return {played:.2f}")
+          f"{'resumed to epoch ' + str(resumed['epoch']) if resume else 'no resume'}; "
+          f"{f'played mean return {played:.2f}' if play else 'no play'}")
     if resumed["epoch"] != epochs + 1 or not np.isfinite(played):
         raise AssertionError(f"{task} {' '.join(overrides)}: resume reached epoch {resumed['epoch']}, play returned "
                              f"{played}")
@@ -3199,9 +3224,8 @@ def industreal_train_main() -> int:
     2 epochs: the 256-step episodes end in the second epoch, and the SBC
     update acts on that step, with the max displacement the JAX rule gives
     for the success rate it saw (`algo.new_max_disp`); a fresh PPORecurrent
-    restores the checkpoint bit for bit (the env's task state included);
-    play with `test=True` (episodes of 16). Returns the training
-    launches."""
+    restores the checkpoint bit for bit (the env's task state included).
+    Returns the training launches."""
     from isaacgymenvs_tpu_torch import train
     from isaacgymenvs_tpu_torch.engine import _cuda
     from isaacgymenvs_tpu_torch.tasks import industreal_algo as algo
@@ -3246,25 +3270,26 @@ def industreal_train_main() -> int:
             fts, _ = restored_bit_equal(task, args, ckpt, ts, 2)
             if not all(torch.equal(fts.env_state.task[k], ts.env_state.task[k]) for k in ts.env_state.task):
                 raise AssertionError(f"{task}: restore did not give back the curriculum's state")
-            played = train.main([*args, "test=True", f"checkpoint={ckpt}", "task.env.episodeLength=16"])
     finally:
         IndustRealTaskPegsInsert.population_update = update
     rate, before, after, want, _ = acted[0]
     print(f"train.main task={task}: 2 epochs x {width} envs in {sec:.2f} s ({metrics['frames'] / sec:.1f} "
           f"env-steps/s with set-up), {launches} launches, kl {metrics['kl']:.5f}; the SBC update acted once: "
           f"success rate {rate:.4f}, max displacement {before:.4f} -> {after:.4f} (new_max_disp: {want:.4f}); "
-          f"restore bit-equal; played mean return {played:.2f}")
-    if not np.isfinite(played):
-        raise AssertionError(f"{task}: play returned {played}")
+          f"restore bit-equal")
     return launches
+
+
+GEARS_UPDATE_STEPS = 256  # minibatch steps of the timed update, of the yaml's 16,384 per epoch
 
 
 def gears_epoch() -> int:
     """One GearsInsert epoch through `PPORecurrent.train_epoch` at 128 x 128
     (IndustRealTaskGearsInsertPPO.yaml: minibatches of 8 in windows of 4, 8
     mini-epochs: 16,384 minibatch steps). The update runs one mini-epoch
-    (2,048 minibatch steps): the full epoch's time is given as the rollout +
-    8 x that update, derived. Returns the launches."""
+    over the first GEARS_UPDATE_STEPS x 8 windows (GEARS_UPDATE_STEPS
+    minibatch steps): the full epoch's time is given as the rollout + the
+    update scaled to 16,384 steps, derived. Returns the launches."""
     from isaacgymenvs_tpu_torch.engine import _cuda
     from isaacgymenvs_tpu_torch.learn import PPORecurrent
     from isaacgymenvs_tpu_torch.utils.config import load_config
@@ -3276,6 +3301,7 @@ def gears_epoch() -> int:
     if (env.num_envs, agent.cfg.horizon_length, agent.batch_size, agent.minibatch_size) != \
             INDUSTREAL_WIDTH[task][:4]:
         raise AssertionError(f"{task}: not at the yaml's width")
+    agent.num_seqs = GEARS_UPDATE_STEPS * agent.seq_minibatch  # the mini-epoch draws from these windows only
     split = {}
     rollout = agent.rollout
 
@@ -3298,10 +3324,10 @@ def gears_epoch() -> int:
     launches = _cuda.FusedStepCall.launches
     update = sec - split["rollout"]
     bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
-    print(f"{task} PPORecurrent epoch at 128 x 128, one mini-epoch of 2,048 minibatch steps: {sec:.2f} s = rollout "
+    full = split["rollout"] + 16384 / GEARS_UPDATE_STEPS * update
+    print(f"{task} PPORecurrent epoch at 128 x 128, {GEARS_UPDATE_STEPS} minibatch steps: {sec:.2f} s = rollout "
           f"{split['rollout']:.2f} s + update {update:.2f} s; the yaml's 8 mini-epochs (16,384 minibatch steps), "
-          f"derived: {split['rollout'] + 8 * update:.2f} s, {16384 / (split['rollout'] + 8 * update):.1f} "
-          f"env-steps/s; {launches} launches, kl {metrics['kl']:.5f}")
+          f"derived: {full:.2f} s, {16384 / full:.1f} env-steps/s; {launches} launches, kl {metrics['kl']:.5f}")
     if launches != 128 or bad:
         raise AssertionError(f"{task} epoch: {launches} launches, metrics {metrics}")
     return launches
@@ -3549,15 +3575,17 @@ def hand_bars() -> dict:
     return {"Trifinger": track["launches"], **{t: palm[t]["launches"] for t in palm}}
 
 
-def hand_env_step(task: str) -> float:
+def hand_env_step(task: str, profile: bool = True) -> float:
     """env.step env-steps/s under random actions at the yaml's width
     (bench.measure, 8 steps after 8; Trifinger with its yaml's
-    randomization) and one profiled env step; returns the device ops per
-    env step."""
+    randomization) and, with `profile`, one profiled env step; returns the
+    device ops per env step (0 without `profile`)."""
     from isaacgymenvs_tpu_torch.bench import measure
 
     bench = measure(HAND_ENVS, 8, reps=1, device="cuda", task=task, randomize=task == "Trifinger")
     print(f"{task} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s ({HAND_ENVS} envs)")
+    if not profile:
+        return 0.0
     ops = profile_env_step(hand_env(task, HAND_ENVS), steps=1, label=f"{task} env.step")
     print(f"device ops per {task} env step: {ops:.1f}")
     return ops
@@ -3736,14 +3764,17 @@ def cube_at_rest(task: str, n: int = KUKA_ENVS, device: str = "cuda") -> dict:
     return {"share": share, "launches": _cuda.FusedStepCall.launches}
 
 
-def kuka_env_step(task: str) -> float:
+def kuka_env_step(task: str, profile: bool = True) -> float:
     """env.step env-steps/s under random actions at the yaml's 8,192 envs
-    (bench.measure, 8 steps after 8) and one profiled env step (device ops,
-    busy share); returns the device ops per env step."""
+    (bench.measure, 8 steps after 8) and, with `profile`, one profiled env
+    step (device ops, busy share); returns the device ops per env step (0
+    without `profile`)."""
     from isaacgymenvs_tpu_torch.bench import measure
 
     bench = measure(KUKA_ENVS, 8, reps=1, device="cuda", task=task)
     print(f"{task} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s ({KUKA_ENVS} envs)")
+    if not profile:
+        return 0.0
     ops = profile_env_step(hand_env(task, KUKA_ENVS), steps=1, label=f"{task} env.step")
     print(f"device ops per {task} env step: {ops:.1f}")
     return ops
@@ -3831,15 +3862,17 @@ def dextreme_overrides(env, n: int):
     return a.dr_overrides(st)
 
 
-def dextreme_env_step(task: str) -> float:
+def dextreme_env_step(task: str, profile: bool = True) -> float:
     """env.step env-steps/s under random actions at the yaml's 8,192 envs
-    (bench.measure with the yaml's randomization, 8 steps after 8) and one
-    profiled env step (device ops, busy share); returns the device ops per
-    env step."""
+    (bench.measure with the yaml's randomization, 8 steps after 8) and,
+    with `profile`, one profiled env step (device ops, busy share); returns
+    the device ops per env step (0 without `profile`)."""
     from isaacgymenvs_tpu_torch.bench import measure
 
     bench = measure(DEX_ENVS, 8, reps=1, device="cuda", task=task, randomize=True)
     print(f"{task} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s ({DEX_ENVS} envs)")
+    if not profile:
+        return 0.0
     ops = profile_env_step(hand_env(task, DEX_ENVS), steps=1, label=f"{task} env.step")
     print(f"device ops per {task} env step: {ops:.1f}")
     return ops
@@ -3888,21 +3921,288 @@ def time_dextreme(task: str, card: str) -> dict:
     return out
 
 
+# ---- PBT, make() and HumanoidAMPHands ----
+
+PBT_EPOCHS = 40  # each member's max_iterations: start-up jitter between the two stays well inside it
+PBT_ALONE_EPOCHS = PBT_EPOCHS  # one member alone, for its epoch time
+PBT_FRAMES = NUM_ENVS * HORIZON  # one Ant epoch: the interval, the warm-up and the delay
+# two members of one Ant population at AntPPO.yaml's width; episodes of 48 steps end within the run; any
+# gap to the best is a reason to adopt; every mutable param mutates at a restart (ant_mutation.yaml)
+PBT_ARGS = ("task=Ant", "pbt=pbt_default", "pbt.num_policies=2", "pbt.mutation_file=ant_mutation",
+            "task.env.episodeLength=48", f"pbt.interval_steps={PBT_FRAMES}", f"pbt.start_after={PBT_FRAMES}",
+            f"pbt.initial_delay={PBT_FRAMES}", "pbt.replace_threshold_frac_std=0",
+            "pbt.replace_threshold_frac_absolute=0", "pbt.mutation_rate=1.0")
+PBT_HANDICAP = ("train.params.config.learning_rate=0", "train.params.config.lr_schedule=constant")
+
+
+def _records(policy_dir: str) -> list:
+    import yaml
+
+    return [yaml.safe_load(open(os.path.join(policy_dir, f)))
+            for f in sorted(os.listdir(policy_dir)) if f.endswith(".yaml")]
+
+
+MINI_EPOCHS_KEY = "train.params.config.mini_epochs"
+
+
+def _epoch_seconds(recs: list, mini_epochs=None) -> list:
+    """Seconds between the records of consecutive iterations: one epoch of a
+    member, its save and its PBT step included; with `mini_epochs`, only
+    epochs run with that many mini-epochs (a mutation changes the update's
+    work)."""
+    return [b["timestamp"] - a["timestamp"] for a, b in zip(recs, recs[1:])
+            if b["iteration"] == a["iteration"] + 1 and mini_epochs in (None, b["params"][MINI_EPOCHS_KEY])]
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    """Two checkpoints hold the same network, normalizers, Adam moments and lr, bit for bit."""
+    same = a["lr"] == b["lr"] and a["params"].keys() == b["params"].keys()
+    same &= all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    for key in ("obs_rms", "value_rms"):
+        same &= all(torch.equal(a[key][f], b[key][f]) for f in ("mean", "var", "count"))
+    sa, sb = a["opt_state"]["state"], b["opt_state"]["state"]
+    return same and set(sa) == set(sb) and all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i])
+
+
+def _mutated_within_bounds(new: dict, sources: list) -> bool:
+    """Every param of `new` is one of ant_mutation.yaml's functions applied
+    to the same param of one of `sources` (the member's own params or the
+    donor's), and the two differ."""
+    import yaml
+
+    from isaacgymenvs_tpu_torch.utils.config import cfg_dir
+
+    funcs = yaml.safe_load(open(os.path.join(cfg_dir(), "pbt", "mutation", "ant_mutation.yaml")))
+
+    def ok(k, src):
+        x, y = float(src[k]), float(new[k])
+        if funcs[k] == "mutate_mini_epochs":
+            return y == int(y) and 1 <= y <= 8 and abs(y - x) <= 1
+        if funcs[k] == "mutate_discount":
+            return 1 / 1.2 - 1e-9 <= (1 - y) / (1 - x) <= 1.2 + 1e-9
+        if x == 0.0:  # a factor leaves 0 at 0 (AntPPO.yaml's entropy_coef)
+            return y == 0.0
+        ratio = y / x
+        inside = 1 / 1.5 - 1e-9 <= ratio <= 1.5 + 1e-9 and not 1 / 1.1 + 1e-9 < ratio < 1.1 - 1e-9
+        return inside if funcs[k] == "mutate_float" else 0.01 <= y <= 0.3 and (inside or y in (0.01, 0.3))
+
+    return set(new) == set(funcs) and any(new != src and all(ok(k, src) for k in funcs) for src in sources)
+
+
+def pbt_population(num_envs: int = NUM_ENVS, epochs: int = PBT_EPOCHS, alone_epochs: int = PBT_ALONE_EPOCHS) -> dict:
+    """The port's launcher starts two members of one Ant population at once
+    on the card (`pbt.launcher.run_local`, `python -m
+    isaacgymenvs_tpu_torch.train task=Ant pbt=pbt_default ...`), member 0
+    handicapped (learning rate 0, constant): both exit with 0, both write
+    their records into the shared workspace, and the trailing member
+    restarts from the other's weights file (the copy it restored from and
+    the state it restored to equal bit for bit) with mutated params inside
+    their bounds. With `alone_epochs`, one member of a population of one
+    runs alone first, for the epoch time of a member that has the card to
+    itself. Returns the epoch seconds of each member and the restarts."""
+    from isaacgymenvs_tpu_torch.pbt.launcher import TRAIN_CMD, Experiment, RunDescription, run_local
+    from isaacgymenvs_tpu_torch.utils.checkpoint import load_checkpoint
+
+    frames = num_envs * HORIZON
+    args = [a.replace(str(PBT_FRAMES), str(frames)) for a in PBT_ARGS] + [f"num_envs={num_envs}"]
+    out = {}
+    with tempfile.TemporaryDirectory() as runs:
+        base = f"{TRAIN_CMD} {' '.join(args)} +train_dir={runs}"
+        if alone_epochs:
+            alone = RunDescription("alone", [Experiment("member", f"{base} max_iterations={alone_epochs} "
+                                                        "pbt.num_policies=1 pbt.workspace=alone",
+                                                        [{"pbt.policy_idx": 0}])])
+            if run_local(alone, max_parallel=1, train_dir=runs):
+                raise AssertionError("PBT: the lone member failed:\n" + open(
+                    os.path.join(runs, "alone", "member_00.log")).read()[-3000:])
+            lone = _records(os.path.join(runs, "Ant_alone", "policy_00"))
+            out["alone"], out["mini_epochs"] = _epoch_seconds(lone), lone[0]["params"][MINI_EPOCHS_KEY]
+        run = RunDescription("ant_pbt", [
+            Experiment("member0", f"{base} max_iterations={epochs} {' '.join(PBT_HANDICAP)}", [{"pbt.policy_idx": 0}]),
+            Experiment("member1", f"{base} max_iterations={epochs}", [{"pbt.policy_idx": 1}])])
+        t0 = time.perf_counter()
+        failures = run_local(run, max_parallel=2, train_dir=runs)
+        out["wall"] = time.perf_counter() - t0
+        logs = [open(os.path.join(runs, "ant_pbt", f"member{i}_00.log")).read() for i in (0, 1)]
+        if failures:
+            raise AssertionError(f"PBT: {failures} member(s) failed:\n" + "\n".join(log[-3000:] for log in logs))
+        ws = os.path.join(runs, "Ant_pbt_workspace")
+        dirs = [os.path.join(ws, f"policy_{i:02d}") for i in (0, 1)]
+        recs = [_records(d) for d in dirs]
+        if not all(recs):
+            raise AssertionError(f"PBT: records {[len(r) for r in recs]} in the workspace")
+        restarts = []
+        for i, (d, log) in enumerate(zip(dirs, logs)):
+            other = os.path.abspath(os.path.join(dirs[1 - i], "weights.pth"))
+            for line in log.splitlines():
+                if not line.startswith(f"[pbt] policy {i}: restarted at "):
+                    continue
+                at, src = int(line.split()[5]), line.split(" from ")[-1]
+                it = at // frames
+                copied = load_checkpoint(os.path.join(d, f"restart_{it:06d}.pth"))
+                restored = load_checkpoint(os.path.join(d, f"restart_{it:06d}_restored.pth"))
+                before = [r for r in recs[i] if r["iteration"] <= it][-1]
+                after = [r for r in recs[i] if r["iteration"] > it]
+                # the donor's record the manager read is one of those at or before the iteration
+                donor = [r for r in recs[1 - i] if r["iteration"] <= it]
+                restarts.append({
+                    "member": i, "iteration": it, "from_other": os.path.abspath(src) == other,
+                    "bit_equal": _same_state(copied, restored),
+                    # None where the run ended before the restarted session's first record
+                    "mutated": _mutated_within_bounds(after[0]["params"], [before["params"]] + [
+                        r["params"] for r in donor]) if after else None,
+                    "objectives": (before["true_objective"], donor[-1]["true_objective"] if donor else None)})
+        adopted = [r for r in restarts if r["from_other"]]
+        checked = [r["mutated"] for r in adopted if r["mutated"] is not None]
+        if not checked or not all(checked) or not all(r["bit_equal"] for r in restarts):
+            raise AssertionError(f"PBT: restarts {restarts}\n" + "\n".join(log[-2000:] for log in logs))
+    # side by side, the epochs that ran the lone member's (the yaml's) mini-epochs
+    out.update(members=[_epoch_seconds(r, out.get("mini_epochs")) for r in recs], records=[len(r) for r in recs],
+               restarts=restarts)
+    med = lambda xs: statistics.median(xs) if xs else None
+    out.update(member_median=[med(m) for m in out["members"]], alone_median=med(out.get("alone", [])))
+    told = lambda i: [r["iteration"] for r in restarts if r["member"] == i]
+    mutated = [r["mutated"] for r in restarts if r["mutated"] is not None]
+    print(f"PBT, two Ant members at {num_envs} envs on one card, {epochs} epochs each: both exit 0 in "
+          f"{out['wall']:.1f} s; records {out['records']}; restarts of member 0 at iterations {told(0)}, of member 1 "
+          f"at {told(1)}, {sum(r['from_other'] for r in restarts)} of {len(restarts)} from the other's weights, "
+          f"every one restored bit for bit; params mutated within bounds in {sum(mutated)} of the {len(mutated)} "
+          f"followed by a record; epoch s (record to record"
+          + (f", at {out['mini_epochs']} mini-epochs" if alone_epochs else "") + ") "
+          + "; ".join(f"{who} median {med(xs)}, range {min(xs, default=None)}-{max(xs, default=None)} over {len(xs)}"
+                      for who, xs in (("member 0", out["members"][0]), ("member 1", out["members"][1]),
+                                      (f"one member alone ({alone_epochs} epochs)", out.get("alone", [])))))
+    return out
+
+
+def make_on_card() -> int:
+    """`isaacgymenvs_tpu_torch.make(task="Ant")` with its default device:
+    the env of the yaml's width on the card, one env step through the
+    kernel. Returns its launches."""
+    import isaacgymenvs_tpu_torch as port
+    from isaacgymenvs_tpu_torch.engine import _cuda
+
+    env = port.make(task="Ant", seed=0)
+    state, obs = env.reset(0)
+    _cuda.FusedStepCall.launches = 0
+    state, obs, rew, done, _ = env.step(state, torch.zeros(env.num_envs, env.num_acts, device=env.device))
+    torch.cuda.synchronize()
+    launches = _cuda.FusedStepCall.launches
+    print(f"make(task='Ant'): {type(env).__name__} on {env.device} with {env.num_envs} envs; one env step, "
+          f"{launches} launch(es), mean reward {float(rew.mean()):.4f}")
+    if env.device.type != "cuda" or env.num_envs != NUM_ENVS or launches != env.control_freq_inv \
+            or not bool(torch.isfinite(obs).all()):
+        raise AssertionError("make(): the env did not step on the card through the kernel")
+    return launches
+
+
+HANDS_GROUND_STEPS = 4
+
+
+def hands_on_ground(steps: int = HANDS_GROUND_STEPS) -> int:
+    """HumanoidAMPHands at 4096 envs from its yaml: the fused build is row
+    1u's (the hands' spheres are candidates of the model already; only the
+    termination mask differs); from reference states of the cartwheel clip,
+    `steps` zero-action env steps, in which an env with a hand pressed on
+    the ground (force > 0.1 N, below the termination height) is not ended
+    for it, where HumanoidAMP's rule (the feet alone) would end it. Returns
+    the launches."""
+    from isaacgymenvs_tpu_torch.engine import _cuda, fused
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    cfg = load_config(["task=HumanoidAMPHands", f"num_envs={AMP_ENVS}"])["task"]
+    env = task_map[cfg["name"]](cfg, device="cuda")
+    dev = torch.device("cuda", 0)
+    size = _cuda.instantiation(fused._extract(env.model), env.sim_params, dev, env.use_pd_targets, (), False)[0]
+    run = amp_env(8)
+    if size != _cuda.instantiation(fused._extract(run.model), run.sim_params, dev, run.use_pd_targets, (), False)[0]:
+        raise AssertionError(f"HumanoidAMPHands builds {size}, not row 1u's")
+    names = env.model.body_names
+    hands = [names.index(n) for n in ("right_hand", "left_hand")]
+    run_mask = env.noncontact_mask.clone()
+    run_mask[hands] = True  # HumanoidAMP's rule: only the feet may touch
+    if not torch.equal(run_mask, run.noncontact_mask) or bool(env.noncontact_mask[hands].any()):
+        raise AssertionError("HumanoidAMPHands: the hands are not among the contact bodies")
+    seen = {"hand_down": 0, "kept": 0, "run_would_end": 0}
+    own = env.reward_done
+
+    def reward_done(obs, q, qd, kin, sensors, task, actions, progress):
+        reward, done, task = own(obs, q, qd, kin, sensors, task, actions, progress)
+        x = env._poses(q)[0]
+        mag = torch.linalg.vector_norm(sensors.body_force, dim=-1)
+        low = x[:, :, 2] < env.termination_height
+        hand = ((mag[:, hands] > 0.1) & low[:, hands]).any(1) & (progress > 1)
+        run_end = ((mag > 0.1) & run_mask).any(1) & (low & run_mask).any(1) & (progress > 1)
+        seen["hand_down"] += int(hand.sum())
+        seen["kept"] += int((hand & ~done).sum())
+        seen["run_would_end"] += int((hand & ~done & run_end).sum())
+        return reward, done, task
+
+    env.reward_done = reward_done
+    state, obs = env.reset(5)
+    zero = torch.zeros(AMP_ENVS, env.num_acts, device="cuda")
+    _cuda.FusedStepCall.launches = 0
+    for _ in range(steps):
+        state, obs, _, done, _ = env.step(state, zero)
+    torch.cuda.synchronize()
+    launches = _cuda.FusedStepCall.launches
+    print(f"HumanoidAMPHands at {AMP_ENVS} envs: row 1u's build {'_'.join(map(str, size))}; {steps} env steps from "
+          f"the cartwheel clip, {launches} launches: {seen['hand_down']} env steps with a hand pressed on the ground, "
+          f"{seen['kept']} of them not ended, {seen['run_would_end']} of those ended under HumanoidAMP's rule")
+    if launches != steps * env.control_freq_inv or not seen["run_would_end"] or not bool(torch.isfinite(obs).all()):
+        raise AssertionError(f"HumanoidAMPHands: {launches} launches, {seen}")
+    return launches
+
+
+def hands_train_main() -> int:
+    """`train.main task=HumanoidAMPHands` with the recipe the JAX package's
+    `load_config` resolves for it (none: PPO's defaults) at 4096 envs: one
+    epoch, a bit-equal restore, play."""
+    return train_main_at_width("HumanoidAMPHands", AMP_ENVS, 16, epochs=1, resume=False)
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
-    nvcc each, started together; prints ptxas's figures, the shared memory
-    per block and the residency the device grants each build. Returns (the
-    Ant env at the main path's width, its spec, key -> (env, per-env leaf
-    names), key -> size tuple)."""
+    nvcc each, each started as soon as its env is made; prints ptxas's
+    figures, the shared memory per block and the residency the device grants
+    each build. Returns (the Ant env at the main path's width, its spec, key
+    -> (env, per-env leaf names), key -> size tuple)."""
     from isaacgymenvs_tpu_torch.engine import _cuda, fused
+
+    def timed_build(size):
+        t0 = time.perf_counter()
+        _cuda.build(size, verbose=True)
+        return time.perf_counter() - t0
+
+    def params_of(t, e):
+        return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
+
+    t_start = time.perf_counter()
+    pool = ThreadPoolExecutor(64)
+    sizes, builds = {}, {}
+
+    class Built(dict):
+        """key -> (env, per-env leaf names); each entry's build starts when it is set (envs per block from
+        this card's shared memory)."""
+
+        def __setitem__(self, t, entry):
+            super().__setitem__(t, entry)
+            e, names = entry
+            sizes[t] = _cuda.instantiation(fused._extract(e.model), params_of(t, e), torch.device("cuda", 0),
+                                           e.use_pd_targets, names, getattr(e, "terrain", None) is not None)[0]
+            if sizes[t] not in builds:
+                builds[sizes[t]] = pool.submit(timed_build, sizes[t])
 
     env = ant_env(NUM_ENVS)
     cart = cartpole_env(CARTPOLE_ENVS)
     s, s0 = fused._extract(env.model), fused._extract(cart.model)
     if s0.nct != 0 or s.nc == 0:
         raise AssertionError("Cartpole should be contact-free and the Ant not")
-    built = {"Ant": (env, ()), "Cartpole": (cart, ()),
-             **{k: case(k, 8) for k in CASES}}
+    built = Built()
+    built["Ant"], built["Cartpole"] = (env, ()), (cart, ())
+    for k in CASES:
+        built[k] = case(k, 8)
     for k in ANYMAL_CASES:  # the per-env leaves of their own DR, the cap and terrain of their yaml
         e = anymal_env(k, 8)
         se = fused._extract(e.model)
@@ -3930,14 +4230,9 @@ def build_all():
     for t in DEX_WIDTH:  # AllegroHand's model (row 1ae) under each DeXtreme yaml's per-env leaves, drawn through ADR
         e = hand_env(t, 8)
         built[t] = (e, hand_dyn(e, 8, 0).names)
+    made = time.perf_counter() - t_start
 
-    def params_of(t, e):
-        return physics_args(e)[0] if t in ANYMAL_CASES else e.sim_params
-
-    # the size tuples the steps will take on this card (envs per block from its shared memory)
-    sizes = {t: _cuda.instantiation(fused._extract(e.model), params_of(t, e), torch.device("cuda", 0),
-                                    e.use_pd_targets, names, getattr(e, "terrain", None) is not None)[0]
-             for t, (e, names) in built.items()}
+    # the size tuples the steps will take on this card
     if sizes["Quadcopter"][3] <= 32 or sizes["BallBalance"][4:7] != (1, 3, 1) or sizes["Example"][4] != 3 \
             or sizes["Ant+yaml"][7:] != (0, 115, 0, 0, 0, 0, 0, 4) \
             or sizes["Tendon+all"][7:] != (1, 65535, 10, 3, 0, 0, 0, 8) \
@@ -3957,16 +4252,9 @@ def build_all():
                    or not sizes[t][8] for t in DEX_WIDTH) \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
-
-    def timed_build(size):
-        t0 = time.perf_counter()
-        _cuda.build(size, verbose=True)
-        return time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sizes)) as pool:
-        secs = list(pool.map(timed_build, sizes.values()))
-    print(f"build: {time.perf_counter() - t0:.1f} s in all; " + ", ".join(
+    secs = [builds[sz].result() for sz in sizes.values()]
+    pool.shutdown()
+    print(f"build: {time.perf_counter() - t_start:.1f} s in all, the envs made in the first {made:.1f} s; " + ", ".join(
         f"{t} {'_'.join(map(str, sz))} {sec:.1f} s" for (t, sz), sec in zip(sizes.items(), secs)))
     for t, (e, names) in built.items():
         has_t = getattr(e, "terrain", None) is not None
@@ -4025,6 +4313,7 @@ def main() -> int:
         e = compare(cartpole_env(n), steps=steps, seed=1, qfrc_max=100.0, with_xfrc=False)
         print(f"contact-free kernel vs plain, N={n}, {steps} step(s):", json.dumps(e))
         max_err0 = max(max_err0, *e.values())
+    lap(3)
 
     # 4. the main path: a PPO rollout on the Ant VecTask
     train = {"network": {"mlp": {"units": [256, 128, 64], "activation": "elu"}},
@@ -4063,6 +4352,7 @@ def main() -> int:
     print(f"settled feet fz / weight: {ratio:.4f} (mean over {NUM_ENVS} envs)")
     if not 0.5 < ratio < 2.0:
         raise AssertionError(f"settled foot force {ratio:.3f} x weight")
+    lap(4)
 
     # 5. kernel time at the main path's shapes (the rollout's last state)
     from isaacgymenvs_tpu_torch.bench import measure
@@ -4074,10 +4364,13 @@ def main() -> int:
     qfrc = rows(env.qfrc_from_actuators(torch.clamp(traj.action[-1], -1, 1)))
     xfrc = torch.zeros(6 * s.nbody, NUM_ENVS, device="cuda")
     ant_t = kernel_times(env, q, qd, qfrc, xfrc, name)
+    lap(5)
 
     # 6. the training path on Ant, 7. on Cartpole
     train_launches = train_epochs()
+    lap(6)
     cart_launches = train_cartpole()
+    lap(7)
 
     # 8. the contact-free kernel at its training path's width and at 4096 envs
     cart_t = {}
@@ -4092,31 +4385,38 @@ def main() -> int:
     lap(8)
     # 9. the new instantiations against their plain versions
     new_err = {t: compare_case(t) for t in NEW_CASES}
+    lap(9)
 
     # 10. physical checks: BallBalance's anchors and tray force, the example model's spheres
     settle_ball_balance(NEW_TASKS["BallBalance"][0])
     new_launches = {"Example": settle_example(NUM_ENVS)}
+    lap(10)
 
-    # 11. three timed full-width epochs per new task, 12. BallBalance through train.main
+    # 11. one timed full-width epoch per new task after a warm-up, 12. BallBalance through train.main
     conf = {"Ingenuity": (16384, 8), "Quadcopter": (16384, 8), "BallBalance": (8192, 8)}
     for t, (envs, horizon) in NEW_TASKS.items():
         new_launches[t] = train_epochs(t, (envs, horizon, envs * horizon, *conf[t]), profile=t == "BallBalance")
         bench = measure(envs, horizon, reps=4, device="cuda", task=t)
         print(f"{t} env.step under random actions: {bench['env_steps_per_s']:.1f} env-steps/s")
+    lap(11)
     new_launches["BallBalance"] += train_ball_balance()
+    lap(12)
 
     # 13. kernel times of the new instantiations at full width
     new_t = {t: time_case(t, name) for t in NEW_CASES}
+    lap(13)
 
     # 14. per-env leaves and tendons: against the plain version and the step without leaves, then timed
     dyn_err = {k: compare_case(k) for k in DYN_CASES}
     dyn_t = {k: time_case(k, name) for k in DYN_CASES}
+    lap(14)
 
     # 15. physical checks, and the instantiations no task drives yet through physics_step_fused
     dyn_launches = {"Ant+all": free_fall_under_per_env_gravity(NUM_ENVS)}
     settle_ant_with_randomized_mass(NUM_ENVS)
     for k in ("Tendon", "Tendon+all", "BallBalance+pair"):
         dyn_launches[k] = drive_case(k)
+    lap(15)
 
     # 16. the DR main path: Ant with task.randomize=True at full width
     ops_dr = profile_env_step(task_env("Ant", NUM_ENVS, randomize=True), label="env.step task.randomize=True")
@@ -4129,12 +4429,15 @@ def main() -> int:
     lap(16)
     # 17. Anymal and AnymalTerrain: the three instantiations against their plain versions
     anymal_err = {k: compare_anymal(k) for k in ANYMAL_CASES}
+    lap(17)
     # 18. one merged window against four separate launches
     merged_vs_separate()
+    lap(18)
     # 19. physical checks: standing on flat ground, every terrain type, the curriculum
     settle_anymal()
     terrain_types_and_curriculum()
-    # 20. the training path at full width: 1 + 3 epochs each, AnymalTerrain through train.main, the plane variant
+    lap(19)
+    # 20. the training path at full width: 1 + 1 epochs each, AnymalTerrain through train.main, the plane variant
     anymal_launches = {
         "Anymal": train_epochs("Anymal", (ANYMAL_ENVS, 24, 98304, 32768, 5), profile=False),
         "AnymalTerrain": train_epochs("AnymalTerrain", (ANYMAL_ENVS, 24, 98304, 16384, 5), profile=False),
@@ -4143,37 +4446,48 @@ def main() -> int:
     print(f"device ops per AnymalTerrain env step: {ops_terrain:.1f}")
     anymal_launches["AnymalTerrain"] += train_anymal_terrain()
     anymal_launches["AnymalTerrain-plane"] = drive_plane()
+    lap(20)
     # 21. kernel times at full width
     anymal_t = {k: time_anymal(k, name) for k in ANYMAL_CASES}
 
     lap(21)
     # 22. FactoryTaskInsertion and the ball on an SDF box against their plain versions
     sdf_err = {"Insertion": compare_insertion(), "Ball": compare_ball()}
+    lap(22)
     # 23. the ball rests on the SDF box
     sdf_launches = {"Ball": settle_ball()}
-    # 24. the training path at the yaml's width: 1 + 3 epochs, device ops per env step, train.main
+    lap(23)
+    # 24. the training path at the yaml's width: 1 + 1 epochs, device ops per env step, train.main
     sdf_launches["Insertion"] = train_epochs("FactoryTaskInsertion", INSERTION_WIDTH, profile=False)
     ops_ins = profile_env_step(insertion_env(INSERTION_ENVS), label="FactoryTaskInsertion env.step")
     print(f"device ops per FactoryTaskInsertion env step: {ops_ins:.1f}")
     sdf_launches["Insertion"] += train_insertion()
+    lap(24)
     # 25. kernel times
     sdf_t = {"Insertion": time_insertion(name), "Ball": time_ball(name)}
 
     lap(25)
     # 26. Humanoid (nv 27, K1 + K2) against its plain version
     humanoid_err = compare_humanoid()
-    # 27. Humanoid PPO at full width: 1 + 2 epochs, device ops per env step
-    humanoid_launches = {"PPO": train_epochs("Humanoid", HUMANOID_WIDTH, profile=False, timed=2)}
+    lap(26)
+    # 27. Humanoid PPO at full width: 1 + 1 epochs, device ops per env step
+    humanoid_launches = {"PPO": train_epochs("Humanoid", HUMANOID_WIDTH, profile=False)}
     ops_humanoid = profile_env_step(humanoid_env(HUMANOID_ENVS), label="Humanoid env.step")
     print(f"device ops per Humanoid env step: {ops_humanoid:.1f}")
+    lap(27)
     # 28. Humanoid SAC at full width
     humanoid_launches["SAC"] = train_humanoid_sac()
-    # 29. the four recipes through train.main: train, resume, play; 30. AnymalTerrain with the LSTM: 1 + 2 epochs
+    lap(28)
+    # 29. the four recipes through train.main: train; resume and play for one per learner
     recipe_launches = train_main_recipes()
+    lap(29)
+    # 30. AnymalTerrain with the LSTM: 1 + 1 epochs
     lstm_launches = train_epochs("AnymalTerrain", LSTM_WIDTH, profile=False, recipe="AnymalTerrainPPO_LSTM",
-                                 timed=2, check=lstm_carry_check)
+                                 check=lstm_carry_check)
+    lap(30)
     # 31. two rollouts from one seed are bit-equal
     determinism()
+    lap(31)
     # 32. the Humanoid kernel timed
     humanoid_t = time_humanoid(name)
 
@@ -4181,13 +4495,14 @@ def main() -> int:
     # 33. HumanoidAMP (nv 34, VPL 2, the cap of 16, q_target) against its plain version
     amp_err = compare_amp()
     lap(33)
-    # 34. AMP at full width: 1 + 2 epochs
-    amp_launches = {"epochs": train_epochs("HumanoidAMP", AMP_WIDTH, profile=False, timed=2)}
+    # 34. AMP at full width: 1 + 1 epochs
+    amp_launches = {"epochs": train_epochs("HumanoidAMP", AMP_WIDTH, profile=False)}
     ops_amp = profile_env_step(amp_env(AMP_ENVS), label="HumanoidAMP env.step")
     print(f"device ops per HumanoidAMP env step: {ops_amp:.1f}")
     lap(34)
     # 35. train.main task=HumanoidAMP: train, restore bit-equal, resume, play; 36. HRL on HumanoidAMP
     amp_launches["train_main"] = train_main_amp()
+    lap(35)
     hrl = train_main_hrl()
     amp_launches.update(hrl_macro_step=hrl["macro"], hrl_train_main=hrl["train"])
     lap(36)
@@ -4199,15 +4514,15 @@ def main() -> int:
     lap(38)
     # 39. FrankaCubeStack's OSC on the card
     osc_on_card()
-    # 40. 1 + 2 full-width PPO epochs of each, device ops per env step (FrankaCubeStack's with the OSC's share)
-    franka_launches = {t: {"epochs": train_epochs(t, FRANKA_WIDTH[t], profile=False, timed=2)} for t in FRANKA_WIDTH}
-    ops = profile_env_step(task_env("FrankaCabinet", FRANKA_WIDTH["FrankaCabinet"][0]), label="FrankaCabinet env.step")
-    print(f"device ops per FrankaCabinet env step: {ops:.1f}")
+    lap(39)
+    # 40. 1 + 1 full-width PPO epochs of each, FrankaCubeStack's device ops per env step with the OSC's share
+    franka_launches = {t: {"epochs": train_epochs(t, FRANKA_WIDTH[t], profile=False)} for t in FRANKA_WIDTH}
     osc_share()
     lap(40)
-    # 41. train.main for each: train, restore bit-equal, resume, play
+    # 41. train.main for each: train, restore bit-equal
     for t in FRANKA_WIDTH:
-        franka_launches[t]["train_main"] = train_main_at_width(t, *FRANKA_WIDTH[t][:2])
+        franka_launches[t]["train_main"] = train_main_at_width(t, *FRANKA_WIDTH[t][:2], resume=False, play=False)
+    lap(41)
     # 42. both kernels timed
     franka_t = {t: time_franka(t, name) for t in FRANKA_WIDTH}
     lap(42)
@@ -4220,14 +4535,14 @@ def main() -> int:
     nutbolt_launches["FactoryTaskNutBoltPlace"]["grip_and_carry"] = place_grip_and_carry()
     nutbolt_launches["FactoryTaskNutBoltScrew"]["press_and_rotate"] = screw_press_and_rotate()
     lap(45)
-    # 46. per task: device ops and busy share per env step (the epoch at the yaml's width is step 47's)
-    for t in NUTBOLT_WIDTH:
-        ops = profile_env_step(task_env(t, NUTBOLT_ENVS), label=f"{t} env.step")
-        print(f"device ops per {t} env step: {ops:.1f}")
+    # 46. NutBoltPick's device ops and busy share per env step (the epoch at the yaml's width is step 47's)
+    t = "FactoryTaskNutBoltPick"
+    ops = profile_env_step(task_env(t, NUTBOLT_ENVS), label=f"{t} env.step")
+    print(f"device ops per {t} env step: {ops:.1f}")
     lap(46)
-    # 47. train.main for each, one timed epoch at the yaml's width: train, restore bit-equal, play
-    for t in NUTBOLT_WIDTH:
-        nutbolt_launches[t]["train_main"] = train_main_at_width(t, *NUTBOLT_WIDTH[t][:2], epochs=1, resume=False)
+    # 47. train.main task=FactoryTaskNutBoltPick, one timed epoch at the yaml's width: train, restore bit-equal
+    nutbolt_launches[t]["train_main"] = train_main_at_width(t, *NUTBOLT_WIDTH[t][:2], epochs=1, resume=False,
+                                                            play=False)
     lap(47)
     # 48. the three kernels timed at 128 and 4096 envs
     nutbolt_t = {t: time_nutbolt(t, name) for t in NUTBOLT_WIDTH}
@@ -4242,7 +4557,7 @@ def main() -> int:
     for t in INDUSTREAL_WIDTH:
         industreal_env_step(t, profile=t == "IndustRealTaskPegsInsert")
     lap(51)
-    # 52. train.main on PegsInsert (2 epochs: SBC acts once; restore, resume, play), one GearsInsert epoch
+    # 52. train.main on PegsInsert (2 epochs: SBC acts once; restore), one GearsInsert epoch (its update cut)
     industreal_launches["IndustRealTaskPegsInsert"]["train_main"] = industreal_train_main()
     industreal_launches["IndustRealTaskGearsInsert"]["epoch"] = gears_epoch()
     lap(52)
@@ -4257,10 +4572,10 @@ def main() -> int:
     # 55. the behaviour of the JAX package's hand tests, through the kernel at 16,384 envs
     hand_launches = {t: {"bars": n} for t, n in hand_bars().items()}
     lap(55)
-    # 56. env-steps/s and device ops per env step; one PPO epoch after a warm-up, at the yaml's width
+    # 56. env-steps/s (ShadowHand's device ops per env step); one PPO epoch after a warm-up, at the yaml's width
     for t in HAND_WIDTH:
-        hand_env_step(t)
-        hand_launches[t]["epochs"] = train_epochs(t, HAND_WIDTH[t], profile=False, timed=1)
+        hand_env_step(t, profile=t == "ShadowHand")
+        hand_launches[t]["epochs"] = train_epochs(t, HAND_WIDTH[t], profile=False)
     lap(56)
     # 57. the three kernels timed at 16,384 envs
     hand_t = {t: time_hand(t, name) for t in HAND_WIDTH}
@@ -4272,16 +4587,17 @@ def main() -> int:
     # 59. the JAX package's cube-rest bars through the kernel at 8,192 envs
     kuka_launches = {t: {"bars": cube_at_rest(t)["launches"]} for t in KUKA_WIDTH}
     lap(59)
-    # 60. env-steps/s, device ops and busy share per env step; one PPO epoch after a warm-up at the yaml's width
+    # 60. env-steps/s (one arm's device ops and busy share per env step); one PPO epoch after a warm-up at the
+    # yaml's width
     for t in KUKA_WIDTH:
-        kuka_env_step(t)
-        kuka_launches[t]["epochs"] = train_epochs(t, KUKA_WIDTH[t], profile=False, timed=1)
+        kuka_env_step(t, profile=t == "AllegroKukaReorientation")
+        kuka_launches[t]["epochs"] = train_epochs(t, KUKA_WIDTH[t], profile=False)
     lap(60)
     # 61. train.main task=AllegroKukaReorientation and task=AllegroKukaTwoArms (the resolver) at 8,192 envs:
-    # train, restore bit-equal, resume, play
+    # train, restore bit-equal
     for t, name_ in (("AllegroKukaReorientation", "AllegroKukaReorientation"),
                      ("AllegroKukaTwoArmsReorientation", "AllegroKukaTwoArms")):
-        kuka_launches[t]["train_main"] = train_main_at_width(name_, *KUKA_WIDTH[t][:2])
+        kuka_launches[t]["train_main"] = train_main_at_width(name_, *KUKA_WIDTH[t][:2], resume=False, play=False)
     lap(61)
     # 62. the saveStates bank: written by train.main, read back by loadInitialStates resets
     kuka_launches["AllegroKukaReorientation"]["state_bank"] = kuka_state_bank()
@@ -4295,24 +4611,39 @@ def main() -> int:
     dex_err = {"AllegroHandDextremeADR": compare_hand("AllegroHandDextremeADR"),
                "AllegroHandDextremeManualDR": compare_hand("AllegroHandDextremeManualDR", steps=1)}
     lap(64)
-    # 65. env-steps/s, device ops and busy share per env step; one PPO epoch after a warm-up at the yaml's width
+    # 65. env-steps/s (ADR's device ops and busy share per env step); one PPO epoch after a warm-up at the yaml's
+    # width
     dex_launches = {t: {} for t in DEX_WIDTH}
     for t in DEX_WIDTH:
-        dextreme_env_step(t)
-        dex_launches[t]["epochs"] = train_epochs(t, DEX_WIDTH[t], profile=False, timed=1)
+        dextreme_env_step(t, profile=t == "AllegroHandDextremeADR")
+        dex_launches[t]["epochs"] = train_epochs(t, DEX_WIDTH[t], profile=False)
     lap(65)
     # 66. a forced ADR run: nats and the ranges move on the card
     dex_launches["AllegroHandDextremeADR"]["forced_adr"] = forced_adr_run()
     lap(66)
-    # 67. train.main for both at 8,192 envs: train, restore bit-equal (ADR's state under its gate), resume, play
+    # 67. train.main for both at 8,192 envs: train, restore bit-equal (ADR's state under its gate); ADR's resume
+    # and play
     for t in DEX_WIDTH:
-        dex_launches[t]["train_main"] = train_main_at_width(t, *DEX_WIDTH[t][:2], overrides=(ADR_GATE,))
+        adr = t == "AllegroHandDextremeADR"
+        dex_launches[t]["train_main"] = train_main_at_width(t, *DEX_WIDTH[t][:2], overrides=(ADR_GATE,), resume=adr,
+                                                            play=adr)
     lap(67)
     # 68. both kernels timed at 8,192 envs
     dex_t = {t: time_dextreme(t, name) for t in DEX_WIDTH}
     lap(68)
+    # 69. make() on the card: the env of Ant's yaml steps once through the kernel
+    ant_launches_make = make_on_card()
+    lap(69)
+    # 70. PBT: two members of one Ant population at 4096 envs side by side on the card (one member alone first)
+    torch.cuda.empty_cache()
+    pbt = pbt_population()
+    lap(70)
+    # 71. HumanoidAMPHands: row 1u's build, hands on the ground allowed; train.main for one epoch, restore bit-equal
+    amp_launches["hands_ground"] = hands_on_ground()
+    amp_launches["hands_train_main"] = hands_train_main()
+    lap(71)
 
-    if any(n <= 0 for n in (train_launches, cart_launches, *new_launches.values(), *dyn_launches.values(),
+    if any(n <= 0 for n in (train_launches, ant_launches_make, cart_launches, *new_launches.values(), *dyn_launches.values(),
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
                             *recipe_launches.values(), lstm_launches, *amp_launches.values(),
                             *(n for d in franka_launches.values() for n in d.values()),
@@ -4344,7 +4675,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "launches_sac": recipe_launches["AntSAC"],
-         "max_abs_err": max_err,
+         "launches_make": ant_launches_make, "pbt_restarts": len(pbt["restarts"]),
+         "pbt_member_epoch_s": pbt["member_median"], "pbt_alone_epoch_s": pbt["alone_median"], "max_abs_err": max_err,
          **ant_t, "library_ms": None, "num_envs": NUM_ENVS},
         {"name": "fused_step_nc0", "route": "cuda", "source": source, "replaces": replaces,
          "launches": cart_launches, "max_abs_err": max_err0,

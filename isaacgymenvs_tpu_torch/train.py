@@ -27,11 +27,17 @@ its losses, for finite values, and raises FloatingPointError naming the
 first tensor that is not; the update runs under torch's anomaly
 detection. Each check waits for the device, so keep it off for speed.
 
+`pbt=pbt_default` trains the run as one member of a population
+(`utils.pbt_loop.run_pbt_training`: PPO for every algo but SAC, which
+trains without PBT): `pbt.policy_idx=<i>` of `pbt.num_policies`,
+`pbt.mutation_file=ant_mutation` for the Ant scheme; `pbt.launcher`
+starts a whole population.
+
 It runs on the card. `pipeline=cpu` or a `sim_device` that starts with
 `cpu` asks for the CPU; without a GPU and without such a flag it fails
 with the device error, it does not train on the CPU. Options whose code is
-not ported yet (PBT, multi-GPU, video capture) exit with a message that
-says so.
+not ported yet (multi-GPU, video capture) exit with a message that says
+so.
 """
 from __future__ import annotations
 
@@ -52,7 +58,6 @@ from .utils.loggers import build_logger
 def _unported(cfg):
     """Names of the requested options that the port does not carry yet."""
     asked = {
-        "pbt.enabled": bool((cfg.get("pbt") or {}).get("enabled")),
         "multi_gpu": bool(cfg.get("multi_gpu")),
         "capture_video": bool(cfg.get("capture_video")),
     }
@@ -135,13 +140,22 @@ def main(argv=None):
 
     max_iters = cfg.get("max_iterations")
     logger = build_logger(cfg, run_name, train_dir)
+    pbt_cfg = cfg.get("pbt") or {}
+    if pbt_cfg.get("enabled") and algo != "sac":
+        from .utils.pbt_loop import run_pbt_training
+
+        try:
+            with guard:
+                return run_pbt_training(cfg, env, train_params, seed, run_name, logger, pbt_cfg, train_dir)
+        finally:
+            logger.close()
     profiler = _Profiler(str(cfg.get("profile") or ""), int(cfg.get("profile_epochs", 3)), agent.env.device)
     kw = {} if algo == "sac" else {
         "save_best_after": int(train_params.get("config", {}).get("save_best_after", 100))}
     try:
         with guard:
             return agent.train(
-            max_epochs=int(max_iters) if max_iters else None,
+                max_epochs=int(max_iters) if max_iters else None,
                 checkpoint=checkpoint,
                 train_dir=train_dir,
                 name=run_name,

@@ -168,7 +168,6 @@ def test_train_main_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("override, named", [
-    ("pbt.enabled=True", "pbt.enabled"),
     ("multi_gpu=True", "multi_gpu"),
     ("capture_video=True", "capture_video"),
 ])
