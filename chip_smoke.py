@@ -315,10 +315,50 @@
    ground are not ended (HumanoidAMP's rule would end them); `train.main
    task=HumanoidAMPHands` with the recipe the JAX package resolves for it
    (none: PPO's defaults) for one epoch, a bit-equal restore, play;
-72. prints one `kernels` JSON line with all instantiations (each with its
+72. data parallelism, two ranks on the one card under gloo (NCCL refuses
+   two ranks on one device): `python -m torch.distributed.run
+   --nproc_per_node=2 -m isaacgymenvs_tpu_torch.train task=Ant
+   multi_gpu=True dist_backend=gloo` for DP_TRAIN_EPOCHS epochs (both
+   ranks exit 0, rank 0 alone prints and logs); then one process of two
+   ranks (`--dp-rank`, `parallel.distributed.start_ranks`) takes one
+   process's Ant reset state at 4096 envs (2048 each), action noise and
+   permutations (DP_CASES: the global shuffle, local_shuffle, and the
+   global shuffle under local_shuffle's noise as the control of the two)
+   and runs two epochs of each: one on the one process's rollout, each
+   rank its block (`traj_block`), whose kl, a_loss and c_loss lie within
+   rtol 2e-4 / atol 2e-6 (DP_TOL) of the one-process epoch's, whose first
+   minibatch step's gradient, as the optimizer took it, lies within
+   DP_GRAD_EPS float32 eps of its largest element from the float64
+   gradient of that minibatch (`grad64`), and whose
+   parameters after that step lie within DP_TOL of the one process's; and
+   one from its own rollout, whose mean reward lies within DP_TOL (the
+   global shuffle's losses too), no episode ended, and whose reward gap
+   per env to the one process is printed (the ranks' policy and
+   normalizers round otherwise than one process's, and contacts can part
+   two rollouts that start ulps apart). The ranks' parameters and metrics
+   are bit-equal after every epoch; the largest parameter gaps to one
+   process are printed beside (Adam scales each element's step by its own
+   gradient's size, so over the epoch's 8 steps a rounding difference in
+   a small gradient can move an element by up to lr); the two-rank
+   epoch's env-steps/s beside the one-process epoch's; both ranks restore
+   train.main's checkpoint bit for bit. The one-process epochs run before
+   step 44; the torchrun run and the rank pair then run beside steps 44-45
+   (host-bound comparisons and bars, whose results hang on no clock) and
+   are waited for before step 46's timings; their checks are printed here;
+73. one PPORecurrent epoch of AnymalTerrainPPO_LSTM with local_shuffle at
+   1,024 envs on the two ranks (each rank from its own reset: the ranks
+   bit-equal);
+74. ADR over the two ranks: AllegroHandDextremeADR at 8,192 envs (4,096
+   each) under FORCED_ADR for FORCED_STEPS steps; in every update the
+   ranges, queues, counts and entropy are bit-equal across the ranks and
+   equal to one process's update on the gathered inputs; no instantiation
+   the ranks load is new. Then one Ant epoch at one rank under NCCL,
+   through the group's collectives (a group of one rank formed by the
+   step itself: `maybe_initialize` forms none at world size 1);
+75. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
-   SM, ptxas's registers and spill bytes) and ends with
-   {"ok": true, "device": {...}}.
+   SM, ptxas's registers and spill bytes; row 1a's launches of the ranks
+   as `launches_multi_rank`) and ends with {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository around it; without either it
 exits non-zero before printing a result.
@@ -4162,6 +4202,473 @@ def hands_train_main() -> int:
     return train_main_at_width("HumanoidAMPHands", AMP_ENVS, 16, epochs=1, resume=False)
 
 
+# ---- data parallelism: two ranks on one card (gloo), NCCL at one rank ----
+
+DP_RANKS = 2
+DP_TRAIN_EPOCHS = 3  # train.main's max_iterations under torchrun
+DP_ANT = ("task=Ant",)  # the main path's epoch: AntPPO.yaml at 4,096 envs, 2,048 per rank
+# AnymalTerrainPPO_LSTM at a width that keeps the step short: 1,024 envs, its horizon of 24 in windows of 4,
+# minibatches of 4,096 transitions (the yaml's 6 per mini-epoch), its 5 mini-epochs
+DP_LSTM = ("task=AnymalTerrain", "train=AnymalTerrainPPO_LSTM", "num_envs=1024",
+           "train.params.config.minibatch_size=4096")
+DP_TOL = {"rtol": 2e-4, "atol": 2e-6}  # __graft_entry__.dryrun_multichip's: a sharded epoch against one device
+DP_KEYS = ("kl", "a_loss", "c_loss", "reward_mean_step")
+DP_SEED = 72
+# key -> (local_shuffle, the key whose action noise it takes, the key whose permutations it takes): the global
+# shuffle, local_shuffle, and the control of the two: the global shuffle under local_shuffle's noise
+DP_CASES = {"ant": (False, "ant", "ant"), "ant_local": (True, "ant_local", "ant_local"),
+            "ant_control": (False, "ant_local", "ant")}
+DP_OWN_HELD = ("ant",)  # the cases whose losses from each side's own rollout are held at DP_TOL as well
+# the first minibatch step's gradient on the ranks lies within this many float32 eps (2^-23) of the gradient's
+# largest element from the float64 gradient: the ranks' sums run in other orders and over rows whose normalizers
+# merged the ranks' moments, a few roundings each
+DP_GRAD_EPS = 4.0
+
+
+def dp_agent(args, local_shuffle: bool = False):
+    """The agent of `load_config(args)` (PPO, or PPORecurrent for a recipe
+    with network.rnn) on the card, for this process's rank."""
+    from isaacgymenvs_tpu_torch.learn import PPO, PPORecurrent
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    cfg = load_config([*args, *(["train.params.config.local_shuffle=True"] if local_shuffle else [])])
+    params = cfg["train"]["params"]
+    env = task_map[cfg["task"]["name"]](cfg["task"], device="cuda")
+    return (PPORecurrent if params.get("network", {}).get("rnn") else PPO)(env, params, seed=int(cfg["seed"]))
+
+
+def flat_grad(agent) -> torch.Tensor:
+    """The trainables' gradients as the optimizer takes them, one vector."""
+    return torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                      for _, p in agent.named_trainables()])
+
+
+def grad64(agent, mb, value_rms) -> torch.Tensor:
+    """The control of a minibatch step's gradient: the loss of `mb` through
+    a float64 twin of the policy (`flat_grad`'s order, the same clip where
+    the recipe truncates)."""
+    import copy
+
+    if agent.central_net is not None:
+        raise ValueError("grad64 covers the policy's trainables alone")
+    net, twin = agent.network, copy.deepcopy(agent.network).double()
+    agent.network = twin
+    try:
+        with torch.enable_grad():
+            total, _ = agent._loss(tuple(x.double() for x in mb), value_rms)
+            grads = torch.autograd.grad(total, list(twin.parameters()), allow_unused=True)
+    finally:
+        agent.network = net
+    g = torch.cat([(torch.zeros_like(p) if d is None else d).reshape(-1) for p, d in zip(twin.parameters(), grads)])
+    if agent.cfg.truncate_grads:
+        g = g * torch.clamp(agent.cfg.grad_norm / torch.linalg.vector_norm(g), max=1.0)
+    return g
+
+
+def timed_epoch(agent, ts, rollout=None, capture=False, control=False, **kw) -> dict:
+    """One `train_epoch`, its kernel launches counted. `rollout`, a
+    (ts, traj, last_value), stands in for the epoch's own rollout. Returns
+    the metrics (`steps`: each minibatch step's a_loss, c_loss, kl and lr),
+    the parameters after the epoch, the seconds, the launches, the
+    rollout's rewards, the first minibatch step's gradient as the optimizer
+    took it (`grad`) and the parameters after that step (`params_first`);
+    with `capture` the rollout as ranks take it (`rollout`: the state after
+    it, `portable_state`, its Transition and last value); with `control`
+    the first step's gradient in float64 (`grad64`)."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.parallel import sharding
+
+    out, steps, step, roll = {}, [], agent._minibatch_step, agent.rollout
+
+    def rolled(ts_, noise=None):
+        res = roll(ts_, noise) if rollout is None else (ts_, *rollout[1:])
+        out["reward"] = res[1].reward.cpu()
+        if capture:
+            out["rollout"] = {"state": sharding.portable_state(agent, res[0]), "traj": res[1], "last_value": res[2]}
+        return res
+
+    def traced(ts_, mb, value_rms, share=None):
+        if control and not steps:
+            out["grad64"] = grad64(agent, mb, value_rms).cpu()
+        aux, xaux = step(ts_, mb, value_rms, share)
+        if not steps:
+            out["grad"] = flat_grad(agent).cpu()
+            out["params_first"] = torch.cat([p.detach().reshape(-1) for _, p in agent.named_trainables()]).cpu()
+        steps.append((float(aux[0]), float(aux[1]), float(aux[4]), ts_.lr))
+        return aux, xaux
+
+    agent._minibatch_step, agent.rollout = traced, rolled
+    torch.cuda.synchronize()
+    _cuda.FusedStepCall.launches = 0
+    t0 = time.perf_counter()
+    try:
+        ts, metrics = agent.train_epoch(ts, **kw)
+    finally:
+        del agent._minibatch_step, agent.rollout
+    torch.cuda.synchronize()
+    out["sec"] = time.perf_counter() - t0
+    out["launches"] = _cuda.FusedStepCall.launches
+    out["metrics"] = {**metrics, "steps": steps}
+    out["params"] = {n: p.detach().cpu().clone() for n, p in agent.named_trainables()}
+    return out
+
+
+def traj_block(traj, block: slice, n: int, owner: bool):
+    """A one-process rollout of n envs cut to a rank's block: the (T, n,
+    ...) leaves sliced; the per-step sums over the envs (episodes ended,
+    their returns and lengths) on the rank with `owner` set and zero on the
+    others, so that the ranks' sums add up to them; the per-step means of
+    the env's extras kept."""
+    from isaacgymenvs_tpu_torch.parallel import sharding
+
+    cut = lambda t: t[:, block] if t.dim() > 1 and t.shape[1] == n else t
+    sums = ("ep_ret_done", "ep_len_done", "n_done")
+    return type(traj)(**{f: (getattr(traj, f) if owner else torch.zeros_like(getattr(traj, f))) if f in sums
+                         else sharding._tree(getattr(traj, f), cut) for f in traj._fields})
+
+
+def dp_inputs(workdir: str) -> dict:
+    """Steps 72-73's one-process side on the card: from the reset state of
+    one process (each rank takes its block), the same action noise and
+    permutations, one Ant epoch per entry of DP_CASES. Writes what the
+    ranks take to `workdir`: the reset state, the noise and permutations,
+    and the rollout of the one-process epoch; returns the one-process
+    results, with each first minibatch step's float64 gradient."""
+    from isaacgymenvs_tpu_torch.parallel import sharding
+
+    g = torch.Generator(device="cuda").manual_seed(DP_SEED)
+    inputs, ref, noises, perms_of = {}, {}, {}, {}
+    for key, (local, noise_key, perms_key) in DP_CASES.items():
+        agent = dp_agent(DP_ANT, local)
+        ts = agent.init()
+        c, n, S = agent.cfg, agent.env.num_envs, 2 if local else 1
+        if key == noise_key:
+            noises[key] = torch.randn(c.horizon_length, n, agent.env.num_acts, generator=g, device="cuda")
+        if key == perms_key:
+            perms_of[key] = torch.stack([torch.randperm(agent.batch_size // S, generator=g, device="cuda")
+                                         for _ in range(c.mini_epochs)])
+        noise, perms = noises[noise_key], perms_of[perms_key]
+        state = sharding.portable_state(agent, ts)
+        agent._shuffle_shards = S
+        one = timed_epoch(agent, ts, capture=True, control=True, noise=noise, perms=perms)
+        inputs[key] = {"local": local, "state": state, "noise": noise, "perms": perms, "rollout": one.pop("rollout")}
+        ref[key] = {**one, "batch": agent.batch_size}
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    return ref
+
+
+def dp_rank(workdir: str) -> int:
+    """One rank of steps 72-74 (`python chip_smoke.py --dp-rank <workdir>`,
+    under torchrun's variables): joins the gloo group on the card; for each
+    entry of `dp_inputs` runs on its block one epoch with its own rollout
+    and one on the one-process epoch's rollout (`traj_block`); runs one
+    PPORecurrent epoch of the LSTM recipe with local_shuffle from its own
+    reset (its env's draws, command resampling and pushes among them, are
+    the rank's own), the forced ADR run on its block of
+    AllegroHandDextremeADR (each update's gathered inputs and results
+    recorded), restores the checkpoint train.main wrote under torchrun and
+    holds it against the file, and saves what it saw to
+    <workdir>/rank<r>.pt."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.parallel import distributed, sharding
+    from isaacgymenvs_tpu_torch.utils.checkpoint import load_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.maybe_initialize(require=True, backend="gloo", device="cuda")
+    try:
+        rank, dev = distributed.rank(), distributed.rank_device("cuda")
+        inputs = torch.load(os.path.join(workdir, "inputs.pt"), map_location=dev, weights_only=False)
+        out = {"rank": rank, "backend": distributed.backend()}
+        warm = dp_agent(DP_ANT)  # one untimed epoch: the process's first CUDA and gloo calls
+        warm.train_epoch(warm.init())
+        del warm
+        for key, inp in inputs.items():
+            agent = dp_agent(DP_ANT, inp["local"])
+            block, n = agent.env.env_block, agent.env.global_num_envs
+            own = timed_epoch(agent, sharding.adopt_state(agent, inp["state"], n), noise=inp["noise"][:, block],
+                              perms=inp["perms"])
+            roll = inp["rollout"]
+            ts = sharding.adopt_state(agent, roll["state"], n)
+            same = timed_epoch(agent, ts, rollout=(ts, traj_block(roll["traj"], block, n, rank == 0),
+                                                   roll["last_value"][block]), perms=inp["perms"])
+            out[key] = {"own": own, "same": same, "num_envs": agent.env.num_envs, "batch": agent.batch_size}
+        agent = dp_agent(DP_LSTM, True)
+        out["lstm"] = {**timed_epoch(agent, agent.init()), "num_envs": agent.env.num_envs, "batch": agent.batch_size}
+        # ADR over the ranks: the forced run of step 66 on this rank's block, each update recorded
+        env = hand_env("AllegroHandDextremeADR", DEX_ENVS, FORCED_ADR)
+        adr, records = env.adr, []
+        update = adr.update
+
+        def recorded(state, gen, done, objective, fresh_workers=None):
+            twin = torch.Generator(device=gen.device)
+            twin.set_state(gen.get_state())  # the draw the update is about to make from the shared stream
+            gather = lambda t: sharding.all_gather_rows(t.to(torch.float64))
+            pre = {**{k: v.clone() for k, v in state.as_dict().items() if k != "worker_boundary"},
+                   "worker_boundary": gather(state.worker_boundary).long(), "done": gather(done) > 0,
+                   "objective": gather(objective).to(objective.dtype), "fresh": adr._assign_workers(twin)}
+            new = update(state, gen, done, objective, fresh_workers)
+            records.append({"pre": pre, "post": new.as_dict()})
+            return new
+
+        adr.update = recorded
+        state, _ = env.reset(2)
+        zero = torch.zeros(env.num_envs, env.num_acts, device=dev)
+        _cuda.FusedStepCall.launches = 0
+        for _ in range(FORCED_STEPS):
+            state, obs, _, _, _ = env.step(state, zero)
+        torch.cuda.synchronize()
+        out["adr"] = {"records": records, "launches": _cuda.FusedStepCall.launches, "num_envs": env.num_envs,
+                      "finite": bool(torch.isfinite(obs).all())}
+        # the checkpoint of train.main under torchrun (running beside), restored as a resume does
+        ck_path = os.path.join(workdir, "runs", "Ant", "nn", "last_Ant.pth")
+        deadline = time.perf_counter() + 600
+        while not os.path.exists(ck_path) and time.perf_counter() < deadline:
+            time.sleep(1.0)
+        agent = dp_agent(DP_ANT)
+        rts, epoch = agent.restore(ck_path, agent.init())
+        ck = load_checkpoint(ck_path, dev)
+        out["restored"] = epoch == DP_TRAIN_EPOCHS and rts.lr == ck["lr"] and all(
+            torch.equal(p, ck["params"][n]) for n, p in agent.network.named_parameters()) and all(
+            torch.equal(getattr(rts.obs_rms, f), ck["obs_rms"][f]) for f in ("mean", "var", "count"))
+        out["instantiations"] = sorted(_cuda._libs)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def start_train_main_torchrun(workdir: str):
+    """Step 72's torchrun run, started ahead (`start_data_parallel`):
+    `python -m torch.distributed.run --nproc_per_node=2 -m
+    isaacgymenvs_tpu_torch.train task=Ant multi_gpu=True dist_backend=gloo
+    max_iterations=DP_TRAIN_EPOCHS`, the ranks' output to files. Returns
+    (the process, its start time); `train_main_torchrun` waits for it, and
+    at exit it is killed if it still runs."""
+    import atexit
+
+    runs, logdir = os.path.join(workdir, "runs"), os.path.join(workdir, "torchrun_logs")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={DP_RANKS}",
+           "--log-dir", logdir, "--redirects", "3", "-m", "isaacgymenvs_tpu_torch.train", "task=Ant",
+           "multi_gpu=True", "dist_backend=gloo", f"max_iterations={DP_TRAIN_EPOCHS}", f"+train_dir={runs}"]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc, time.perf_counter()
+
+
+def train_main_torchrun(workdir: str, card: str, started) -> dict:
+    """Step 72.2, the torchrun run of `start_train_main_torchrun`: both
+    ranks exit 0; rank 0 alone prints and writes the TensorBoard log (one
+    event file); the checkpoint of the last epoch is there for the ranks'
+    restore."""
+    runs, logdir = os.path.join(workdir, "runs"), os.path.join(workdir, "torchrun_logs")
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res = subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr)
+    sec = time.perf_counter() - t0
+    outs = {}
+    for path in glob.glob(os.path.join(logdir, "**", "stdout.log"), recursive=True):
+        outs[int(os.path.basename(os.path.dirname(path)))] = open(path).read()
+    if res.returncode != 0:
+        raise AssertionError(f"torchrun train.main exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}"
+                             + "".join(f"\nrank {r}:\n{t[-2000:]}" for r, t in sorted(outs.items())))
+    events = glob.glob(os.path.join(runs, "Ant", "summaries", "events*"))
+    nn = sorted(os.listdir(os.path.join(runs, "Ant", "nn")))
+    ok = (sorted(outs) == list(range(DP_RANKS)) and "ranks=2 backend=gloo" in outs[0] and "epoch" in outs[0]
+          and outs[1].strip() == "" and len(events) == 1 and "last_Ant.pth" in nn
+          and os.path.exists(os.path.join(runs, "Ant", "config.yaml")))
+    print(f"torchrun --nproc_per_node={DP_RANKS} train.main task=Ant multi_gpu=True dist_backend=gloo "
+          f"max_iterations={DP_TRAIN_EPOCHS}: both ranks exit 0, {sec:.1f} s after its start ({card}); rank 0's output "
+          f"{len(outs[0].splitlines())} lines, rank 1's {len(outs[1].splitlines())}; {len(events)} event file(s); "
+          f"nn/ {nn}")
+    if not ok:
+        raise AssertionError("torchrun train.main: host effects are not rank 0's alone\n"
+                             + "".join(f"\nrank {r}:\n{t[-2000:]}" for r, t in sorted(outs.items())))
+    return {"sec": sec}
+
+
+def start_data_parallel(workdir: str) -> dict:
+    """Steps 72-74 but the NCCL one, started ahead in `workdir`: the
+    one-process epochs of `dp_inputs`, then in the background the torchrun
+    run and the rank pair (`--dp-rank`, their output to
+    <workdir>/rank<r>.log), while steps 44-45, host-bound comparisons and
+    bars whose results hang on no clock, run beside them;
+    `finish_data_parallel` waits for both before step 46's timings. At
+    exit a rank that still runs is killed."""
+    import atexit
+
+    from isaacgymenvs_tpu_torch.parallel import distributed
+
+    ref = dp_inputs(workdir)
+    torchrun = start_train_main_torchrun(workdir)
+    ranks = distributed.start_ranks([sys.executable, os.path.abspath(__file__), "--dp-rank", workdir],
+                                    [os.path.join(workdir, f"rank{r}.log") for r in range(DP_RANKS)])
+    atexit.register(lambda: [(p.kill(), p.wait()) for p in ranks if p.poll() is None])
+    return {"ref": ref, "torchrun": torchrun, "ranks": ranks}
+
+
+def finish_data_parallel(workdir: str, card: str, started: dict) -> None:
+    """Wait for the torchrun run (its checks) and the rank pair: a rank that
+    fails or outlives 900 s fails the step, and every rank is killed."""
+    from isaacgymenvs_tpu_torch.parallel import distributed
+
+    started["torchrun_result"] = train_main_torchrun(workdir, card, started["torchrun"])
+    codes = distributed.wait_ranks(started["ranks"], timeout=900)
+    if any(codes):
+        raise AssertionError(f"ranks exited {codes}:\n" + "\n".join(
+            open(os.path.join(workdir, f"rank{r}.log")).read()[-3000:] for r in range(DP_RANKS)))
+    started["rank_results"] = [torch.load(os.path.join(workdir, f"rank{r}.pt"), map_location="cuda",
+                                          weights_only=False) for r in range(DP_RANKS)]
+
+
+def rollout_gap(ranks, one, key) -> str:
+    """Where the two ranks' own rollouts part from one process's: each
+    env's largest reward gap over the horizon (the ranks' blocks side by
+    side against the one process's envs)."""
+    two = torch.cat([r[key]["own"]["reward"].cpu() for r in ranks], dim=1)
+    gap = (two - one[key]["reward"].cpu()).abs().amax(0)
+    top = torch.topk(gap, 3)
+    return (f"reward gap per env over the horizon: largest {float(top.values[0]):.3e} (envs "
+            + ", ".join(f"{int(i)}: {float(v):.3e}" for v, i in zip(top.values, top.indices))
+            + f"), median {float(gap.median()):.3e}, envs above 1e-4: {int((gap > 1e-4).sum())} of {gap.numel()}")
+
+
+def data_parallel(card: str, sizes: dict, started: dict) -> dict:
+    """Steps 72-74's checks (but the NCCL one's) on the results of
+    `start_data_parallel` and `finish_data_parallel`; returns the ranks'
+    launches and the epoch times."""
+    ref, torchrun, ranks = started["ref"], started["torchrun_result"], started["rank_results"]
+    r0, r1 = ranks
+    bad = []
+    for key in (*DP_CASES, "lstm"):
+        runs = ("own", "same") if key != "lstm" else (None,)
+        pair = [(r0[key] if run is None else r0[key][run], r1[key] if run is None else r1[key][run]) for run in runs]
+        same = True
+        for a, b in pair:  # params and metrics bit-equal across the ranks
+            same &= all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+            same &= {k: v for k, v in a["metrics"].items() if k not in ("fps", "time")} == \
+                {k: v for k, v in b["metrics"].items() if k not in ("fps", "time")}
+            same &= all(np.isfinite(a["metrics"][k]) for k in DP_KEYS)
+        a, b = pair[0]
+        same &= a["launches"] == b["launches"] > 0
+        sec = max(a["sec"], b["sec"])
+        two = f"epoch {sec:.3f} s = {r0[key]['batch'] / sec:.1f} env-steps/s (beside steps 44-45 and torchrun's ranks)"
+        if key == "lstm":  # from each rank's own reset and draws: the ranks agree with each other
+            print(f"PPORecurrent (AnymalTerrainPPO_LSTM, local_shuffle) on {DP_RANKS} ranks ({a['num_envs']} envs "
+                  f"each): params and metrics bit-equal across the ranks {same}; kl {a['metrics']['kl']:.5f}; {two} "
+                  f"({card}); launches {a['launches']} + {b['launches']}")
+            bad += [] if same else [(key, same)]
+            continue
+        one, own, on = ref[key], r0[key]["own"], r0[key]["same"]
+        local, noise_key, perms_key = DP_CASES[key]
+        # the epoch on the one process's rollout: the learner's math over the ranks (the global batch's moments,
+        # the minibatch rows each rank holds, the all-reduce) against one process's, at DP_TOL
+        far = {k: (on["metrics"][k], one["metrics"][k]) for k in DP_KEYS
+               if not np.isclose(on["metrics"][k], one["metrics"][k], **DP_TOL)}
+        # its first minibatch step, both sides at the same parameters and rows: the gradient the optimizer took,
+        # against the float64 gradient of the one process's minibatch, and the parameters after the step
+        g1, g64, gr = (x.cpu().double() for x in (one["grad"], one["grad64"], on["grad"]))
+        p1, pr = one["params_first"].cpu(), on["params_first"].cpu()
+        err_one, err_two = float((g1 - g64).abs().max()), float((gr - g64).abs().max())
+        p_gap, p_close = float((pr - p1).abs().max()), bool(torch.allclose(pr, p1, **DP_TOL))
+        scale = 2.0 ** -23 * float(g64.abs().max())  # one float32 eps of the largest element
+        grad_ok = err_two <= DP_GRAD_EPS * scale
+        # the epoch from each side's own rollout: the rollouts part (rollout_gap); the reward held at DP_TOL, the
+        # losses held for the cases of DP_OWN_HELD
+        far_own = {k: (own["metrics"][k], one["metrics"][k]) for k in DP_KEYS
+                   if (k == "reward_mean_step" or key in DP_OWN_HELD)
+                   and not np.isclose(own["metrics"][k], one["metrics"][k], **DP_TOL)}
+        resets = own["metrics"]["n_episodes"], one["metrics"]["n_episodes"]
+        gap = lambda run: max(float((r0[key][run]["params"][k].cpu() - one["params"][k].cpu()).abs().max())
+                              for k in one["params"])
+        print(f"{key} ({'local_shuffle' if local else 'global shuffle'}, the noise of {noise_key}, the permutations "
+              f"of {perms_key}): {DP_RANKS} ranks ({r0[key]['num_envs']} envs each) against one process; params and "
+              f"metrics bit-equal across the ranks {same}; on the one process's rollout: "
+              + ", ".join(f"{k} {on['metrics'][k]:.7g} / {one['metrics'][k]:.7g}" for k in DP_KEYS)
+              + f", largest parameter gap after the epoch {gap('same'):.3e}; its first minibatch step: gradient gap "
+              f"to float64 {err_two:.3e} = {err_two / scale:.2f} eps on {DP_RANKS} ranks, {err_one:.3e} = "
+              f"{err_one / scale:.2f} eps in one process (eps of the largest element {scale:.3e}, gap between the "
+              f"two {float((gr - g1).abs().max()):.3e}), parameter gap after it {p_gap:.3e}; from each side's own "
+              "rollout: "
+              + ", ".join(f"{k} {own['metrics'][k]:.7g} / {one['metrics'][k]:.7g}" for k in DP_KEYS)
+              + f", largest parameter gap after the epoch {gap('own'):.3e}, {rollout_gap(ranks, ref, key)}; episodes "
+              f"ended {resets}; {two} on {DP_RANKS} ranks, one process {one['sec']:.3f} s = "
+              f"{r0[key]['batch'] / one['sec']:.1f} env-steps/s ({card}); launches {own['launches']} + "
+              f"{r1[key]['own']['launches']}")
+        if not same or far or not grad_ok or not p_close or far_own or resets != (0, 0):
+            print(f"{key}: each minibatch step's (a_loss, c_loss, kl, lr) on the one process's rollout, {DP_RANKS} "
+                  f"ranks: {on['metrics']['steps']}; one process: {one['metrics']['steps']}")
+            bad.append((key, same, far, grad_ok, p_close, far_own, resets))
+
+    # ADR: every update bit-equal across the ranks and equal to one process's on the gathered inputs
+    from isaacgymenvs_tpu_torch.dr.adr import AdrState
+
+    ref_env = hand_env("AllegroHandDextremeADR", DEX_ENVS, FORCED_ADR)
+    recs = [r["adr"]["records"] for r in ranks]
+    moved = 0
+    for step, (a, b) in enumerate(zip(*recs)):
+        pre = a["pre"]
+        st = AdrState(**{k: pre[k] for k in ("lo", "hi", "queues", "counts", "worker_boundary", "nats")})
+        want = ref_env.adr.update(st, None, pre["done"], pre["objective"], fresh_workers=pre["fresh"]).as_dict()
+        for f in ("lo", "hi", "queues", "counts", "nats"):
+            if not (torch.equal(a["post"][f], b["post"][f]) and torch.equal(a["post"][f], want[f])):
+                bad.append(("adr", step, f))
+        wb = torch.cat([a["post"]["worker_boundary"], b["post"]["worker_boundary"]])
+        if not torch.equal(wb, want["worker_boundary"]) or not torch.equal(pre["fresh"], b["pre"]["fresh"]):
+            bad.append(("adr", step, "worker_boundary"))
+        moved += int(not torch.equal(a["post"]["lo"], pre["lo"]) or not torch.equal(a["post"]["hi"], pre["hi"]))
+    print(f"ADR over {DP_RANKS} ranks (AllegroHandDextremeADR, {DEX_ENVS} envs, {ranks[0]['adr']['num_envs']} each, "
+          f"{len(recs[0])} forced updates): ranges, queues, counts and nats bit-equal across the ranks and equal to "
+          f"one process's update on the gathered inputs in every update: {not any(x[0] == 'adr' for x in bad)}; "
+          f"ranges moved in {moved} update(s); launches {[r['adr']['launches'] for r in ranks]}")
+    new = {tuple(s) for r in ranks for s in r["instantiations"]} - {tuple(s) for s in sizes.values()}
+    print(f"torchrun checkpoint restored bit for bit on both ranks: {[r['restored'] for r in ranks]}; backend "
+          f"{r0['backend']}; instantiations the ranks loaded that no single-process step built: {sorted(new)}")
+    if bad or not moved or new or not all(r["restored"] for r in ranks) or not all(r["adr"]["finite"] for r in ranks):
+        raise AssertionError(f"data parallelism on {DP_RANKS} ranks: {bad[:8]}, ADR moved {moved}, new {new}")
+    return {"launches": sum(r[k]["own"]["launches"] for r in ranks for k in DP_CASES),
+            "launches_lstm": sum(r["lstm"]["launches"] for r in ranks),
+            "launches_adr": sum(r["adr"]["launches"] for r in ranks),
+            "two_rank_epoch_s": max(r["ant"]["own"]["sec"] for r in ranks), "one_process_epoch_s": ref["ant"]["sec"],
+            "torchrun_s": torchrun["sec"]}
+
+
+def nccl_one_rank(card: str) -> int:
+    """Step 74b: one Ant epoch at 4,096 envs in a process group of one rank
+    under NCCL: the epoch goes through the group's collectives (parameter
+    broadcast, moment gathers, the gradient all-reduce of every minibatch,
+    the metrics' gather) on the card. Returns its launches."""
+    import torch.distributed as dist
+
+    from isaacgymenvs_tpu_torch.parallel import distributed
+
+    # maybe_initialize forms no group at world size 1 (as the JAX package's), so the step forms it itself
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{distributed.free_port()}", world_size=1, rank=0)
+    try:
+        agent = dp_agent(DP_ANT)
+        if not agent.sharded or distributed.backend() != "nccl":
+            raise AssertionError("the epoch does not go through the NCCL group")
+        res = timed_epoch(agent, agent.init())
+    finally:
+        distributed.shutdown()
+    metrics, launches, sec = res["metrics"], res["launches"], res["sec"]
+    ok = launches == HORIZON and all(np.isfinite(metrics[k]) for k in DP_KEYS) and all(
+        bool(torch.isfinite(p).all()) for p in res["params"].values())
+    print(f"NCCL, one rank: one Ant epoch at {NUM_ENVS} envs through the group's collectives in {sec:.3f} s "
+          f"({card}), {launches} launches, kl {metrics['kl']:.5f}")
+    if not ok:
+        raise AssertionError(f"the NCCL epoch: {launches} launches, metrics {metrics}")
+    return launches
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, each started as soon as its env is made; prints ptxas's
@@ -4526,6 +5033,12 @@ def main() -> int:
     # 42. both kernels timed
     franka_t = {t: time_franka(t, name) for t in FRANKA_WIDTH}
     lap(42)
+    # 72-74 (but NCCL) started: the one-process epochs, then torchrun's train.main and the rank pair beside
+    # steps 44-45, whose results hang on no clock; both waited for before step 46's timings
+    dp_dir = tempfile.TemporaryDirectory()
+    torch.cuda.empty_cache()  # the card's memory for the four processes beside
+    dp_started = start_data_parallel(dp_dir.name)
+    lap("72-74 started")
     # 44. the nut-bolt family (rows 1x-1z) against their plain versions
     nutbolt_err = {t: compare_nutbolt(t) for t in NUTBOLT_WIDTH}
     lap(44)
@@ -4535,6 +5048,8 @@ def main() -> int:
     nutbolt_launches["FactoryTaskNutBoltPlace"]["grip_and_carry"] = place_grip_and_carry()
     nutbolt_launches["FactoryTaskNutBoltScrew"]["press_and_rotate"] = screw_press_and_rotate()
     lap(45)
+    finish_data_parallel(dp_dir.name, smi, dp_started)  # nothing runs beside the timings that follow
+    lap("72-74 waited for")
     # 46. NutBoltPick's device ops and busy share per env step (the epoch at the yaml's width is step 47's)
     t = "FactoryTaskNutBoltPick"
     ops = profile_env_step(task_env(t, NUTBOLT_ENVS), label=f"{t} env.step")
@@ -4642,8 +5157,17 @@ def main() -> int:
     amp_launches["hands_ground"] = hands_on_ground()
     amp_launches["hands_train_main"] = hands_train_main()
     lap(71)
+    # 72. two ranks on the one card (gloo): train.main under torchrun, then Ant at 4,096 envs (2,048 each)
+    # against one process; 73. local_shuffle on Ant, the LSTM recipe; 74. ADR over the ranks (one process of
+    # ranks for 72-74), then one NCCL rank
+    dp = data_parallel(smi, sizes, dp_started)
+    dp_dir.cleanup()
+    lap(73)
+    nccl_launches = nccl_one_rank(smi)
+    lap(74)
 
     if any(n <= 0 for n in (train_launches, ant_launches_make, cart_launches, *new_launches.values(), *dyn_launches.values(),
+                            dp["launches"], dp["launches_lstm"], dp["launches_adr"], nccl_launches,
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
                             *recipe_launches.values(), lstm_launches, *amp_launches.values(),
                             *(n for d in franka_launches.values() for n in d.values()),
@@ -4676,6 +5200,8 @@ def main() -> int:
         {"name": "fused_step", "route": "cuda", "source": source, "replaces": replaces,
          "launches": train_launches, "launches_rollout": launches, "launches_sac": recipe_launches["AntSAC"],
          "launches_make": ant_launches_make, "pbt_restarts": len(pbt["restarts"]),
+         "launches_multi_rank": dp["launches"], "launches_nccl": nccl_launches,
+         "two_rank_epoch_s": dp["two_rank_epoch_s"], "one_process_epoch_s": dp["one_process_epoch_s"],
          "pbt_member_epoch_s": pbt["member_median"], "pbt_alone_epoch_s": pbt["alone_median"], "max_abs_err": max_err,
          **ant_t, "library_ms": None, "num_envs": NUM_ENVS},
         {"name": "fused_step_nc0", "route": "cuda", "source": source, "replaces": replaces,
@@ -4692,8 +5218,8 @@ def main() -> int:
         *({"name": anymal_names[k], "route": "cuda", "source": source, "replaces": replaces,
            "launches": anymal_launches[k], "max_abs_err": anymal_err[k], **anymal_t[k], "library_ms": None,
            "num_envs": ANYMAL_ENVS, "sizes": list(sizes[k]), "per_env_leaves": list(built[k][1]),
-           **({"launches_lstm": lstm_launches, "launches_lstm_train_main": recipe_launches["AnymalTerrainPPO_LSTM"]}
-              if k == "AnymalTerrain" else {})}
+           **({"launches_lstm": lstm_launches, "launches_lstm_train_main": recipe_launches["AnymalTerrainPPO_LSTM"],
+               "launches_lstm_multi_rank": dp["launches_lstm"]} if k == "AnymalTerrain" else {})}
           for k in ANYMAL_CASES),
         *({"name": sdf_names[k], "route": "cuda", "source": source, "replaces": replaces,
            "launches": sdf_launches[k], "max_abs_err": sdf_err[k], **sdf_t[k], "library_ms": None,
@@ -4739,7 +5265,9 @@ def main() -> int:
         *({"name": dex_names[t], "route": "cuda", "source": source, "replaces": replaces,
            "launches": sum(dex_launches[t].values()), **{f"launches_{k}": v for k, v in dex_launches[t].items()},
            "max_abs_err": dex_err[t], **dex_t[t], "library_ms": None, "num_envs": DEX_ENVS, "sizes": list(sizes[t]),
-           "per_env_leaves": list(built[t][1])} for t in DEX_WIDTH),
+           "per_env_leaves": list(built[t][1]),
+           **({"launches_multi_rank": dp["launches_adr"]} if t == "AllegroHandDextremeADR" else {})}
+          for t in DEX_WIDTH),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -4747,4 +5275,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank(sys.argv[2]) if sys.argv[1:2] == ["--dp-rank"] else main())

@@ -18,6 +18,7 @@ def make(
     rl_device: str = "cuda",
     headless: bool = True,
     cfg=None,
+    multi_gpu: bool = False,
     **override_kwargs,
 ):
     """A ready-to-step vectorized env (the IsaacGymEnvs `make()`).
@@ -28,11 +29,17 @@ def make(
     `AllegroHandFF`) builds the class its yaml's `name:` names. The device
     defaults to CUDA and raises without a GPU unless `sim_device="cpu"`.
     `rl_device` and `headless` are accepted for the reference's signature.
+    With `multi_gpu=True` the process joins the group of its environment
+    (torchrun's variables; `parallel.distributed.maybe_initialize`) and the
+    env holds the rank's block of `num_envs` on the rank's card.
     """
+    from .parallel import distributed
     from .tasks import task_map
     from .utils.config import load_config
 
-    device = resolve_device(sim_device)
+    if multi_gpu:
+        distributed.maybe_initialize(require=True, device=sim_device)
+    device = distributed.rank_device(resolve_device(sim_device))
     overrides = [f"task={task}", f"seed={seed}"]
     if num_envs is not None:
         overrides.append(f"num_envs={num_envs}")

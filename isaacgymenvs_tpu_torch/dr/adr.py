@@ -28,6 +28,15 @@ the JAX package leaves to XLA's choice among duplicate scatter indices.
 Draws come from a `torch.Generator`; `sample` and `update` also take the
 draws themselves (`u`, `fresh_workers`), so that a test can hand over the
 JAX package's.
+
+Under a process group the population is global, as the JAX package's
+sharding keeps it (ranges, queues and counts replicated, worker modes per
+env): `num_envs` is the global count, the state holds the rank's `block`
+of the worker assignment, and `update` gathers every rank's worker ids,
+done flags and objectives, runs the same update on each rank with the
+worker assignments drawn from a stream that is the same on every rank, and
+keeps the rank's rows; `lo`, `hi`, `queues`, `counts` and `nats` come out
+bit-equal on all ranks.
 """
 from __future__ import annotations
 
@@ -35,6 +44,9 @@ import dataclasses
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+
+from ..device import resolve_device
+from ..parallel import distributed, sharding
 
 
 class AdrParamSpec(NamedTuple):
@@ -65,8 +77,9 @@ class AdrState:
 
 
 class ADR:
-    def __init__(self, cfg: Dict[str, Any], num_envs: int, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, cfg: Dict[str, Any], num_envs: int, device="cuda", block: Optional[slice] = None):
+        self.device = resolve_device(device)
+        self.block = slice(0, num_envs) if block is None else block  # the rank's envs
         self.enabled = bool(cfg.get("use_adr", False))
         self.update_ranges = bool(cfg.get("update_adr_ranges", True))
         self.boundary_fraction = float(cfg.get("worker_adr_boundary_fraction", 0.4))
@@ -102,14 +115,16 @@ class ADR:
 
     # ------------------------------------------------------------------
     def init_state(self, generator: torch.Generator, workers: Optional[torch.Tensor] = None) -> AdrState:
-        """The initial ranges, empty queues and a fresh worker assignment
-        (drawn, or `workers` where given)."""
+        """The initial ranges, empty queues and a fresh worker assignment of
+        the global population (drawn from `generator`, the same stream on
+        every rank, or `workers` (num_envs,) where given), of which the
+        state keeps the rank's block."""
         P, Q, dev = self.P, self.queue_len, self.device
         lo = torch.tensor([s.init_lo for s in self.specs], dtype=torch.float32, device=dev)
         hi = torch.tensor([s.init_hi for s in self.specs], dtype=torch.float32, device=dev)
         worker = self._assign_workers(generator) if workers is None else workers.to(dev, torch.int64)
         return AdrState(lo=lo, hi=hi, queues=torch.zeros(2 * P, Q, device=dev),
-                        counts=torch.zeros(2 * P, dtype=torch.int64, device=dev), worker_boundary=worker,
+                        counts=torch.zeros(2 * P, dtype=torch.int64, device=dev), worker_boundary=worker[self.block],
                         nats=self._nats(lo, hi))
 
     def _nats(self, lo, hi):
@@ -164,10 +179,19 @@ class ADR:
                objective: torch.Tensor, fresh_workers: Optional[torch.Tensor] = None) -> AdrState:
         """One step: push the objectives of the boundary workers that
         finished, then evolve the edge of every full queue, clear it and
-        reassign its workers (a fresh assignment, drawn or `fresh_workers`)."""
+        reassign its workers (a fresh assignment of the global population,
+        drawn from `generator`, the same stream on every rank, or
+        `fresh_workers` (num_envs,)). `done` and `objective` are the rank's
+        envs'; every rank's are gathered first."""
         if not self.update_ranges or not self.P:
             return state
         P, Q, dev = self.P, self.queue_len, self.device
+        if distributed.is_initialized():
+            # one gather of the worker ids, the done flags and the objectives, exact in float64
+            g = sharding.all_gather_rows(torch.stack(
+                [state.worker_boundary.to(torch.float64), done.to(torch.float64), objective.to(torch.float64)], 1))
+            done, objective = g[:, 1] > 0, g[:, 2].to(objective.dtype)
+            state = dataclasses.replace(state, worker_boundary=g[:, 0].to(torch.int64))
         wb = state.worker_boundary
         is_b = (wb >= 0) & done
         queues, counts = self.push(state, done, objective)
@@ -201,7 +225,7 @@ class ADR:
         fresh = self._assign_workers(generator) if fresh_workers is None else fresh_workers.to(dev, torch.int64)
         needs_recycle = is_b & cleared[torch.clamp(wb, 0, 2 * P - 1)]
         worker = torch.where(needs_recycle, fresh, wb)
-        return AdrState(lo=new_lo, hi=new_hi, queues=queues, counts=counts, worker_boundary=worker,
+        return AdrState(lo=new_lo, hi=new_hi, queues=queues, counts=counts, worker_boundary=worker[self.block],
                         nats=self._nats(new_lo, new_hi))
 
     def param_names(self):

@@ -54,6 +54,15 @@ carries the range entropy. A task with `frames_in_task` sees the env-step
 count as `task["_frames"]` in its hooks (the count before the step in
 `compute_force`, after it in `observe` and `reward_done`); it is not kept
 in the state.
+
+Under a process group (`parallel/distributed.py`) the env holds the rank's
+block of the yaml's `numEnvs` (`global_num_envs`): `num_envs` is the
+block's size and `env_block` its slice. The state's generator draws a
+stream of the rank's own (the seed folded with the rank); ADR's population
+is global and its worker assignments come from `shared_rng`, the same
+stream on every rank (in one process the state's generator itself). A
+task's `population_update` reads statistics across the envs and is not
+ported across ranks: such a task raises there.
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ from ..engine import dynamics as _dyn
 from ..engine import fused as _fused
 from ..engine.dynamics import SimParams, SimState
 from ..model.spec import Model
+from ..parallel import distributed, sharding
 
 
 class Sensors(NamedTuple):
@@ -94,6 +104,7 @@ class EnvState:
     randomize_buf: Any = None  # (N,) int32, steps since the last re-randomization
     frames: Any = None  # () int32, env steps since reset (DR schedules, pushes)
     adr: Any = None  # dr.AdrState: ADR's ranges, queues and worker assignment (None without ADR)
+    shared_rng: Any = None  # draws alike on every rank (ADR's worker assignments); `rng` in one process
 
 
 def _select(mask: torch.Tensor, a, b):
@@ -145,7 +156,12 @@ class VecTask:
         self.cfg = cfg
         self.device = resolve_device(device)
         env_cfg = cfg.get("env", {})
-        self.num_envs = int(env_cfg.get("numEnvs", 64))
+        self.global_num_envs = int(env_cfg.get("numEnvs", 64))
+        self.env_block = sharding.env_block(self.global_num_envs)  # the rank's envs
+        self.num_envs = self.env_block.stop - self.env_block.start
+        if distributed.process_count() > 1 and type(self).population_update is not VecTask.population_update:
+            raise NotImplementedError(f"{type(self).__name__}.population_update (statistics across the envs) "
+                                      "is not ported across the ranks of a process group")
         self.max_episode_length = int(env_cfg.get("episodeLength", 500))
         self.clip_obs = float(env_cfg.get("clipObservations", np.inf))
         self.clip_actions = float(env_cfg.get("clipActions", np.inf))
@@ -186,7 +202,7 @@ class VecTask:
         if adr_cfg and adr_cfg.get("use_adr"):
             from ..dr.adr import ADR
 
-            self.adr = ADR(adr_cfg, self.num_envs, self.device)
+            self.adr = ADR(adr_cfg, self.global_num_envs, self.device, block=self.env_block)
             # a checkpoint's ADR state is restored only where the cfg asks for it
             self.adr_load_from_checkpoint = bool(adr_cfg.get("adr_load_from_checkpoint", False))
         # the env-step counter on the state: DR schedules, perturb_state and frames_in_task read it
@@ -381,13 +397,14 @@ class VecTask:
     # ---- the batched entry points -------------------------------------
     def reset(self, seed: int = 0) -> Tuple[EnvState, torch.Tensor]:
         """Full reset of all envs; partial resets later draw from the
-        state's generator, seeded here."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        state's generator, seeded here (with `seed` folded with the rank)."""
+        gen = torch.Generator(device=self.device).manual_seed(distributed.rank_seed(seed))
+        shared = gen if distributed.process_count() == 1 else torch.Generator(device=self.device).manual_seed(seed)
         n = self.num_envs
         q, qd, task = self.sample_init(gen, n)
         adr = None
         if self.adr is not None:
-            adr = self.adr.init_state(gen)
+            adr = self.adr.init_state(shared)
             task = {**task, "adr": self.adr.sample(adr, gen, n)}
         actions = torch.zeros(n, self.num_acts, device=self.device)
         progress = torch.zeros(n, dtype=torch.int32, device=self.device)
@@ -411,6 +428,7 @@ class VecTask:
             randomize_buf=rbuf,
             frames=frames,
             adr=adr,
+            shared_rng=shared,
         )
         return state, torch.clamp(obs, -self.clip_obs, self.clip_obs)
 
@@ -508,7 +526,7 @@ class VecTask:
         # 6b. ADR: the finished boundary workers push their objective, full queues move their edges
         adr = state.adr
         if self.adr is not None:
-            adr = self.adr.update(adr, state.rng, done, self.adr_objective(task))
+            adr = self.adr.update(adr, state.shared_rng, done, self.adr_objective(task))
             extras["adr_nats"] = adr.nats.expand(n)
         new_state = EnvState(
             sim=SimState(q=q, qd=qd),
@@ -522,6 +540,7 @@ class VecTask:
             randomize_buf=rbuf,
             frames=frames,
             adr=adr,
+            shared_rng=state.shared_rng,
         )
         extras["time_outs"] = timeout
         if self.num_states:

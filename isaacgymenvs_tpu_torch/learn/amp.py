@@ -14,7 +14,11 @@ disc_coef x (the BCE of agent -> 0 and demo -> 1 through softplus, the
 logit kernel's L2 x disc_logit_reg, the gradient penalty on the demo
 inputs x disc_grad_penalty / 2, the MLP kernels' L2 x disc_weight_decay).
 One Adam optimizer steps the policy and the discriminator together, and
-`truncate_grads` clips their joint gradient norm. The discriminator's
+`truncate_grads` clips their joint gradient norm. Under a process group
+`amp_rms` merges the global moments, the demo windows come from the
+rank's stream, and the discriminator's rows are the global minibatch's
+first min(amp_minibatch_size, rows), whichever rank holds them; the terms
+of its weights alone (the logit and MLP L2) are rank 0's. The discriminator's
 products are `nn.Linear`, as they are flax `Dense` in the JAX package.
 """
 from __future__ import annotations
@@ -101,8 +105,9 @@ class AMPAgent(PPO):
 
     # ---- the discriminator's data and loss ------------------------------
     def train_epoch(self, ts, noise=None, perms=None, demos=None):
-        """PPO's epoch; `demos` (B, num_amp_obs) replaces the demo windows
-        otherwise drawn from `ts.generator` after the rollout."""
+        """PPO's epoch; `demos` (the rank's rows of the batch, num_amp_obs)
+        replaces the demo windows otherwise drawn from `ts.generator` after
+        the rollout."""
         self._given_demos = demos
         try:
             return super().train_epoch(ts, noise, perms)
@@ -110,31 +115,41 @@ class AMPAgent(PPO):
             self._given_demos = None
 
     def extra_dataset(self, ts, traj, flat) -> tuple:
+        # (rows, A), or (shards, rows / shards, A) under local_shuffle: the
+        # demos are drawn flat and laid out as the agent's windows
         amp_obs = flat(traj.extras["amp_obs"])
         demos = self._given_demos
         if demos is None:
-            demos = self.env.fetch_amp_obs_demo(ts.generator, amp_obs.shape[0])
+            demos = self.env.fetch_amp_obs_demo(ts.generator, amp_obs[..., 0].numel())
         # amp_rms stays as shape_rollout_rewards left it for the whole epoch,
         # so the windows are normalized once here
-        return self._norm_amp(ts.amp_rms, amp_obs), self._norm_amp(ts.amp_rms, demos)
+        return self._norm_amp(ts.amp_rms, amp_obs), self._norm_amp(ts.amp_rms, demos.reshape(amp_obs.shape))
 
-    def extra_loss(self, batch_extra):
+    def extra_loss(self, batch_extra, share=None):
         agent_obs, demo_obs = batch_extra
-        k = min(self.amp_minibatch_size, agent_obs.shape[0])
-        d_agent = self.disc(agent_obs[:k])
+        if share is None:
+            k = rows = min(self.amp_minibatch_size, agent_obs.shape[0])
+            mean = torch.mean
+        else:  # the rank's rows among the global minibatch's first k, and its part of their means
+            k = min(self.amp_minibatch_size, share.total)
+            rows = share.first(k)
+            mean = lambda x: torch.sum(x) / k
+        d_agent = self.disc(agent_obs[:rows])
         # the gradient penalty on the demo inputs
-        demo_obs = demo_obs[:k].detach().requires_grad_(True)
+        demo_obs = demo_obs[:rows].detach().requires_grad_(True)
         d_demo = self.disc(demo_obs)
         (demo_grad,) = torch.autograd.grad(d_demo.sum(), demo_obs, create_graph=True)
-        grad_pen = torch.mean(torch.sum(demo_grad ** 2, dim=-1))
+        grad_pen = mean(torch.sum(demo_grad ** 2, dim=-1))
         # BCE: agent -> 0, demo -> 1
-        bce = 0.5 * (torch.mean(F.softplus(d_agent)) + torch.mean(F.softplus(-d_demo)))
-        logit_reg = torch.sum(self.disc.disc_logits.weight ** 2)
-        mlp_decay = sum(torch.sum(getattr(self.disc.disc_mlp, f"fc{i}").weight ** 2)
-                        for i in range(self.disc.disc_mlp.n))
+        bce = 0.5 * (mean(F.softplus(d_agent)) + mean(F.softplus(-d_demo)))
+        logit_reg = mlp_decay = 0.0
+        if share is None or share.owner:  # terms of the weights alone: once over the ranks
+            logit_reg = torch.sum(self.disc.disc_logits.weight ** 2)
+            mlp_decay = sum(torch.sum(getattr(self.disc.disc_mlp, f"fc{i}").weight ** 2)
+                            for i in range(self.disc.disc_mlp.n))
         disc_loss = (bce + self.disc_logit_reg * logit_reg + 0.5 * self.disc_grad_penalty * grad_pen
                      + self.disc_weight_decay * mlp_decay)
-        acc = 0.5 * (torch.mean((d_agent < 0).to(torch.float32)) + torch.mean((d_demo > 0).to(torch.float32)))
+        acc = 0.5 * (mean((d_agent < 0).to(torch.float32)) + mean((d_demo > 0).to(torch.float32)))
         return self.disc_coef * disc_loss, {"disc_acc": acc.detach()}
 
     # ---- checkpoints ----------------------------------------------------

@@ -32,9 +32,23 @@ ignored, as there. The policy's parameters live in `PPO.network` (an
 `nn.Module`): a `PPOTrainState` does not own them, it carries the
 optimizer bound to them, the learning rate, the normalizers and the env.
 
-Not ported yet, raising NotImplementedError by name: `local_shuffle`
-(multi-device). A recurrent network (`network.rnn`) is
-`rnn.PPORecurrent`'s; `PPO` refuses it.
+Under a process group (`parallel/distributed.py`) every rank steps its
+block of the env axis (`parallel/sharding.py`) and the epoch computes what
+one process computes over all the envs: the normalizers merge the global
+batch moments, the advantages are normalized by the global mean and std,
+every rank draws the same permutation of the global batch from the shared
+`shuffle_generator`, adds the loss terms of the rows of each minibatch it
+holds divided by the global minibatch size, and the gradient is summed over
+the ranks before the norm clip, so that every rank takes the same Adam step
+and the parameters stay bit-equal; the KL, the losses and the episode
+sums are reduced alike. `local_shuffle` permutes rows within shards of the
+env axis (one shard per rank, or `_shuffle_shards` in one process), the
+same permutation on every shard, each minibatch taking minibatch_size / S
+rows of each shard, as the JAX package's sharded epoch does. The action
+noise comes from `generator`, a stream of the rank's own.
+
+A recurrent network (`network.rnn`) is `rnn.PPORecurrent`'s; `PPO`
+refuses it.
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ import numpy as np
 import torch
 
 from ..envcore.vec_task import EnvState, VecTask
+from ..parallel import distributed, sharding
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .networks import ActorCritic, CriticNet
 from .running_stats import RunningMeanStd, rms_denormalize, rms_normalize, rms_update
@@ -84,13 +99,14 @@ class PPOConfig(NamedTuple):
     save_frequency: int = 0
     min_lr: float = 1e-6
     max_lr: float = 1e-2
+    # permute rollout rows only within each env shard, the same permutation
+    # on every shard (the JAX package's local_shuffle)
+    local_shuffle: bool = False
 
     @classmethod
     def from_train_cfg(cls, params: Dict[str, Any]) -> "PPOConfig":
         """Build from the train dict (`params.config`)."""
         c = params.get("config", params)
-        if c.get("local_shuffle"):
-            raise NotImplementedError("config.local_shuffle (multi-device) is not ported yet")
         shaper = c.get("reward_shaper", {})
         return cls(
             gamma=float(c.get("gamma", 0.99)),
@@ -116,6 +132,7 @@ class PPOConfig(NamedTuple):
             max_epochs=int(c.get("max_epochs", 500)),
             score_to_win=float(c.get("score_to_win", 1e9)),
             save_frequency=int(c.get("save_frequency", 0)),
+            local_shuffle=bool(c.get("local_shuffle", False)),
         )
 
 
@@ -130,7 +147,8 @@ class PPOTrainState:
     value_rms: RunningMeanStd
     ep_return: torch.Tensor  # (N,) running episode return (raw rewards)
     ep_len: torch.Tensor  # (N,) int32
-    generator: torch.Generator  # action noise and minibatch shuffles
+    generator: torch.Generator  # action noise (and AMP's demo windows): the rank's own stream
+    shuffle_generator: torch.Generator  # minibatch permutations: the same stream on every rank
     optimizer: torch.optim.Adam
     lr: float  # dynamic (adaptive KL schedule)
     states: torch.Tensor | None = None  # (N, num_states) privileged state (central value)
@@ -167,12 +185,12 @@ def _gaussian_logp(x, mu, log_sigma):
     )
 
 
-def _policy_kl(mu0, log_s0, mu1, log_s1):
-    """Analytic KL(N0 || N1), summed over action dims, mean over the batch."""
+def _policy_kl(mu0, log_s0, mu1, log_s1, mean=torch.mean):
+    """Analytic KL(N0 || N1), summed over action dims, `mean` over the batch."""
     s0sq = torch.exp(2.0 * log_s0)
     s1sq = torch.exp(2.0 * log_s1)
     kl = log_s1 - log_s0 + (s0sq + (mu1 - mu0) ** 2) / (2.0 * s1sq) - 0.5
-    return torch.mean(torch.sum(kl, dim=-1))
+    return mean(torch.sum(kl, dim=-1))
 
 
 def _rms_state(rms: RunningMeanStd) -> Dict[str, torch.Tensor]:
@@ -211,13 +229,20 @@ class PPO:
                 units=tuple(cv_mlp.get("units", mlp.get("units", (256, 128, 64)))),
                 act=str(cv_mlp.get("activation", "elu")),
             ).to(env.device)
-        self.batch_size = self.cfg.horizon_length * env.num_envs
+        # the env holds the rank's block; the batch and its minibatches are global.
+        # Under a process group (even of one rank) the update goes through its collectives
+        self.world, self.rank = distributed.process_count(), distributed.rank()
+        self.sharded = distributed.is_initialized()
+        self.batch_size = self.cfg.horizon_length * env.num_envs * self.world
         self.minibatch_size = min(self.cfg.minibatch_size, self.batch_size)
         if self.batch_size % self.minibatch_size:
             raise ValueError(
                 f"batch {self.batch_size} not divisible by minibatch {self.minibatch_size}"
             )
         self.num_minibatches = self.batch_size // self.minibatch_size
+        # local_shuffle's shard count in one process (the JAX package's
+        # `_shuffle_shards`); under a process group the ranks are the shards
+        self._shuffle_shards = 1
 
     def build_network(self, env, net_cfg) -> torch.nn.Module:
         """The policy network of `params.network`; a recurrent agent builds its own."""
@@ -246,6 +271,7 @@ class PPO:
     def init(self) -> PPOTrainState:
         env, dev = self.env, self.env.device
         env_state, obs = env.reset(self.seed)
+        sharding.broadcast_params([p for _, p in self.named_trainables()])
         states = state_rms = None
         if self.use_central_value:
             states = env.states_of(env_state)
@@ -257,7 +283,8 @@ class PPO:
             value_rms=RunningMeanStd.create((), dev),
             ep_return=torch.zeros(env.num_envs, device=dev),
             ep_len=torch.zeros(env.num_envs, dtype=torch.int32, device=dev),
-            generator=torch.Generator(device=dev).manual_seed(self.seed + 1),
+            generator=torch.Generator(device=dev).manual_seed(distributed.rank_seed(self.seed + 1)),
+            shuffle_generator=torch.Generator(device=dev).manual_seed(self.seed + 2),
             # Adam as optax.scale_by_adam(eps=1e-8) followed by -lr * u: the
             # group's lr is set to the current lr before every step
             optimizer=torch.optim.Adam(
@@ -398,9 +425,11 @@ class PPO:
         """Hook: extra per-sample tensors appended to the minibatch tuple."""
         return ()
 
-    def extra_loss(self, batch_extra):
+    def extra_loss(self, batch_extra, share=None):
         """Hook: additional loss terms from the extra dataset entries, and a
-        dict of metrics (means over the epoch's minibatches)."""
+        dict of metrics (means over the epoch's minibatches); under a process
+        group `share` (`sharding.RowShare`) says which rows of the global
+        minibatch the rank holds."""
         return 0.0, {}
 
     def shape_rollout_rewards(self, ts, traj):
@@ -408,14 +437,17 @@ class PPO:
         before GAE. Returns (ts, traj, aux_metrics)."""
         return ts, traj, {}
 
-    def _loss(self, batch, value_rms=None):
+    def _loss(self, batch, value_rms=None, share=None):
         """Loss of one minibatch under the current `self.network`.
 
         batch = (nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm,
         adv, ret_norm, [nstates with the central value,] *extra). Returns
         (total, (a_loss, c_loss, entropy, b_loss, kl, extra_loss's metrics)).
+        With `share` (a `sharding.RowShare`) the batch is the rank's rows of
+        a global minibatch, and each mean is the rank's part of the global one.
         """
         cfg = self.cfg
+        mean = torch.mean if share is None else share.mean
         nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm, adv, ret_norm = batch[:8]
         mu, log_sigma, v_norm = self.network(nobs)
         n_base = 8
@@ -426,18 +458,18 @@ class PPO:
         ratio = torch.exp(logp - old_logp)
         surr1 = adv * ratio
         surr2 = adv * torch.clamp(ratio, 1.0 - cfg.e_clip, 1.0 + cfg.e_clip)
-        a_loss = -torch.mean(torch.minimum(surr1, surr2))
+        a_loss = -mean(torch.minimum(surr1, surr2))
 
         if cfg.clip_value:
             v_clipped = old_vnorm + torch.clamp(v_norm - old_vnorm, -cfg.e_clip, cfg.e_clip)
             c_loss = torch.maximum((v_norm - ret_norm) ** 2, (v_clipped - ret_norm) ** 2)
         else:
             c_loss = (v_norm - ret_norm) ** 2
-        c_loss = torch.mean(c_loss)
+        c_loss = mean(c_loss)
 
-        entropy = torch.mean(torch.sum(log_sigma + 0.5 * _LOG_2PI_E, dim=-1))
+        entropy = mean(torch.sum(log_sigma + 0.5 * _LOG_2PI_E, dim=-1))
         # bounds loss, soft bound 1.1
-        b_loss = torch.mean(torch.sum(
+        b_loss = mean(torch.sum(
             torch.clamp(mu - 1.1, min=0.0) ** 2 + torch.clamp(mu + 1.1, max=0.0) ** 2, dim=-1
         ))
         total = (
@@ -446,9 +478,9 @@ class PPO:
             - cfg.entropy_coef * entropy
             + cfg.bounds_loss_coef * b_loss
         )
-        xloss, xaux = self.extra_loss(batch[n_base:])
+        xloss, xaux = self.extra_loss(batch[n_base:], share)
         total = total + xloss
-        kl = _policy_kl(old_mu, old_log_sigma, mu, log_sigma)
+        kl = _policy_kl(old_mu, old_log_sigma, mu, log_sigma, mean)
         return total, (a_loss, c_loss, entropy, b_loss, kl, xaux)
 
     def _update_lr(self, lr: float, kl: float) -> float:
@@ -470,34 +502,57 @@ class PPO:
         for g in grads:
             g.mul_(scale)
 
-    def _minibatch_step(self, ts: PPOTrainState, mb, value_rms):
+    def _minibatch_step(self, ts: PPOTrainState, mb, value_rms, share=None):
         """One optimizer step at `ts.lr`; returns the loss's aux tuple and
-        the extra loss's metrics."""
+        the extra loss's metrics. With `share` the rank's gradient and its
+        parts of the metrics are summed over the ranks first."""
         opt = ts.optimizer
         with torch.enable_grad():
-            total, aux = self._loss(mb, value_rms)
+            total, aux = self._loss(mb, value_rms, share)
         opt.zero_grad(set_to_none=True)
         total.backward()
+        xaux = aux[5] if len(aux) > 5 else {}
+        aux, xaux = tuple(a.detach() for a in aux[:5]), {k: v.detach() for k, v in xaux.items()}
+        if share is not None:
+            aux, xaux = self._all_reduce(aux, xaux)
         if self.cfg.truncate_grads:
             self._clip_grads()
         for group in opt.param_groups:
             group["lr"] = ts.lr
         opt.step()
-        xaux = aux[5] if len(aux) > 5 else {}
-        return tuple(a.detach() for a in aux[:5]), {k: v.detach() for k, v in xaux.items()}
+        return aux, xaux
+
+    def _all_reduce(self, aux, xaux):
+        """Sum the gradients and the metrics' parts over the ranks, in one
+        all-reduce; a parameter without a gradient (no row of the minibatch
+        on the rank) adds zeros."""
+        params = [p for _, p in self.named_trainables()]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        keys = sorted(xaux)
+        scalars = torch.stack([*aux, *(xaux[k] for k in keys)]).to(grads[0].dtype)
+        flat = sharding.all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads] + [scalars]))
+        off = 0
+        for p, g in zip(params, grads):
+            p.grad = flat[off:off + g.numel()].view_as(g)
+            off += g.numel()
+        vals = flat[off:]
+        return tuple(vals[:len(aux)]), {k: vals[len(aux) + i] for i, k in enumerate(keys)}
 
     # ------------------------------------------------------------------
     def train_epoch(self, ts: PPOTrainState, noise=None, perms=None):
         """One full PPO epoch: rollout + mini_epochs of minibatch updates.
 
         `noise` (T, N, num_acts) replaces the action noise of the rollout
-        and `perms` (mini_epochs, B) int64 the minibatch shuffles, both
-        otherwise drawn from `ts.generator`. Returns (new_ts, metrics), the
-        metrics as Python floats.
+        (N the env's envs: the rank's block) and `perms` (mini_epochs, B)
+        int64 the minibatch shuffles of the global batch (mini_epochs,
+        B / S under local_shuffle's S shards), both otherwise drawn from
+        `ts.generator` and `ts.shuffle_generator`. Returns (new_ts,
+        metrics), the metrics as Python floats, the same on every rank.
         """
         cfg = self.cfg
         ts, traj, last_value = self.rollout(ts, noise)
         ts, traj, aux_metrics = self.shape_rollout_rewards(ts, traj)
+        S = self._shards(self.minibatch_size, self.env.num_envs * self.world, "minibatch_size", "num_envs")
         with torch.no_grad():
             advantages, returns = self._gae(traj, last_value)
             # the value normalizer trains on the fresh values, then the returns;
@@ -512,11 +567,19 @@ class PPO:
                 old_vnorm, ret_norm = traj.value, returns
             ts = dataclasses.replace(ts, value_rms=value_rms)
 
-            B = self.batch_size
-            flat = lambda x: x.reshape((B,) + x.shape[2:])
+            if S > 1:
+                Sl = S // self.world  # the shards this process holds
+
+                def flat(x):  # (T, N, ...) -> (Sl, T N / Sl, ...): shard s holds env block s, time-major
+                    T, N = x.shape[:2]
+                    y = x.reshape((T, Sl, N // Sl) + x.shape[2:]).transpose(0, 1)
+                    return y.reshape((Sl, T * (N // Sl)) + x.shape[2:])
+            else:
+                flat = lambda x: x.reshape((-1,) + x.shape[2:])
             adv = flat(advantages)
             if cfg.normalize_advantage:
-                adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
+                mean, var, _ = sharding.batch_moments(adv)
+                adv = (adv - mean) / (torch.sqrt(var) + 1e-8)
             dataset = (
                 flat(self._norm_obs(ts.obs_rms, traj.obs)),
                 flat(traj.action),
@@ -531,21 +594,9 @@ class PPO:
                 dataset += (flat(self._norm_states(ts.state_rms, traj.states)),)
             dataset += self.extra_dataset(ts, traj, flat)
 
-        auxs, xauxs = [], []
-        for e in range(cfg.mini_epochs):
-            perm = (
-                perms[e]
-                if perms is not None
-                else torch.randperm(B, generator=ts.generator, device=adv.device)
-            )
-            # minibatches are contiguous slices of the permuted dataset
-            for idx in perm.reshape(self.num_minibatches, self.minibatch_size):
-                aux, xaux = self._minibatch_step(ts, tuple(x[idx] for x in dataset), value_rms)
-                ts.lr = self._update_lr(ts.lr, float(aux[4]))
-                auxs.append(aux)
-                xauxs.append(xaux)
+        auxs, xauxs = self._updates(ts, dataset, value_rms, perms, self.batch_size, self.minibatch_size, S)
         a_loss, c_loss, entropy, b_loss, kl = (torch.stack(x) for x in zip(*auxs))
-        n_done = torch.sum(traj.n_done)
+        ep_cum = traj.extras.get("_ep_cum", {})
         metrics = {
             "a_loss": torch.mean(a_loss),
             "c_loss": torch.mean(c_loss),
@@ -553,30 +604,105 @@ class PPO:
             "b_loss": torch.mean(b_loss),
             "kl": torch.mean(kl[-self.num_minibatches:]),  # the last mini-epoch
             "lr": ts.lr,
-            "ep_return_sum": torch.sum(traj.ep_ret_done),
-            "ep_len_sum": torch.sum(traj.ep_len_done),
-            "n_episodes": n_done,
-            **{f"env/{k}": torch.mean(v) for k, v in traj.extras["_env_metrics"].items()},
-            # per-episode cumulative terms over the episodes finished in this rollout
-            **{name: stat
-               for k, (sm, mn, mx) in traj.extras.get("_ep_cum", {}).items()
-               for name, stat in ((f"episode_cumulative/{k}", torch.sum(sm) / torch.clamp(n_done, min=1)),
-                                  (f"episode_cumulative_min/{k}_min", torch.min(mn)),
-                                  (f"episode_cumulative_max/{k}_max", torch.max(mx)))},
-            "reward_mean_step": torch.mean(traj.reward),
-            **aux_metrics,
+            **self._rollout_metrics(traj, aux_metrics, ep_cum),
             **{k: torch.mean(torch.stack([x[k] for x in xauxs])) for k in xauxs[0]},
         }
+        n_done = metrics["n_episodes"]
+        for k in ep_cum:  # per-episode cumulative terms over the episodes finished in this rollout
+            metrics[f"episode_cumulative/{k}"] = metrics[f"episode_cumulative/{k}"] / torch.clamp(n_done, min=1)
         return ts, {k: float(v) for k, v in metrics.items()}
+
+    @staticmethod
+    def _rollout_metrics(traj, aux_metrics, ep_cum) -> Dict[str, torch.Tensor]:
+        """The rollout's metrics over all the ranks' envs: the episode sums,
+        the env extras' and the reward's means, a subclass's `aux_metrics`
+        (means) and the sum, min and max of each `episode_cumulative` term."""
+        values = {
+            "ep_return_sum": torch.sum(traj.ep_ret_done),
+            "ep_len_sum": torch.sum(traj.ep_len_done),
+            "n_episodes": torch.sum(traj.n_done),
+            **{f"env/{k}": torch.mean(v) for k, v in traj.extras.get("_env_metrics", {}).items()},
+            "reward_mean_step": torch.mean(traj.reward),
+            **aux_metrics,
+        }
+        ops = {k: "sum" if k in ("ep_return_sum", "ep_len_sum", "n_episodes") else "mean" for k in values}
+        for k, (sm, mn, mx) in ep_cum.items():
+            for name, stat, op in ((f"episode_cumulative/{k}", torch.sum(sm), "sum"),
+                                   (f"episode_cumulative_min/{k}_min", torch.min(mn), "min"),
+                                   (f"episode_cumulative_max/{k}_max", torch.max(mx), "max")):
+                values[name], ops[name] = stat, op
+        return sharding.reduce_metrics(values, ops)
+
+    def _shards(self, mb_rows: int, units: int, mb_name: str, unit_name: str) -> int:
+        """local_shuffle's shard count S: the ranks of a process group, or
+        `_shuffle_shards` in one process; 1 without local_shuffle. Raises
+        where S does not divide the minibatch's `mb_rows` and the `units`
+        the shards split."""
+        if not self.cfg.local_shuffle:
+            return 1
+        S = self.world if self.sharded else self._shuffle_shards
+        if mb_rows % S or units % S:
+            raise ValueError(f"local_shuffle needs {mb_name} {mb_rows} and {unit_name} {units} divisible by the "
+                             f"env-shard count {S}")
+        return S
+
+    def _held_rows(self, n_rows: int, device) -> torch.Tensor:
+        """(n_rows,) the local row of each row of the global batch, -1 where
+        another rank holds it: global row t N + n is env n's step t, and
+        the rank holds its block's envs, time-major."""
+        N, block = self.env.num_envs * self.world, self.env.env_block
+        g = torch.arange(n_rows, device=device)
+        t, n = g // N, g % N
+        mine = (n >= block.start) & (n < block.stop)
+        return torch.where(mine, t * self.env.num_envs + n - block.start, -1)
+
+    def _updates(self, ts, dataset, value_rms, perms, n_rows: int, mb_rows: int, S: int):
+        """mini_epochs of minibatch steps over `dataset`, which holds the
+        rank's rows of a global batch of `n_rows` in minibatches of
+        `mb_rows`: flat, or (shards held, rows per shard, ...) under
+        local_shuffle's S shards. Returns the steps' aux tuples and extra
+        metrics."""
+        cfg, W = self.cfg, self.world
+        dev = dataset[0].device
+        nmb = n_rows // mb_rows
+        held = self._held_rows(n_rows, dev) if self.sharded and S == 1 else None
+        auxs, xauxs = [], []
+        for e in range(cfg.mini_epochs):
+            perm = (perms[e].to(dev) if perms is not None
+                    else torch.randperm(n_rows // S, generator=ts.shuffle_generator, device=dev))
+            for idx in perm.reshape(nmb, mb_rows // S):
+                share = None
+                if S > 1:  # the same rows of every shard; minibatches are contiguous slices of the permutation
+                    mb = tuple(x[:, idx].reshape((-1,) + x.shape[2:]) for x in dataset)
+                    if self.sharded:
+                        part = mb_rows // W
+                        share = sharding.RowShare(mb_rows, self.rank * part + torch.arange(part, device=dev),
+                                                  self.rank == 0)
+                elif self.sharded:  # the rank's rows of the global minibatch, in minibatch order
+                    local = held[idx]
+                    pos = torch.nonzero(local >= 0)[:, 0]
+                    mb = tuple(x[local[pos]] for x in dataset)
+                    share = sharding.RowShare(mb_rows, pos, self.rank == 0)
+                else:
+                    mb = tuple(x[idx] for x in dataset)
+                aux, xaux = self._minibatch_step(ts, mb, value_rms, share)
+                ts.lr = self._update_lr(ts.lr, float(aux[4]))
+                auxs.append(aux)
+                xauxs.append(xaux)
+        return auxs, xauxs
 
     # ------------------------------------------------------------------
     def save(self, path: str, ts: PPOTrainState, epoch: int = 0, frames: int = 0, extra=None):
-        """Write the checkpoint; `extra` (a dict) adds a subclass's entries."""
+        """Write the checkpoint; `extra` (a dict) adds a subclass's entries.
+        Under a process group every rank calls it: the per-env task state
+        and ADR's worker assignment are gathered over the ranks, and rank 0
+        writes the global state."""
+        n = self.env.num_envs
         entries = dict(extra or {})
         if self.use_central_value:
             entries.update(central=self.central_net.state_dict(), state_rms=_rms_state(ts.state_rms))
         if ts.env_state.adr is not None:  # ADR's ranges, queues and worker assignment
-            entries["env_adr_state"] = ts.env_state.adr.as_dict()
+            entries["env_adr_state"] = sharding.gather_env_rows(ts.env_state.adr.as_dict(), n)
         save_checkpoint(
             path,
             {
@@ -589,7 +715,7 @@ class PPO:
                 "epoch": int(epoch),
                 "frames": int(frames),
                 # env-side curriculum / task state round-trips with the checkpoint
-                "env_task_state": ts.env_state.task,
+                "env_task_state": sharding.gather_env_rows(ts.env_state.task, n),
             },
         )
 
@@ -611,13 +737,17 @@ class PPO:
         ts.optimizer.load_state_dict(opt_sd)
         rms = lambda d: RunningMeanStd(**{k: v.to(dev) for k, v in d.items()})
         env_state = ts.env_state
+        # the per-env entries hold every env; the rank takes its block
+        rows = lambda x: sharding.env_rows(x, self.env.env_block, self.env.global_num_envs)
         task = state.get("env_task_state")
         if task is not None and env_state.task is not None:
-            env_state = dataclasses.replace(env_state, task=task)
+            env_state = dataclasses.replace(env_state, task=rows(task))
         adr = state.get("env_adr_state")
         if adr is not None and env_state.adr is not None and getattr(self.env, "adr_load_from_checkpoint", False):
             # ADR's evolved ranges come back only where the task cfg asks for them
-            env_state = dataclasses.replace(env_state, adr=type(env_state.adr)(**adr))
+            env_state = dataclasses.replace(env_state, adr=type(env_state.adr)(**rows(adr)))
+        # every rank reads the same file; rank 0's parameters stand
+        sharding.broadcast_params([p for _, p in self.named_trainables()])
         return dataclasses.replace(
             ts,
             obs_rms=rms(state["obs_rms"]),
@@ -700,7 +830,9 @@ class PPO:
 
     # ------------------------------------------------------------------
     def _saves_states(self) -> bool:
-        return bool(getattr(self.env, "save_states", False) and getattr(self.env, "save_states_file", ""))
+        """The initial-state bank is written by rank 0 (of its block's envs)."""
+        return bool(getattr(self.env, "save_states", False) and getattr(self.env, "save_states_file", "")
+                    and distributed.is_main_process())
 
     def train(
         self,
@@ -718,20 +850,26 @@ class PPO:
         Checkpoints go to <train_dir>/<name>/nn: `last_<name>_ep_<n>.pth`
         every `save_frequency` epochs, `<name>.pth` at each new best mean
         return from `save_best_after` on, `last_<name>.pth` at the end.
+        Under a process group every rank trains and restores `checkpoint`;
+        the files, the logger and the prints are rank 0's.
         """
         cfg = self.cfg
+        main = distributed.is_main_process()
+        if not main:
+            logger = None
         ts = self.init()
         start_epoch = 0
         if checkpoint:
             ts, start_epoch = self.restore(checkpoint, ts)
         nn_dir = None
-        if train_dir:
+        if train_dir:  # every rank saves (the per-env state is gathered); rank 0 writes
             nn_dir = os.path.join(train_dir, name, "nn")
-            os.makedirs(nn_dir, exist_ok=True)
+            if main:
+                os.makedirs(nn_dir, exist_ok=True)
         best_ret = -float("inf")
         epoch = start_epoch
         max_epochs = max_epochs or cfg.max_epochs
-        steps_per_epoch = cfg.horizon_length * self.env.num_envs
+        steps_per_epoch = self.batch_size
         game_returns: list = []  # mean over the last 100 epochs that finished episodes
         last_metrics: Dict[str, float] = {}
         t_start = time.time()
@@ -785,7 +923,7 @@ class PPO:
                     self.env.dump_env_states()
             self.env.set_train_info(frames)
             stop_requested = bool(on_epoch(ts, last_metrics)) if on_epoch is not None else False
-            if epoch % log_every == 0 or epoch == 1:
+            if main and (epoch % log_every == 0 or epoch == 1):
                 print(
                     f"epoch {epoch:5d} | return {mean_ret:10.2f} | "
                     f"fps {last_metrics['fps']:9.0f} | kl {metrics['kl']:.4f} "
@@ -800,7 +938,8 @@ class PPO:
             if stop_requested:
                 break
             if mean_ret == mean_ret and mean_ret >= cfg.score_to_win:
-                print(f"score_to_win {cfg.score_to_win} reached at epoch {epoch}")
+                if main:
+                    print(f"score_to_win {cfg.score_to_win} reached at epoch {epoch}")
                 break
         if self._saves_states():
             self.env.dump_env_states()

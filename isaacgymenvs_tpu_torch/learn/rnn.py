@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import sharding
 from .networks import MLP
 from .ppo import PPO, PPOTrainState, Transition, _gaussian_logp, _policy_kl
 from .running_stats import rms_normalize, rms_update
@@ -113,7 +114,7 @@ class PPORecurrent(PPO):
         if H % L:
             raise ValueError(f"horizon_length {H} is not a multiple of seq_length {L}")
         self.seqs_per_env = H // L
-        self.num_seqs = self.seqs_per_env * env.num_envs
+        self.num_seqs = self.seqs_per_env * env.num_envs * self.world  # over all the ranks' envs
         # minibatch_size counts transitions; a minibatch holds whole windows
         if self.minibatch_size % L:
             raise ValueError(f"minibatch_size {self.minibatch_size} is not a multiple of seq_length {L}")
@@ -188,11 +189,15 @@ class PPORecurrent(PPO):
     def train_epoch(self, ts: PPOTrainState, noise=None, perms=None):
         """One epoch: rollout, then mini_epochs over minibatches of whole
         windows. `noise` (T, N, num_acts) and `perms` (mini_epochs,
-        num_seqs) replace the draws of `ts.generator`. Returns (ts, metrics
-        as Python floats)."""
+        num_seqs; num_seqs / S under local_shuffle's S shards) replace the
+        draws of `ts.generator` and `ts.shuffle_generator`. Windows are
+        env-major (row = env * windows per env + window), so a rank's
+        block of envs holds a contiguous block of the global windows, as a
+        shard does. Returns (ts, metrics as Python floats)."""
         cfg = self.cfg
         ts, traj, last_value = self.rollout(ts, noise)
         S, L, N = self.seqs_per_env, self.seq_length, self.env.num_envs
+        Sh = self._shards(self.seq_minibatch, self.num_seqs, "seq_minibatch", "num_seqs")
         with torch.no_grad():
             advantages, returns = self._gae(traj, last_value)
             value_rms = ts.value_rms
@@ -204,10 +209,10 @@ class PPORecurrent(PPO):
             else:
                 old_vnorm, ret_norm = traj.value, returns
             ts = dataclasses.replace(ts, value_rms=value_rms)
-            adv = advantages.reshape(-1)
+            adv = advantages
             if cfg.normalize_advantage:
-                adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
-            adv = adv.reshape(advantages.shape)
+                mean, var, _ = sharding.batch_moments(adv)
+                adv = (adv - mean) / (torch.sqrt(var) + 1e-8)
 
             def to_seq(x):  # (T, N, ...) -> (N S, L, ...), row = env * S + window
                 x = x.reshape((S, L, N) + x.shape[2:])
@@ -223,15 +228,10 @@ class PPORecurrent(PPO):
                 to_seq(old_vnorm), to_seq(adv), to_seq(ret_norm),
                 *(seq_starts(c) for c in traj.states),
             )
+            if Sh > 1:  # (shards held, windows per shard, ...): the shards are contiguous blocks of windows
+                dataset = tuple(x.reshape((Sh // self.world, -1) + x.shape[1:]) for x in dataset)
+        auxs, _ = self._updates(ts, dataset, value_rms, perms, self.num_seqs, self.seq_minibatch, Sh)
         num_mb = self.num_seqs // self.seq_minibatch
-        auxs = []
-        for e in range(cfg.mini_epochs):
-            perm = perms[e] if perms is not None else torch.randperm(
-                self.num_seqs, generator=ts.generator, device=adv.device)
-            for idx in perm.reshape(num_mb, self.seq_minibatch):
-                aux, _ = self._minibatch_step(ts, tuple(x[idx] for x in dataset), value_rms)
-                ts.lr = self._update_lr(ts.lr, float(aux[4]))
-                auxs.append(aux)
         a_loss, c_loss, entropy, b_loss, kl = (torch.stack(x) for x in zip(*auxs))
         metrics = {
             "a_loss": torch.mean(a_loss),
@@ -240,19 +240,25 @@ class PPORecurrent(PPO):
             "b_loss": torch.mean(b_loss),
             "kl": torch.mean(kl[-num_mb:]),  # the last mini-epoch
             "lr": ts.lr,
-            "ep_return_sum": torch.sum(traj.ep_ret_done),
-            "ep_len_sum": torch.sum(traj.ep_len_done),
-            "n_episodes": torch.sum(traj.n_done),
-            "reward_mean_step": torch.mean(traj.reward),
+            **self._rollout_metrics(traj, {}, {}),
         }
         return ts, {k: float(v) for k, v in metrics.items()}
 
-    def _loss(self, batch, value_rms=None):
+    def _held_rows(self, n_rows: int, device) -> torch.Tensor:
+        """(n_rows,) the local row of each global window, -1 where another
+        rank holds it: the rank's envs' windows are one contiguous block."""
+        lo = self.env.env_block.start * self.seqs_per_env
+        g = torch.arange(n_rows, device=device)
+        return torch.where((g >= lo) & (g < lo + self.env.num_envs * self.seqs_per_env), g - lo, -1)
+
+    def _loss(self, batch, value_rms=None, share=None):
         """Loss of one minibatch of windows: the cell re-run over each
         window from its stored start carry, no reset inside a window.
         batch = (nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm,
-        adv, ret_norm, c0, h0), the first eight (B, L, ...)."""
+        adv, ret_norm, c0, h0), the first eight (B, L, ...); with `share`
+        the rank's windows of a global minibatch (`PPO._loss`)."""
         cfg = self.cfg
+        mean = torch.mean if share is None else share.mean
         nobs, action, old_mu, old_log_sigma, old_logp, old_vnorm, adv, ret_norm, c0, h0 = batch
         carry, outs = (c0, h0), []
         for t in range(nobs.shape[1]):
@@ -261,18 +267,18 @@ class PPORecurrent(PPO):
         mu, log_sigma, v_norm = (torch.stack(x, dim=1) for x in zip(*outs))
         logp = _gaussian_logp(action, mu, log_sigma)
         ratio = torch.exp(logp - old_logp)
-        a_loss = -torch.mean(torch.minimum(adv * ratio, adv * torch.clamp(ratio, 1.0 - cfg.e_clip, 1.0 + cfg.e_clip)))
+        a_loss = -mean(torch.minimum(adv * ratio, adv * torch.clamp(ratio, 1.0 - cfg.e_clip, 1.0 + cfg.e_clip)))
         if cfg.clip_value:
             v_clip = old_vnorm + torch.clamp(v_norm - old_vnorm, -cfg.e_clip, cfg.e_clip)
             c_loss = torch.maximum((v_norm - ret_norm) ** 2, (v_clip - ret_norm) ** 2)
         else:
             c_loss = (v_norm - ret_norm) ** 2
-        c_loss = torch.mean(c_loss)
-        entropy = torch.mean(torch.sum(log_sigma + 0.5 * _LOG_2PI_E, dim=-1))
-        b_loss = torch.mean(torch.sum(
+        c_loss = mean(c_loss)
+        entropy = mean(torch.sum(log_sigma + 0.5 * _LOG_2PI_E, dim=-1))
+        b_loss = mean(torch.sum(
             torch.clamp(mu - 1.1, min=0.0) ** 2 + torch.clamp(mu + 1.1, max=0.0) ** 2, dim=-1))
         total = a_loss + 0.5 * cfg.critic_coef * c_loss - cfg.entropy_coef * entropy + cfg.bounds_loss_coef * b_loss
-        kl = _policy_kl(old_mu, old_log_sigma, mu, log_sigma)
+        kl = _policy_kl(old_mu, old_log_sigma, mu, log_sigma, mean)
         return total, (a_loss, c_loss, entropy, b_loss, kl)
 
     # ------------------------------------------------------------------

@@ -1,12 +1,18 @@
 """Running mean/std normalizers (port of isaacgymenvs_tpu/learn/running_stats.py).
 
 Parallel Welford/Chan merge of a batch's moments into the running ones.
+Under a process group the batch is the rank's block of the global batch,
+and its moments are merged over the ranks first (`parallel.sharding.
+batch_moments`, the JAX package's `pmean`), so every rank keeps the
+normalizer one process would.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ..parallel.sharding import batch_moments
 
 
 @dataclasses.dataclass
@@ -26,12 +32,9 @@ class RunningMeanStd:
 
 
 def rms_update(rms: RunningMeanStd, batch: torch.Tensor) -> RunningMeanStd:
-    """Merge the moments of `batch` (reduced over ALL leading axes) into rms."""
-    d = rms.mean.dim()
-    red = tuple(range(batch.dim() - d))
-    batch_mean = torch.mean(batch, dim=red)
-    batch_var = torch.var(batch, dim=red, unbiased=False)
-    batch_count = batch.numel() / max(rms.mean.numel(), 1)
+    """Merge the moments of `batch` (reduced over ALL leading axes, and
+    over the ranks of a process group) into rms."""
+    batch_mean, batch_var, batch_count = batch_moments(batch, rms.mean.dim())
 
     delta = batch_mean - rms.mean
     tot = rms.count + batch_count

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..envcore.vec_task import EnvState, VecTask
+from ..parallel import distributed
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .networks import MLP
 from .replay_buffer import ReplayBuffer
@@ -153,6 +154,8 @@ class SAC:
     """SAC trainer bound to a VecTask env."""
 
     def __init__(self, env: VecTask, train_params: Dict[str, Any], seed: int = 0):
+        if distributed.process_count() > 1:  # the JAX package's SAC takes no mesh either
+            raise NotImplementedError("SAC trains in one process: multi_gpu with more than one rank is not ported")
         self.env = env
         self.cfg = SACConfig.from_train_cfg(train_params)
         net = train_params.get("network", {})

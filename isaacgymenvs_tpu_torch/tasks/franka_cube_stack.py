@@ -286,7 +286,7 @@ class FrankaCubeStack(VecTask):
         q[grasp, q_idx[7]] = q[grasp, q_idx[8]] = self.cubeA_size / 2 - rng.uniform(0.0, 5e-4, int(grasp.sum()))
         hx, hq = (t.double().cpu().numpy() for t in self._poses(torch.as_tensor(q, dtype=torch.float32, device=dev))) \
             if grasp.any() else (None, None)
-        corners = lambda half: np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]) * half
+        signs = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)])
 
         def tilted(yaw):
             axis = np.array([*rng.normal(size=2), 0.0])
@@ -295,7 +295,7 @@ class FrankaCubeStack(VecTask):
 
         def on_surface(quat, half, height):
             """The centre height that puts the lowest corner 0-0.5 mm below `height`."""
-            low = min(_qrot_np(quat, c)[2] for c in corners(half))
+            low = _qrot_np(quat, signs * half)[:, 2].min()  # the eight corners at once
             return height - low - rng.uniform(0.0, 5e-4)
 
         ha, hb = self.cubeA_size / 2, self.cubeB_size / 2
@@ -334,7 +334,16 @@ def _qmul_np(a, b):
                      w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2, w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2])
 
 
+def _cross_np(a, b):
+    """np.cross over the last axis, by its own formula (a1 b2 - a2 b1, ...):
+    the same values without its per-call axis handling."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return np.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1)
+
+
 def _qrot_np(q, v):
+    """v (3,) or (k, 3) rotated by q (xyzw), row by row."""
     xyz, w = np.asarray(q[:3]), q[3]
-    t = 2.0 * np.cross(xyz, v)
-    return v + w * t + np.cross(xyz, t)
+    t = 2.0 * _cross_np(xyz, v)
+    return v + w * t + _cross_np(xyz, t)

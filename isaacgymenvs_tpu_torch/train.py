@@ -33,11 +33,23 @@ trains without PBT): `pbt.policy_idx=<i>` of `pbt.num_policies`,
 `pbt.mutation_file=ant_mutation` for the Ant scheme; `pbt.launcher`
 starts a whole population.
 
+`multi_gpu=True` trains one rank per process, under torchrun:
+
+    python -m torch.distributed.run --nproc_per_node=2 -m isaacgymenvs_tpu_torch.train task=Ant multi_gpu=True
+
+Each rank steps its block of `num_envs` on its card (`cuda:<LOCAL_RANK>`)
+and the epoch is the one a single process computes over all the envs
+(`parallel/`): params broadcast from rank 0, gradients, moments and
+metrics summed over the ranks. The backend is NCCL; ranks that share a
+card (or the CPU) need `dist_backend=gloo`, and NCCL with more ranks than
+cards raises. Checkpoints, the logs, the config snapshot, the profile and
+the prints are rank 0's; every rank restores `checkpoint=`. SAC and PBT
+train in one process and raise with more than one rank.
+
 It runs on the card. `pipeline=cpu` or a `sim_device` that starts with
 `cpu` asks for the CPU; without a GPU and without such a flag it fails
-with the device error, it does not train on the CPU. Options whose code is
-not ported yet (multi-GPU, video capture) exit with a message that says
-so.
+with the device error, it does not train on the CPU. Video capture is not
+ported yet and exits with a message that says so.
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ import torch
 import yaml
 
 from .learn import HRL, PPO, SAC, AMPAgent, PPORecurrent
+from .parallel import distributed
 from .tasks import task_map
 from .utils.config import load_config
 from .utils.loggers import build_logger
@@ -58,7 +71,6 @@ from .utils.loggers import build_logger
 def _unported(cfg):
     """Names of the requested options that the port does not carry yet."""
     asked = {
-        "multi_gpu": bool(cfg.get("multi_gpu")),
         "capture_video": bool(cfg.get("capture_video")),
     }
     return [k for k, v in asked.items() if v]
@@ -70,9 +82,24 @@ def main(argv=None):
 
     on_cpu = str(cfg.get("pipeline", "gpu")) == "cpu" or str(cfg.get("sim_device", "")).startswith("cpu")
     device = "cpu" if on_cpu else "cuda"
+    # the process group of torchrun's variables (multi_gpu=True asks for one); left where it was joined
+    joins = not distributed.is_initialized()
+    distributed.maybe_initialize(require=bool(cfg.get("multi_gpu")), backend=str(cfg.get("dist_backend") or "")
+                                 or None, device=device)
+    try:
+        return _main(cfg, distributed.rank_device(device))
+    finally:
+        if joins:
+            distributed.shutdown()
+
+
+def _main(cfg, device):
+    main_rank = distributed.is_main_process()
 
     seed = int(cfg.get("seed", 42) or 42)
     if seed == -1:
+        if distributed.process_count() > 1:
+            raise SystemExit("seed=-1 draws a seed of its own on every rank: give multi_gpu runs a seed")
         seed = random.randint(0, 2**31 - 1)
         print(f"seed=-1 -> sampled seed {seed}")
 
@@ -90,10 +117,12 @@ def main(argv=None):
     if task_name not in task_map:
         raise SystemExit(f"unknown task {task_name!r}; available: {sorted(task_map)}")
     env = task_map[task_name](cfg["task"], device=device)
-    print(
-        f"task={task_name} num_envs={env.num_envs} num_obs={env.num_obs} "
-        f"num_acts={env.num_acts} device={env.device}"
-    )
+    if main_rank:
+        print(
+            f"task={task_name} num_envs={env.global_num_envs} num_obs={env.num_obs} "
+            f"num_acts={env.num_acts} device={env.device} ranks={distributed.process_count()} "
+            f"backend={distributed.backend()}"
+        )
 
     algo = str(train_params.get("algo", {}).get("name", "a2c_continuous"))
     if algo == "sac":
@@ -133,10 +162,11 @@ def main(argv=None):
             return agent.play(checkpoint=checkpoint)
 
     train_dir = str(cfg.get("train_dir") or "runs")
-    run_dir = os.path.join(train_dir, run_name)
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f, default_flow_style=False, sort_keys=False)
+    if main_rank:
+        run_dir = os.path.join(train_dir, run_name)
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f, default_flow_style=False, sort_keys=False)
 
     max_iters = cfg.get("max_iterations")
     logger = build_logger(cfg, run_name, train_dir)
@@ -148,8 +178,10 @@ def main(argv=None):
             with guard:
                 return run_pbt_training(cfg, env, train_params, seed, run_name, logger, pbt_cfg, train_dir)
         finally:
-            logger.close()
-    profiler = _Profiler(str(cfg.get("profile") or ""), int(cfg.get("profile_epochs", 3)), agent.env.device)
+            if logger is not None:
+                logger.close()
+    profile_dir = str(cfg.get("profile") or "") if main_rank else ""
+    profiler = _Profiler(profile_dir, int(cfg.get("profile_epochs", 3)), agent.env.device)
     kw = {} if algo == "sac" else {
         "save_best_after": int(train_params.get("config", {}).get("save_best_after", 100))}
     try:
@@ -165,7 +197,8 @@ def main(argv=None):
             )
     finally:
         profiler.stop()
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 def _finite(name: str, t: torch.Tensor) -> None:

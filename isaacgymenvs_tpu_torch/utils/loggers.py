@@ -4,11 +4,15 @@ isaacgymenvs_tpu/utils/loggers.py).
 TensorBoard scalars go under <train_dir>/<run>/summaries with the rl_games
 scalar names the trainer passes in. Weights & Biases is off unless
 `wandb_activate` is set, and is best-effort: no network is assumed.
+Under a process group only rank 0 logs (`build_logger` gives the other
+ranks None).
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, Optional
+
+from ..parallel import distributed
 
 
 class TensorBoardLogger:
@@ -79,6 +83,9 @@ class MultiLogger:
 
 
 def build_logger(cfg: Dict[str, Any], run_name: str, train_dir: str = "runs") -> Optional[MultiLogger]:
+    """The run's loggers on rank 0; None on the other ranks."""
+    if not distributed.is_main_process():
+        return None
     loggers = [TensorBoardLogger(os.path.join(train_dir, run_name, "summaries"))]
     if cfg.get("wandb_activate"):
         loggers.append(

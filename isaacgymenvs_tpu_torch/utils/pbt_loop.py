@@ -57,6 +57,11 @@ def run_pbt_training(cfg, env, train_params, seed, run_name, logger, pbt_cfg, tr
     whose workspace is <train_dir>/<run_name>_<pbt.workspace>. Returns the
     last session's final train state and metrics."""
     from ..learn import PPO
+    from ..parallel import distributed
+
+    if distributed.process_count() > 1:  # a member is one process, as in the JAX package
+        raise NotImplementedError("PBT trains each member in one process: multi_gpu with more than one rank "
+                                  "is not ported")
     from ..pbt import PbtManager
     from .config import cfg_dir
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class RandomNetworkAdversary:
     """obs (n, in_dim) and per-env dropout masks (n, 2, hidden) ->
@@ -24,10 +26,10 @@ class RandomNetworkAdversary:
     """
 
     def __init__(self, in_dim: int, num_actions: int, hidden: int = 64, num_bins: int = 32,
-                 dropout: float = 0.5, seed: int = 0, device="cpu"):
+                 dropout: float = 0.5, seed: int = 0, device="cuda"):
         self.in_dim, self.num_actions, self.hidden = in_dim, num_actions, hidden
         self.num_bins, self.dropout = num_bins, dropout
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         rng = np.random.default_rng(seed)
 
         def glorot(shape):

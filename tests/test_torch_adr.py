@@ -61,7 +61,7 @@ def _assert_states_equal(ts: AdrState, js, msg=""):
 
 
 def test_boundary_workers_pin_edges():
-    adr = ADR(CFG, num_envs=256)
+    adr = ADR(CFG, num_envs=256, device="cpu")
     st = adr.init_state(torch.Generator().manual_seed(0))
     vals = adr.sample(st, torch.Generator().manual_seed(1), 256).numpy()
     wb, lo, hi = st.worker_boundary.numpy(), st.lo.numpy(), st.hi.numpy()
@@ -86,20 +86,20 @@ def _run(adr, objective, steps=12, seed=2):
 
 
 def test_ranges_widen_on_good_performance():
-    first, st = _run(ADR(CFG, num_envs=512), 50.0)
+    first, st = _run(ADR(CFG, num_envs=512, device="cpu"), 50.0)
     assert float(st.hi[0]) > float(first.hi[0])
     assert float(st.nats) > float(first.nats)  # the entropy grows as the ranges widen
 
 
 def test_ranges_narrow_on_poor_performance():
-    first, st = _run(ADR(CFG, num_envs=512), 0.0, seed=3)  # below t_low
+    first, st = _run(ADR(CFG, num_envs=512, device="cpu"), 0.0, seed=3)  # below t_low
     assert float(st.hi[0] - st.lo[0]) < float(first.hi[0] - first.lo[0])
 
 
 def test_per_env_queue_pushes():
     """Every finishing boundary env pushes its own objective, not one mean
     per boundary per step."""
-    adr = ADR(CFG, num_envs=64)
+    adr = ADR(CFG, num_envs=64, device="cpu")
     st = adr.init_state(torch.Generator().manual_seed(0))
     wb = torch.full((64,), -1, dtype=torch.int64)
     wb[:3] = 0  # three envs on boundary 0 (the queue holds 4: no evaluation)
@@ -112,7 +112,7 @@ def test_per_env_queue_pushes():
 
 
 def test_range_path_dr_overrides_and_pins():
-    adr = ADR(WIDE_CFG, num_envs=128)
+    adr = ADR(WIDE_CFG, num_envs=128, device="cpu")
     st = adr.init_state(torch.Generator().manual_seed(0))
     o = adr.dr_overrides(st)["object.rigid_body_properties.mass"]
     assert abs(float(o["lo"]) - 0.7) < 1e-6 and abs(float(o["hi"]) - 1.3) < 1e-6
@@ -142,7 +142,7 @@ def test_physics_param_flows_through_dr_engine():
     workers sit at its edges, and the batched mass follows the factors."""
     model = _one_body_model()
     rz = tdr.DomainRandomizer(model, MASS_PARAMS, actor_ranges={"object": (0, 1)}, device="cpu")
-    adr = ADR({**CFG, "params": {"obj_mass": WIDE_CFG["params"]["obj_mass"]}}, num_envs=512)
+    adr = ADR({**CFG, "params": {"obj_mass": WIDE_CFG["params"]["obj_mass"]}}, num_envs=512, device="cpu")
     st = adr.init_state(torch.Generator().manual_seed(0))
     st.lo, st.hi = torch.tensor([0.3]), torch.tensor([2.5])  # evolved wider than the DR spec
     sample = rz.sample(torch.Generator().manual_seed(1), 512, 0, adr=adr.dr_overrides(st))
@@ -164,7 +164,7 @@ def test_init_and_sample_match_jax():
     JAX's uniform draws, `sample` equals JAX's exactly (the pins at both
     edges included); `dr_overrides` equals JAX's."""
     n = 96
-    jadr, tadr = jadr_mod.ADR(WIDE_CFG, n), ADR(WIDE_CFG, n)
+    jadr, tadr = jadr_mod.ADR(WIDE_CFG, n), ADR(WIDE_CFG, n, "cpu")
     assert tadr.param_names() == jadr.param_names() and tadr.dr_params == jadr.dr_params
     assert [tuple(s) for s in tadr.specs] == [tuple(s) for s in jadr.specs]
     js = jadr.init_state(jax.random.PRNGKey(0))
@@ -204,7 +204,7 @@ def test_update_matches_jax(update_ranges):
     JAX's. With update_adr_ranges off the state does not move."""
     n = 64
     cfg = {**WIDE_CFG, "update_adr_ranges": update_ranges}
-    jadr, tadr = jadr_mod.ADR(cfg, n), ADR(cfg, n)
+    jadr, tadr = jadr_mod.ADR(cfg, n), ADR(cfg, n, "cpu")
     js = jadr.init_state(jax.random.PRNGKey(0))
     ts = _port_state(js)
     rng = np.random.RandomState(0)
@@ -246,7 +246,7 @@ def test_more_than_q_pushes_keep_the_last_q():
     first six push 100 (past t_high), the last four 0 (below t_low), and
     the edge narrows."""
     n = 16
-    adr = ADR(CFG, n)
+    adr = ADR(CFG, n, "cpu")
     st = adr.init_state(torch.Generator().manual_seed(0))
     st.worker_boundary = torch.where(torch.arange(n) < 10, 0, -1)
     st.counts = torch.tensor([1, 0, 0, 0])
@@ -283,7 +283,7 @@ def test_dr_sample_with_adr_matches_jax(monkeypatch):
     ranges = {"hand": (0, model.nbody - 1), "object": (model.nbody - 1, model.nbody)}  # the last link as the object
     jrz = jdr.DomainRandomizer(jload_urdf(path, fix_base=True), params, actor_ranges=ranges)
     trz = tdr.DomainRandomizer(model, params, actor_ranges=ranges, device="cpu")
-    jadr, tadr = jadr_mod.ADR(cfg["env"]["adr"], n), ADR(cfg["env"]["adr"], n)
+    jadr, tadr = jadr_mod.ADR(cfg["env"]["adr"], n), ADR(cfg["env"]["adr"], n, "cpu")
     js = jadr.init_state(jax.random.PRNGKey(3))
     js = js.replace(lo=js.lo * 0.8, hi=js.hi * 1.3 + 0.01)
     ts = _port_state(js)

@@ -127,7 +127,8 @@ def test_rna_matches_jax():
     per-env masks, the output equals JAX's within 1e-6 and lies in [-1, 1]."""
     from isaacgymenvs_tpu.utils.rna import RandomNetworkAdversary as JRNA
 
-    jr, tr = JRNA(in_dim=23, num_actions=16, seed=3), RandomNetworkAdversary(in_dim=23, num_actions=16, seed=3)
+    jr = JRNA(in_dim=23, num_actions=16, seed=3)
+    tr = RandomNetworkAdversary(in_dim=23, num_actions=16, seed=3, device="cpu")
     for name in ("w1", "b1", "w2", "b2", "w3"):
         assert np.array_equal(getattr(tr, name).numpy(), np.asarray(getattr(jr, name))), name
     np.testing.assert_allclose(tr.bin_centers.numpy(), np.asarray(jr.bin_centers), atol=1e-7)
@@ -143,7 +144,7 @@ def test_rna_matches_jax():
 
 
 def test_rna_output_bounded_and_mask_dependent():
-    rna = RandomNetworkAdversary(in_dim=23, num_actions=16, seed=3)
+    rna = RandomNetworkAdversary(in_dim=23, num_actions=16, seed=3, device="cpu")
     m = rna.sample_mask(torch.Generator().manual_seed(0), 2)
     x = torch.linspace(-1, 1, 23).expand(2, 23)
     a = rna(m, x)

@@ -246,12 +246,10 @@ def test_rollout_without_normalization_matches_jax(flag):
 
 @pytest.mark.parametrize("what, env_attrs, train, match", [
     ("recurrent network", {}, {"network": {"rnn": {"name": "lstm", "units": 32}}}, "rnn"),
-    ("local shuffle", {}, {"config": {"local_shuffle": True}}, "local_shuffle"),
 ])
 def test_ppo_raises_for_what_is_not_ported(what, env_attrs, train, match):
     """Options whose code the port lacks raise by name instead of being
-    ignored: the multi-device shuffle; a recurrent network is
-    PPORecurrent's, not PPO's."""
+    ignored: a recurrent network is PPORecurrent's, not PPO's."""
     import types
 
     env = types.SimpleNamespace(num_obs=4, num_acts=1, num_envs=8, device=torch.device("cpu"), **env_attrs)
