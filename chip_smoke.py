@@ -6,7 +6,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every instantiation of the fused-step kernel from
    engine/csrc/fused_step.cu with nvcc (sm_90a), one nvcc each, started
-   together (those of steps 14, 17, 22, 26, 33, 38, 44, 49, 54, 58 and 64 too): Ant's (25 plane contacts), Cartpole's contact-free one
+   together (those of steps 14, 17, 22, 26, 33, 38, 44, 49, 54, 58, 64 and 75 too): Ant's (25 plane contacts), Cartpole's contact-free one
    (-DFS_NC=0), Ingenuity's (24 plane contacts), Quadcopter's (44 plane
    contacts, two per lane, q_target input), BallBalance's (21 plane contacts,
    one point-vs-cylinder pair row, three bilateral anchors, q_target input)
@@ -355,7 +355,29 @@
    the ranks load is new. Then one Ant epoch at one rank under NCCL,
    through the group's collectives (a group of one rank formed by the
    step itself: `maybe_initialize` forms none at world size 1);
-75. prints one `kernels` JSON line with all instantiations (each with its
+75. FactoryTaskGears (row 1ai: 120 plane and 120 SDF rows under the cap
+   of 96, the first build with three slots per lane) on its default route,
+   the kernel, at the yaml's 128 envs: its size tuple, envs per block,
+   shared memory, registers and spills; the kernel against its plain
+   version for GEARS_STEPS env steps from its `contact_states` (filtered
+   by `conditioned` and `kernel_jitter_ok`, as the nut-bolt and IndustReal
+   comparisons); the kernel timed with its bound, env.step env-steps/s and
+   device ops per env step; `train.main` for 2 epochs, a bit-equal
+   restore, a resume and play;
+76. FactoryTaskGears on the eager engine (`task.sim.use_fused=False`) at
+   128 envs: the route is "eager" and the kernel's launch count does not
+   move; GEARS_STEPS eager steps in float32 against the same steps in
+   float64 on the card from step 75's states, each from the float64
+   state, within q 2e-4, qd 2e-3, forces 2e-2; env.step env-steps/s and
+   device ops per env step; `train.main` for 2 epochs, a bit-equal
+   restore, a resume and play, without a kernel launch;
+77. the other eager cases on the card, a few steps each, the route "eager"
+   and the state finite: BallBalance under `use_fused=False` (anchors and
+   a pair row), the pair-row example under `solver: pgs`, and
+   FactoryTaskInsertion with its plug scaled per env (per-env candidate
+   points with SDF rows, which raised before). Every env this script
+   resets outside steps 76-77 takes the kernel route (`watch_routes`);
+78. prints one `kernels` JSON line with all instantiations (each with its
    envs per block, shared memory per block, resident blocks and warps per
    SM, ptxas's registers and spill bytes; row 1a's launches of the ranks
    as `launches_multi_rank`) and ends with {"ok": true, "device": {...}}.
@@ -374,6 +396,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -2637,13 +2660,13 @@ def osc_share(steps: int = 4) -> None:
 
 
 def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2, resume: bool = True,
-                        overrides=(), play: bool = True) -> int:
+                        overrides=(), play: bool = True, eager: bool = False) -> int:
     """`train.main task=<task> *overrides` (a recipe, a variant's switches)
     at the yaml's width: `epochs` epochs (controlFrequencyInv launches per
-    env step, finite metrics), a bit-equal restore, with `resume` a resume
-    for one more, and with `play` a play with episodes cut to 16 steps
-    (NutBoltPick's acting phase: 16 steps and its scripted tail). Returns
-    the training launches."""
+    env step, none with `eager`: the eager engine's route; finite metrics),
+    a bit-equal restore, with `resume` a resume for one more, and with
+    `play` a play with episodes cut to 16 steps (NutBoltPick's acting
+    phase: 16 steps and its scripted tail). Returns the training launches."""
     from isaacgymenvs_tpu_torch import train
     from isaacgymenvs_tpu_torch.engine import _cuda
     from isaacgymenvs_tpu_torch.utils.config import load_config
@@ -2662,7 +2685,7 @@ def train_main_at_width(task: str, width: int, horizon: int, epochs: int = 2, re
         bad = {k: v for k, v in metrics.items() if isinstance(v, float) and not np.isfinite(v)
                and k != "mean_episode_return" and not k.startswith(("episode_cumulative_min/",
                                                                       "episode_cumulative_max/"))}
-        if launches != epochs * horizon * cfi or metrics["epoch"] != epochs or bad \
+        if launches != (0 if eager else epochs * horizon * cfi) or metrics["epoch"] != epochs or bad \
                 or metrics["frames"] != epochs * horizon * width:
             raise AssertionError(f"{task} {' '.join(overrides)} train.main: {launches} launches, {metrics}")
         ckpts = glob.glob(os.path.join(runs, "*", "nn", "last_*.pth"))
@@ -3014,10 +3037,11 @@ def industreal_calls(env, q, qd):
     return qfrc, xfrc, qt, sdf_planes(env.model, q, qd)
 
 
-def industreal_inputs(env, n: int, seed: int, calls: int, min_active: int = 0):
+def industreal_inputs(env, n: int, seed: int, calls: int, min_active: int = 0, call_fn=None):
     """n states (q, qd) from the task's `contact_states` whose `calls`
-    chained physics calls (each under `industreal_calls` at the plain
-    output of the one before) pass `conditioned` (the keys at the cap
+    chained physics calls (each under `call_fn`, by default
+    `industreal_calls`, at the plain output of the one before) pass
+    `conditioned` (the keys at the cap
     NUTBOLT_KEY_GAP apart) and `kernel_jitter_ok`, with more than
     `min_active` - 1 rows in the margin in the first call. Drawn in pools of
     INDUSTREAL_POOL until n are kept; returns them, the share of the drawn
@@ -3028,16 +3052,17 @@ def industreal_inputs(env, n: int, seed: int, calls: int, min_active: int = 0):
     s, p = fused._extract(env.model), env.sim_params
     plain = fused._step_math_torch(s, p, torch.device("cuda"))
     holder = franka_holder(env)
+    call_fn = call_fn or industreal_calls
     kept, drawn, actives = [], 0, []
     for k in range(24):
         q, qd = env.contact_states(INDUSTREAL_POOL, seed + 7919 * k)
         if k == 0:
-            qfrc, xfrc, qt, sdf = industreal_calls(env, q, qd)
+            qfrc, xfrc, qt, sdf = call_fn(env, q, qd)
             float32_noise(env, s, p, q, qd, qfrc, qt, xfrc=xfrc, sdf=sdf)
         alive = torch.arange(INDUSTREAL_POOL, device="cuda")
         x = (q, qd)
         for call in range(calls):
-            qfrc, xfrc, qt, sdf = industreal_calls(env, *x)
+            qfrc, xfrc, qt, sdf = call_fn(env, *x)
             ok, active, _ = conditioned(holder, s, (), x[0], x[1], qt, None, None, p, 0, qfrc=qfrc, xfrc=xfrc, sdf=sdf,
                                         key_gap=NUTBOLT_KEY_GAP)
             ok &= kernel_jitter_ok(env, p, x[0], x[1], qt, seed + 31 * k + call, qfrc=qfrc, xfrc=xfrc, sdf=sdf)
@@ -4371,6 +4396,7 @@ def dp_rank(workdir: str) -> int:
     holds it against the file, and saves what it saw to
     <workdir>/rank<r>.pt."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    watch_routes()
     from isaacgymenvs_tpu_torch.engine import _cuda
     from isaacgymenvs_tpu_torch.parallel import distributed, sharding
     from isaacgymenvs_tpu_torch.utils.checkpoint import load_checkpoint
@@ -4669,6 +4695,244 @@ def nccl_one_rank(card: str) -> int:
     return launches
 
 
+# ---- FactoryTaskGears (row 1ai) on both routes, and the eager engine's other cases ----
+
+GEARS = "FactoryTaskGears"
+GEARS_ENVS = 128  # numEnvs of FactoryTaskGears.yaml
+GEARS_HORIZON = 32  # horizon_length of FactoryTaskGearsPPO.yaml
+# the size tuple but for the envs per block: 3 x 40 gear points, each a plane row and an SDF row against the
+# base's grid, the cap of 96 (three slots per lane), q_target
+GEARS_SIZES = (16, 30, 27, 120, 0, 0, 1, 0, 0, 0, 0, 96, 0, 120)
+GEARS_STEPS = 3  # env steps of the comparisons (controlFrequencyInv 1: one physics call each)
+EAGER = "task.sim.use_fused=False"
+# the plug of FactoryTaskInsertion scaled per env: per-env candidate points against the socket's SDF grid
+PLUG_SCALE = {"actor_params": {"plug": {"scale": {"range": [0.95, 1.05], "operation": "scaling",
+                                                  "distribution": "uniform", "setup_only": True}}}}
+EAGER_OK = [False]  # True while a step drives the eager route on purpose (steps 76-77)
+
+
+def watch_routes() -> None:
+    """From here on every env this process resets must take the kernel
+    route, but inside `eager_route()`."""
+    from isaacgymenvs_tpu_torch.envcore.vec_task import VecTask
+
+    reset = VecTask.reset
+
+    def checked(self, *args, **kwargs):
+        if not EAGER_OK[0] and self.physics_route != "kernel":
+            raise AssertionError(f"{type(self).__name__} took the {self.physics_route} route: "
+                                 f"{self.kernel_refusals()}")
+        return reset(self, *args, **kwargs)
+
+    VecTask.reset = checked
+
+
+@contextmanager
+def eager_route():
+    EAGER_OK[0] = True
+    try:
+        yield
+    finally:
+        EAGER_OK[0] = False
+
+
+def env_of(task: str, n: int, overrides=(), randomization=None, cls=None):
+    """`task` from its yaml at n envs under `overrides`; with `randomization`
+    domain randomization on with those specs; `cls` in place of the task's class."""
+    from isaacgymenvs_tpu_torch.tasks import task_map
+    from isaacgymenvs_tpu_torch.utils.config import load_config
+
+    cfg = load_config([f"task={task}", f"num_envs={n}", *overrides])["task"]
+    if randomization is not None:
+        cfg["task"] = {"randomize": True, "randomization_params": randomization}
+    return (cls or task_map[task])(cfg, device="cuda")
+
+
+def gears_calls(env, q, qd):
+    """One env step's physics inputs at (q, qd): the template's gravity
+    compensation of the Franka and its PD setpoints at its own pose, and the
+    SDF planes at the entry."""
+    qfrc, xfrc, qt = env.compute_force(None, q, qd, {"q_ref": q[:, env.q_idx]})
+    return qfrc, xfrc, qt, sdf_planes(env.model, q, qd)
+
+
+def compare_gears(card: str):
+    """Row 1ai against its plain version at the yaml's 128 envs for
+    GEARS_STEPS env steps, each call under `gears_calls` at the plain
+    output of the one before, from `industreal_inputs` on the task's
+    `contact_states` (every gear on the table, or on its shaft on the
+    plate); prints the size tuple, envs per block, shared memory, registers
+    and spills. Returns the largest error and the compared states."""
+    from isaacgymenvs_tpu_torch.engine import _cuda, fused
+
+    env = env_of(GEARS, GEARS_ENVS)
+    if env.physics_route != "kernel":
+        raise AssertionError(f"{GEARS}: route {env.physics_route}")
+    m, p = env.model, env.sim_params
+    s = fused._extract(m)
+    _, step = fused._prepared(m, p, torch.device("cuda"), True)
+    figs = _cuda.ptxas_figures(_cuda.PTXAS_LOG.get(tuple(step.sizes), ""))
+    print(f"{GEARS} row 1ai: sizes {'_'.join(map(str, step.sizes))}, {step.epb} envs per block, "
+          f"{step.smem_bytes} bytes of shared memory per block, ptxas {figs['registers']} registers, "
+          f"{figs['spill_stores']} bytes spill stores, {figs['spill_loads']} bytes spill loads ({card})")
+    (q, qd), share, (most, mean, fewest) = industreal_inputs(env, GEARS_ENVS, seed=191, calls=GEARS_STEPS,
+                                                             call_fn=gears_calls)
+    plain = fused._step_math_torch(s, p, torch.device("cuda"))
+    gear_bodies = [r.body0 for r in env.gear_refs]
+    worst, x = 0.0, (q, qd)
+    for call in range(GEARS_STEPS):
+        qfrc, xfrc, qt, sdf = gears_calls(env, *x)
+        ko = fused.physics_step_fused(m, p, x[0], x[1], qfrc, xfrc=xfrc, q_target=qt, sdf=sdf)
+        po = plain(rows(x[0]), rows(x[1]), rows(qfrc), xfrc_rows(xfrc), rows(qt), None, None, 0, sdf)
+        err = compare_outputs(f"{GEARS} call {call}", ko, po, s.nbody, GEARS_ENVS)
+        worst = max(worst, *err.values())
+        if call == 0:
+            force = torch.linalg.vector_norm(ko.body_force[:, gear_bodies], dim=-1)
+            on_gears = float((force > 0.01).all(1).float().mean())
+            print(f"{GEARS} kernel vs plain, N={GEARS_ENVS}, call 0: {100 * share:.1f} % of the drawn contact "
+                  f"states well conditioned over {GEARS_STEPS} calls, rows in the margin {mean:.2f} per env on "
+                  f"average, {most} at most, {fewest} at fewest (cap 96 of {s.nct}), contact force on all three "
+                  f"gears in {100 * on_gears:.1f} % of envs: {json.dumps(err)}")
+            if not on_gears >= 0.5:
+                raise AssertionError(f"{GEARS}: force on the gears in {on_gears:.3f} of the envs")
+        x = (po[0].T.contiguous(), po[1].T.contiguous())
+    print(f"{GEARS} kernel vs plain, N={GEARS_ENVS}, {GEARS_STEPS} env steps: largest error {worst:.3e} ({card})")
+    return worst, (q, qd)
+
+
+def gears_kernel_path(card: str, states) -> dict:
+    """Row 1ai timed at 128 envs in the compared states (with its bound),
+    env.step env-steps/s under random actions and device ops per env step
+    on the kernel route, then `train.main` for 2 epochs, a bit-equal
+    restore, a resume and play. Returns the kernel's times and the training
+    launches."""
+    from isaacgymenvs_tpu_torch.bench import measure
+
+    env = env_of(GEARS, GEARS_ENVS)
+    q, qd = states
+    qfrc, xfrc, qt, sdf = gears_calls(env, q, qd)
+    t = kernel_times(env, rows(q), rows(qd), rows(qfrc), xfrc_rows(xfrc), card, reps=30, qt=rows(qt), sdf=sdf)
+    bench = measure(GEARS_ENVS, 4, reps=2, device="cuda", task=GEARS)
+    ops = profile_env_step(env, steps=1, label=f"{GEARS} env.step (kernel route)")
+    print(f"{GEARS} kernel route: env.step {bench['env_steps_per_s']:.1f} env-steps/s under random actions, "
+          f"{ops:.1f} device ops per env step ({GEARS_ENVS} envs; {card})")
+    launches = train_main_at_width(GEARS, GEARS_ENVS, GEARS_HORIZON, epochs=2)
+    return {**t, "env_steps_per_s": bench["env_steps_per_s"], "device_ops_per_step": ops}, launches
+
+
+def gears_eager(card: str, states) -> dict:
+    """Step 76: FactoryTaskGears under sim.use_fused=False at 128 envs: the
+    route is eager and the kernel's launch count stays; GEARS_STEPS eager
+    steps in float32 against float64 on the card from the compared states,
+    each from the float64 state, at TOL; env.step env-steps/s and device
+    ops per env step; `train.main` for 2 epochs, a bit-equal restore, a
+    resume and play, without a launch."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.engine.dynamics import SimState
+    from isaacgymenvs_tpu_torch.engine.step import physics_step
+
+    with eager_route():
+        env = env_of(GEARS, GEARS_ENVS, (EAGER,))
+        if env.physics_route != "eager":
+            raise AssertionError(f"{GEARS} {EAGER}: route {env.physics_route}")
+        m, p = env.model, env.sim_params
+        torch.cuda.synchronize()
+        _cuda.FusedStepCall.launches = 0
+        q, qd = states
+        worst = {k: 0.0 for k in TOL}
+        for _ in range(GEARS_STEPS):
+            qfrc, xfrc, qt, _ = gears_calls(env, q, qd)
+            a = physics_step(m, SimState(q, qd), qfrc, p, xfrc=xfrc, q_target=qt)
+            b = physics_step(m, SimState(q.double(), qd.double()), qfrc.double(), p, xfrc=xfrc.double(),
+                             q_target=qt.double())
+            for k in TOL:
+                got, ref = (getattr(a.state, k), getattr(b.state, k)) if k in ("q", "qd") else \
+                    (getattr(a, k), getattr(b, k))
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{GEARS} eager: {k} is not finite")
+                worst[k] = max(worst[k], float((got.double() - ref).abs().max()))
+            q, qd = b.state.q.float(), b.state.qd.float()
+        bad = {k: (e, TOL[k]) for k, e in worst.items() if not e < TOL[k]}
+        print(f"{GEARS} eager engine, float32 against float64 on the card, N={GEARS_ENVS}, {GEARS_STEPS} steps: "
+              f"{json.dumps(worst)} ({card})")
+        if bad:
+            raise AssertionError(f"{GEARS} eager: float32 parts from float64 {bad}")
+        state, _ = env.reset(0)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        act = lambda: torch.rand(GEARS_ENVS, env.num_acts, generator=gen, device="cuda") * 2 - 1
+        for _ in range(2):
+            state, *_ = env.step(state, act())
+        torch.cuda.synchronize()
+        t0, reps = time.perf_counter(), 8
+        for _ in range(reps):
+            state, *_ = env.step(state, act())
+        torch.cuda.synchronize()
+        sps = reps * GEARS_ENVS / (time.perf_counter() - t0)
+        if not bool(torch.isfinite(state.sim.q).all()):
+            raise AssertionError(f"{GEARS} eager: the state is not finite")
+        ops = profile_env_step(env, steps=1, label=f"{GEARS} env.step (eager route)")
+        print(f"{GEARS} eager route: env.step {sps:.1f} env-steps/s under random actions, {ops:.1f} device ops per "
+              f"env step ({GEARS_ENVS} envs; {card})")
+        train_main_at_width(GEARS, GEARS_ENVS, GEARS_HORIZON, epochs=2, overrides=(EAGER,), eager=True)
+        if _cuda.FusedStepCall.launches:
+            raise AssertionError(f"{GEARS} eager: {_cuda.FusedStepCall.launches} kernel launches")
+    return {"max_abs_err_f32_f64": worst, "env_steps_per_s": sps, "device_ops_per_step": ops}
+
+
+def other_eager_cases(card: str) -> dict:
+    """Step 77: BallBalance under sim.use_fused=False (anchors and a pair
+    row) at 4096 envs, the pair-row example under `solver: pgs` at 4096,
+    and FactoryTaskInsertion with its plug scaled per env at 128, a few
+    steps each: the route eager, the state finite. Returns each case's
+    seconds."""
+    from isaacgymenvs_tpu_torch.engine import _cuda
+    from isaacgymenvs_tpu_torch.engine.dynamics import SimParams, SimState
+    from isaacgymenvs_tpu_torch.engine.step import physics_step
+    from isaacgymenvs_tpu_torch.model.examples import pair_row_example, pair_row_example_state
+    from isaacgymenvs_tpu_torch.tasks.factory_templates import FactoryTaskInsertion
+
+    class InsertionWithPlug(FactoryTaskInsertion):
+        def dr_actor_ranges(self):
+            b = self.plug_ref.body0
+            return {"plug": (b, b + 1)}
+
+    secs = {}
+    with eager_route():
+        _cuda.FusedStepCall.launches = 0
+        cases = {"BallBalance": lambda: env_of("BallBalance", 4096, (EAGER,)),
+                 "FactoryTaskInsertion+plug_scale": lambda: env_of("FactoryTaskInsertion", 128,
+                                                                   randomization=PLUG_SCALE, cls=InsertionWithPlug)}
+        for name, make in cases.items():
+            t0 = time.perf_counter()
+            env = make()
+            if env.physics_route != "eager":
+                raise AssertionError(f"{name}: route {env.physics_route}")
+            state, _ = env.reset(0)
+            for _ in range(4):
+                state, obs, *_ = env.step(state, torch.zeros(env.num_envs, env.num_acts, device="cuda"))
+            if not (bool(torch.isfinite(state.sim.q).all()) and bool(torch.isfinite(obs).all())):
+                raise AssertionError(f"{name} eager: the state is not finite")
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            print(f"{name} on the eager route ({'; '.join(env.kernel_refusals()) or 'sim.use_fused=False'}): 4 env "
+                  f"steps at {env.num_envs} envs finite, {secs[name]:.2f} s with set-up ({card})")
+        t0 = time.perf_counter()
+        m, n = pair_row_example(), 4096
+        q, qd = (torch.tensor(a, device="cuda") for a in pair_row_example_state(m, n, 1))
+        p = SimParams(substeps=2, solver="pgs", contact_margin=0.02)
+        for _ in range(4):
+            out = physics_step(m, SimState(q, qd), torch.zeros_like(qd), p)
+            q, qd = out.state.q, out.state.qd
+        if not bool(torch.isfinite(q).all()) or not float(out.body_force.abs().max()) > 0:
+            raise AssertionError("PGS example: the state is not finite or no contact acted")
+        torch.cuda.synchronize()
+        secs["pgs_example"] = time.perf_counter() - t0
+        print(f"the pair-row example under solver pgs: 4 steps at {n} envs finite, {secs['pgs_example']:.2f} s ({card})")
+        if _cuda.FusedStepCall.launches:
+            raise AssertionError(f"the eager cases launched the kernel {_cuda.FusedStepCall.launches} times")
+    return secs
+
+
 def build_all():
     """Step 2: every instantiation's size tuple on this card, built with one
     nvcc each, each started as soon as its env is made; prints ptxas's
@@ -4737,6 +5001,7 @@ def build_all():
     for t in DEX_WIDTH:  # AllegroHand's model (row 1ae) under each DeXtreme yaml's per-env leaves, drawn through ADR
         e = hand_env(t, 8)
         built[t] = (e, hand_dyn(e, 8, 0).names)
+    built[GEARS] = (env_of(GEARS, 8), ())  # 240 rows under the cap of 96: three slots per lane
     made = time.perf_counter() - t_start
 
     # the size tuples the steps will take on this card
@@ -4757,6 +5022,7 @@ def build_all():
             or any(sizes[t][:14] != KUKA_SIZES[t] for t in KUKA_SIZES) \
             or any(sizes[t][:8] + sizes[t][11:14] != HAND_SIZES["AllegroHand"][:8] + HAND_SIZES["AllegroHand"][11:14]
                    or not sizes[t][8] for t in DEX_WIDTH) \
+            or sizes[GEARS][:14] != GEARS_SIZES \
             or len(set(sizes.values())) != len(sizes):
         raise AssertionError(f"unexpected size tuples {sizes}")
     secs = [builds[sz].result() for sz in sizes.values()]
@@ -4764,6 +5030,8 @@ def build_all():
     print(f"build: {time.perf_counter() - t_start:.1f} s in all, the envs made in the first {made:.1f} s; " + ", ".join(
         f"{t} {'_'.join(map(str, sz))} {sec:.1f} s" for (t, sz), sec in zip(sizes.items(), secs)))
     for t, (e, names) in built.items():
+        if getattr(e, "physics_route", "kernel") != "kernel":
+            raise AssertionError(f"{t}: the {e.physics_route} route ({e.kernel_refusals()})")
         has_t = getattr(e, "terrain", None) is not None
         _, step = fused._prepared(e.model, params_of(t, e), torch.device("cuda"), e.use_pd_targets, names, has_t)
         if step.sizes != sizes[t]:
@@ -4800,6 +5068,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    watch_routes()
     t_start = time.perf_counter()
     lap = lambda step: print(f"[{time.perf_counter() - t_start:.1f} s] steps up to {step} done")
 
@@ -5165,8 +5434,23 @@ def main() -> int:
     lap(73)
     nccl_launches = nccl_one_rank(smi)
     lap(74)
+    # 75. FactoryTaskGears on the kernel route (row 1ai), 76. on the eager engine, 77. the other eager cases
+    t75 = time.perf_counter()
+    gears_err, gears_states = compare_gears(smi)
+    gears_t, gears_launches = gears_kernel_path(smi, gears_states)
+    lap(75)
+    t76 = time.perf_counter()
+    gears_eager_out = gears_eager(smi, gears_states)
+    lap(76)
+    t77 = time.perf_counter()
+    eager_secs = other_eager_cases(smi)
+    lap(77)
+    t_end = time.perf_counter()
+    print(f"steps 75-77: {t76 - t75:.1f} s, {t77 - t76:.1f} s, {t_end - t77:.1f} s, {t_end - t75:.1f} s together "
+          f"({smi})")
 
-    if any(n <= 0 for n in (train_launches, ant_launches_make, cart_launches, *new_launches.values(), *dyn_launches.values(),
+    if any(n <= 0 for n in (train_launches, ant_launches_make, cart_launches, gears_launches,
+                            *new_launches.values(), *dyn_launches.values(),
                             dp["launches"], dp["launches_lstm"], dp["launches_adr"], nccl_launches,
                             *anymal_launches.values(), *sdf_launches.values(), *humanoid_launches.values(),
                             *recipe_launches.values(), lstm_launches, *amp_launches.values(),
@@ -5268,6 +5552,10 @@ def main() -> int:
            "per_env_leaves": list(built[t][1]),
            **({"launches_multi_rank": dp["launches_adr"]} if t == "AllegroHandDextremeADR" else {})}
           for t in DEX_WIDTH),
+        {"name": "fused_step_factory_gears_k5_k6sdf_qt", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": gears_launches, "max_abs_err": gears_err, **gears_t, "library_ms": None,
+         "num_envs": GEARS_ENVS, "sizes": list(sizes[GEARS]),
+         "eager_route": {**gears_eager_out, "other_cases_s": eager_secs}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

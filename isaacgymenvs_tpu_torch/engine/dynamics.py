@@ -1,8 +1,12 @@
-"""Simulation parameters, state and kinematics (port of
-isaacgymenvs_tpu/engine/dynamics.py, the parts the fused path uses).
+"""Simulation parameters, state, kinematics and articulated dynamics (port
+of isaacgymenvs_tpu/engine/dynamics.py).
 
 Formulation as in the JAX package: Featherstone spatial algebra in world
-coordinates about the world origin.
+coordinates about the world origin. Every function is batched over envs:
+tensors are env-leading (N, ...), where the JAX package writes one env and
+vmaps. The eager engine (`engine/step.py`) takes per-env model leaves as a
+dict `leaves` {name: (N, *leaf.shape)} (a domain-randomization sample) beside
+the static Model; a leaf it does not hold is the Model's own (`model_leaves`).
 
   motion vector v = (omega, v_o)  -- angular velocity, linear velocity of the
                                      body-fixed point at the world origin
@@ -208,15 +212,32 @@ def kin_meta(model: Model) -> KinMeta:
 # ---------------------------------------------------------------------------
 
 
-def forward_kinematics(model: Model, q: torch.Tensor, qd: torch.Tensor) -> Kin:
+_TENSOR_CACHE: dict = {}
+
+
+def _model_tensors(model: Model, device, dtype=torch.float32):
+    """`model.to(device)` in `dtype`, made once per model, device and dtype."""
+    key = (id(model), str(device), dtype)
+    hit = _TENSOR_CACHE.get(key)
+    if hit is None or hit[0] is not model:
+        mt = model.to(device)
+        hit = (model, mt if dtype == torch.float32 else
+               type(mt)(**{f.name: getattr(mt, f.name).to(dtype) for f in dataclasses.fields(mt)}))
+        _TENSOR_CACHE[key] = hit
+    return hit[1]
+
+
+def forward_kinematics(model: Model, q: torch.Tensor, qd: torch.Tensor, leaves: dict | None = None) -> Kin:
     """Batched tree sweep over bodies in topological order.
 
     q (N, nq), qd (N, nv) -> Kin, env-leading. Same products as the JAX
-    package's level-batched forward_kinematics under vmap.
+    package's level-batched forward_kinematics under vmap. `leaves` may hold
+    per-env `body_ipos` (N, nbody, 3) and `body_inertia` (N, nbody, 3, 3),
+    which `com` and `inertia_w` then read.
     """
     N, dev = q.shape[0], q.device
-    mt = model.to(dev)
-    e3 = torch.eye(3, device=dev).expand(N, 3, 3)
+    mt = _model_tensors(model, dev, q.dtype)
+    e3 = torch.eye(3, dtype=q.dtype, device=dev).expand(N, 3, 3)
     zero3 = q.new_zeros(N, 3)
     X, Q, V = [], [], []
     S = [None] * model.nv
@@ -281,8 +302,16 @@ def forward_kinematics(model: Model, q: torch.Tensor, qd: torch.Tensor) -> Kin:
         torch.stack([2 * (x0 * y0 + w0 * z0), 1 - 2 * (x0 * x0 + z0 * z0), 2 * (y0 * z0 - w0 * x0)], -1),
         torch.stack([2 * (x0 * z0 - w0 * y0), 2 * (y0 * z0 + w0 * x0), 1 - 2 * (x0 * x0 + y0 * y0)], -1),
     ], -2)
-    com = x + torch.einsum("nbij,bj->nbi", R, mt.body_ipos)
-    inertia_w = torch.einsum("nbij,bjk,nblk->nbil", R, mt.body_inertia, R)
+    ipos = None if leaves is None else leaves.get("body_ipos")
+    inertia = None if leaves is None else leaves.get("body_inertia")
+    if ipos is None:
+        com = x + torch.einsum("nbij,bj->nbi", R, mt.body_ipos)
+    else:
+        com = x + torch.einsum("nbij,nbj->nbi", R, ipos.to(R.dtype).expand(N, -1, -1))
+    if inertia is None:
+        inertia_w = torch.einsum("nbij,bjk,nblk->nbil", R, mt.body_inertia, R)
+    else:
+        inertia_w = torch.einsum("nbij,nbjk,nblk->nbil", R, inertia.to(R.dtype).expand(N, -1, -1, -1), R)
     if model.nv:
         S_t, Sd_t = torch.stack(S, 1), torch.stack(Sd, 1)
     else:
@@ -389,17 +418,191 @@ def _crba_consts(model: Model, device):
     return hit[1:]
 
 
-def mass_matrix(model: Model, kin: Kin, masks) -> torch.Tensor:
+def mass_matrix(model: Model, kin: Kin, masks, leaves: dict | None = None) -> torch.Tensor:
     """Joint-space mass matrices (N, nv, nv) by the CRBA in world/origin
     coordinates: M[i, j] = S_i^T I^C_{body(i)} S_j for dof j on an ancestor
     of dof i's body, j <= i, then mirrored, plus the armature. `masks` is
-    (`ancestor_matrix`, `dof_ancestor_mask`) as tensors on kin's device."""
+    (`ancestor_matrix`, `dof_ancestor_mask`) as tensors on kin's device;
+    `leaves` may hold per-env `body_mass` (N, nbody) and `armature` (N, nv)."""
     anc, dof_mask = masks
     mass, armature, dof_body = _crba_consts(model, kin.S.device)
-    I_o = maths.spatial_inertia_at_origin(mass.expand(kin.com.shape[:-1]), kin.com, kin.inertia_w)
+    if leaves is not None:
+        mass, armature = leaves.get("body_mass", mass), leaves.get("armature", armature)
+    I_o = _spatial_inertia(mass, kin)
     # composite inertia: IC[b] = sum of I_o[k] over the subtree of b (anc[k, b] = 1)
-    IC = torch.einsum("kb,nkij->nbij", anc, I_o)
+    IC = torch.einsum("kb,nkij->nbij", anc.to(I_o.dtype), I_o)
     F = torch.einsum("ndij,ndj->ndi", IC[:, dof_body], kin.S)
     Ml = (F @ kin.S.transpose(-1, -2)) * dof_mask
     M = Ml + Ml.transpose(-1, -2) - torch.diag_embed(torch.diagonal(Ml, dim1=-2, dim2=-1))
-    return M + torch.diag(armature)
+    return M + torch.diag_embed(armature.to(M.dtype))
+
+
+def _spatial_inertia(mass, kin: Kin) -> torch.Tensor:
+    """(N, nbody, 6, 6) spatial inertias about the origin, from the body
+    masses (nbody,) or per env (N, nbody)."""
+    return maths.spatial_inertia_at_origin(mass.to(kin.com.dtype).expand(kin.com.shape[:-1]), kin.com,
+                                           kin.inertia_w)
+
+
+# ---------------------------------------------------------------------------
+# the eager engine's dynamics: model leaves, bias and passive forces, the
+# forward dynamics and the position update
+# ---------------------------------------------------------------------------
+
+# the float leaves the eager engine reads; a per-env leaf replaces one of them
+ENGINE_LEAVES = (
+    "body_mass", "body_ipos", "body_inertia", "armature", "dof_damping", "dof_stiffness", "dof_limit_lower",
+    "dof_limit_upper", "dof_limited", "dof_friction", "qpos0", "tendon_coef", "tendon_range", "tendon_stiffness",
+    "tendon_damping", "cpoint_pos", "cpoint_radius", "cpoint_friction", "cpoint_restitution", "geom_pos",
+    "geom_quat", "geom_size", "geom_friction", "att_offset", "att_target",
+)
+_LEAF_CACHE: dict = {}
+
+
+class EngineMeta(NamedTuple):
+    """The model's index sets and 0/1 matrices as tensors on one device."""
+
+    anc: torch.Tensor  # (nbody, nbody) ancestor_matrix
+    dof_mask: torch.Tensor  # (nv, nv) dof_ancestor_mask
+    sq_adr: torch.Tensor  # (nv,) long, scalar_dof_q_adr
+    int_mat: torch.Tensor  # (nq, nv) kin_meta(model).int_mat
+    free_bodies: tuple  # body indices with FREE joints
+    dof_body: torch.Tensor  # (nv,) long
+
+
+def _static(model: Model, device, dtype):
+    """The model's leaves (None where the Model has none) and its EngineMeta
+    as tensors on `device`, made once per model, device and dtype."""
+    key = (id(model), str(device), dtype)
+    hit = _LEAF_CACHE.get(key)
+    if hit is None or hit[0] is not model:
+        t = lambda a: None if a is None else torch.as_tensor(np.asarray(a, np.float32), device=device).to(dtype)
+        leaves = {k: t(getattr(model, k)) for k in ENGINE_LEAVES}
+        meta = kin_meta(model)
+        em = EngineMeta(
+            anc=t(ancestor_matrix(model)), dof_mask=t(dof_ancestor_mask(model)),
+            sq_adr=torch.as_tensor(scalar_dof_q_adr(model), device=device), int_mat=t(meta.int_mat),
+            free_bodies=meta.free_bodies,
+            dof_body=torch.as_tensor(np.asarray(model.dof_body, np.int64), device=device),
+        )
+        hit = (model, leaves, em)
+        _LEAF_CACHE[key] = hit
+    return hit[1], hit[2]
+
+
+def model_leaves(model: Model, device, dtype=torch.float32, leaves: dict | None = None) -> dict:
+    """{name: tensor} of `ENGINE_LEAVES` on `device` in `dtype`: the
+    Model's own, shaped as in the Model, with the per-env ones of `leaves`
+    (N, *leaf.shape) in their place, and `leaves["gravity"]` (N, 3) where
+    given."""
+    out = dict(_static(model, device, dtype)[0])
+    for k, v in (leaves or {}).items():
+        if k in out or k == "gravity":
+            out[k] = v.to(device=device, dtype=dtype)
+    return out
+
+
+def engine_meta(model: Model, device, dtype=torch.float32) -> EngineMeta:
+    return _static(model, device, dtype)[1]
+
+
+def bias_force(model: Model, kin: Kin, qd: torch.Tensor, gravity, f_ext: torch.Tensor, masks,
+               leaves: dict | None = None) -> torch.Tensor:
+    """C(q, qd) - S^T f_ext, the generalized bias with M qdd = tau - C:
+    qd (N, nv), gravity (3,) or (N, 3), f_ext (N, nbody, 6) external
+    spatial forces (origin-referenced), -> (N, nv). Gravity enters as a
+    uniform spatial acceleration field."""
+    anc, _ = masks
+    lv = model_leaves(model, qd.device, qd.dtype, leaves)
+    dof_body = engine_meta(model, qd.device, qd.dtype).dof_body
+    anc = anc.to(qd.dtype)
+    I_o = _spatial_inertia(lv["body_mass"], kin)
+    # velocity-product acceleration: zeta_b = sum over the dofs d on b's path of Sdot_d qd_d
+    P = anc[:, dof_body]  # (nbody, nv)
+    zeta = P @ (kin.Sdot * qd[..., None])  # (N, nbody, 6)
+    g = torch.as_tensor(gravity, dtype=qd.dtype, device=qd.device).expand(qd.shape[0], 3)
+    a_grav = torch.cat([torch.zeros_like(g), g], -1)[:, None]
+    net = (torch.einsum("nbij,nbj->nbi", I_o, zeta - a_grav)
+           + maths.spatial_cross_force(kin.v, torch.einsum("nbij,nbj->nbi", I_o, kin.v)) - f_ext)
+    F_sub = anc.T @ net  # F_sub[b] = sum over the subtree of b
+    return torch.sum(kin.S * F_sub[:, dof_body], dim=-1)
+
+
+def passive_force(model: Model, q: torch.Tensor, qd: torch.Tensor, params: SimParams, sq_adr,
+                  q_spring: torch.Tensor | None = None, leaves: dict | None = None):
+    """Joint springs, limit penalties, Coulomb joint friction and tendon
+    limits as (tau, D, K), each (N, nv): D is the velocity coefficient and
+    K the stiffness coefficient the forward dynamics applies implicitly
+    (h D + h^2 K added to M). `q_spring` (N, nq) replaces `qpos0` as the
+    spring setpoint (the PD drive of `q_target`)."""
+    lv = model_leaves(model, q.device, q.dtype, leaves)
+    setpoint = lv["qpos0"] if q_spring is None else q_spring
+    has = sq_adr >= 0
+    idx = torch.clamp(sq_adr, min=0)
+    q_scalar = torch.where(has, q[..., idx], 0.0)
+    q0_scalar = torch.where(has, setpoint[..., idx], 0.0)
+    limited = lv["dof_limited"]
+    tau = -lv["dof_stiffness"] * (q_scalar - q0_scalar)
+    over = torch.clamp(q_scalar - lv["dof_limit_upper"], min=0.0)
+    under = torch.clamp(lv["dof_limit_lower"] - q_scalar, min=0.0)
+    violating = (over > 0) | (under > 0)
+    tau = tau + limited * (-params.limit_stiffness * (over - under))
+    D = lv["dof_damping"] + limited * torch.where(violating, params.limit_damping, 0.0)
+    if lv["dof_friction"] is not None:
+        # Coulomb joint friction as the regularized damping mu / (|qd| + eps), implicit
+        D = D + lv["dof_friction"] / (torch.abs(qd) + 2e-3)
+    K = lv["dof_stiffness"] + limited * torch.where(violating, params.limit_stiffness, 0.0)
+    coef = lv["tendon_coef"]
+    if coef is not None and coef.shape[0]:
+        # fixed tendons: t = coef . q, its range violation resisted, its velocity damped
+        t_val = q_scalar @ coef.T  # (N, nt)
+        t_vel = qd @ coef.T
+        rng = lv["tendon_range"]
+        viol = torch.clamp(t_val - rng[..., 1], min=0.0) + torch.clamp(t_val - rng[..., 0], max=0.0)
+        f_t = -lv["tendon_stiffness"] * viol - lv["tendon_damping"] * t_vel
+        tau = tau + f_t @ coef
+    return tau, D, K
+
+
+def forward_dynamics(model: Model, q: torch.Tensor, qd: torch.Tensor, tau: torch.Tensor, f_ext: torch.Tensor,
+                     params: SimParams, masks, sq_adr, kin: Kin | None = None, h: float = 0.0,
+                     q_spring: torch.Tensor | None = None, leaves: dict | None = None):
+    """qdd = (M + diag(h D + h^2 K))^-1 (tau + tau_passive - D qd - C), with
+    h > 0 making joint damping and stiffness implicit. Returns (qdd (N, nv),
+    minv_mul: rhs (N, nv, k) -> (M + ...)^-1 rhs, kin)."""
+    if kin is None:
+        kin = forward_kinematics(model, q, qd, leaves)
+    lv = model_leaves(model, q.device, q.dtype, leaves)
+    gravity = lv.get("gravity", params.gravity)
+    M = mass_matrix(model, kin, masks, leaves)
+    C = bias_force(model, kin, qd, gravity, f_ext, masks, leaves)
+    tau_p, D, K = passive_force(model, q, qd, params, sq_adr, q_spring, leaves)
+    Mh = M + torch.diag_embed((h * D + h * h * K).expand(q.shape[0], -1))
+    Minv = spd_inverse(Mh)
+    qdd = (Minv @ (tau + tau_p - D * qd - C)[..., None])[..., 0]
+
+    def minv_mul(rhs):
+        return Minv @ rhs
+
+    return qdd, minv_mul, kin
+
+
+def integrate_positions(model: Model, q: torch.Tensor, qd_new: torch.Tensor, dt,
+                        meta: EngineMeta | None = None) -> torch.Tensor:
+    """Position update of semi-implicit Euler: the linear rows (scalar dofs
+    and free-joint translations) through the static 0/1 matrix `int_mat`,
+    each free joint's quaternion by the exponential map of its angular
+    velocity. q (N, nq), qd_new (N, nv) -> (N, nq)."""
+    if meta is None:
+        meta = engine_meta(model, q.device, q.dtype)
+    q_new = q + dt * (qd_new @ meta.int_mat.T)
+    if not meta.free_bodies:
+        return q_new
+    parts, at = [], 0
+    for i in meta.free_bodies:
+        qa, va = model.q_adr[i], model.v_adr[i]
+        quat = maths.quat_integrate(maths.quat_unit(q[:, qa + 3:qa + 7]), qd_new[:, va + 3:va + 6], dt)
+        parts += [q_new[:, at:qa + 3], quat]
+        at = qa + 7
+    parts.append(q_new[:, at:])
+    return torch.cat(parts, -1)

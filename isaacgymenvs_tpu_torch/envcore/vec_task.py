@@ -22,26 +22,42 @@ JAX package's ordering contract:
      before it;
   6. `time_outs` = progress >= max_episode_length - 1 AND done.
 
-Physics always goes through `engine.fused.physics_step_fused`: on a CUDA
-tensor that is the hand-written kernel, on a CPU tensor its plain version.
-A model outside the kernel's feature set raises NotImplementedError; there
-is no eager fallback. A task with `use_pd_targets` also returns PD-drive
+Physics takes one of two routes, chosen once per env (`physics_route`, read
+at the latest by the first reset, since a task may set `self.terrain` after
+`VecTask.__init__`) and printed once:
+  * "kernel": `engine.fused.physics_step_fused`, the hand-written kernel on
+    a CUDA tensor and its plain version on a CPU tensor. It is taken where
+    the kernel covers the model (`fused.unsupported_features` is empty),
+    every per-env leaf of domain randomization is one the kernel takes
+    (`DYN_LEAVES` or `DYN_INERT`), per-env candidate points do not meet
+    terrain or SDF rows (their planes are sampled at the model's own
+    points), and `sim.use_fused` is not False;
+  * "eager": `engine.step.physics_step`, the eager engine, on the env's
+    device: for `sim.use_fused: False` and every model or sample the kernel
+    does not cover. Its per-env leaves are the sample's leaves in their model
+    layout (`EnvState.dyn` a dict), and it samples the terrain and SDF grids
+    at every slice.
+`sim.use_fused: True` on a model the kernel does not cover raises
+NotImplementedError naming what it lacks (the JAX package takes its eager
+engine there), and a kernel that fails to build or launch raises: the route
+never changes on a failure. A task with `use_pd_targets` also returns PD-drive
 setpoints, which every physics step of the control loop receives. A task
 with a heightfield (`self.terrain`, an `engine.dynamics.Terrain`) has each
 step's ground planes sampled under its candidate points at the step's entry
 pose (`fused.terrain_dyn`); a model with SDF pair rows (candidate points
 against voxel SDF grids) likewise has each step's SDF contact planes sampled
 at the step's entry pose (`fused.sdf_dyn`). With
-`sim.fused_merge_control_slices` the `control_freq_inv` physics steps of an
-env step are one call of `control_freq_inv` times the slices (dt and
+`sim.fused_merge_control_slices`, on the kernel route, the `control_freq_inv`
+physics steps of an env step are one call of `control_freq_inv` times the slices (dt and
 substeps scaled together, so the slice length stays), whose warm start
 resets where each separate call would begin; the terrain and SDF planes are
 then sampled once, at the env step's entry pose.
 
 With `task.randomize` the env carries a `dr.DomainRandomizer`: its sample
 lives on the state (`EnvState.dr`), and the per-env model leaves and
-gravity it gives are packed once where the sample changes (`EnvState.dyn`)
-and handed to every physics step as its `dyn` input.
+gravity it gives are made once where the sample changes (`EnvState.dyn`:
+packed for the kernel, a dict of leaves for the eager engine) and handed to
+every physics step.
 
 With an `adr:` block that sets `use_adr` the env carries a `dr.ADR`, its
 population state on `EnvState.adr`: the reset draws the initial state, and
@@ -75,9 +91,13 @@ import torch
 from ..device import resolve_device
 from ..engine import dynamics as _dyn
 from ..engine import fused as _fused
+from ..engine import step as _step
 from ..engine.dynamics import SimParams, SimState
 from ..model.spec import Model
 from ..parallel import distributed, sharding
+
+
+_ROUTES_SHOWN: set = set()  # the route lines printed in this process
 
 
 class Sensors(NamedTuple):
@@ -100,7 +120,7 @@ class EnvState:
     task: Any = None  # task-specific tensors (potentials, ...)
     # domain randomization (None when task.randomize is off):
     dr: Any = None  # dict name -> (N, ...) sampled factors/offsets
-    dyn: Any = None  # fused.PackedDyn of `dr`: the per-env leaves as the physics step takes them
+    dyn: Any = None  # the per-env leaves of `dr` as the route's step takes them: fused.PackedDyn, or a dict
     randomize_buf: Any = None  # (N,) int32, steps since the last re-randomization
     frames: Any = None  # () int32, env steps since reset (DR schedules, pushes)
     adr: Any = None  # dr.AdrState: ADR's ranges, queues and worker assignment (None without ADR)
@@ -171,6 +191,10 @@ class VecTask:
         task_cfg = cfg.get("task", {}) or {}
         sim_cfg = cfg.get("sim", {}) or {}
         p = self.sim_params
+        self.use_fused = sim_cfg.get("use_fused", "auto")
+        if self.use_fused not in (True, False, "auto"):
+            raise ValueError(f"sim.use_fused is True, False or auto, not {self.use_fused!r}")
+        self._route = None
         self.merge_slices = bool(sim_cfg.get("fused_merge_control_slices")) and self.control_freq_inv > 1
         # the merged window: one call of control_freq_inv x the slices, each as long as before
         self._merged_params = dataclasses.replace(
@@ -189,12 +213,6 @@ class VecTask:
                 obs_slices=lambda: self.obs_spec() if hasattr(self, "obs_spec") else None,
                 device=self.device,
             )
-            batched = self.randomizer.batched_leaf_names()
-            if "cpoint_pos" in batched and (self.terrain is not None or len(self.model.spair_point)):
-                # the planes are sampled at the model's own candidate points:
-                # the JAX package steps per-env ones through its eager engine,
-                # which the port does not have
-                raise NotImplementedError("per-env cpoint_pos (actor scale) with terrain or SDF rows")
             self._setup_only = {s.name for s in self.randomizer.model_specs if s.setup_only}
         self.adr = None
         self.adr_load_from_checkpoint = False
@@ -215,6 +233,41 @@ class VecTask:
         m = self.model
         self._act_dof = torch.as_tensor(np.asarray(m.actuator_dof, np.int64), device=self.device)
         self._gear = torch.as_tensor(np.asarray(m.gear, np.float32), device=self.device)
+
+    # ---- the physics route --------------------------------------------
+    def kernel_refusals(self) -> list:
+        """What keeps this env off the kernel, by name: the model's features
+        beyond the kernel (`fused.unsupported_features`) and the per-env
+        leaves of its domain randomization that the kernel does not take."""
+        out = list(_fused.unsupported_features(self.model, self.sim_params, self.terrain))
+        if self.randomizer is not None:
+            batched = self.randomizer.batched_leaf_names()
+            beyond = sorted(batched - set(_fused.DYN_LEAVES) - set(_fused.DYN_INERT))
+            if beyond:
+                out.append("per-env leaves the kernel does not take: " + ", ".join(beyond))
+            if "cpoint_pos" in batched and (self.terrain is not None or len(self.model.spair_point)):
+                # the kernel's terrain and SDF planes are sampled at the model's own candidate points
+                out.append("per-env cpoint_pos (actor scale) with terrain or SDF rows")
+        return out
+
+    @property
+    def physics_route(self) -> str:
+        """"kernel" or "eager" (see the module docstring), decided the first
+        time it is read and printed once per process and reason."""
+        if self._route is None:
+            refused = self.kernel_refusals()
+            if self.use_fused is True and refused:
+                raise NotImplementedError(f"{type(self).__name__}: sim.use_fused=True, but the kernel does not "
+                                          "cover " + "; ".join(refused))
+            if self.use_fused is False:
+                self._route, why = "eager", ["sim.use_fused=False", *refused]
+            else:
+                self._route, why = ("eager", refused) if refused else ("kernel", [])
+            line = f"{type(self).__name__}: physics route {self._route}" + (f" ({'; '.join(why)})" if why else "")
+            if line not in _ROUTES_SHOWN and distributed.is_main_process():
+                _ROUTES_SHOWN.add(line)
+                print(line)
+        return self._route
 
     # ---- hooks ---------------------------------------------------------
     def build_model(self) -> Tuple[Model, SimParams]:
@@ -326,14 +379,19 @@ class VecTask:
         self.total_train_env_frames = int(env_frames)
 
     def pack_dyn(self, sample):
-        """The per-env leaves and gravity of a DR sample, packed as the
-        physics step takes them (None when the sample randomizes no model
-        leaf). Called where the sample changes, not per physics step."""
+        """The per-env leaves and gravity of a DR sample as the route's
+        physics step takes them: packed for the kernel (None when the sample
+        randomizes no model leaf), a dict {leaf: (N, ...), "gravity": (N,
+        3)} in the model's layout for the eager engine. Called where the
+        sample changes, not per physics step."""
         rz = self.randomizer
-        leaves = {k: v for k, v in rz.batched_model(sample).items() if k in _fused.DYN_LEAVES}
+        leaves = dict(rz.batched_model(sample))
         grav = rz.gravity(self.sim_params.gravity, sample)
         if grav is not None:
             leaves["gravity"] = grav
+        if self.physics_route == "eager":
+            return leaves
+        leaves = {k: v for k, v in leaves.items() if k in _fused.DYN_LEAVES or k == "gravity"}
         return _fused.pack_dyn(_fused.spec_of(self.model), leaves)
 
     # ---- helpers shared by tasks --------------------------------------
@@ -398,6 +456,7 @@ class VecTask:
     def reset(self, seed: int = 0) -> Tuple[EnvState, torch.Tensor]:
         """Full reset of all envs; partial resets later draw from the
         state's generator, seeded here (with `seed` folded with the rank)."""
+        self.physics_route  # decided (and printed) here at the latest
         gen = torch.Generator(device=self.device).manual_seed(distributed.rank_seed(seed))
         shared = gen if distributed.process_count() == 1 else torch.Generator(device=self.device).manual_seed(seed)
         n = self.num_envs
@@ -457,7 +516,12 @@ class VecTask:
             qfrc, xfrc, q_target = self.compute_force(actions, q, qd, task_in)
         else:
             (qfrc, xfrc), q_target = self.compute_force(actions, q, qd, task_in), None
-        if self.merge_slices:
+        if self.physics_route == "eager":
+            for _ in range(self.control_freq_inv):
+                out = _step.physics_step(self.model, SimState(q=q, qd=qd), qfrc, self.sim_params, xfrc=xfrc,
+                                         q_target=q_target, terrain=self.terrain, leaves=state.dyn)
+                q, qd = out.state.q, out.state.qd
+        elif self.merge_slices:
             out = _fused.physics_step_fused(
                 self.model, self._merged_params, q, qd, qfrc, xfrc=xfrc, q_target=q_target, dyn=state.dyn,
                 warm_reset_every=self._warm_reset_every, terrain=self._terrain_planes(q, qd),

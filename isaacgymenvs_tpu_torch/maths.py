@@ -1,9 +1,9 @@
 """Quaternion helpers on batched tensors (port of isaacgymenvs_tpu/maths.py).
 
-Only what the ported tasks and the fused step use. Conventions as in the JAX
-package: quaternions are (x, y, z, w) with the scalar last, rotations are
-active, angles are radians, and every function broadcasts over leading
-batch dimensions.
+Only what the ported tasks and the two physics engines use. Conventions as
+in the JAX package: quaternions are (x, y, z, w) with the scalar last,
+rotations are active, angles are radians, and every function broadcasts
+over leading batch dimensions.
 """
 from __future__ import annotations
 
@@ -68,6 +68,11 @@ def quat_exp(phi: torch.Tensor) -> torch.Tensor:
     s = torch.where(small, 0.5 - angle_sq / 48.0, torch.sin(0.5 * angle) / angle)
     w = torch.where(small, 1.0 - angle_sq / 8.0, torch.cos(0.5 * angle))
     return torch.cat([phi * s, w], dim=-1)
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
+    """Integrate orientation q by world-frame angular velocity omega over dt."""
+    return quat_unit(quat_mul(quat_exp(omega * dt), q))
 
 
 def get_euler_xyz(q: torch.Tensor):
@@ -202,3 +207,19 @@ def spatial_inertia_at_origin(mass, com_world, inertia_world):
     top = torch.cat([inertia_world - m * (cx @ cx), m * cx], dim=-1)
     bottom = torch.cat([-m * cx, m * eye], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def spatial_cross_motion(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """v x m for motion vectors m; v, m (..., 6)."""
+    w, vo = v[..., :3], v[..., 3:]
+    mw, mv = m[..., :3], m[..., 3:]
+    cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)
+    return torch.cat([cross(w, mw), cross(w, mv) + cross(vo, mw)], dim=-1)
+
+
+def spatial_cross_force(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """v x* f for force vectors f; v, f (..., 6)."""
+    w, vo = v[..., :3], v[..., 3:]
+    n, p = f[..., :3], f[..., 3:]
+    cross = lambda a, b: torch.linalg.cross(a, b, dim=-1)
+    return torch.cat([cross(w, n) + cross(vo, p), cross(w, p)], dim=-1)

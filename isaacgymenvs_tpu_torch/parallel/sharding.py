@@ -73,11 +73,13 @@ def gather_env_rows(x, n: int):
 def env_state_block(state, block: slice, n: int):
     """An `EnvState` of n envs cut to `block`: the per-env leaves sliced,
     ADR's worker assignment sliced and its ranges, queues and counts kept,
-    the packed per-env leaves (env-last) sliced, the step counter and the
-    generators kept."""
+    the per-env leaves sliced (packed for the kernel: env-last; the eager
+    engine's dict: env-leading), the step counter and the generators kept."""
     rows = lambda x: env_rows(x, block, n)
     dyn = state.dyn
-    if dyn is not None:
+    if isinstance(dyn, dict):
+        dyn = rows(dyn)
+    elif dyn is not None:
         dyn = dyn._replace(rows=dyn.rows[:, block])
     adr = state.adr
     if adr is not None:

@@ -1,6 +1,6 @@
-"""FactoryTaskInsertion: the environment-only template (port of
-isaacgymenvs_tpu/tasks/factory_templates.py `_FactoryTemplate` and
-`FactoryTaskInsertion`), batched over envs.
+"""FactoryTaskInsertion and FactoryTaskGears: the environment-only
+templates (port of isaacgymenvs_tpu/tasks/factory_templates.py), batched
+over envs.
 
 The reference ships only the environment (factory_task_insertion.py):
 observations stay zero, the reward is zero, actions are stored and never
@@ -15,11 +15,19 @@ contact set is 64 points sampled from its mesh, against the table plane and
 against the voxel SDF grid of the socket mesh on the fixed socket body; the
 Franka has no contact points. The cfg caps the active set at 32 contacts.
 
+FactoryTaskGears drops three free gears (small, medium, large) on the
+table beside a fixed gear base (`initial_state: goal` puts them on their
+shafts); each gear's contact set is 40 points sampled from its mesh, against
+the table plane and against the voxel SDF grid (192 voxels along the base's
+longest side) of the base mesh: 120 plane and 120 SDF rows under the cfg's
+cap of 96, nv 27. Gear against gear is not modelled (the JAX package's
+documented divergence). The kernel covers it (`physics_route` "kernel"); the
+JAX package, whose TPU kernel cannot hold it, steps it on its eager engine,
+the port's route under `sim.use_fused: False`.
+
 The bundled meshes and Franka are stand-ins (assets/urdf/franka_description,
-assets/factory/mesh/factory_insertion, see assets/factory/make_insertion_meshes.py).
-FactoryTaskGears (three gears against a gear-base SDF) is not ported: its
-rows do not fit the kernel's shared memory (the JAX package runs it on its
-eager engine).
+assets/factory/mesh/factory_insertion and factory_gears, see
+assets/factory/make_insertion_meshes.py and make_gears_meshes.py).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from ..utils.assets import asset_path
 from .factory_common import _stratified_pick, _strip_points
 
 _INS = "factory/mesh/factory_insertion"
+_GEARS = "factory/mesh/factory_gears"
 
 # factory_asset_info_insertion.yaml round_peg_hole_16mm_tight
 PEG_DIAMETER = 0.015994
@@ -56,6 +65,12 @@ def _peg_mesh():
 def hole_sdf_grid(resolution: int = 128):
     v, t = load_obj(asset_path(f"{_INS}/factory_round_hole_16mm_subdiv_3x.obj"))
     return mesh_to_sdf(v, t, resolution=resolution, padding=0.1)
+
+
+@lru_cache(maxsize=None)
+def gear_base_sdf_grid(resolution: int = 192):
+    v, t = load_obj(asset_path(f"{_GEARS}/factory_gear_base_tight_space_5e-4_subdiv_4x.obj"))
+    return mesh_to_sdf(v, t, resolution=resolution, padding=0.05)
 
 
 def _free_mesh_body(name, mass, ipos, inertia, start_pos):
@@ -95,6 +110,23 @@ def _quat_mul_np(a, b):
 def peg_contact_points():
     v, _ = _peg_mesh()
     return _stratified_pick(v.astype(np.float32), n_z=8, n_ang=8)
+
+
+@lru_cache(maxsize=None)
+def gear_template_points(size):
+    """The 40 contact points of a gear: its mesh's vertices picked 4 x 10
+    over (z, the angle about the gear's own centroid); the assembly-frame
+    meshes sit off the origin (the small gear about x = 0.05). The large
+    gear's mesh is IndustReal's, in the same assembled frame (the
+    reference's asset tree has no factory_gear_large_space_5e-4.obj)."""
+    if size == "large":
+        v, _ = load_obj(asset_path("industreal/mesh/industreal_gears/industreal_gear_large.obj"))
+    else:
+        v, _ = load_obj(asset_path(f"{_GEARS}/factory_gear_{size}_space_5e-4.obj"))
+    v = v.astype(np.float32)
+    c = v.mean(0)
+    shifted = v - np.array([c[0], c[1], 0.0], np.float32)
+    return _stratified_pick(shifted, n_z=4, n_ang=10) + np.array([c[0], c[1], 0.0], np.float32)
 
 
 class _FactoryTemplate(VecTask):
@@ -237,6 +269,92 @@ class FactoryTaskInsertion(_FactoryTemplate):
                 quat = _quat_mul_np(quat, np.array([0.0, 0.0, np.sin(roll / 2), np.cos(roll / 2)]))
             q[i, pq + 3:pq + 7] = quat
             qd[i, pv:pv + 6] = rng.uniform(-0.01, 0.01, 6)
+        qd[:, self.scalar_dof_indices[self.scalar_dof_indices < pv]] = rng.uniform(-0.01, 0.01, (n, pv))
+        dev = self.device
+        return torch.tensor(q, device=dev), torch.tensor(qd, device=dev)
+
+
+# gear -> (its y at a reset as a multiple of gears_bias_y, tip radius, centre-of-mass x); a mis-centred
+# centre of mass tips the free disc over on the table
+GEAR_SPECS = {"small": (-1.0, 0.011, 0.0508), "medium": (1.0, 0.021, 0.0202), "large": (-1.0, 0.031, -0.0302)}
+GEAR_HEIGHT = 0.02  # of the discs whose inertias the gears take
+GEAR_BOTTOM_Z = 0.005  # the gear meshes' bottom face in their frame: the base plate's top
+
+
+class FactoryTaskGears(_FactoryTemplate):
+    """Three gears and their base (reference factory_task_gears.py)."""
+
+    def build_model(self):
+        gears = []
+        for (size, (_, r, cx)), y0 in zip(GEAR_SPECS.items(), (0.1, -0.1, 0.1)):
+            m = np.pi * r * r * GEAR_HEIGHT * 1000.0 * 0.7
+            izz = 0.5 * m * r * r
+            ixx = m / 12.0 * (3 * r * r + GEAR_HEIGHT * GEAR_HEIGHT)
+            gears.append(_free_mesh_body(f"gear_{size}", m, (cx, 0, 0.015), np.diag([ixx, ixx, izz]), (0.0, y0, 0.0)))
+        model, refs = compose([self._franka()] + gears + [_fixed_body("base")],
+                              ["", "gsmall:", "gmed:", "glarge:", "base:"])
+        self.franka_ref = refs[0]
+        self.gear_refs = refs[1:4]
+        self.base_ref = refs[4]
+        self._first_object_body = self.gear_refs[0].body0
+        model = _strip_points(model, set(range(model.nbody)))
+        model, g = attach_sdf(model, self.base_ref.body0, gear_base_sdf_grid())
+        for ref, size in zip(self.gear_refs, GEAR_SPECS):
+            model, cp = add_contact_points(model, ref.body0, gear_template_points(size), friction=0.5)
+            model = pair_points_with_sdf(model, cp, g)
+        return model, self.sim_params_from_cfg()
+
+    def sample_init(self, generator, n):
+        """The Franka at mid-range joints plus `joint_noise`, the small and
+        large gear at y = -gears_bias_y and the medium one at +gears_bias_y
+        (plus gears_noise_xy in x and y), upright at gears_bias_z; with
+        `initial_state: goal` every gear on its shaft."""
+        m, dev = self.model, self.device
+        q = self._qpos0.repeat(n, 1)
+        q_ref = self._franka_reset_q(generator, n)
+        q[:, self.q_idx] = q_ref
+        noise = float(self.rand.get("gears_noise_xy", 0.05))
+        bias_y = float(self.rand.get("gears_bias_y", -0.1))
+        bias_z = float(self.rand.get("gears_bias_z", 0.0))
+        for ref, (ysign, _, _) in zip(self.gear_refs, GEAR_SPECS.values()):
+            gq = m.q_adr[ref.body0]
+            xy = (torch.rand(n, 2, generator=generator, device=dev) * 2.0 - 1.0) * noise
+            pos = torch.stack([xy[:, 0], ysign * bias_y + xy[:, 1], torch.full_like(xy[:, 0], bias_z)], dim=-1)
+            if self.initial_state == "goal":
+                pos = torch.zeros_like(pos)
+            q[:, gq:gq + 3] = pos
+            q[:, gq + 3:gq + 7] = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+        return q, q.new_zeros(n, m.nv), {"q_ref": q_ref}
+
+    def contact_states(self, n: int, seed: int, kinds=("table", "shafts")):
+        """n states (q, qd) in which the gears' rows act, for holding the
+        kernel against its plain version and the eager engine against the
+        JAX package: every gear lying on the table at its reset place (0.1-
+        0.4 mm into it, tilted by up to 0.3 degrees), or every gear on its
+        shaft, on the base's plate (0.1-0.4 mm into it: its bottom points
+        then lie in the table's margin too, 4.6-4.9 mm above it), the kinds
+        in turn; gentle velocities, the Franka at mid-range joints. Drawn
+        with numpy from `seed`."""
+        m, rng = self.model, np.random.RandomState(seed)
+        q = np.tile(np.asarray(m.qpos0, np.float32), (n, 1))
+        q[:, self.q_idx.cpu().numpy()] = self.q_mid.cpu().numpy()
+        qd = np.zeros((n, m.nv), np.float32)
+        bias_y = float(self.rand.get("gears_bias_y", -0.1))
+        for i in range(n):
+            on_table = kinds[i % len(kinds)] == "table"
+            for ref, (ysign, _, _) in zip(self.gear_refs, GEAR_SPECS.values()):
+                gq, gv = m.q_adr[ref.body0], m.v_adr[ref.body0]
+                depth = rng.uniform(1e-4, 4e-4)
+                if on_table:
+                    pos = [rng.uniform(-0.02, 0.02), ysign * bias_y + rng.uniform(-0.02, 0.02), -GEAR_BOTTOM_Z - depth]
+                else:
+                    pos = [0.0, 0.0, -depth]
+                axis = rng.normal(size=3)
+                axis, ang = axis / np.linalg.norm(axis), np.deg2rad(rng.uniform(0.0, 0.3))
+                q[i, gq:gq + 3] = pos
+                q[i, gq + 3:gq + 7] = [*(np.sin(ang / 2) * axis), np.cos(ang / 2)]
+                qd[i, gv:gv + 6] = rng.uniform(-0.01, 0.01, 6)
+        pv = m.v_adr[self.gear_refs[0].body0]
         qd[:, self.scalar_dof_indices[self.scalar_dof_indices < pv]] = rng.uniform(-0.01, 0.01, (n, pv))
         dev = self.device
         return torch.tensor(q, device=dev), torch.tensor(qd, device=dev)

@@ -44,9 +44,9 @@ def test_cfg_dir_is_the_ports_own():
 
 
 def test_unknown_task_raises():
-    # a task the port has no yaml for
-    with pytest.raises(FileNotFoundError, match="FactoryTaskGears"):
-        tconfig.load_config(["task=FactoryTaskGears"])
+    # a task the port has no yaml for (every name of the JAX task_map has one)
+    with pytest.raises(FileNotFoundError, match="NoSuchTask"):
+        tconfig.load_config(["task=NoSuchTask"])
 
 
 def test_resolvers_and_overrides():

@@ -185,9 +185,9 @@ def test_train_main_exits_for_unported_options(override, named):
 
 
 def test_train_main_unknown_task():
-    # a task the port has no yaml for
+    # a task the port has no yaml for (every name of the JAX task_map has one)
     with pytest.raises(FileNotFoundError):
-        ttrain.main(["task=FactoryTaskGears", "pipeline=cpu"])
+        ttrain.main(["task=NoSuchTask", "pipeline=cpu"])
 
 
 def test_cartpole_learns_on_the_cpu():
